@@ -1,0 +1,519 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path -- strict Ed25519 batch verification -- at the
+size of one block of a 7-replica (f=2) Ed25519 deployment with 1,000
+requests per block (BASELINE.json config 3): one wave of 7,000 signatures,
+padded to 8,192 lanes, through the port's engine.  Phases:
+
+1. device and build: the card, torch and CUDA versions, the nvcc build of
+   every kernel from ``consensus_tpu_torch/csrc`` and its ``-Xptxas -v``
+   report;
+2. each kernel against its plain torch version on the card at the main
+   path's shape, with tolerance 0 (integer arithmetic), and its time beside
+   the plain version's and its bound;
+3. the main path: the 7,000-signature wave with every rejection class mixed
+   in, verdicts held against the construction and against the RFC 8032
+   reference, kernel launch counts read around the run, then a 2f+1 commit
+   quorum through ``verify_consenter_sigs_batch``.
+
+The last line is the contract line
+``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
+raises and exits non-zero.  It runs on CUDA only; the phases take a
+``device`` argument so a CPU test can rehearse them at a tiny size.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.models import ed25519 as med
+from consensus_tpu_torch.models.verifier import Ed25519Signer, engine_for_config
+from consensus_tpu_torch.ops import ed25519 as ed
+from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import scan_kernels
+from consensus_tpu_torch.testing.crypto_app import SigOnlyVerifier
+from consensus_tpu_torch.types import Proposal
+
+#: BASELINE.json config 3: 7 replicas (f = 2), 1,000 requests per block.
+REPLICAS = 7
+REQUESTS = 1000
+QUORUM = 5  # 2f + 1
+SEED = 0
+
+#: Peak device-memory rate of an H100 SXM (NVIDIA data sheet).
+HBM_BYTES_PER_S = 3.35e12
+#: 32-bit integer multiply, multiply-add and extended-precision multiply-add
+#: results per clock per SM on compute capability 9.0 (CUDA C++ Programming
+#: Guide, arithmetic instruction throughput table).  A 32x32->64-bit product
+#: is one IMAD.WIDE; counting each as one result at this full rate keeps the
+#: bound a lower bound.
+IMAD_PER_CLOCK_PER_SM = 64
+#: 32x32->64-bit products one 256-bit field multiplication needs: 8 x 8
+#: partial products of two 8-word operands, and 8 more to fold the upper
+#: 256 bits back at 2^256 = 38 (mod p).
+MUL_PRODUCTS = 8 * 8 + 8
+#: The same for a squaring: 8 x 9 / 2 distinct partial products (the cross
+#: terms are doubled by shifts, not multiplies) and the same fold.
+SQUARE_PRODUCTS = 8 * 9 // 2 + 8
+#: Field multiplications and squarings per lane in the Horner scan.  The table
+#: takes 7 adds of 9 multiplications each; each of the 64 windows takes 3
+#: doubles without T (4 squarings, 3 multiplications), 1 double with T (4
+#: squarings, 4 multiplications) and 1 add (9 multiplications, one by 2d).
+HORNER_MULS = 7 * 9 + 64 * (3 * 3 + 4 + 9)
+HORNER_SQUARES = 64 * 4 * 4
+
+#: The record_function ranges of the engine's wave, in the order they run.
+WAVE_RANGES = (
+    "ed25519.host_prep", "ed25519.decompress", "ed25519.negate",
+    "ed25519.horner_scan", "ed25519.comb", "ed25519.add_and_equal",
+)
+
+_REQ_TAG = b"ctpu/request"
+_REJECTION_CLASSES = (
+    "tampered_s", "s_ge_l", "r_y_ge_p", "a_y_ge_p",
+    "wrong_key", "wrong_message", "bad_length", "off_curve_y",
+)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# --- corpus -------------------------------------------------------------------
+
+
+def _off_curve_ys(count: int) -> list[int]:
+    """Small y values with no curve point (x^2 is not a square)."""
+    ys, y = [], 2
+    while len(ys) < count:
+        if med._ref_recover_x(y, 0) is None:
+            ys.append(y)
+        y += 1
+    return ys
+
+
+def make_corpus(n_requests: int, per_class: int, seed: int = SEED):
+    """``n_requests`` client requests signed with the port's ``ref_sign``
+    (client keys and bodies from numpy seed ``seed``), with ``per_class``
+    lanes of each rejection class of the JAX package's test matrix.
+
+    Returns (messages, signatures, keys, expected verdicts, tampered index
+    list)."""
+    n_bad = per_class * len(_REJECTION_CLASSES)
+    if n_requests < n_bad + 1:
+        raise ValueError("corpus too small for the rejection classes")
+    rng = np.random.default_rng(seed)
+    seeds = [rng.bytes(32) for _ in range(n_requests)]
+    keys = [med.ref_public_key(s) for s in seeds]
+    msgs = [
+        _REQ_TAG + struct.pack(">IQ", i, 1) + rng.bytes(64) for i in range(n_requests)
+    ]
+    sigs = [med.ref_sign(s, m) for s, m in zip(seeds, msgs)]
+    expected = np.ones(n_requests, dtype=bool)
+    bad = rng.permutation(n_requests)[:n_bad].tolist()
+    off_curve = _off_curve_ys(per_class)
+    for j, i in enumerate(bad):
+        kind = _REJECTION_CLASSES[j // per_class]
+        k = j % per_class
+        sig = sigs[i]
+        s = int.from_bytes(sig[32:], "little")
+        if kind == "tampered_s":
+            s2 = s ^ (1 << (8 * k))  # still < L, wrong by math
+            sigs[i] = sig[:32] + s2.to_bytes(32, "little")
+        elif kind == "s_ge_l":
+            sigs[i] = sig[:32] + (s + med.L).to_bytes(32, "little")
+        elif kind == "r_y_ge_p":
+            sigs[i] = (fe.P + 1 + k).to_bytes(32, "little") + sig[32:]
+        elif kind == "a_y_ge_p":
+            keys[i] = (fe.P + 2 + k).to_bytes(32, "little")
+        elif kind == "wrong_key":
+            keys[i] = keys[(i + 1) % n_requests]
+        elif kind == "wrong_message":
+            msgs[i] = msgs[i] + b"!"
+        elif kind == "bad_length":
+            sigs[i] = sig[:63] if k % 2 == 0 else sig + b"\x00"
+        else:  # off_curve_y
+            keys[i] = off_curve[k].to_bytes(32, "little")
+        expected[i] = False
+    return msgs, sigs, keys, expected, bad
+
+
+# --- phase 2: kernel against its plain version -----------------------------------
+
+
+def weaken(c: torch.Tensor) -> torch.Tensor:
+    """The same field element in another weakly reduced form: wherever a limb
+    is >= 172, borrow 256 from it into the next limb, so limbs turn negative
+    (|limb| stays <= 340, the value is unchanged)."""
+    c = c.clone()
+    for i in range(fe.LIMBS - 1):
+        move = (c[i] >= 172).to(c.dtype)
+        c[i] -= 256 * move
+        c[i + 1] += move
+    return c
+
+
+def scan_inputs(keys, lanes: int, device, seed: int = SEED):
+    """(-A) for ``lanes`` lanes from decompressed corpus keys (cycled), and
+    signed digits of scalars drawn from numpy seed ``seed``; lane 0 has
+    scalar 0 and lane 1 scalar 1.
+
+    ``negate`` leaves its limbs in [0, 340], so the coordinates go through
+    :func:`weaken`: the kernel's signed-borrow conversion of negative limbs
+    is then exercised on every lane that has a limb >= 172."""
+    good = [k for k in keys if med._ref_decompress(k) is not None]
+    chosen = [good[i % len(good)] for i in range(lanes)]
+    y, sign, _ = med._prep_compressed(chosen)
+    pt, ok = ed.decompress(
+        torch.from_numpy(np.ascontiguousarray(y.T)).to(device).to(torch.float32),
+        torch.from_numpy(sign.astype(np.int32)).to(device),
+    )
+    if not bool(ok.all()):
+        raise AssertionError("scan inputs: a corpus key failed to decompress")
+    neg_a = tuple(weaken(c).contiguous() for c in ed.negate(pt))
+    negative_lanes = int(torch.stack([(c < 0).any(dim=0) for c in neg_a]).any(dim=0).sum())
+    if negative_lanes < lanes // 2:
+        raise AssertionError(
+            f"scan inputs: only {negative_lanes} of {lanes} lanes hold a negative limb"
+        )
+    rng = np.random.default_rng(seed)
+    scalars = [0, 1] + [
+        int.from_bytes(rng.bytes(32), "little") % med.L for _ in range(lanes - 2)
+    ]
+    rows = np.frombuffer(
+        b"".join(s.to_bytes(32, "little") for s in scalars), dtype=np.uint8
+    ).reshape(lanes, 32)
+    digits = med._bits_to_signed_window_digits(med._bytes_rows_to_bits(rows))
+    k_digits = torch.from_numpy(digits.astype(np.int32)).to(device)
+    return neg_a, k_digits, negative_lanes
+
+
+def _time_ms(fn, reps: int, device) -> float:
+    """Mean milliseconds per call: CUDA events on the card, host clock on
+    the CPU (rehearsal only)."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def horner_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
+    """Least time for the Horner scan's work at ``lanes`` lanes: the larger
+    of the 32x32->64-bit products its field multiplications and squarings
+    need over the card's IMAD rate, and its bytes (four (32, lanes) f32
+    coordinates in and out, (64, lanes) int32 digits in) over the memory
+    rate."""
+    products = (HORNER_MULS * MUL_PRODUCTS + HORNER_SQUARES * SQUARE_PRODUCTS) * lanes
+    ops_ms = products / (sm_count * IMAD_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
+    n_bytes = (4 + 4) * fe.LIMBS * lanes * 4 + 64 * lanes * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": bound_by,
+            "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def phase_kernel(device, keys, lanes: int, reps: int, plain_reps: int) -> dict:
+    """horner_scan (the kernel on CUDA) against horner_scan_reference on the
+    same inputs: frozen X, Y, Z, T equal on every lane, tolerance 0."""
+    device = torch.device(device)
+    neg_a, k_digits, negative_lanes = scan_inputs(keys, lanes, device)
+    got = scan_kernels.horner_scan(*neg_a, k_digits)
+    want = scan_kernels.horner_scan_reference(*neg_a, k_digits)
+    max_err = 0.0
+    for name, g, w in zip("XYZT", got, want):
+        fg, fw = fe.freeze(g), fe.freeze(w)
+        diff = (fg - fw).abs()
+        max_err = max(max_err, float(diff.max()))
+        bad = torch.nonzero(diff.amax(dim=0)).flatten()
+        if bad.numel():
+            raise AssertionError(
+                f"horner_scan: {name} differs from the plain version on "
+                f"{bad.numel()} of {lanes} lanes (first {bad[:8].tolist()})"
+            )
+    ms = _time_ms(lambda: scan_kernels.horner_scan(*neg_a, k_digits), reps, device)
+    plain_ms = _time_ms(
+        lambda: scan_kernels.horner_scan_reference(*neg_a, k_digits), plain_reps, device
+    )
+    return {"lanes": lanes, "negative_lanes": negative_lanes, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms}
+
+
+# --- phase 3: the main path --------------------------------------------------
+
+
+def _subtree(event):
+    yield event
+    for child in event.cpu_children:
+        yield from _subtree(child)
+
+
+def profile_wave(engine, msgs, sigs, keys, device) -> dict:
+    """One more run of the wave through the engine under ``torch.profiler``.
+
+    For each ``ed25519.*`` range of :data:`WAVE_RANGES`: its host time, and
+    the device time of the kernels and copies launched inside it.  Besides:
+    the run's host-clock time, the device's busy time over it (its kernels
+    and copies; one stream, so they do not overlap) and the Horner kernel's
+    own device time, and the device time no range claims.  Device times are
+    None when the profiler saw no device activity (always so on the CPU)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        verdicts = engine.verify_batch(msgs, sigs, keys)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # Device activity, less the device-side copies of the ranges themselves.
+    on_device = [
+        e for e in events
+        if e.device_type != DeviceType.CPU and e.name not in WAVE_RANGES
+    ]
+    seen = bool(on_device)
+    ranges = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in WAVE_RANGES:
+            dev_us = sum(
+                k.duration for ev in _subtree(e) for k in ev.kernels
+                if k.name not in WAVE_RANGES
+            )
+            host_ms, dev_ms = ranges.get(e.name, (0.0, 0.0))
+            ranges[e.name] = (host_ms + e.cpu_time_total / 1e3, dev_ms + dev_us / 1e3)
+    missing = [name for name in WAVE_RANGES if name not in ranges]
+    if missing:
+        raise AssertionError(f"profiled wave: no range {missing}")
+    busy_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
+    kernel_ms = sum(
+        e.time_range.elapsed_us() for e in on_device if "horner_scan" in e.name
+    ) / 1e3
+    ranged_ms = sum(dev_ms for _, dev_ms in ranges.values())
+    return {
+        "verdicts": verdicts,
+        "wall_ms": wall_ms,
+        "ranges": {
+            name: {"host_ms": host_ms, "device_ms": dev_ms if seen else None}
+            for name, (host_ms, dev_ms) in ((n, ranges[n]) for n in WAVE_RANGES)
+        },
+        "busy_ms": busy_ms if seen else None,
+        # Device time that no range claims: zero when every launch is linked.
+        "unranged_ms": busy_ms - ranged_ms if seen else None,
+        "busy_share": busy_ms / wall_ms if seen else None,
+        "kernel_device_ms": kernel_ms if seen else None,
+    }
+
+
+def phase_wave(device, corpus, replicas: int) -> dict:
+    """One block's request wave on the shared engine: ``replicas`` replicas
+    each verify the same requests of ``corpus`` (from :func:`make_corpus`),
+    coalesced into one engine call through a SigOnlyVerifier's engine from
+    ``engine_for_config(Configuration())``; then a 2f+1 commit quorum."""
+    device = torch.device(device)
+    msgs, sigs, keys, expected, bad = corpus
+    n_requests = len(msgs)
+
+    signers = [Ed25519Signer(i + 1, bytes([i + 1]) * 32) for i in range(REPLICAS)]
+    verifier = SigOnlyVerifier(
+        {s.node_id: s.public_bytes for s in signers},
+        engine=engine_for_config(Configuration(), device=device),
+    )
+    engine = verifier.engine
+    wave_msgs, wave_sigs, wave_keys = msgs * replicas, sigs * replicas, keys * replicas
+    want = np.tile(expected, replicas)
+    ed.comb_table(device)  # the constant table is set-up, not part of the wave
+
+    # The main path, with the launch counts read around it.
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    scan_kernels.launches = 0
+    t0 = time.perf_counter()
+    got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    wave_launches = scan_kernels.launches
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        wrong = np.flatnonzero(got != want)
+        raise AssertionError(f"wave verdicts differ from the construction at {wrong[:16]}")
+    # Against the RFC 8032 reference plus the strict pre-checks, on every
+    # tampered lane and 64 sampled valid lanes (the replicas' copies of a
+    # request are the same triple, so each triple is checked once).
+    rng = np.random.default_rng(SEED + 1)
+    valid_idx = np.flatnonzero(expected)
+    sample = rng.choice(valid_idx, size=min(64, valid_idx.size), replace=False)
+    checked = sorted(set(bad) | set(sample.tolist()))
+    canon = med.Ed25519BatchVerifier._canonical_ok(
+        [sigs[i] for i in checked], [keys[i] for i in checked]
+    )
+    for j, i in enumerate(checked):
+        ref = bool(canon[j]) and med.ref_verify(keys[i], sigs[i], msgs[i])
+        lanes = got[i::n_requests]
+        if not (lanes == ref).all():
+            raise AssertionError(f"request {i}: wave {lanes} vs reference {ref}")
+
+    # Stages of the same wave, read off a profiled re-run of the engine call;
+    # its launches are not counted as the main path's.
+    prof = profile_wave(engine, wave_msgs, wave_sigs, wave_keys, device)
+    if not np.array_equal(prof.pop("verdicts"), got):
+        raise AssertionError("profiled re-run of the wave disagrees with the wave")
+
+    # A 2f+1 commit quorum over the block: below crypto_tpu_min_batch, so it
+    # takes the engine's host path (_verify_host) and launches no kernel.
+    proposal = Proposal(payload=b"block-1", metadata=b"view-0/seq-1")
+    quorum = [s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:QUORUM]]
+    before = scan_kernels.launches
+    results = verifier.verify_consenter_sigs_batch(quorum, proposal)
+    if results != [q.msg for q in quorum]:
+        raise AssertionError(f"commit quorum rejected: {results}")
+    quorum_launches = scan_kernels.launches - before
+
+    n = len(wave_msgs)
+    return {
+        "signatures": n,
+        "padded": engine.padded_size(n),
+        "rejected": int((~got).sum()),
+        "reference_checked": len(checked),
+        "wave_ms": wave_s * 1e3,
+        "sigs_per_s": n / wave_s,
+        "profiled": prof,
+        "wave_launches": wave_launches,
+        "quorum_size": len(quorum),
+        "quorum_launches": quorum_launches,
+        "min_device_batch": Configuration().crypto_tpu_min_batch,
+        "peak_bytes": peak,
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    card = nvidia_smi("name,power.limit")
+
+    # Phase 1: device and build.
+    log("== phase 1: device and build")
+    log(f"card (name, power.limit): {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    info = scan_kernels.build()
+    log(f"horner_scan: nvcc build {info.seconds:.3f} s "
+        f"({'existing build loaded' if info.cached else info.command})")
+    for line in info.ptxas.splitlines():
+        log(f"  ptxas| {line}")
+    t0 = time.perf_counter()
+    ed.comb_table(device)
+    log(f"comb table [d * 2^(8j)]B, 32 x 256 entries, built from integers and "
+        f"copied to the card in {time.perf_counter() - t0:.3f} s (set-up)")
+    props = torch.cuda.get_device_properties(0)
+    sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+
+    # Phase 2: kernel against its plain version at the main path's width.
+    log("== phase 2: horner_scan against horner_scan_reference")
+    t0 = time.perf_counter()
+    corpus = make_corpus(REQUESTS, per_class=5)
+    log(f"corpus: {REQUESTS} requests signed with ref_sign in "
+        f"{time.perf_counter() - t0:.3f} s")
+    lanes = med._next_pow2(REQUESTS * REPLICAS)
+    k = phase_kernel(device, corpus[2], lanes, reps=20, plain_reps=3)
+    bound = horner_bound(lanes, props.multi_processor_count, sm_clock_hz)
+    log(f"horner_scan at {lanes} lanes ({k['negative_lanes']} with a negative input "
+        f"limb): frozen X, Y, Z, T equal on every lane (max abs err {k['max_abs_err']})")
+    log(f"  kernel {k['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+    log(f"  plain torch version {k['plain_ms']:.6f} ms (mean of 3)")
+    log(f"  bound {bound['bound_ms']:.6f} ms, by {bound['bound_by']}: "
+        f"{HORNER_MULS} multiplications x {MUL_PRODUCTS} + {HORNER_SQUARES} "
+        f"squarings x {SQUARE_PRODUCTS} 32x32->64 products per lane = "
+        f"{bound['products']} IMAD.WIDE over {props.multi_processor_count} SMs x "
+        f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
+        f"{bound['ops_ms']:.6f} ms; {bound['bytes']} bytes over 3.35 TB/s = "
+        f"{bound['bytes_ms']:.6f} ms")
+    log("  library: no single PyTorch call computes this")
+
+    # Phase 3: the main path.
+    log("== phase 3: config-3 wave (7 replicas, f=2, 1,000 requests per block)")
+    w = phase_wave(device, corpus, replicas=REPLICAS)
+    if w["wave_launches"] != 1:
+        raise AssertionError(f"wave launched horner_scan {w['wave_launches']} times, not 1")
+    if w["quorum_launches"] != 0:
+        raise AssertionError("the commit quorum launched the kernel")
+    log(f"wave: {w['signatures']} signatures padded to {w['padded']}, "
+        f"{w['rejected']} rejected as constructed; {w['reference_checked']} "
+        f"requests held against ref_verify + _canonical_ok")
+    log(f"  horner_scan launches in the wave: {w['wave_launches']}")
+    log(f"  end to end {w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s "
+        f"(host clock, ending in torch.cuda.synchronize())")
+    p = w["profiled"]
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f} ms"
+
+    log(f"  profiled re-run (torch.profiler): {p['wall_ms']:.3f} ms host clock; "
+        f"device busy {ms(p['busy_ms'])}"
+        + ("" if p["busy_share"] is None else f", {100 * p['busy_share']:.2f} % of it")
+        + f"; horner_scan kernel {ms(p['kernel_device_ms'])} on the device")
+    for name, r in p["ranges"].items():
+        log(f"    {name}: host {r['host_ms']:.3f} ms, device {ms(r['device_ms'])}")
+    log(f"    device time in no range: {ms(p['unranged_ms'])}")
+    log(f"  torch.cuda.max_memory_allocated: {w['peak_bytes']} bytes")
+    log(f"commit quorum: {w['quorum_size']} signatures < crypto_tpu_min_batch "
+        f"{w['min_device_batch']}, verified on the engine's host path "
+        f"(_verify_host), {w['quorum_launches']} kernel launches")
+
+    log(card)
+    log(json.dumps({"kernels": [{
+        "name": "horner_scan",
+        "route": "cuda",
+        "source": "consensus_tpu_torch/csrc/horner_scan.cu",
+        "replaces": "consensus_tpu/ops/pallas_scan.py:225",
+        "launches": w["wave_launches"],
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "library_ms": None,
+    }]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,98 @@
+"""Card-only tests of the port's hand-written CUDA kernel.
+
+Every test here carries the ``cuda`` marker and asks for a card through the
+``cuda_device`` fixture, which skips with the reason where none is present.
+The file imports neither JAX nor the JAX package (the machine with the card
+has no JAX), so it runs there on its own:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import weaken
+from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.models import ed25519 as med
+from consensus_tpu_torch.models.verifier import engine_for_config
+from consensus_tpu_torch.ops import ed25519 as ed
+from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import scan_kernels
+
+P = fe.P
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernel runs only on the card")
+    return torch.device("cuda")
+
+
+def _scan_case(n: int, device):
+    """(-A) for A = j*B in weak limbs with negative entries, and digits of
+    scalars 0, 1 and random ones below L."""
+    pts, cur = [], (ed._BX, ed._BY)
+    for _ in range(n):
+        pts.append(cur)
+        cur = ed._edwards_add_int(cur, (ed._BX, ed._BY))
+    coords = [
+        torch.from_numpy(np.stack([fe.int_to_limbs(c) for c in col], axis=1)).to(device)
+        for col in (
+            [x for x, _ in pts], [y for _, y in pts], [1] * n, [x * y % P for x, y in pts]
+        )
+    ]
+    neg = [weaken(c).contiguous() for c in ed.negate(ed.Point(*coords))]
+    rng = np.random.default_rng(n)
+    scalars = [0, 1] + [int.from_bytes(rng.bytes(32), "little") % med.L for _ in range(n - 2)]
+    rows = np.frombuffer(
+        b"".join(s.to_bytes(32, "little") for s in scalars), dtype=np.uint8
+    ).reshape(n, 32)
+    digits = med._bits_to_signed_window_digits(med._bytes_rows_to_bits(rows))
+    return neg, torch.from_numpy(digits.astype(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 256])
+def test_kernel_matches_reference_on_card(cuda_device, n):
+    """Frozen X, Y, Z, T of the kernel equal the plain version's on every
+    lane (tolerance 0), at a batch that does and one that does not fill the
+    last block; the kernel writes canonical limbs; one launch per call."""
+    neg, digits = _scan_case(n, cuda_device)
+    assert min(float(c.min()) for c in neg) < 0  # weak limbs reach the kernel
+    before = scan_kernels.launches
+    got = scan_kernels.horner_scan(*neg, digits)
+    torch.cuda.synchronize()
+    assert scan_kernels.launches == before + 1
+    want = scan_kernels.horner_scan_reference(*neg, digits)
+    for g, w in zip(got, want):
+        assert torch.equal(fe.freeze(g), fe.freeze(w))
+        assert torch.equal(g, fe.freeze(g).to(torch.float32))
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_mixed_devices(cuda_device):
+    neg, digits = _scan_case(8, cuda_device)
+    with pytest.raises(ValueError):
+        scan_kernels.horner_scan(*neg, digits.cpu())
+
+
+@pytest.mark.cuda
+def test_engine_on_card_matches_host_and_launches_once(cuda_device):
+    rng = np.random.default_rng(3)
+    seeds = [rng.bytes(32) for _ in range(8)]
+    keys = [med.ref_public_key(s) for s in seeds]
+    msgs = [b"m-%d" % i for i in range(8)]
+    sigs = [med.ref_sign(s, m) for s, m in zip(seeds, msgs)]
+    sigs[0] = (P + 1).to_bytes(32, "little") + sigs[0][32:]    # R with y >= p
+    keys[1] = (2).to_bytes(32, "little")                       # off-curve A
+    sigs[2] = sigs[2][:32] + med.L.to_bytes(32, "little")      # S = L
+    msgs[3] = b"x" + msgs[3]                                   # wrong message
+    engine = engine_for_config(Configuration(crypto_tpu_min_batch=1))
+    assert engine.device.type == "cuda"
+    before = scan_kernels.launches
+    got = engine.verify_batch(msgs, sigs, keys)
+    assert scan_kernels.launches == before + 1
+    np.testing.assert_array_equal(got, engine.verify_host(msgs, sigs, keys))
+    assert got.tolist() == [False] * 4 + [True] * 4

@@ -1,0 +1,118 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and a
+chip_smoke.py whose phases rehearse on the CPU.
+
+``consensus_tpu_torch`` and ``chip_smoke.py`` may import neither ``jax``,
+``jaxlib`` nor ``consensus_tpu`` (the exact names or their submodules),
+checked both statically (AST) and in a fresh interpreter (``sys.modules``).
+The smoke script's phases run here with ``device="cpu"`` at 8-16 lanes, and
+its entry point refuses to run without a card.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "consensus_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "consensus_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources() -> list[Path]:
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_fresh_interpreter_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import consensus_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(consensus_tpu_torch.__path__, 'consensus_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 10 else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_phases_rehearse_on_cpu():
+    corpus = chip_smoke.make_corpus(16, per_class=1)
+    msgs, sigs, keys, expected, bad = corpus
+    assert len(msgs) == 16 and sorted(np.flatnonzero(~expected).tolist()) == sorted(bad)
+    k = chip_smoke.phase_kernel("cpu", keys, lanes=8, reps=1, plain_reps=1)
+    assert k["lanes"] == 8 and k["max_abs_err"] == 0.0
+    assert k["negative_lanes"] >= 4  # weak limbs below zero reach the scan
+    w = chip_smoke.phase_wave("cpu", corpus, replicas=1)
+    assert w["signatures"] == 16 and w["padded"] == 16 and w["rejected"] == 8
+    assert w["reference_checked"] == 16
+    # The plain version runs on the CPU: no kernel launch, and the 5-vote
+    # quorum takes the host path.
+    assert w["wave_launches"] == 0 and w["quorum_launches"] == 0
+    assert w["quorum_size"] == 5 < w["min_device_batch"]
+    # The stages are read off the engine's own ranges; on the CPU the
+    # profiler sees no device, so no device time is claimed.
+    p = w["profiled"]
+    assert list(p["ranges"]) == list(chip_smoke.WAVE_RANGES)
+    assert all(r["host_ms"] > 0 and r["device_ms"] is None for r in p["ranges"].values())
+    assert p["busy_ms"] is None and p["busy_share"] is None and p["unranged_ms"] is None
+
+
+def test_horner_bound_counts_the_work():
+    b = chip_smoke.horner_bound(8192, sm_count=132, sm_clock_hz=1.98e9)
+    # 2,495 field products per lane, of which 1,024 are squarings.
+    assert (chip_smoke.HORNER_MULS, chip_smoke.HORNER_SQUARES) == (1471, 1024)
+    assert (chip_smoke.MUL_PRODUCTS, chip_smoke.SQUARE_PRODUCTS) == (72, 44)
+    assert b["bytes"] == 8 * 32 * 8192 * 4 + 64 * 8192 * 4
+    assert b["products"] == (1471 * 72 + 1024 * 44) * 8192
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
