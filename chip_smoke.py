@@ -2,21 +2,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- strict Ed25519 batch verification -- at the
-size of one block of a 7-replica (f=2) Ed25519 deployment with 1,000
-requests per block (BASELINE.json config 3): one wave of 7,000 signatures,
-padded to 8,192 lanes, through the port's engine.  Phases:
+Drives the port's two main paths through the engines a user would call:
 
-1. device and build: the card, torch and CUDA versions, the nvcc build of
-   every kernel from ``consensus_tpu_torch/csrc`` and its ``-Xptxas -v``
-   report;
-2. each kernel against its plain torch version on the card at the main
-   path's shape, with tolerance 0 (integer arithmetic), and its time beside
-   the plain version's and its bound;
-3. the main path: the 7,000-signature wave with every rejection class mixed
-   in, verdicts held against the construction and against the RFC 8032
-   reference, kernel launch counts read around the run, then a 2f+1 commit
-   quorum through ``verify_consenter_sigs_batch``.
+* strict Ed25519 batch verification at the size of one block of a
+  7-replica (f=2) Ed25519 deployment with 1,000 requests per block
+  (BASELINE.json config 3): one wave of 7,000 signatures, padded to 8,192
+  lanes;
+* ECDSA-P256 batch verification at the size of one block of a 4-replica
+  (f=1) naive_chain deployment with 500 requests per proposal
+  (BASELINE.json config 2, ECDSA-P256 as in config 1): one wave of 2,000
+  signatures, padded to 2,048 lanes.
+
+Phases:
+
+1. device and build: the card, torch and CUDA versions, the nvcc builds of
+   every kernel from ``consensus_tpu_torch/csrc`` (started together) and
+   their ``-Xptxas -v`` reports;
+2. the Ed25519 kernel B1 against its plain torch version on the card at the
+   main path's shape, with tolerance 0 (integer arithmetic), and its time
+   beside the plain version's and its bound;
+3. the Ed25519 path: the 7,000-signature wave with every rejection class
+   mixed in, verdicts held against the construction and against the
+   RFC 8032 reference, kernel launch counts read around the run, then a
+   2f+1 commit quorum through ``verify_consenter_sigs_batch``;
+4. the P-256 kernel B2 against its plain torch version on the card on the
+   phase-5 wave's own kernel inputs (real keys and u2 digits, off-curve keys
+   and padded zero lanes included), tolerance 0, with its time, the plain
+   version's and its bound;
+5. the P-256 path: the 2,000-signature wave with every rejection class of
+   the JAX engine mixed in, verdicts held against the construction and the
+   pure-Python reference, launch counts read around the run, a profiled
+   re-run's stage split, then a 2f+1 commit quorum through
+   ``EcdsaP256VerifierMixin.verify_consenter_sigs_batch``.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -31,16 +48,25 @@ import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
-from consensus_tpu_torch.models.verifier import Ed25519Signer, engine_for_config
+from consensus_tpu_torch.models.verifier import (
+    EcdsaP256Signer,
+    EcdsaP256VerifierMixin,
+    Ed25519Signer,
+    engine_for_config,
+)
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import field_p256 as fp
+from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.testing.crypto_app import SigOnlyVerifier
 from consensus_tpu_torch.types import Proposal
@@ -77,6 +103,27 @@ HORNER_SQUARES = 64 * 4 * 4
 WAVE_RANGES = (
     "ed25519.host_prep", "ed25519.decompress", "ed25519.negate",
     "ed25519.horner_scan", "ed25519.comb", "ed25519.add_and_equal",
+)
+
+#: BASELINE.json config 2: naive_chain, 4 replicas (f = 1), 500 requests
+#: per proposal, ECDSA-P256 as in config 1.
+P256_REPLICAS = 4
+P256_REQUESTS = 500
+P256_QUORUM = 3  # 2f + 1
+#: Field multiplications and squarings per lane in the P-256 Horner scan: 72
+#: complete adds (7 for the table, 65 in the windows) of 14 multiplications
+#: each (12 + 2 by b), and 260 doubles (4 per window) of 10 multiplications
+#: (8 + 2 by b) and 3 squarings each.  On 8 x 32-bit words a multiplication
+#: needs 8 x 8 partial products and a squaring 8 x 9 / 2; the Solinas
+#: reduction needs none.
+P256_MULS = 72 * 14 + 65 * 4 * 10
+P256_SQUARES = 65 * 4 * 3
+P256_MUL_PRODUCTS = 8 * 8
+P256_SQUARE_PRODUCTS = 8 * 9 // 2
+
+#: The record_function ranges of the P-256 engine's wave, in the order they run.
+P256_WAVE_RANGES = (
+    "p256.host_prep", "p256.on_curve", "p256.horner_scan", "p256.comb", "p256.check",
 )
 
 _REQ_TAG = b"ctpu/request"
@@ -275,15 +322,19 @@ def _subtree(event):
         yield from _subtree(child)
 
 
-def profile_wave(engine, msgs, sigs, keys, device) -> dict:
+def profile_wave(
+    engine, msgs, sigs, keys, device,
+    wave_ranges=WAVE_RANGES, kernel: str = "horner_scan_kernel",
+) -> dict:
     """One more run of the wave through the engine under ``torch.profiler``.
 
-    For each ``ed25519.*`` range of :data:`WAVE_RANGES`: its host time, and
+    For each range of ``wave_ranges`` (the engine's stages): its host time, and
     the device time of the kernels and copies launched inside it.  Besides:
     the run's host-clock time, the device's busy time over it (its kernels
-    and copies; one stream, so they do not overlap) and the Horner kernel's
-    own device time, and the device time no range claims.  Device times are
-    None when the profiler saw no device activity (always so on the CPU)."""
+    and copies; one stream, so they do not overlap), the Horner kernel's own
+    device time (the device kernels whose name holds ``kernel``), and the
+    device time no range claims.  Device times are None when the profiler
+    saw no device activity (always so on the CPU)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -297,24 +348,24 @@ def profile_wave(engine, msgs, sigs, keys, device) -> dict:
     # Device activity, less the device-side copies of the ranges themselves.
     on_device = [
         e for e in events
-        if e.device_type != DeviceType.CPU and e.name not in WAVE_RANGES
+        if e.device_type != DeviceType.CPU and e.name not in wave_ranges
     ]
     seen = bool(on_device)
     ranges = {}
     for e in events:
-        if e.device_type == DeviceType.CPU and e.name in WAVE_RANGES:
+        if e.device_type == DeviceType.CPU and e.name in wave_ranges:
             dev_us = sum(
                 k.duration for ev in _subtree(e) for k in ev.kernels
-                if k.name not in WAVE_RANGES
+                if k.name not in wave_ranges
             )
             host_ms, dev_ms = ranges.get(e.name, (0.0, 0.0))
             ranges[e.name] = (host_ms + e.cpu_time_total / 1e3, dev_ms + dev_us / 1e3)
-    missing = [name for name in WAVE_RANGES if name not in ranges]
+    missing = [name for name in wave_ranges if name not in ranges]
     if missing:
         raise AssertionError(f"profiled wave: no range {missing}")
     busy_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
     kernel_ms = sum(
-        e.time_range.elapsed_us() for e in on_device if "horner_scan" in e.name
+        e.time_range.elapsed_us() for e in on_device if kernel in e.name
     ) / 1e3
     ranged_ms = sum(dev_ms for _, dev_ms in ranges.values())
     return {
@@ -322,7 +373,7 @@ def profile_wave(engine, msgs, sigs, keys, device) -> dict:
         "wall_ms": wall_ms,
         "ranges": {
             name: {"host_ms": host_ms, "device_ms": dev_ms if seen else None}
-            for name, (host_ms, dev_ms) in ((n, ranges[n]) for n in WAVE_RANGES)
+            for name, (host_ms, dev_ms) in ((n, ranges[n]) for n in wave_ranges)
         },
         "busy_ms": busy_ms if seen else None,
         # Device time that no range claims: zero when every launch is linked.
@@ -356,12 +407,14 @@ def phase_wave(device, corpus, replicas: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     scan_kernels.launches = 0
+    scan_kernels.launches_p256 = 0
     t0 = time.perf_counter()
     got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     wave_launches = scan_kernels.launches
+    other_launches = scan_kernels.launches_p256
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -409,11 +462,273 @@ def phase_wave(device, corpus, replicas: int) -> dict:
         "sigs_per_s": n / wave_s,
         "profiled": prof,
         "wave_launches": wave_launches,
+        "other_launches": other_launches,
         "quorum_size": len(quorum),
         "quorum_launches": quorum_launches,
         "min_device_batch": Configuration().crypto_tpu_min_batch,
         "peak_bytes": peak,
     }
+
+
+# --- P-256: corpus, phase 4 (kernel B2) and phase 5 (the P-256 path) ----------
+
+_P256_REJECTION_CLASSES = (
+    "sig_length", "key_length", "key_prefix", "r_zero", "r_ge_n", "s_zero",
+    "s_ge_n", "qx_ge_p", "qy_ge_p", "off_curve", "wrong_key", "wrong_message",
+)
+#: Accepted as constructed: the high-s twin (r, n - s) of a valid signature.
+#: The JAX engine has no low-s rule, and neither has the port.
+_P256_ACCEPT_CLASSES = ("high_s",)
+
+
+def make_p256_corpus(n_requests: int, per_class: int, seed: int = SEED):
+    """``n_requests`` client requests, each signed by its own P-256 key with
+    ``ref_p256_sign`` (keys and bodies from numpy seed ``seed``), with
+    ``per_class`` lanes of each rejection class of the JAX engine and of the
+    high-s accept class.
+
+    Returns (messages, signatures, keys, expected verdicts, the list of
+    rejection-class and high-s indices)."""
+    classes = _P256_REJECTION_CLASSES + _P256_ACCEPT_CLASSES
+    n_special = per_class * len(classes)
+    if n_requests < n_special + 1:
+        raise ValueError("corpus too small for the rejection classes")
+    rng = np.random.default_rng(seed)
+    privs = [int.from_bytes(rng.bytes(32), "big") % (mp.N - 1) + 1 for _ in range(n_requests)]
+    keys = [mp.ref_p256_public_key(d) for d in privs]
+    msgs = [
+        _REQ_TAG + struct.pack(">IQ", i, 1) + rng.bytes(64) for i in range(n_requests)
+    ]
+    sigs = [mp.ref_p256_sign(d, m) for d, m in zip(privs, msgs)]
+    expected = np.ones(n_requests, dtype=bool)
+    special = rng.permutation(n_requests)[:n_special].tolist()
+    for j, i in enumerate(special):
+        kind = classes[j // per_class]
+        k = j % per_class
+        sig, key = sigs[i], keys[i]
+        r, s = sig[:32], sig[32:]
+        x, y = key[1:33], key[33:]
+        if kind == "sig_length":
+            sigs[i] = sig[:63] if k % 2 == 0 else sig + b"\x00"
+        elif kind == "key_length":
+            keys[i] = key[:64] if k % 2 == 0 else key + b"\x00"
+        elif kind == "key_prefix":
+            # A real compressed key (33 bytes), or 65 bytes behind 0x02.
+            compressed = bytes([2 + (int.from_bytes(y, "big") & 1)]) + x
+            keys[i] = compressed if k % 2 == 0 else b"\x02" + x + y
+        elif kind == "r_zero":
+            sigs[i] = bytes(32) + s
+        elif kind == "r_ge_n":
+            sigs[i] = (mp.N + k).to_bytes(32, "big") + s
+        elif kind == "s_zero":
+            sigs[i] = r + bytes(32)
+        elif kind == "s_ge_n":
+            sigs[i] = r + (mp.N + k).to_bytes(32, "big")
+        elif kind == "qx_ge_p":
+            keys[i] = b"\x04" + (fp.P + k).to_bytes(32, "big") + y
+        elif kind == "qy_ge_p":
+            keys[i] = b"\x04" + x + (fp.P + k).to_bytes(32, "big")
+        elif kind == "off_curve":
+            keys[i] = b"\x04" + x + ((int.from_bytes(y, "big") + 1 + k) % fp.P).to_bytes(32, "big")
+        elif kind == "wrong_key":
+            keys[i] = keys[(i + 1) % n_requests]
+        elif kind == "wrong_message":
+            msgs[i] = msgs[i][:-1] + bytes([msgs[i][-1] ^ 1])
+        else:  # high_s: accepted
+            sigs[i] = r + (mp.N - int.from_bytes(s, "big")).to_bytes(32, "big")
+        expected[i] = kind in _P256_ACCEPT_CLASSES
+    return msgs, sigs, keys, expected, special
+
+
+def p256_wave(corpus, replicas: int):
+    """The wave of ``replicas`` replicas each verifying every request of
+    ``corpus``: (messages, signatures, keys, expected verdicts)."""
+    msgs, sigs, keys, expected, _ = corpus
+    return msgs * replicas, sigs * replicas, keys * replicas, np.tile(expected, replicas)
+
+
+def p256_scan_inputs(corpus, replicas: int, device):
+    """Kernel B2's inputs on the main path: the P-256 engine's own device
+    inputs for the wave of ``corpus`` (qx, qy as bytes widened to f32, u2
+    digits widened to int32), with counts of the lanes whose key is off the
+    curve (padded and host-rejected lanes hold zeros) and of the padded
+    lanes, whose digits are all 0 (d = -8 in every window)."""
+    msgs, sigs, keys, _ = p256_wave(corpus, replicas)
+    engine = mp.EcdsaP256BatchVerifier(device=device)
+    qx, qy, _, u2d, *_ = engine.prepare_device_inputs(msgs, sigs, keys)
+    qx = qx.to(torch.float32).contiguous()
+    qy = qy.to(torch.float32).contiguous()
+    u2d = u2d.to(torch.int32).contiguous()
+    off_curve = int((~p256.on_curve(qx, qy)).sum())
+    padded = qx.shape[1] - len(msgs)
+    return (qx, qy, u2d), off_curve, padded
+
+
+def p256_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
+    """Least time for the P-256 Horner scan's work at ``lanes`` lanes: the
+    larger of the 32x32->64-bit products its multiplications and squarings
+    need over the card's IMAD rate, and its bytes (two (32, lanes) f32
+    coordinates and (65, lanes) int32 digits in, three (32, lanes) f32
+    coordinates out) over the memory rate."""
+    products = (P256_MULS * P256_MUL_PRODUCTS + P256_SQUARES * P256_SQUARE_PRODUCTS) * lanes
+    ops_ms = products / (sm_count * IMAD_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
+    n_bytes = ((2 + 3) * fp.LIMBS + 65) * lanes * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": bound_by,
+            "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def phase_kernel_p256(device, corpus, replicas: int, reps: int, plain_reps: int) -> dict:
+    """horner_scan_p256 (the kernel on CUDA) against
+    horner_scan_p256_reference on the main path's inputs for the wave of
+    ``corpus``: frozen X, Y, Z equal on every lane, tolerance 0."""
+    device = torch.device(device)
+    inputs, off_curve, padded = p256_scan_inputs(corpus, replicas, device)
+    lanes = inputs[0].shape[1]
+    got = scan_kernels.horner_scan_p256(*inputs)
+    want = scan_kernels.horner_scan_p256_reference(*inputs)
+    max_err = 0.0
+    for name, g, w in zip("XYZ", got, want):
+        fg, fw = fp.freeze(g), fp.freeze(w)
+        diff = (fg - fw).abs()
+        max_err = max(max_err, float(diff.max()))
+        bad = torch.nonzero(diff.amax(dim=0)).flatten()
+        if bad.numel():
+            raise AssertionError(
+                f"horner_scan_p256: {name} differs from the plain version on "
+                f"{bad.numel()} of {lanes} lanes (first {bad[:8].tolist()})"
+            )
+    ms = _time_ms(lambda: scan_kernels.horner_scan_p256(*inputs), reps, device)
+    plain_ms = _time_ms(
+        lambda: scan_kernels.horner_scan_p256_reference(*inputs), plain_reps, device
+    )
+    return {"lanes": lanes, "off_curve_lanes": off_curve, "padded_lanes": padded,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+class P256SigOnlyVerifier(EcdsaP256VerifierMixin):
+    """The signature half of a P-256 replica's Verifier port (the
+    application half is not exercised here)."""
+
+    def verify_proposal(self, proposal):
+        raise NotImplementedError
+
+    def verify_request(self, raw):
+        raise NotImplementedError
+
+    def verification_sequence(self):
+        return 0
+
+    def requests_from_proposal(self, proposal):
+        return []
+
+
+def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> dict:
+    """One block's request wave on the P-256 engine from
+    ``engine_for_config(Configuration(), curve="p256")``: ``replicas``
+    replicas each verify the requests of ``corpus`` (from
+    :func:`make_p256_corpus`), coalesced into one engine call; then a 2f+1
+    commit quorum through ``EcdsaP256VerifierMixin``."""
+    device = torch.device(device)
+    msgs, sigs, keys, expected, special = corpus
+    n_requests = len(msgs)
+    signers = [
+        EcdsaP256Signer(i + 1, (i + 1).to_bytes(32, "big")) for i in range(P256_REPLICAS)
+    ]
+    verifier = P256SigOnlyVerifier(
+        {s.node_id: s.public_bytes for s in signers},
+        engine=engine_for_config(Configuration(), curve="p256", device=device),
+    )
+    engine = verifier.engine
+    wave_msgs, wave_sigs, wave_keys, want = p256_wave(corpus, replicas)
+    p256.comb_table(device)  # the constant table is set-up, not part of the wave
+
+    # The main path, with the launch counts read around it.
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    scan_kernels.launches = 0
+    scan_kernels.launches_p256 = 0
+    t0 = time.perf_counter()
+    got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    wave_launches = scan_kernels.launches_p256
+    other_launches = scan_kernels.launches
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        wrong = np.flatnonzero(got != want)
+        raise AssertionError(f"P-256 wave verdicts differ from the construction at {wrong[:16]}")
+    # Against the pure-Python reference on every special lane and
+    # ``valid_checked`` sampled valid ones (the replicas' copies of a request
+    # are the same triple, so each triple is checked once).
+    rng = np.random.default_rng(SEED + 2)
+    plain = np.setdiff1d(np.flatnonzero(expected), special)
+    sample = rng.choice(plain, size=min(valid_checked, plain.size), replace=False)
+    checked = sorted(set(special) | set(sample.tolist()))
+    for i in checked:
+        ref = mp.ref_p256_verify(keys[i], sigs[i], msgs[i])
+        lanes = got[i::n_requests]
+        if not (lanes == ref).all():
+            raise AssertionError(f"request {i}: P-256 wave {lanes} vs reference {ref}")
+    high_s = [i for i in special if expected[i]]
+    if not all(got[i] for i in high_s):
+        raise AssertionError("a high-s signature was rejected")
+
+    prof = profile_wave(
+        engine, wave_msgs, wave_sigs, wave_keys, device,
+        wave_ranges=P256_WAVE_RANGES, kernel="horner_scan_p256_kernel",
+    )
+    if not np.array_equal(prof.pop("verdicts"), got):
+        raise AssertionError("profiled re-run of the P-256 wave disagrees with the wave")
+
+    # A 2f+1 commit quorum: below crypto_tpu_min_batch, so it takes the
+    # engine's host path (the pure-Python reference) and launches no kernel.
+    proposal = Proposal(payload=b"block-1", metadata=b"view-0/seq-1")
+    quorum = [
+        s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:P256_QUORUM]
+    ]
+    before = scan_kernels.launches + scan_kernels.launches_p256
+    results = verifier.verify_consenter_sigs_batch(quorum, proposal)
+    if results != [q.msg for q in quorum]:
+        raise AssertionError(f"P-256 commit quorum rejected: {results}")
+    quorum_launches = scan_kernels.launches + scan_kernels.launches_p256 - before
+
+    n = len(wave_msgs)
+    return {
+        "signatures": n,
+        "padded": engine.padded_size(n),
+        "rejected": int((~got).sum()),
+        "high_s_accepted": len(high_s) * replicas,
+        "reference_checked": len(checked),
+        "wave_ms": wave_s * 1e3,
+        "sigs_per_s": n / wave_s,
+        "profiled": prof,
+        "wave_launches": wave_launches,
+        "other_launches": other_launches,
+        "quorum_size": len(quorum),
+        "quorum_launches": quorum_launches,
+        "min_device_batch": Configuration().crypto_tpu_min_batch,
+        "peak_bytes": peak,
+    }
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def log_profile(p: dict, kernel: str) -> None:
+    """Print a profiled re-run's wall time, busy share and stage split."""
+    log(f"  profiled re-run (torch.profiler): {p['wall_ms']:.3f} ms host clock; "
+        f"device busy {_ms(p['busy_ms'])}"
+        + ("" if p["busy_share"] is None else f", {100 * p['busy_share']:.2f} % of it")
+        + f"; {kernel} kernel {_ms(p['kernel_device_ms'])} on the device")
+    for name, r in p["ranges"].items():
+        log(f"    {name}: host {r['host_ms']:.3f} ms, device {_ms(r['device_ms'])}")
+    log(f"    device time in no range: {_ms(p['unranged_ms'])}")
 
 
 def main() -> int:
@@ -429,15 +744,23 @@ def main() -> int:
     log(f"card (name, power.limit): {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    info = scan_kernels.build()
-    log(f"horner_scan: nvcc build {info.seconds:.3f} s "
-        f"({'existing build loaded' if info.cached else info.command})")
-    for line in info.ptxas.splitlines():
-        log(f"  ptxas| {line}")
+    # One nvcc for each source, all started together.
+    names = list(scan_kernels.KERNELS)
+    with ThreadPoolExecutor(len(names)) as pool:
+        infos = dict(zip(names, pool.map(scan_kernels.build, names)))
+    for name, info in infos.items():
+        log(f"{name}: nvcc build {info.seconds:.3f} s "
+            f"({'existing build loaded' if info.cached else info.command})")
+        for line in info.ptxas.splitlines():
+            log(f"  ptxas| {line}")
     t0 = time.perf_counter()
     ed.comb_table(device)
     log(f"comb table [d * 2^(8j)]B, 32 x 256 entries, built from integers and "
         f"copied to the card in {time.perf_counter() - t0:.3f} s (set-up)")
+    t0 = time.perf_counter()
+    p256.comb_table(device)
+    log(f"P-256 comb table [d * 2^(8j)]G, 32 x 256 entries, built from integers "
+        f"and copied to the card in {time.perf_counter() - t0:.3f} s (set-up)")
     props = torch.cuda.get_device_properties(0)
     sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
@@ -476,37 +799,89 @@ def main() -> int:
     log(f"  horner_scan launches in the wave: {w['wave_launches']}")
     log(f"  end to end {w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize())")
-    p = w["profiled"]
-
-    def ms(x):
-        return "not measured" if x is None else f"{x:.3f} ms"
-
-    log(f"  profiled re-run (torch.profiler): {p['wall_ms']:.3f} ms host clock; "
-        f"device busy {ms(p['busy_ms'])}"
-        + ("" if p["busy_share"] is None else f", {100 * p['busy_share']:.2f} % of it")
-        + f"; horner_scan kernel {ms(p['kernel_device_ms'])} on the device")
-    for name, r in p["ranges"].items():
-        log(f"    {name}: host {r['host_ms']:.3f} ms, device {ms(r['device_ms'])}")
-    log(f"    device time in no range: {ms(p['unranged_ms'])}")
+    if w["other_launches"] != 0:
+        raise AssertionError("the Ed25519 wave launched horner_scan_p256")
+    log_profile(w["profiled"], "horner_scan")
     log(f"  torch.cuda.max_memory_allocated: {w['peak_bytes']} bytes")
     log(f"commit quorum: {w['quorum_size']} signatures < crypto_tpu_min_batch "
         f"{w['min_device_batch']}, verified on the engine's host path "
         f"(_verify_host), {w['quorum_launches']} kernel launches")
 
+    # Phase 4: kernel B2 against its plain version on the P-256 wave's inputs.
+    log("== phase 4: horner_scan_p256 against horner_scan_p256_reference")
+    t0 = time.perf_counter()
+    p256_corpus = make_p256_corpus(P256_REQUESTS, per_class=3)
+    log(f"P-256 corpus: {P256_REQUESTS} requests, each with its own key, signed "
+        f"with ref_p256_sign in {time.perf_counter() - t0:.3f} s")
+    k2 = phase_kernel_p256(device, p256_corpus, P256_REPLICAS, reps=20, plain_reps=2)
+    bound2 = p256_bound(k2["lanes"], props.multi_processor_count, sm_clock_hz)
+    log(f"horner_scan_p256 at {k2['lanes']} lanes ({k2['off_curve_lanes']} with Q off "
+        f"the curve, {k2['padded_lanes']} of them padded with all-zero digits): "
+        f"frozen X, Y, Z equal on every lane (max abs err {k2['max_abs_err']})")
+    log(f"  kernel {k2['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+    log(f"  plain torch version {k2['plain_ms']:.6f} ms (mean of 2)")
+    log(f"  bound {bound2['bound_ms']:.6f} ms, by {bound2['bound_by']}: "
+        f"{P256_MULS} multiplications x {P256_MUL_PRODUCTS} + {P256_SQUARES} "
+        f"squarings x {P256_SQUARE_PRODUCTS} 32x32->64 products per lane = "
+        f"{bound2['products']} IMAD.WIDE over {props.multi_processor_count} SMs x "
+        f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
+        f"{bound2['ops_ms']:.6f} ms; {bound2['bytes']} bytes over 3.35 TB/s = "
+        f"{bound2['bytes_ms']:.6f} ms")
+    log("  library: none (no PyTorch call computes a P-256 scalar multiplication)")
+
+    # Phase 5: the P-256 path.
+    log("== phase 5: config-2 P-256 wave (4 replicas, f=1, 500 requests per proposal)")
+    w2 = phase_wave_p256(device, p256_corpus, replicas=P256_REPLICAS)
+    if w2["wave_launches"] != 1:
+        raise AssertionError(
+            f"P-256 wave launched horner_scan_p256 {w2['wave_launches']} times, not 1"
+        )
+    if w2["other_launches"] != 0:
+        raise AssertionError("the P-256 wave launched horner_scan")
+    if w2["quorum_launches"] != 0:
+        raise AssertionError("the P-256 commit quorum launched a kernel")
+    log(f"wave: {w2['signatures']} signatures padded to {w2['padded']}, "
+        f"{w2['rejected']} rejected as constructed, {w2['high_s_accepted']} high-s "
+        f"lanes accepted; {w2['reference_checked']} requests held against "
+        f"ref_p256_verify")
+    log(f"  horner_scan_p256 launches in the wave: {w2['wave_launches']}")
+    log(f"  end to end {w2['wave_ms']:.3f} ms = {w2['sigs_per_s']:.1f} signatures/s "
+        f"(host clock, ending in torch.cuda.synchronize())")
+    log_profile(w2["profiled"], "horner_scan_p256")
+    log(f"  torch.cuda.max_memory_allocated: {w2['peak_bytes']} bytes")
+    log(f"commit quorum: {w2['quorum_size']} signatures < crypto_tpu_min_batch "
+        f"{w2['min_device_batch']}, verified through EcdsaP256VerifierMixin on the "
+        f"engine's host path (ref_p256_verify), {w2['quorum_launches']} kernel launches")
+
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "horner_scan",
-        "route": "cuda",
-        "source": "consensus_tpu_torch/csrc/horner_scan.cu",
-        "replaces": "consensus_tpu/ops/pallas_scan.py:225",
-        "launches": w["wave_launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"],
-        "library_ms": None,
-    }]}))
+    log(json.dumps({"kernels": [
+        {
+            "name": "horner_scan",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/horner_scan.cu",
+            "replaces": "consensus_tpu/ops/pallas_scan.py:225",
+            "launches": w["wave_launches"],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "horner_scan_p256",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/horner_scan_p256.cu",
+            "replaces": "consensus_tpu/ops/pallas_scan.py:357",
+            "launches": w2["wave_launches"],
+            "max_abs_err": k2["max_abs_err"],
+            "ms": k2["ms"],
+            "plain_ms": k2["plain_ms"],
+            "bound_ms": bound2["bound_ms"],
+            "bound_by": bound2["bound_by"],
+            "library_ms": None,
+        },
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,12 @@ needs.  Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no CPU request it raises.
 
 Layout:
-    ops/       GF(2^255-19) limb arithmetic, edwards25519 formulas, and the
-               Horner-scan kernel wrapper (CUDA on the card, torch on CPU)
+    ops/       GF(2^255-19) and GF(p256) limb arithmetic, edwards25519 and
+               P-256 formulas, and the Horner-scan kernel wrappers (CUDA on
+               the card, torch on CPU)
     csrc/      hand-written CUDA sources, built with nvcc on first use
-    models/    the strict Ed25519 batch verifier and the Verifier-port mixin
+    models/    the strict Ed25519 and ECDSA-P256 batch verifiers, their
+               signers and Verifier-port mixins
     api/       the Signer / Verifier ports
     testing/   SigOnlyVerifier
 """

@@ -1,20 +1,24 @@
-"""Ed25519 implementations of the signature ports (torch port of the strict
-half of ``consensus_tpu/models/verifier.py``).
+"""Ed25519 and ECDSA-P256 implementations of the signature ports (torch
+port of the strict half of ``consensus_tpu/models/verifier.py``).
 
 * :class:`Ed25519Signer` holds this replica's private key on the host and
-  signs raw payloads and proposals with the RFC 8032 reference.
+  signs raw payloads and proposals with the RFC 8032 reference;
+  :class:`EcdsaP256Signer` does the same with the RFC 6979 P-256 reference.
 * :class:`Ed25519VerifierMixin` implements the signature-verification
   methods of the ``Verifier`` port against a node-id -> public-key
-  registry, draining ``verify_consenter_sigs_batch`` into one engine call.
+  registry, draining ``verify_consenter_sigs_batch`` into one engine call;
+  :class:`EcdsaP256VerifierMixin` is the same over the P-256 engine.
 
 Message binding is byte-identical to the JAX package: a consenter
 signature covers ``b"ctpu/commit" + proposal-digest + len(aux) + aux`` and a
 raw signature ``b"ctpu/raw" + data``, so a cluster that mixes replicas of
 both packages verifies every vote the same way.
 
-:func:`engine_for_config` returns the strict single-device engine for the
-default configuration; every other lane raises ``NotImplementedError``
-naming its ROADMAP item (queue A).
+:func:`engine_for_config` returns the strict single-device engine of the
+curve for the default configuration; every other lane raises
+``NotImplementedError`` naming its ROADMAP item (queue A), except the
+Ed25519-only features on P-256, which raise ``ValueError`` with the JAX
+registry's reasons.
 """
 
 from __future__ import annotations
@@ -25,6 +29,12 @@ from typing import Mapping, Optional, Sequence
 
 from consensus_tpu_torch.api.deps import Signer, Verifier
 from consensus_tpu_torch.device import DeviceLike
+from consensus_tpu_torch.models.ecdsa_p256 import (
+    N as P256_N,
+    EcdsaP256BatchVerifier,
+    ref_p256_public_key,
+    ref_p256_sign,
+)
 from consensus_tpu_torch.models.ed25519 import (
     Ed25519BatchVerifier,
     ref_public_key,
@@ -54,13 +64,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def engine_for_config(config, curve: str = "ed25519", *, device: DeviceLike = None):
     """The batch engine matching a ``Configuration``'s crypto knobs.
 
-    The default configuration maps to the strict single-device
-    :class:`Ed25519BatchVerifier` with the config's padding and host-path
-    threshold, on ``device`` (``cuda`` unless the caller names one)."""
-    if curve == "p256":
-        raise _not_ported("curve='p256'", "item 11: P-256 with kernel B2")
-    if curve != "ed25519":
+    The default configuration maps to the strict single-device engine of
+    ``curve`` -- :class:`Ed25519BatchVerifier` or
+    :class:`EcdsaP256BatchVerifier` -- with the config's padding and
+    host-path threshold, on ``device`` (``cuda`` unless the caller names
+    one)."""
+    if curve not in ("ed25519", "p256"):
         raise ValueError(f"unknown curve {curve!r}")
+    if curve == "p256":
+        # The JAX registry's own reasons: these lanes do not exist for P-256.
+        if config.batch_verify_mode:
+            raise ValueError("batch_verify_mode is Ed25519-only (no randomized P-256 lane)")
+        if config.device_prep:
+            raise ValueError("device_prep is Ed25519-only (no fused P-256 front-end)")
     if config.batch_verify_mode:
         raise _not_ported(
             "batch_verify_mode", "item 8: the randomized lane with kernel B3"
@@ -71,7 +87,8 @@ def engine_for_config(config, curve: str = "ed25519", *, device: DeviceLike = No
         raise _not_ported("mesh_shards > 1 / mesh_topology", "item 12: multi-GPU")
     if config.engine_supervision:
         raise _not_ported("engine_supervision", "item 6: registry and supervisor")
-    return Ed25519BatchVerifier(
+    engine = EcdsaP256BatchVerifier if curve == "p256" else Ed25519BatchVerifier
+    return engine(
         pad_pow2=config.crypto_pad_pow2,
         min_device_batch=config.crypto_tpu_min_batch,
         device=device,
@@ -192,7 +209,65 @@ class Ed25519VerifierMixin(Verifier):
         return msg
 
 
+class EcdsaP256Signer(Signer):
+    """ECDSA-P256 replica identity (private key host-side), signing with the
+    RFC 6979 reference of :mod:`.ecdsa_p256`; signatures are the framework's
+    raw 64-byte r || s format.  ``private_key`` is an int in [1, n) or its
+    32 big-endian bytes; None draws a fresh one."""
+
+    def __init__(self, node_id: int, private_key=None) -> None:
+        if private_key is None:
+            private_key = 0
+            while not 1 <= private_key < P256_N:
+                private_key = int.from_bytes(os.urandom(32), "big")
+        elif isinstance(private_key, (bytes, bytearray)):
+            if len(private_key) != 32:
+                raise ValueError("P-256 private key bytes must be 32 long")
+            private_key = int.from_bytes(private_key, "big")
+        self.node_id = node_id
+        self.public_bytes = ref_p256_public_key(private_key)
+        self._key = private_key
+
+    def sign_raw(self, data: bytes) -> bytes:
+        """Sign ``data`` exactly as given (no domain tag); returns the
+        framework's raw 64-byte r || s format."""
+        return ref_p256_sign(self._key, data)
+
+    def sign(self, data: bytes) -> bytes:
+        return self.sign_raw(raw_message(data))
+
+    def sign_proposal(self, proposal: Proposal, aux: bytes = b"") -> Signature:
+        return Signature(
+            id=self.node_id,
+            value=self.sign_raw(commit_message(proposal, aux)),
+            msg=aux,
+        )
+
+
+class EcdsaP256VerifierMixin(Ed25519VerifierMixin):
+    """Signature-verification half of the Verifier port over ECDSA-P256:
+    the Ed25519 mixin's registry and batching semantics on the P-256
+    engine (``EcdsaP256BatchVerifier()`` on ``cuda`` unless given one)."""
+
+    # Half-aggregation rides the Ed25519 group law; there is no P-256
+    # analogue.
+    supports_cert_aggregation = False
+
+    def __init__(
+        self,
+        public_keys: Mapping[int, bytes],
+        *,
+        engine: Optional[EcdsaP256BatchVerifier] = None,
+    ) -> None:
+        super().__init__(
+            public_keys,
+            engine=engine if engine is not None else EcdsaP256BatchVerifier(),
+        )
+
+
 __all__ = [
+    "EcdsaP256Signer",
+    "EcdsaP256VerifierMixin",
     "Ed25519Signer",
     "Ed25519VerifierMixin",
     "commit_message",

@@ -1,18 +1,20 @@
 """Hand-written scan kernels and their plain torch versions.
 
-Port of the scan kernels in ``consensus_tpu/ops/pallas_scan.py``.  This
-module holds the Ed25519 Horner scan (``horner_scan``, TPU body
-``_scan_kernel``); the P-256 scan and the Straus MSM come in later slices.
+Port of the scan kernels in ``consensus_tpu/ops/pallas_scan.py``: the
+Ed25519 Horner scan (``horner_scan``, TPU body ``_scan_kernel``) and the
+P-256 Horner scan (``horner_scan_p256``, TPU body ``_scan_kernel_p256``).
+The Straus MSM comes in a later slice.
 
-``horner_scan`` dispatches on the tensors it is given: on a CUDA tensor it
-launches the kernel in ``consensus_tpu_torch/csrc/horner_scan.cu`` or
-raises; on a CPU tensor it runs ``horner_scan_reference``, the plain torch
-port of ``_scan_kernel``.  The kernel is built with nvcc for ``sm_90a`` on
-first use into ``csrc/build/`` and loaded through ctypes; a build or load
-failure raises.
+Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
+launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
+tensor it runs its plain torch version (``horner_scan_reference``,
+``horner_scan_p256_reference``).  Every kernel is built by one helper: nvcc
+for ``sm_90a`` on first use, into ``csrc/build/`` keyed by a hash of the
+source, loaded through ctypes; a build or load failure raises.
 
-``launches`` counts kernel launches (the plain version is not counted), so
-a caller can show that its path went through the kernel.
+``launches`` and ``launches_p256`` count kernel launches (the plain versions
+are not counted), so a caller can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -31,21 +33,32 @@ import torch
 
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import p256
 
 _TABLE = 9  # |signed digit| <= 8 -> multiples 0..8 of the variable point
 _WINDOWS = 64
+_WINDOWS_P256 = 65  # 64 windows of a 256-bit scalar plus the recoding carry
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCE = _CSRC / "horner_scan.cu"
 BUILD_DIR = _CSRC / "build"
 
+#: The kernels of this module: name -> (source, number of pointer arguments
+#: of its C launch function, inputs then outputs).
+KERNELS = {
+    "horner_scan": (_SOURCE, 9),
+    "horner_scan_p256": (_CSRC / "horner_scan_p256.cu", 6),
+}
+
 #: Kernel launches made by :func:`horner_scan` in this process.
 launches = 0
+#: Kernel launches made by :func:`horner_scan_p256` in this process.
+launches_p256 = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
-    """How the kernel library was obtained: the nvcc command, its wall time
+    """How a kernel library was obtained: the nvcc command, its wall time
     (0 when an existing build of the same source was loaded), and what
     ``-Xptxas -v`` reported (registers, spills, local memory)."""
 
@@ -64,29 +77,32 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "horner_scan: nvcc not found (looked in $CUDA_HOME/bin, "
-            "/usr/local/cuda/bin and PATH); the CUDA kernel cannot be built"
+            "scan kernels: nvcc not found (looked in $CUDA_HOME/bin, "
+            "/usr/local/cuda/bin and PATH); the CUDA kernels cannot be built"
         )
     return found
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build (once per source content) and load the kernel library."""
-    source = _SOURCE.read_bytes()
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build (once per source content) and load the library of kernel
+    ``name``, and declare its C entry points ``<name>_launch`` (the
+    pointers, then batch, device and stream) and ``<name>_error_string``."""
+    source_path, n_pointers = KERNELS[name]
+    source = source_path.read_bytes()
     tag = hashlib.sha256(source).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"horner_scan-{tag}.so"
+    lib_path = BUILD_DIR / f"{name}-{tag}.so"
     command = ""
     seconds = 0.0
     ptxas = ""
     cached = lib_path.is_file()
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".horner_scan-{tag}-{os.getpid()}.so"
+        tmp = BUILD_DIR / f".{name}-{tag}-{os.getpid()}.so"
         cmd = [
             _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(_SOURCE),
+            "-o", str(tmp), str(source_path),
         ]
         command = " ".join(cmd)
         start = time.perf_counter()
@@ -94,46 +110,74 @@ def _library() -> tuple[ctypes.CDLL, BuildInfo]:
         seconds = time.perf_counter() - start
         ptxas = (proc.stdout + proc.stderr).strip()
         if proc.returncode != 0:
-            raise RuntimeError(f"horner_scan: nvcc failed ({command}):\n{ptxas}")
+            raise RuntimeError(f"{name}: nvcc failed ({command}):\n{ptxas}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    lib.horner_scan_launch.argtypes = [ctypes.c_void_p] * 9 + [
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p] * n_pointers + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.horner_scan_launch.restype = ctypes.c_int
-    lib.horner_scan_error_string.argtypes = [ctypes.c_int]
-    lib.horner_scan_error_string.restype = ctypes.c_char_p
+    launch.restype = ctypes.c_int
+    error_string = getattr(lib, f"{name}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
     return lib, BuildInfo(str(lib_path), command, seconds, ptxas, cached)
 
 
-def build() -> BuildInfo:
-    """Build and load the kernel library now (it is otherwise built on the
-    first CUDA launch); returns how it was obtained."""
-    return _library()[1]
+def build(name: str = "horner_scan") -> BuildInfo:
+    """Build and load kernel ``name``'s library now (it is otherwise built
+    on the first CUDA launch); returns how it was obtained."""
+    return _library(name)[1]
 
 
-def _check_inputs(coords: tuple[torch.Tensor, ...], k_digits: torch.Tensor) -> int:
-    batch = coords[0].shape[-1] if coords[0].dim() == 2 else -1
-    for name, t in zip("xyzt", coords):
+def _launch(name: str, inputs, outputs, batch: int, device: torch.device) -> None:
+    """Launch kernel ``name`` on the current stream of ``device`` inside an
+    op-scope profiler range, and raise if the launch was refused.
+
+    The range is the kind inductor puts around its Triton launches: a
+    profiler links device work only to op-scope ranges, so without it the
+    kernel would belong to no range of a trace."""
+    lib, _ = _library(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch._C._profiler._RecordFunctionFast(f"{name}_kernel"):
+        code = getattr(lib, f"{name}_launch")(
+            *(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outputs),
+            batch, device.index or 0, stream,
+        )
+    if code != 0:
+        reason = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {reason} ({code})")
+
+
+def _check_inputs(
+    name: str, coords: dict[str, torch.Tensor], digits: torch.Tensor, windows: int
+) -> int:
+    """Check what the kernel ``name`` takes -- float32 (32, batch)
+    coordinates, int32 (windows, batch) digits, one device, contiguous --
+    and return the batch."""
+    first = next(iter(coords.values()))
+    batch = first.shape[-1] if first.dim() == 2 else -1
+    for label, t in coords.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"horner_scan: neg_a_{name} must be float32, got {t.dtype}")
+            raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
         if t.shape != (fe.LIMBS, batch):
             raise ValueError(
-                f"horner_scan: neg_a_{name} must be ({fe.LIMBS}, batch), got "
+                f"{name}: {label} must be ({fe.LIMBS}, batch), got "
                 f"{tuple(t.shape)} against batch {batch}"
             )
-    if k_digits.dtype != torch.int32:
-        raise TypeError(f"horner_scan: k_digits must be int32, got {k_digits.dtype}")
-    if k_digits.shape != (_WINDOWS, batch):
+    if digits.dtype != torch.int32:
+        raise TypeError(f"{name}: digits must be int32, got {digits.dtype}")
+    if digits.shape != (windows, batch):
         raise ValueError(
-            f"horner_scan: k_digits must be ({_WINDOWS}, {batch}), got "
-            f"{tuple(k_digits.shape)}"
+            f"{name}: digits must be ({windows}, {batch}), got {tuple(digits.shape)}"
         )
-    for t in (*coords, k_digits):
-        if t.device != coords[0].device:
-            raise ValueError("horner_scan: all inputs must be on one device")
+    for t in (*coords.values(), digits):
+        if t.device != first.device:
+            raise ValueError(f"{name}: all inputs must be on one device")
         if not t.is_contiguous():
-            raise ValueError("horner_scan: inputs must be contiguous")
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {first.device}")
     return batch
 
 
@@ -152,26 +196,15 @@ def horner_scan(
     canonical limbs; on the CPU it is the plain version's output."""
     global launches
     coords = (neg_a_x, neg_a_y, neg_a_z, neg_a_t)
-    batch = _check_inputs(coords, k_digits)
+    batch = _check_inputs(
+        "horner_scan", dict(zip(("neg_a_x", "neg_a_y", "neg_a_z", "neg_a_t"), coords)),
+        k_digits, _WINDOWS,
+    )
     device = neg_a_x.device
     if device.type == "cpu":
         return horner_scan_reference(*coords, k_digits)
-    if device.type != "cuda":
-        raise ValueError(f"horner_scan: unsupported device {device}")
-    lib, _ = _library()
     outs = [torch.empty_like(neg_a_x) for _ in range(4)]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    # An op-scope profiler range, as inductor puts around its Triton launches:
-    # a profiler links device work only to op-scope ranges, so without it the
-    # kernel would belong to no range of a trace.
-    with torch._C._profiler._RecordFunctionFast("horner_scan_kernel"):
-        code = lib.horner_scan_launch(
-            *(t.data_ptr() for t in coords), k_digits.data_ptr(),
-            *(o.data_ptr() for o in outs), batch, device.index or 0, stream,
-        )
-    if code != 0:
-        reason = lib.horner_scan_error_string(code).decode()
-        raise RuntimeError(f"horner_scan: kernel launch failed: {reason} ({code})")
+    _launch("horner_scan", (*coords, k_digits), outs, batch, device)
     launches += 1
     return ed.Point(*outs)
 
@@ -204,4 +237,64 @@ def horner_scan_reference(
     return acc
 
 
-__all__ = ["BUILD_DIR", "BuildInfo", "build", "horner_scan", "horner_scan_reference", "launches"]
+def horner_scan_p256(
+    qx: torch.Tensor,         # (32, batch) f32 -- Q's affine coordinates
+    qy: torch.Tensor,
+    u2_digits: torch.Tensor,  # (65, batch) int32, digit + 8, MSB first
+) -> p256.Point:
+    """[u2]Q per lane on P-256.
+
+    Coordinates follow the P-256 field module's weak-reduction contract (the
+    engine passes bytes); digits are 65 signed 4-bit windows stored as d + 8
+    (the first window holds the recoding carry).  On CUDA the result is the
+    same projective point as the plain version's, written as canonical
+    limbs; on the CPU it is the plain version's output."""
+    global launches_p256
+    batch = _check_inputs(
+        "horner_scan_p256", {"qx": qx, "qy": qy}, u2_digits, _WINDOWS_P256
+    )
+    device = qx.device
+    if device.type == "cpu":
+        return horner_scan_p256_reference(qx, qy, u2_digits)
+    outs = [torch.empty_like(qx) for _ in range(3)]
+    _launch("horner_scan_p256", (qx, qy, u2_digits), outs, batch, device)
+    launches_p256 += 1
+    return p256.Point(*outs)
+
+
+def horner_scan_p256_reference(
+    qx: torch.Tensor, qy: torch.Tensor, u2_digits: torch.Tensor
+) -> p256.Point:
+    """The plain torch version of the P-256 kernel: a port of
+    ``_scan_kernel_p256``.
+
+    Table j*Q, j = 0..8 (identity, Q, then 7 sequential complete adds);
+    identity as the initial accumulator; per window 4 doubles, a one-hot
+    table lookup, a conditional negate and a complete add."""
+    q = p256.affine_like(qx, qy)
+    table = p256.multiples_table(q, _TABLE)
+    lanes = torch.arange(_TABLE, dtype=torch.int32, device=qx.device)[:, None]
+    acc = p256.identity_like(qx)
+    for w in range(_WINDOWS_P256):
+        d = u2_digits[w].to(torch.int32) - 8  # in [-8, 7]; {0, 1} in the carry window
+        one_hot = (d.abs()[None] == lanes).to(torch.float32)  # (9, batch)
+        for _ in range(4):
+            acc = p256.double(acc)
+        t = p256.table_lookup(table, one_hot)
+        t = p256.select(d < 0, p256.negate(t), t)
+        acc = p256.add(acc, t)
+    return acc
+
+
+__all__ = [
+    "BUILD_DIR",
+    "BuildInfo",
+    "KERNELS",
+    "build",
+    "horner_scan",
+    "horner_scan_p256",
+    "horner_scan_p256_reference",
+    "horner_scan_reference",
+    "launches",
+    "launches_p256",
+]

@@ -1,4 +1,4 @@
-"""Card-only tests of the port's hand-written CUDA kernel.
+"""Card-only tests of the port's hand-written CUDA kernels.
 
 Every test here carries the ``cuda`` marker and asks for a card through the
 ``cuda_device`` fixture, which skips with the reason where none is present.
@@ -14,10 +14,13 @@ import torch
 
 from chip_smoke import weaken
 from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
 from consensus_tpu_torch.models.verifier import engine_for_config
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import field_p256 as fp
+from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
 
 P = fe.P
@@ -96,3 +99,71 @@ def test_engine_on_card_matches_host_and_launches_once(cuda_device):
     assert scan_kernels.launches == before + 1
     np.testing.assert_array_equal(got, engine.verify_host(msgs, sigs, keys))
     assert got.tolist() == [False] * 4 + [True] * 4
+
+
+def _p256_scan_case(n: int, device):
+    """Q = jG in weak limbs with negative entries, with every 5th lane off
+    the curve and every 7th a padded lane (zero coordinates, all-zero
+    digits); digits of scalars 0, 1 and random ones below n."""
+    pts, cur = [], (p256.GX, p256.GY)
+    for _ in range(n):
+        pts.append(cur)
+        cur = p256._add_int(cur, (p256.GX, p256.GY))
+    xs = [5 if i % 5 == 4 else (0 if i % 7 == 6 else x) for i, (x, _) in enumerate(pts)]
+    ys = [0 if i % 7 == 6 else y for i, (_, y) in enumerate(pts)]
+    qx, qy = (
+        weaken(torch.from_numpy(np.stack([fp.int_to_limbs(v) for v in col], axis=1)))
+        .contiguous().to(device)
+        for col in (xs, ys)
+    )
+    rng = np.random.default_rng(n)
+    scalars = [0, 1] + [int.from_bytes(rng.bytes(32), "big") % p256.N for _ in range(n - 2)]
+    digits = mp._scalars_to_signed_window_digits(scalars).astype(np.int32)
+    digits[:, 6::7] = 0
+    return qx, qy, torch.from_numpy(digits).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 256])
+def test_p256_kernel_matches_reference_on_card(cuda_device, n):
+    """Frozen X, Y, Z of kernel B2 equal the plain version's on every lane
+    (tolerance 0), off-curve and zero-digit lanes included; the kernel
+    writes canonical limbs; one launch per call."""
+    qx, qy, digits = _p256_scan_case(n, cuda_device)
+    assert min(float(qx.min()), float(qy.min())) < 0  # weak limbs reach the kernel
+    before = scan_kernels.launches_p256
+    got = scan_kernels.horner_scan_p256(qx, qy, digits)
+    torch.cuda.synchronize()
+    assert scan_kernels.launches_p256 == before + 1
+    want = scan_kernels.horner_scan_p256_reference(qx, qy, digits)
+    for g, w in zip(got, want):
+        assert torch.equal(fp.freeze(g), fp.freeze(w))
+        assert torch.equal(g, fp.freeze(g).to(torch.float32))
+
+
+@pytest.mark.cuda
+def test_p256_kernel_rejects_mixed_devices(cuda_device):
+    qx, qy, digits = _p256_scan_case(8, cuda_device)
+    with pytest.raises(ValueError):
+        scan_kernels.horner_scan_p256(qx, qy, digits.cpu())
+
+
+@pytest.mark.cuda
+def test_p256_engine_on_card_matches_reference_and_launches_once(cuda_device):
+    rng = np.random.default_rng(5)
+    privs = [int.from_bytes(rng.bytes(32), "big") % (mp.N - 1) + 1 for _ in range(8)]
+    keys = [mp.ref_p256_public_key(d) for d in privs]
+    msgs = [b"m-%d" % i for i in range(8)]
+    sigs = [mp.ref_p256_sign(d, m) for d, m in zip(privs, msgs)]
+    sigs[0] = sigs[0][:32] + mp.N.to_bytes(32, "big")                    # s = n
+    keys[1] = b"\x04" + keys[1][1:33] + bytes(32)                         # off the curve
+    msgs[2] = b"x" + msgs[2]                                              # wrong message
+    s3 = int.from_bytes(sigs[3][32:], "big")
+    sigs[3] = sigs[3][:32] + (mp.N - s3).to_bytes(32, "big")              # high s: accepted
+    engine = engine_for_config(Configuration(crypto_tpu_min_batch=1), curve="p256")
+    assert engine.device.type == "cuda"
+    before = (scan_kernels.launches, scan_kernels.launches_p256)
+    got = engine.verify_batch(msgs, sigs, keys)
+    assert (scan_kernels.launches, scan_kernels.launches_p256) == (before[0], before[1] + 1)
+    want = [mp.ref_p256_verify(k, s, m) for m, s, k in zip(msgs, sigs, keys)]
+    assert got.tolist() == want == [False] * 3 + [True] * 5

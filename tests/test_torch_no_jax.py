@@ -4,8 +4,9 @@ chip_smoke.py whose phases rehearse on the CPU.
 ``consensus_tpu_torch`` and ``chip_smoke.py`` may import neither ``jax``,
 ``jaxlib`` nor ``consensus_tpu`` (the exact names or their submodules),
 checked both statically (AST) and in a fresh interpreter (``sys.modules``).
-The smoke script's phases run here with ``device="cpu"`` at 8-16 lanes, and
-its entry point refuses to run without a card.
+The smoke script's phases (the Ed25519 path's and the P-256 path's) run
+here with ``device="cpu"`` at 8-16 lanes, and its entry point refuses to run
+without a card.
 """
 
 import ast
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import chip_smoke
+from consensus_tpu_torch.ops import scan_kernels
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "consensus_tpu_torch"
@@ -99,6 +101,55 @@ def test_horner_bound_counts_the_work():
     assert b["bytes"] == 8 * 32 * 8192 * 4 + 64 * 8192 * 4
     assert b["products"] == (1471 * 72 + 1024 * 44) * 8192
     assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
+
+
+def test_chip_smoke_p256_phases_rehearse_on_cpu(monkeypatch):
+    corpus = chip_smoke.make_p256_corpus(16, per_class=1)
+    msgs, sigs, keys, expected, special = corpus
+    # 12 rejection classes and the accepted high-s class, one lane each.
+    assert len(msgs) == 16 and len(special) == 13
+    assert sorted(np.flatnonzero(~expected).tolist()) == sorted(special[:12])
+    k = chip_smoke.phase_kernel_p256("cpu", corpus, replicas=1, reps=1, plain_reps=1)
+    assert k["lanes"] == 16 and k["max_abs_err"] == 0.0 and k["padded_lanes"] == 0
+    # Off the curve: the off-curve key, and the zeros of the lanes of the 9
+    # classes the host rejects before the device.
+    assert k["off_curve_lanes"] == 10
+    # The profiled re-run records every torch op, and on the CPU the plain
+    # scan is ~1.4 million of them, which the profiler takes minutes to
+    # sort.  Here the scan's result on the wave's own inputs stands in for
+    # it after its first call, as the kernel does on the card.
+    real, seen = scan_kernels.horner_scan_p256, {}
+
+    def remembered_scan(qx, qy, digits):
+        key = (qx.numpy().tobytes(), qy.numpy().tobytes(), digits.numpy().tobytes())
+        if key not in seen:
+            seen[key] = real(qx, qy, digits)
+        return seen[key]
+
+    monkeypatch.setattr(scan_kernels, "horner_scan_p256", remembered_scan)
+    w = chip_smoke.phase_wave_p256("cpu", corpus, replicas=1)
+    assert len(seen) == 1  # the wave and its profiled re-run: the same inputs
+    assert w["signatures"] == 16 and w["padded"] == 16 and w["rejected"] == 12
+    assert w["high_s_accepted"] == 1 and w["reference_checked"] == 16
+    # The plain version runs on the CPU: no kernel launch, and the 3-vote
+    # quorum takes the host path.
+    assert w["wave_launches"] == 0 and w["other_launches"] == 0
+    assert w["quorum_launches"] == 0 and w["quorum_size"] == 3 < w["min_device_batch"]
+    p = w["profiled"]
+    assert list(p["ranges"]) == list(chip_smoke.P256_WAVE_RANGES)
+    assert all(r["host_ms"] > 0 and r["device_ms"] is None for r in p["ranges"].values())
+    assert p["busy_ms"] is None and p["busy_share"] is None and p["unranged_ms"] is None
+
+
+def test_p256_bound_counts_the_work():
+    b = chip_smoke.p256_bound(2048, sm_count=132, sm_clock_hz=1.98e9)
+    # 72 complete adds x 14 multiplications and 260 doubles x (10 + 3).
+    assert (chip_smoke.P256_MULS, chip_smoke.P256_SQUARES) == (3608, 780)
+    assert (chip_smoke.P256_MUL_PRODUCTS, chip_smoke.P256_SQUARE_PRODUCTS) == (64, 36)
+    assert b["products"] == 258_992 * 2048 == 530_415_616
+    assert b["bytes"] == (5 * 32 + 65) * 2048 * 4 == 1_843_200
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
+    assert abs(b["ops_ms"] - 0.031710) < 1e-6
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys):

@@ -19,6 +19,7 @@ from consensus_tpu.models import ed25519 as jmed
 from consensus_tpu.models import verifier as jver
 from consensus_tpu.types import Proposal as JaxProposal
 from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
 from consensus_tpu_torch.models import ed25519 as tmed
 from consensus_tpu_torch.models import verifier as tver
 from consensus_tpu_torch.testing.crypto_app import SigOnlyVerifier
@@ -220,8 +221,12 @@ def test_engine_for_config_default_and_unported_lanes():
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tver.engine_for_config(Configuration(**knobs), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tver.engine_for_config(Configuration(), "p256", device="cpu")
+    # P-256 is ported: its default configuration routes to the P-256 engine
+    # (its own lanes are pinned in tests/test_torch_ecdsa_p256.py).
+    assert isinstance(
+        tver.engine_for_config(Configuration(), "p256", device="cpu"),
+        EcdsaP256BatchVerifier,
+    )
     with pytest.raises(ValueError):
         tver.engine_for_config(Configuration(), "ed448", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
