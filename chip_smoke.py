@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the engines a user would call:
+Drives the port's three main paths through the engines a user would call:
 
 * strict Ed25519 batch verification at the size of one block of a
   7-replica (f=2) Ed25519 deployment with 1,000 requests per block
@@ -11,7 +11,10 @@ Drives the port's two main paths through the engines a user would call:
 * ECDSA-P256 batch verification at the size of one block of a 4-replica
   (f=1) naive_chain deployment with 500 requests per proposal
   (BASELINE.json config 2, ECDSA-P256 as in config 1): one wave of 2,000
-  signatures, padded to 2,048 lanes.
+  signatures, padded to 2,048 lanes;
+* randomized Ed25519 batch verification (``batch_verify_mode``) at config
+  3's size: the same 7,000-signature block wave, checked in aggregate, and
+  a sync catch-up chunk of 51 decisions' 5-vote quorums.
 
 Phases:
 
@@ -33,7 +36,22 @@ Phases:
    the JAX engine mixed in, verdicts held against the construction and the
    pure-Python reference, launch counts read around the run, a profiled
    re-run's stage split, then a 2f+1 commit quorum through
-   ``EcdsaP256VerifierMixin.verify_consenter_sigs_batch``.
+   ``EcdsaP256VerifierMixin.verify_consenter_sigs_batch``;
+6. the Straus MSM kernel B3 against its plain torch version on the card on
+   the phase-7 wave's first aggregate (its transcript's digits, padded and
+   undecodable lanes masked to digit 8), compared in affine coordinates with
+   tolerance 0, with its time, the plain version's and its bound;
+7. the randomized path: the config-3 wave with the host-rejected and
+   undecodable classes mixed in, through ``engine_for_config(
+   Configuration(batch_verify_mode=True))``, verdicts held against the
+   construction, the strict engine and the RFC 8032 reference, launch counts
+   read around the run (B3 twice: the aggregate, then the survivors'
+   re-check), and a profiled re-run's stage split;
+8. a sync catch-up chunk: 51 decisions' 5-vote quorums (255 votes, 3 of
+   them forged) through ``verify_consenter_sigs_multi_batch`` on the
+   randomized engine, the forged votes localized by bisection, and B3's
+   launches equal to the bisection nodes of at least
+   ``crypto_tpu_min_batch`` votes counted on the host.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -131,6 +149,25 @@ _REJECTION_CLASSES = (
     "tampered_s", "s_ge_l", "r_y_ge_p", "a_y_ge_p",
     "wrong_key", "wrong_message", "bad_length", "off_curve_y",
 )
+#: The randomized wave's classes: four the host rejects before the device,
+#: and two that fail decompression (A off the curve, R off the curve).  No
+#: forgery: the wave takes the aggregate check and the survivors' re-check.
+RANDOMIZED_CLASSES = (
+    "s_ge_l", "r_y_ge_p", "a_y_ge_p", "bad_length", "off_curve_y", "r_off_curve",
+)
+
+#: The randomized device check's record_function ranges, in the order they run.
+BATCH_RANGES = (
+    "ed25519.batch.host_prep", "ed25519.batch.decompress", "ed25519.batch.negate",
+    "ed25519.batch.straus_msm", "ed25519.batch.comb", "ed25519.batch.check",
+)
+#: Field multiplications and squarings of one point add (8 + 1 by 2d), one
+#: double without T (3 + 4) and one with T (4 + 4).
+ADD_MULS = 9
+DOUBLE_MULS, DOUBLE_SQUARES = 3, 4
+DOUBLE_T_MULS, DOUBLE_T_SQUARES = 4, 4
+#: The sync catch-up chunk of phase 8: 51 decisions, a 2f+1 quorum each.
+CATCH_UP_DECISIONS = 51
 
 
 def log(*parts) -> None:
@@ -158,14 +195,17 @@ def _off_curve_ys(count: int) -> list[int]:
     return ys
 
 
-def make_corpus(n_requests: int, per_class: int, seed: int = SEED):
+def make_corpus(
+    n_requests: int, per_class: int, seed: int = SEED, classes=_REJECTION_CLASSES
+):
     """``n_requests`` client requests signed with the port's ``ref_sign``
     (client keys and bodies from numpy seed ``seed``), with ``per_class``
-    lanes of each rejection class of the JAX package's test matrix.
+    lanes of each rejection class of ``classes`` (by default the JAX
+    package's test matrix; ``r_off_curve`` puts R's y off the curve).
 
     Returns (messages, signatures, keys, expected verdicts, tampered index
     list)."""
-    n_bad = per_class * len(_REJECTION_CLASSES)
+    n_bad = per_class * len(classes)
     if n_requests < n_bad + 1:
         raise ValueError("corpus too small for the rejection classes")
     rng = np.random.default_rng(seed)
@@ -179,7 +219,7 @@ def make_corpus(n_requests: int, per_class: int, seed: int = SEED):
     bad = rng.permutation(n_requests)[:n_bad].tolist()
     off_curve = _off_curve_ys(per_class)
     for j, i in enumerate(bad):
-        kind = _REJECTION_CLASSES[j // per_class]
+        kind = classes[j // per_class]
         k = j % per_class
         sig = sigs[i]
         s = int.from_bytes(sig[32:], "little")
@@ -198,8 +238,12 @@ def make_corpus(n_requests: int, per_class: int, seed: int = SEED):
             msgs[i] = msgs[i] + b"!"
         elif kind == "bad_length":
             sigs[i] = sig[:63] if k % 2 == 0 else sig + b"\x00"
-        else:  # off_curve_y
+        elif kind == "off_curve_y":
             keys[i] = off_curve[k].to_bytes(32, "little")
+        elif kind == "r_off_curve":
+            sigs[i] = off_curve[k].to_bytes(32, "little") + sig[32:]
+        else:
+            raise ValueError(f"unknown rejection class {kind!r}")
         expected[i] = False
     return msgs, sigs, keys, expected, bad
 
@@ -398,23 +442,21 @@ def phase_wave(device, corpus, replicas: int) -> dict:
         engine=engine_for_config(Configuration(), device=device),
     )
     engine = verifier.engine
-    wave_msgs, wave_sigs, wave_keys = msgs * replicas, sigs * replicas, keys * replicas
-    want = np.tile(expected, replicas)
+    wave_msgs, wave_sigs, wave_keys, want = replica_wave(corpus, replicas)
     ed.comb_table(device)  # the constant table is set-up, not part of the wave
 
     # The main path, with the launch counts read around it.
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    scan_kernels.launches = 0
-    scan_kernels.launches_p256 = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     wave_launches = scan_kernels.launches
-    other_launches = scan_kernels.launches_p256
+    other_launches = scan_kernels.launches_p256 + scan_kernels.launches_msm
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -540,7 +582,7 @@ def make_p256_corpus(n_requests: int, per_class: int, seed: int = SEED):
     return msgs, sigs, keys, expected, special
 
 
-def p256_wave(corpus, replicas: int):
+def replica_wave(corpus, replicas: int):
     """The wave of ``replicas`` replicas each verifying every request of
     ``corpus``: (messages, signatures, keys, expected verdicts)."""
     msgs, sigs, keys, expected, _ = corpus
@@ -553,7 +595,7 @@ def p256_scan_inputs(corpus, replicas: int, device):
     digits widened to int32), with counts of the lanes whose key is off the
     curve (padded and host-rejected lanes hold zeros) and of the padded
     lanes, whose digits are all 0 (d = -8 in every window)."""
-    msgs, sigs, keys, _ = p256_wave(corpus, replicas)
+    msgs, sigs, keys, _ = replica_wave(corpus, replicas)
     engine = mp.EcdsaP256BatchVerifier(device=device)
     qx, qy, _, u2d, *_ = engine.prepare_device_inputs(msgs, sigs, keys)
     qx = qx.to(torch.float32).contiguous()
@@ -641,22 +683,21 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
         engine=engine_for_config(Configuration(), curve="p256", device=device),
     )
     engine = verifier.engine
-    wave_msgs, wave_sigs, wave_keys, want = p256_wave(corpus, replicas)
+    wave_msgs, wave_sigs, wave_keys, want = replica_wave(corpus, replicas)
     p256.comb_table(device)  # the constant table is set-up, not part of the wave
 
     # The main path, with the launch counts read around it.
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    scan_kernels.launches = 0
-    scan_kernels.launches_p256 = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     wave_launches = scan_kernels.launches_p256
-    other_launches = scan_kernels.launches
+    other_launches = scan_kernels.launches + scan_kernels.launches_msm
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -713,6 +754,269 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
         "quorum_launches": quorum_launches,
         "min_device_batch": Configuration().crypto_tpu_min_batch,
         "peak_bytes": peak,
+    }
+
+
+# --- randomized Ed25519: phase 6 (kernel B3), 7 (the wave), 8 (catch-up) ------
+
+
+def msm_bound(lanes: int, live_lanes: int, n_low: int, sm_count: int,
+              sm_clock_hz: float) -> dict:
+    """Least time for the Straus MSM's work at ``lanes`` lanes, of which
+    ``live_lanes`` have a nonzero digit: the larger of the 32x32->64-bit
+    products its field multiplications and squarings need over the card's
+    IMAD rate, and its bytes (eight (32, lanes) f32 coordinates, (64 + n_low,
+    lanes) int32 digits in, four (32, 1) f32 coordinates out) over the
+    memory rate.
+
+    The work the function needs on this data: per live lane 14 table adds (7
+    per point), ``n_low`` adds combining the A and R entries and 64 adds
+    summing its window contributions (per window, the live lanes' sum and
+    its add into the accumulator); one doubling chain of 64 windows, each 3
+    doubles without T and 1 with T.  A lane whose digits are all 8 adds the
+    identity and needs no work."""
+    adds = live_lanes * (2 * 7 + n_low + 64)
+    doubles, doubles_t = 64 * 3, 64
+    muls = adds * ADD_MULS + doubles * DOUBLE_MULS + doubles_t * DOUBLE_T_MULS
+    squares = doubles * DOUBLE_SQUARES + doubles_t * DOUBLE_T_SQUARES
+    products = muls * MUL_PRODUCTS + squares * SQUARE_PRODUCTS
+    ops_ms = products / (sm_count * IMAD_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
+    n_bytes = (8 * fe.LIMBS + 64 + n_low) * lanes * 4 + 4 * fe.LIMBS * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": bound_by, "adds": adds,
+            "doubles": doubles + doubles_t, "products": products, "bytes": n_bytes,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def msm_wave_inputs(corpus, replicas: int, device):
+    """Kernel B3's inputs on the randomized path: the first aggregate of the
+    wave of ``corpus`` as the engine builds it (the lanes that pass the host
+    pre-checks, their transcript's digits, padded), through
+    ``msm_inputs``, which masks padded and undecodable lanes to digit 8.
+    Returns ((-A, -R, zk digits, z digits), masked lanes, padded lanes)."""
+    msgs, sigs, keys, _ = replica_wave(corpus, replicas)
+    engine = engine_for_config(Configuration(batch_verify_mode=True), device=device)
+    host_ok, scalars = engine._host_scalars(msgs, sigs, keys)
+    idx = np.flatnonzero(host_ok).tolist()
+    zs = med._transcript_coefficients(
+        [msgs[i] for i in idx], [sigs[i] for i in idx], [keys[i] for i in idx]
+    )
+    y_r, sign_r, y_a, sign_a, _, zk, z, ok = engine._aggregate_device_inputs(
+        idx, sigs, keys, scalars, zs
+    )
+    neg_a, neg_r, zk, z, valid = med.msm_inputs(y_r, sign_r, y_a, sign_a, zk, z, ok)
+    padded = zk.shape[1] - len(idx)
+    return (neg_a, neg_r, zk, z), int((~valid).sum()) - padded, padded
+
+
+def affine(p: ed.Point) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonical limbs of x = X/Z and y = Y/Z."""
+    zinv = fe.invert(p.z)
+    return fe.freeze(fe.mul(p.x, zinv)), fe.freeze(fe.mul(p.y, zinv))
+
+
+def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
+    """straus_msm (the kernel on CUDA) against straus_msm_reference on the
+    randomized wave's first aggregate: the affine x and y of the two
+    results equal (the projective representatives differ by design),
+    tolerance 0, and not the identity.  The plain version runs once."""
+    device = torch.device(device)
+    inputs, masked, padded = msm_wave_inputs(corpus, replicas, device)
+    lanes = inputs[2].shape[1]
+    live = int(((inputs[2] != 8).any(0) | (inputs[3] != 8).any(0)).sum())
+    got = scan_kernels.straus_msm(*inputs)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = scan_kernels.straus_msm_reference(*inputs)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    max_err = 0.0
+    for name, g, w in zip("xy", affine(got), affine(want)):
+        max_err = max(max_err, float((g - w).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"straus_msm: affine {name} differs from the plain version")
+    if bool(ed.is_identity(got).all()):
+        raise AssertionError("straus_msm: the wave's aggregate MSM is the identity")
+    ms = _time_ms(lambda: scan_kernels.straus_msm(*inputs), reps, device)
+    return {"lanes": lanes, "n_low": inputs[3].shape[0], "masked_lanes": masked,
+            "padded_lanes": padded, "live_lanes": live, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _launch_counts() -> tuple[int, int, int]:
+    return scan_kernels.launches, scan_kernels.launches_p256, scan_kernels.launches_msm
+
+
+def _reset_launch_counts() -> None:
+    scan_kernels.launches = scan_kernels.launches_p256 = scan_kernels.launches_msm = 0
+
+
+def phase_wave_randomized(device, corpus, replicas: int) -> dict:
+    """One block's request wave on the randomized engine from
+    ``engine_for_config(Configuration(batch_verify_mode=True))``: verdicts
+    against the construction, the strict engine on the same wave (run
+    before the counted window) and the RFC 8032 reference."""
+    device = torch.device(device)
+    msgs, sigs, keys, expected, bad = corpus
+    n_requests = len(msgs)
+    engine = engine_for_config(Configuration(batch_verify_mode=True), device=device)
+    strict = engine_for_config(Configuration(), device=device)
+    wave_msgs, wave_sigs, wave_keys, want = replica_wave(corpus, replicas)
+    ed.comb_table(device)  # the constant table is set-up, not part of the wave
+    strict_got = strict.verify_batch(wave_msgs, wave_sigs, wave_keys)
+
+    # The main path, with the launch counts read around it.
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    horner, horner_p256, msm = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        wrong = np.flatnonzero(got != want)
+        raise AssertionError(f"randomized verdicts differ from the construction at {wrong[:16]}")
+    if not np.array_equal(got, strict_got):
+        raise AssertionError("randomized verdicts differ from the strict engine's")
+    rng = np.random.default_rng(SEED + 3)
+    valid_idx = np.flatnonzero(expected)
+    sample = rng.choice(valid_idx, size=min(64, valid_idx.size), replace=False)
+    checked = sorted(set(bad) | set(sample.tolist()))
+    canon = med.Ed25519BatchVerifier._canonical_ok(
+        [sigs[i] for i in checked], [keys[i] for i in checked]
+    )
+    for j, i in enumerate(checked):
+        ref = bool(canon[j]) and med.ref_verify(keys[i], sigs[i], msgs[i])
+        lanes = got[i::n_requests]
+        if not (lanes == ref).all():
+            raise AssertionError(f"request {i}: randomized wave {lanes} vs reference {ref}")
+
+    prof = profile_wave(
+        engine, wave_msgs, wave_sigs, wave_keys, device,
+        wave_ranges=BATCH_RANGES, kernel="straus_msm",
+    )
+    if not np.array_equal(prof.pop("verdicts"), got):
+        raise AssertionError("profiled re-run of the randomized wave disagrees with the wave")
+    n = len(wave_msgs)
+    return {
+        "signatures": n,
+        "padded": engine.padded_size(n),
+        "rejected": int((~got).sum()),
+        "host_rejected": int((~engine._canonical_ok(wave_sigs, wave_keys)).sum()),
+        "reference_checked": len(checked),
+        "wave_ms": wave_s * 1e3,
+        "sigs_per_s": n / wave_s,
+        "profiled": prof,
+        "msm_launches": msm,
+        "horner_launches": horner,
+        "horner_p256_launches": horner_p256,
+        "peak_bytes": peak,
+    }
+
+
+def bisection_nodes(n: int, forged, min_device: int, min_randomized: int = 2) -> tuple[int, int]:
+    """Aggregate checks that the randomized engine's bisection makes over
+    ``n`` lanes that all pass the host pre-checks and decompress, with the
+    forgeries at positions ``forged``: (checks of at least ``min_device``
+    lanes, on the device; checks below that, on the host).  Counted here
+    from the positions alone, independently of the engine."""
+    forged = sorted(forged)
+    device = host = 0
+    stack = [(0, n)]
+    while stack:
+        lo, hi = stack.pop()
+        size = hi - lo
+        if size < min_randomized:
+            continue  # decided by the strict engine
+        if size >= min_device:
+            device += 1
+        else:
+            host += 1
+        if any(lo <= f < hi for f in forged):
+            mid = lo + size // 2
+            stack += [(lo, mid), (mid, hi)]
+    return device, host
+
+
+def catch_up_chunk(decisions: int, seed: int = SEED):
+    """A sync catch-up chunk of config 3: ``decisions`` decisions, each with
+    a 2f+1 = 5-vote commit quorum from the 7 replicas (a rotating window of
+    signers), and 3 forged votes at positions drawn from numpy seed
+    ``seed``: a flipped S bit, a vote signed with another replica's key, and
+    a vote over another decision's digest.
+
+    Returns (signers, groups, expected aux per vote, forged flat positions)."""
+    signers = [Ed25519Signer(i + 1, bytes([i + 1]) * 32) for i in range(REPLICAS)]
+    groups = []
+    for d in range(decisions):
+        proposal = Proposal(payload=b"block-%d" % d, metadata=b"view-0/seq-%d" % d)
+        voters = [signers[(d + j) % REPLICAS] for j in range(QUORUM)]
+        groups.append((proposal, [v.sign_proposal(proposal, b"aux-%d" % v.node_id) for v in voters]))
+    n = decisions * QUORUM
+    forged = sorted(np.random.default_rng(seed).choice(n, size=3, replace=False).tolist())
+    for kind, pos in zip(("flipped_s", "wrong_key", "other_digest"), forged):
+        proposal, cert = groups[pos // QUORUM]
+        vote = cert[pos % QUORUM]
+        if kind == "flipped_s":
+            value = bytearray(vote.value)
+            value[32] ^= 1  # S changes by 1: still below L, wrong by math
+            value = bytes(value)
+        elif kind == "wrong_key":
+            other = signers[vote.id % REPLICAS]  # the next replica
+            value = other.sign_proposal(proposal, vote.msg).value
+        else:
+            other = groups[(pos // QUORUM + 1) % decisions][0]
+            value = signers[vote.id - 1].sign_proposal(other, vote.msg).value
+        if int.from_bytes(value[32:], "little") >= med.L:
+            raise AssertionError("catch-up chunk: a forged S left [0, L)")
+        cert[pos % QUORUM] = type(vote)(id=vote.id, value=value, msg=vote.msg)
+    expected = [
+        [None if g * QUORUM + j in forged else sig.msg for j, sig in enumerate(cert)]
+        for g, (_, cert) in enumerate(groups)
+    ]
+    return signers, groups, expected, forged
+
+
+def phase_catch_up(device, decisions: int) -> dict:
+    """A sync catch-up chunk through ``verify_consenter_sigs_multi_batch`` of
+    a SigOnlyVerifier on the randomized engine: the 3 forged votes come back
+    None and every other vote its aux, equal to the strict engine's answer,
+    with B3 launched once per bisection node of at least
+    ``crypto_tpu_min_batch`` votes."""
+    device = torch.device(device)
+    signers, groups, expected, forged = catch_up_chunk(decisions)
+    keys = {s.node_id: s.public_bytes for s in signers}
+    config = Configuration(batch_verify_mode=True)
+    verifier = SigOnlyVerifier(keys, engine=engine_for_config(config, device=device))
+    strict = SigOnlyVerifier(keys, engine=engine_for_config(Configuration(), device=device))
+    strict_out = strict.verify_consenter_sigs_multi_batch(groups)
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    out = verifier.verify_consenter_sigs_multi_batch(groups)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    horner, horner_p256, msm = _launch_counts()
+    if out != expected:
+        raise AssertionError("catch-up chunk: verdicts differ from the construction")
+    if out != strict_out:
+        raise AssertionError("catch-up chunk: randomized verdicts differ from the strict engine's")
+    n = decisions * QUORUM
+    device_checks, host_checks = bisection_nodes(n, forged, config.crypto_tpu_min_batch)
+    return {
+        "decisions": decisions, "votes": n, "padded": verifier.engine.padded_size(n),
+        "forged": forged, "rejected": sum(v is None for row in out for v in row),
+        "chunk_ms": chunk_s * 1e3, "msm_launches": msm, "horner_launches": horner,
+        "horner_p256_launches": horner_p256, "device_checks": device_checks,
+        "host_checks": host_checks, "min_device_batch": config.crypto_tpu_min_batch,
     }
 
 
@@ -800,7 +1104,7 @@ def main() -> int:
     log(f"  end to end {w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize())")
     if w["other_launches"] != 0:
-        raise AssertionError("the Ed25519 wave launched horner_scan_p256")
+        raise AssertionError("the Ed25519 wave launched horner_scan_p256 or straus_msm")
     log_profile(w["profiled"], "horner_scan")
     log(f"  torch.cuda.max_memory_allocated: {w['peak_bytes']} bytes")
     log(f"commit quorum: {w['quorum_size']} signatures < crypto_tpu_min_batch "
@@ -837,7 +1141,7 @@ def main() -> int:
             f"P-256 wave launched horner_scan_p256 {w2['wave_launches']} times, not 1"
         )
     if w2["other_launches"] != 0:
-        raise AssertionError("the P-256 wave launched horner_scan")
+        raise AssertionError("the P-256 wave launched horner_scan or straus_msm")
     if w2["quorum_launches"] != 0:
         raise AssertionError("the P-256 commit quorum launched a kernel")
     log(f"wave: {w2['signatures']} signatures padded to {w2['padded']}, "
@@ -852,6 +1156,70 @@ def main() -> int:
     log(f"commit quorum: {w2['quorum_size']} signatures < crypto_tpu_min_batch "
         f"{w2['min_device_batch']}, verified through EcdsaP256VerifierMixin on the "
         f"engine's host path (ref_p256_verify), {w2['quorum_launches']} kernel launches")
+
+    # Phase 6: kernel B3 against its plain version on the randomized wave's inputs.
+    log("== phase 6: straus_msm against straus_msm_reference")
+    t0 = time.perf_counter()
+    rand_corpus = make_corpus(REQUESTS, per_class=5, classes=RANDOMIZED_CLASSES)
+    log(f"randomized corpus: {REQUESTS} requests signed with ref_sign, 5 lanes of each "
+        f"of {', '.join(RANDOMIZED_CLASSES)}, in {time.perf_counter() - t0:.3f} s")
+    k3 = phase_kernel_msm(device, rand_corpus, REPLICAS, reps=20)
+    bound3 = msm_bound(k3["lanes"], k3["live_lanes"], k3["n_low"],
+                       props.multi_processor_count, sm_clock_hz)
+    log(f"straus_msm at {k3['lanes']} lanes (the first aggregate of the phase-7 wave; "
+        f"{k3['masked_lanes']} undecodable and {k3['padded_lanes']} padded lanes masked to "
+        f"digit 8): affine x and y equal to the plain version's (max abs err "
+        f"{k3['max_abs_err']}), not the identity")
+    log(f"  kernel {k3['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up; "
+        f"the blocks' partial sums and their join)")
+    log(f"  plain torch version {k3['plain_ms']:.6f} ms (one run, host clock to synchronize)")
+    log(f"  bound {bound3['bound_ms']:.6f} ms, by {bound3['bound_by']}: {bound3['adds']} adds "
+        f"(14 + {k3['n_low']} + 64 for each of the {k3['live_lanes']} lanes with a nonzero "
+        f"digit) x {ADD_MULS} multiplications and {bound3['doubles']} doubles (one chain), "
+        f"{bound3['products']} IMAD.WIDE over {props.multi_processor_count} SMs x "
+        f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
+        f"{bound3['ops_ms']:.6f} ms; {bound3['bytes']} bytes over 3.35 TB/s = "
+        f"{bound3['bytes_ms']:.6f} ms")
+    log("  library: none (no PyTorch call computes an Edwards multi-scalar multiplication)")
+
+    # Phase 7: the randomized path.
+    log("== phase 7: config-3 randomized wave (batch_verify_mode=True)")
+    w3 = phase_wave_randomized(device, rand_corpus, replicas=REPLICAS)
+    if w3["msm_launches"] != 2:
+        raise AssertionError(
+            f"randomized wave launched straus_msm {w3['msm_launches']} times, not 2"
+        )
+    if w3["horner_launches"] or w3["horner_p256_launches"]:
+        raise AssertionError("the randomized wave launched a Horner scan kernel")
+    log(f"wave: {w3['signatures']} signatures padded to {w3['padded']}, {w3['rejected']} "
+        f"rejected as constructed ({w3['host_rejected']} by the host pre-checks, the rest "
+        f"undecodable), equal to the strict engine's verdicts; {w3['reference_checked']} "
+        f"requests held against ref_verify + _canonical_ok")
+    log(f"  straus_msm launches in the wave: {w3['msm_launches']} (the aggregate, then the "
+        f"survivors' re-check); horner_scan {w3['horner_launches']}, horner_scan_p256 "
+        f"{w3['horner_p256_launches']}")
+    log(f"  end to end {w3['wave_ms']:.3f} ms = {w3['sigs_per_s']:.1f} signatures/s "
+        f"(host clock, ending in torch.cuda.synchronize()); the strict wave of phase 3: "
+        f"{w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s")
+    log_profile(w3["profiled"], "straus_msm")
+    log(f"  torch.cuda.max_memory_allocated: {w3['peak_bytes']} bytes")
+
+    # Phase 8: a sync catch-up chunk on the randomized engine.
+    log("== phase 8: config-3 catch-up chunk (51 decisions x 5-vote quorums)")
+    c = phase_catch_up(device, CATCH_UP_DECISIONS)
+    if c["msm_launches"] != c["device_checks"]:
+        raise AssertionError(
+            f"catch-up chunk launched straus_msm {c['msm_launches']} times, but bisection "
+            f"has {c['device_checks']} nodes of >= {c['min_device_batch']} votes"
+        )
+    if c["horner_launches"] or c["horner_p256_launches"]:
+        raise AssertionError("the catch-up chunk launched a Horner scan kernel")
+    log(f"chunk: {c['votes']} votes padded to {c['padded']} in one "
+        f"verify_consenter_sigs_multi_batch call; forged votes at {c['forged']} came back "
+        f"None ({c['rejected']} rejected), equal to the strict engine's answer")
+    log(f"  aggregate checks: {c['device_checks']} on the device (>= {c['min_device_batch']} "
+        f"votes; straus_msm launches {c['msm_launches']}), {c['host_checks']} on the host")
+    log(f"  end to end {c['chunk_ms']:.3f} ms (host clock, ending in torch.cuda.synchronize())")
 
     log(card)
     log(json.dumps({"kernels": [
@@ -879,6 +1247,19 @@ def main() -> int:
             "plain_ms": k2["plain_ms"],
             "bound_ms": bound2["bound_ms"],
             "bound_by": bound2["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "straus_msm",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/straus_msm.cu",
+            "replaces": "consensus_tpu/ops/pallas_scan.py:507",
+            "launches": w3["msm_launches"],
+            "max_abs_err": k3["max_abs_err"],
+            "ms": k3["ms"],
+            "plain_ms": k3["plain_ms"],
+            "bound_ms": bound3["bound_ms"],
+            "bound_by": bound3["bound_by"],
             "library_ms": None,
         },
     ]}))

@@ -8,11 +8,11 @@ needs.  Every entry point runs on ``cuda`` unless the caller passes
 
 Layout:
     ops/       GF(2^255-19) and GF(p256) limb arithmetic, edwards25519 and
-               P-256 formulas, and the Horner-scan kernel wrappers (CUDA on
-               the card, torch on CPU)
+               P-256 formulas, and the Horner-scan and Straus-MSM kernel
+               wrappers (CUDA on the card, torch on CPU)
     csrc/      hand-written CUDA sources, built with nvcc on first use
-    models/    the strict Ed25519 and ECDSA-P256 batch verifiers, their
-               signers and Verifier-port mixins
+    models/    the strict and randomized Ed25519 and the ECDSA-P256 batch
+               verifiers, their signers and Verifier-port mixins
     api/       the Signer / Verifier ports
     testing/   SigOnlyVerifier
 """

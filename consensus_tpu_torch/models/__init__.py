@@ -2,7 +2,11 @@
 :mod:`consensus_tpu_torch.ops`."""
 
 from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
-from consensus_tpu_torch.models.ed25519 import Ed25519BatchVerifier, L
+from consensus_tpu_torch.models.ed25519 import (
+    Ed25519BatchVerifier,
+    Ed25519RandomizedBatchVerifier,
+    L,
+)
 from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
     EcdsaP256VerifierMixin,
@@ -18,6 +22,7 @@ __all__ = [
     "EcdsaP256Signer",
     "EcdsaP256VerifierMixin",
     "Ed25519BatchVerifier",
+    "Ed25519RandomizedBatchVerifier",
     "Ed25519Signer",
     "Ed25519VerifierMixin",
     "L",

@@ -1,5 +1,5 @@
-"""Strict batched Ed25519 signature verification (torch port of the strict
-half of ``consensus_tpu/models/ed25519.py``).
+"""Batched Ed25519 signature verification, strict and randomized (torch
+port of ``consensus_tpu/models/ed25519.py``).
 
 Split of labor:
 
@@ -15,9 +15,14 @@ Split of labor:
 Batches are padded to the next power of two (``pad_pow2``) or to a fixed
 ``pad_to``; padding lanes carry y = 0 and ``host_ok = False``.
 
-The randomized lane (``Ed25519RandomizedBatchVerifier``) is not ported
-yet.  The pure-Python RFC 8032 reference at the bottom is the host path
-for small batches and the signer of :mod:`consensus_tpu_torch.models.verifier`.
+The randomized lane (:class:`Ed25519RandomizedBatchVerifier`) checks a whole
+batch in one aggregate equation, sum z_i (S_i B - k_i A_i - R_i) = 0 with
+128-bit transcript coefficients z_i, and bisects only when it fails.  Its
+device body :func:`batch_verify_impl` runs the shared-doubling multi-scalar
+multiplication in the hand-written Straus MSM kernel
+(:func:`consensus_tpu_torch.ops.scan_kernels.straus_msm`).  The pure-Python
+RFC 8032 reference at the bottom is the host path for small batches and the
+signer of :mod:`consensus_tpu_torch.models.verifier`.
 """
 
 from __future__ import annotations
@@ -116,15 +121,15 @@ def _prep_compressed(points: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray, n
     return rows, signs, ok  # byte-sized limbs: the bytes ARE the limbs
 
 
-def _bits_to_signed_window_digits(bits: np.ndarray) -> np.ndarray:
-    """(n, 256) LSB-first bit rows -> (64, n) SIGNED 4-bit digits in
-    [-8, 7], encoded as d+8 (uint8), MSB window first.  k < L < 2^253, so
-    the recoding carry never escapes the top window."""
+def _bits_to_signed_window_digits(bits: np.ndarray, windows: int = _WINDOWS) -> np.ndarray:
+    """(n, 4 * windows) LSB-first bit rows -> (windows, n) SIGNED 4-bit
+    digits in [-8, 7], encoded as d+8 (uint8), MSB window first.  k < L <
+    2^253, so the recoding carry never escapes the top of 64 windows."""
     weights = np.array([1, 2, 4, 8], dtype=np.int32)
-    u = bits.reshape(bits.shape[0], _WINDOWS, _WINDOW_BITS) @ weights  # (n, 64)
+    u = bits.reshape(bits.shape[0], windows, _WINDOW_BITS) @ weights  # (n, windows)
     d = np.zeros_like(u)
     carry = np.zeros(u.shape[0], dtype=u.dtype)
-    for j in range(_WINDOWS):
+    for j in range(windows):
         t = u[:, j] + carry
         over = t >= 8
         d[:, j] = np.where(over, t - 16, t)
@@ -333,6 +338,338 @@ class Ed25519BatchVerifier:
         return self._verify_host(messages, signatures, public_keys)
 
 
+# --- randomized batch verification ------------------------------------------
+# One aggregate check for the whole batch: sum z_i (S_i B - k_i A_i - R_i) = 0
+# with independent 128-bit coefficients z_i.  A batch containing any forgery
+# passes with probability <= 2^-128 over the choice of z; the 256-bit
+# variable-base doubling chain is paid once per batch, not per signature.
+
+_Z_BITS = 128
+#: Signed-4-bit windows for a 128-bit coefficient: 32 value windows plus one
+#: for the recoding carry.
+_Z_WINDOWS = _Z_BITS // _WINDOW_BITS + 1  # 33
+_Z_TAG = b"ctpu/batchz/v1"
+
+
+def _transcript_coefficients(
+    messages: Sequence[bytes],
+    signatures: Sequence[bytes],
+    public_keys: Sequence[bytes],
+) -> list[int]:
+    """Deterministic per-batch coefficients z_i in [1, 2^128): Fiat-Shamir
+    over every byte of every (message, signature, key) triple, each
+    length-framed, into a root hash, and z_i = H(root || i).  No wallclock
+    and no ambient RNG, so the same batch always gets the same z."""
+    sha512 = hashlib.sha512
+
+    def frame(raw: bytes) -> bytes:
+        return len(raw).to_bytes(8, "little") + bytes(raw)
+
+    leaves = [
+        sha512(frame(m) + frame(s) + frame(a)).digest()
+        for m, s, a in zip(messages, signatures, public_keys)
+    ]
+    root = sha512(
+        _Z_TAG + len(leaves).to_bytes(8, "little") + b"".join(leaves)
+    ).digest()
+    return [
+        int.from_bytes(
+            sha512(root + i.to_bytes(8, "little")).digest()[:_Z_BITS // 8],
+            "little",
+        )
+        or 1
+        for i in range(len(leaves))
+    ]
+
+
+def _signed_digits_int(value: int, windows: int) -> list[int]:
+    """Signed 4-bit digits of ``value`` in [-8, 7], MSB window first.
+    ``windows`` must leave one window of headroom for the recoding carry."""
+    digits = [0] * windows
+    carry = 0
+    for j in range(windows):
+        t = (value & 15) + carry
+        value >>= 4
+        if t >= 8:
+            digits[j] = t - 16
+            carry = 1
+        else:
+            digits[j] = t
+            carry = 0
+    if carry or value:
+        raise ValueError("scalar too wide for signed-digit recoding")
+    return digits[::-1]
+
+
+def _signed_digits_rows(values: Sequence[int], windows: int) -> np.ndarray:
+    """:func:`_signed_digits_int` of every value at once, in numpy: a
+    (windows, n) uint8 array of d + 8, MSB window first -- the same digits,
+    without a Python loop over lanes and windows."""
+    n_bytes = (windows + 1) // 2
+    try:
+        raw = b"".join(int(v).to_bytes(n_bytes, "little") for v in values)
+    except OverflowError:
+        raise ValueError("scalar too wide for signed-digit recoding") from None
+    bits = _bytes_rows_to_bits(np.frombuffer(raw, dtype=np.uint8).reshape(len(values), n_bytes))
+    if bits[:, _WINDOW_BITS * windows :].any():
+        raise ValueError("scalar too wide for signed-digit recoding")
+    return _bits_to_signed_window_digits(bits[:, : _WINDOW_BITS * windows], windows)
+
+
+def msm_inputs(
+    y_r: torch.Tensor,       # (32, batch) R.y limbs
+    sign_r: torch.Tensor,    # (batch,)    R.x sign bits
+    y_a: torch.Tensor,       # (32, batch) A.y limbs
+    sign_a: torch.Tensor,    # (batch,)    A.x sign bits
+    zk_digits: torch.Tensor, # (64, batch) z_i k_i mod L signed 4-bit + 8, MSB first
+    z_digits: torch.Tensor,  # (33, batch) z_i signed 4-bit + 8, MSB first
+    host_ok: torch.Tensor,   # (batch,)    host pre-checks passed
+) -> tuple[ed.Point, ed.Point, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Straus MSM's inputs: (-A, -R, masked zk digits, masked z digits,
+    valid).  R and A are decompressed in one pass; a lane that failed a host
+    pre-check or decompression has its digits set to 8 (digit 0), so it
+    contributes the identity -- padding lanes ride the same mechanism."""
+    batch = y_r.shape[-1]
+    with record_function("ed25519.batch.decompress"):
+        pt, pt_ok = ed.decompress(
+            torch.cat([y_r, y_a], dim=-1).to(torch.float32),
+            torch.cat([sign_r, sign_a], dim=-1).to(torch.int32),
+        )
+    with record_function("ed25519.batch.negate"):
+        valid = host_ok & pt_ok[..., :batch] & pt_ok[..., batch:]
+        eight = torch.full((), 8, dtype=torch.int32, device=y_r.device)
+        zk_digits = torch.where(valid[None], zk_digits.to(torch.int32), eight)
+        z_digits = torch.where(valid[None], z_digits.to(torch.int32), eight)
+        neg_r = ed.negate(ed.Point(*(c[..., :batch] for c in pt)))
+        neg_a = ed.negate(ed.Point(*(c[..., batch:] for c in pt)))
+        neg_r = ed.Point(*(c.contiguous() for c in neg_r))
+        neg_a = ed.Point(*(c.contiguous() for c in neg_a))
+    return neg_a, neg_r, zk_digits, z_digits, valid
+
+
+def batch_verify_impl(
+    y_r: torch.Tensor,        # (32, batch) R.y limbs, uint8
+    sign_r: torch.Tensor,     # (batch,)    R.x sign bits
+    y_a: torch.Tensor,        # (32, batch) A.y limbs, uint8
+    sign_a: torch.Tensor,     # (batch,)    A.x sign bits
+    zs_digits8: torch.Tensor, # (32, 1)     sum z_i s_i mod L, 8-bit comb digits
+    zk_digits: torch.Tensor,  # (64, batch) z_i k_i mod L signed 4-bit + 8, MSB first
+    z_digits: torch.Tensor,   # (33, batch) z_i signed 4-bit + 8, MSB first
+    host_ok: torch.Tensor,    # (batch,)    host pre-checks passed
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The randomized check on the device: [sum z_i s_i mod L]B +
+    sum [z_i k_i mod L](-A_i) + sum [z_i](-R_i) against the identity.
+
+    Returns ``(eq_ok, valid)``: the aggregate verdict (a 0-d bool) and the
+    lanes that passed the host pre-checks and decompressed.  The MSM is the
+    Straus kernel (its plain version on a CPU tensor), the comb is batch 1.
+    Each stage runs in a ``record_function`` range ``ed25519.batch.<stage>``."""
+    neg_a, neg_r, zk_digits, z_digits, valid = msm_inputs(
+        y_r, sign_r, y_a, sign_a, zk_digits, z_digits, host_ok
+    )
+    with record_function("ed25519.batch.straus_msm"):
+        acc = scan_kernels.straus_msm(neg_a, neg_r, zk_digits, z_digits)
+    with record_function("ed25519.batch.comb"):
+        comb = ed.fixed_base_mul_comb(zs_digits8)
+    with record_function("ed25519.batch.check"):
+        return ed.is_identity(ed.add(acc, comb))[0], valid
+
+
+def _ref_negate(p):
+    x, y, z, t = p
+    return ((fe.P - x) % fe.P, y, z, (fe.P - t) % fe.P)
+
+
+class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
+    """Randomized batch verification with bisection fallback.
+
+    Same ``verify_batch`` contract, and the same result vector, as
+    :class:`Ed25519BatchVerifier`: one aggregate check replaces n
+    independent double chains.  When the aggregate fails, the batch is split
+    in half and each half re-checked under fresh transcript coefficients, so
+    forgeries are localized in O(f log n) checks; every subset below
+    ``min_randomized`` is decided by the strict verifier.
+
+    ``min_device_batch`` picks between the device check
+    (:func:`batch_verify_impl`) and a host big-int Straus with the same
+    two-phase window schedule."""
+
+    randomized = True
+
+    def __init__(
+        self,
+        *,
+        pad_pow2: bool = True,
+        min_device_batch: int = 1,
+        pad_to: int = 0,
+        device: DeviceLike = None,
+        min_randomized: int = 2,
+    ) -> None:
+        super().__init__(
+            pad_pow2=pad_pow2, min_device_batch=min_device_batch, pad_to=pad_to, device=device
+        )
+        self._min_randomized = max(2, int(min_randomized))
+
+    def _host_scalars(self, messages, signatures, public_keys):
+        """The strict pre-checks and, for each lane that passes, (S, k)."""
+        host_ok = self._canonical_ok(signatures, public_keys)
+        scalars: dict[int, tuple[int, int]] = {}
+        for i in np.flatnonzero(host_ok).tolist():
+            sig = bytes(signatures[i])
+            k = int.from_bytes(
+                hashlib.sha512(sig[:32] + bytes(public_keys[i]) + bytes(messages[i])).digest(),
+                "little",
+            ) % L
+            scalars[i] = (int.from_bytes(sig[32:], "little"), k)
+        return host_ok, scalars
+
+    def verify_batch(
+        self,
+        messages: Sequence[bytes],
+        signatures: Sequence[bytes],
+        public_keys: Sequence[bytes],
+    ) -> np.ndarray:
+        n = len(messages)
+        if not (n == len(signatures) == len(public_keys)):
+            raise ValueError("batch length mismatch")
+        results = np.zeros(n, dtype=bool)
+        if n == 0:
+            return results
+        with record_function("ed25519.batch.host_prep"):
+            host_ok, scalars = self._host_scalars(messages, signatures, public_keys)
+        self._check(
+            np.flatnonzero(host_ok).tolist(),
+            messages, signatures, public_keys, scalars, results,
+        )
+        return results
+
+    def _check(self, idx, messages, signatures, public_keys, scalars, results):
+        """Recursive bisection: decide every index in ``idx``."""
+        if not idx:
+            return
+        if len(idx) < self._min_randomized:
+            sub = super().verify_batch(
+                [messages[i] for i in idx],
+                [signatures[i] for i in idx],
+                [public_keys[i] for i in idx],
+            )
+            for j, i in enumerate(idx):
+                results[i] = bool(sub[j])
+            return
+        with record_function("ed25519.batch.host_prep"):
+            zs = _transcript_coefficients(
+                [messages[i] for i in idx],
+                [signatures[i] for i in idx],
+                [public_keys[i] for i in idx],
+            )
+        if len(idx) >= self._min_device_batch:
+            eq_ok, valid = self._aggregate_device(idx, signatures, public_keys, scalars, zs)
+        else:
+            eq_ok, valid = self._aggregate_host(idx, signatures, public_keys, scalars, zs)
+        if not all(valid):
+            # Decompression failures are invalid, as on the strict path; their
+            # digits were masked out of the aggregate, but the survivors are
+            # re-checked under a fresh transcript rather than trusting a
+            # verdict whose membership changed.
+            survivors = [i for i, ok in zip(idx, valid) if ok]
+            self._check(survivors, messages, signatures, public_keys, scalars, results)
+            return
+        if eq_ok:
+            for i in idx:
+                results[i] = True
+            return
+        mid = len(idx) // 2
+        self._check(idx[:mid], messages, signatures, public_keys, scalars, results)
+        self._check(idx[mid:], messages, signatures, public_keys, scalars, results)
+
+    def _aggregate_inputs(self, idx, signatures, scalars, zs):
+        """Host math shared by both backends: per-entry scalars z_i k_i mod L
+        and the base-point scalar sum z_i s_i mod L."""
+        zk = [(z * scalars[i][1]) % L for z, i in zip(zs, idx)]
+        u = 0
+        for z, i in zip(zs, idx):
+            u += z * scalars[i][0]
+        return zk, u % L
+
+    def _aggregate_device_inputs(self, idx, signatures, public_keys, scalars, zs):
+        """:func:`batch_verify_impl`'s inputs for the subset ``idx`` on the
+        device, padded like the strict engine's waves (padding lanes have
+        ``host_ok`` False, so their digits are masked to the identity)."""
+        with record_function("ed25519.batch.host_prep"):
+            m = len(idx)
+            zk, u = self._aggregate_inputs(idx, signatures, scalars, zs)
+            y_r, sign_r, _ = _prep_compressed([bytes(signatures[i])[:32] for i in idx])
+            y_a, sign_a, _ = _prep_compressed([bytes(public_keys[i]) for i in idx])
+            zk_digits = _signed_digits_rows(zk, _WINDOWS)
+            z_digits = _signed_digits_rows(zs, _Z_WINDOWS)
+            u_row = np.frombuffer(u.to_bytes(32, "little"), dtype=np.uint8).reshape(1, 32)
+            zs_digits8 = _bits_to_comb_digits8(_bytes_rows_to_bits(u_row))
+            host_ok = np.ones(m, dtype=bool)
+            pad = self.padded_size(m) - m
+            if pad:
+                y_r = np.pad(y_r, ((0, pad), (0, 0)))
+                y_a = np.pad(y_a, ((0, pad), (0, 0)))
+                sign_r = np.pad(sign_r, (0, pad))
+                sign_a = np.pad(sign_a, (0, pad))
+                zk_digits = np.pad(zk_digits, ((0, 0), (0, pad)), constant_values=8)
+                z_digits = np.pad(z_digits, ((0, 0), (0, pad)), constant_values=8)
+                host_ok = np.pad(host_ok, (0, pad))
+            arrays = (y_r.T, sign_r, y_a.T, sign_a, zs_digits8, zk_digits, z_digits, host_ok)
+            return tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays
+            )
+
+    def _aggregate_device(self, idx, signatures, public_keys, scalars, zs):
+        """One device check over the subset: one launch of the MSM kernel on
+        the card, and one read of the verdict and the valid lanes."""
+        m = len(idx)
+        eq_ok, valid = batch_verify_impl(
+            *self._aggregate_device_inputs(idx, signatures, public_keys, scalars, zs)
+        )
+        out = torch.cat([eq_ok.reshape(1), valid[:m]]).cpu().numpy()
+        return bool(out[0]), out[1:].tolist()
+
+    def _aggregate_host(self, idx, signatures, public_keys, scalars, zs):
+        """Host big-int twin of the device check: the same two-phase
+        shared-window schedule in plain integers."""
+        m = len(idx)
+        a_pts = [_ref_decompress(bytes(public_keys[i])) for i in idx]
+        r_pts = [_ref_decompress(bytes(signatures[i])[:32]) for i in idx]
+        valid = [a is not None and r is not None for a, r in zip(a_pts, r_pts)]
+        if not all(valid):
+            return False, valid
+        zk, u = self._aggregate_inputs(idx, signatures, scalars, zs)
+
+        def table(p):
+            neg = _ref_negate(p)
+            tbl = [_REF_IDENTITY, neg]
+            for _ in range(7):  # 2p .. 8p
+                tbl.append(_ref_add(tbl[-1], neg))
+            return tbl
+
+        a_tbl = [table(p) for p in a_pts]
+        r_tbl = [table(p) for p in r_pts]
+        zk_digits = [_signed_digits_int(v, _WINDOWS) for v in zk]
+        z_digits = [_signed_digits_int(z, _Z_WINDOWS) for z in zs]
+
+        acc = _REF_IDENTITY
+        low_start = _WINDOWS - _Z_WINDOWS
+        for w in range(_WINDOWS):
+            for _ in range(4):
+                acc = _ref_add(acc, acc)
+            for j in range(m):
+                d = zk_digits[j][w]
+                if d:
+                    acc = _ref_add(acc, a_tbl[j][d] if d > 0 else _ref_negate(a_tbl[j][-d]))
+                if w >= low_start:
+                    d = z_digits[j][w - low_start]
+                    if d:
+                        acc = _ref_add(acc, r_tbl[j][d] if d > 0 else _ref_negate(r_tbl[j][-d]))
+        acc = _ref_add(acc, _ref_mul(u, _BASE_POINT))
+        eq_ok = acc[0] % fe.P == 0 and (acc[1] - acc[2]) % fe.P == 0
+        return eq_ok, valid
+
+
 # --- pure-Python RFC 8032 reference (host) ---------------------------------
 # Plain-integer edwards25519: keygen, sign, verify.  The host-verification
 # path for small batches and the signer behind models.verifier.Ed25519Signer.
@@ -464,8 +801,11 @@ def ref_verify(public_key: bytes, signature: bytes, message: bytes) -> bool:
 
 __all__ = [
     "Ed25519BatchVerifier",
+    "Ed25519RandomizedBatchVerifier",
     "L",
+    "batch_verify_impl",
     "kernel_inputs_from_numpy",
+    "msm_inputs",
     "ref_public_key",
     "ref_sign",
     "ref_verify",

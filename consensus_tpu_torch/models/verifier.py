@@ -6,7 +6,8 @@ port of the strict half of ``consensus_tpu/models/verifier.py``).
   :class:`EcdsaP256Signer` does the same with the RFC 6979 P-256 reference.
 * :class:`Ed25519VerifierMixin` implements the signature-verification
   methods of the ``Verifier`` port against a node-id -> public-key
-  registry, draining ``verify_consenter_sigs_batch`` into one engine call;
+  registry, draining ``verify_consenter_sigs_batch`` -- and all the groups
+  of ``verify_consenter_sigs_multi_batch`` -- into one engine call;
   :class:`EcdsaP256VerifierMixin` is the same over the P-256 engine.
 
 Message binding is byte-identical to the JAX package: a consenter
@@ -15,10 +16,10 @@ raw signature ``b"ctpu/raw" + data``, so a cluster that mixes replicas of
 both packages verifies every vote the same way.
 
 :func:`engine_for_config` returns the strict single-device engine of the
-curve for the default configuration; every other lane raises
-``NotImplementedError`` naming its ROADMAP item (queue A), except the
-Ed25519-only features on P-256, which raise ``ValueError`` with the JAX
-registry's reasons.
+curve for the default configuration and the randomized Ed25519 engine for
+``batch_verify_mode``; every other lane raises ``NotImplementedError``
+naming its ROADMAP item (queue A), except the Ed25519-only features on
+P-256, which raise ``ValueError`` with the JAX registry's reasons.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from consensus_tpu_torch.models.ecdsa_p256 import (
 )
 from consensus_tpu_torch.models.ed25519 import (
     Ed25519BatchVerifier,
+    Ed25519RandomizedBatchVerifier,
     ref_public_key,
     ref_sign,
 )
@@ -66,7 +68,8 @@ def engine_for_config(config, curve: str = "ed25519", *, device: DeviceLike = No
 
     The default configuration maps to the strict single-device engine of
     ``curve`` -- :class:`Ed25519BatchVerifier` or
-    :class:`EcdsaP256BatchVerifier` -- with the config's padding and
+    :class:`EcdsaP256BatchVerifier` -- and ``batch_verify_mode`` to
+    :class:`Ed25519RandomizedBatchVerifier`, with the config's padding and
     host-path threshold, on ``device`` (``cuda`` unless the caller names
     one)."""
     if curve not in ("ed25519", "p256"):
@@ -77,17 +80,18 @@ def engine_for_config(config, curve: str = "ed25519", *, device: DeviceLike = No
             raise ValueError("batch_verify_mode is Ed25519-only (no randomized P-256 lane)")
         if config.device_prep:
             raise ValueError("device_prep is Ed25519-only (no fused P-256 front-end)")
-    if config.batch_verify_mode:
-        raise _not_ported(
-            "batch_verify_mode", "item 8: the randomized lane with kernel B3"
-        )
     if config.device_prep:
         raise _not_ported("device_prep", "item 10: fused device prep")
     if config.mesh_shards > 1 or config.mesh_topology:
         raise _not_ported("mesh_shards > 1 / mesh_topology", "item 12: multi-GPU")
     if config.engine_supervision:
         raise _not_ported("engine_supervision", "item 6: registry and supervisor")
-    engine = EcdsaP256BatchVerifier if curve == "p256" else Ed25519BatchVerifier
+    if curve == "p256":
+        engine = EcdsaP256BatchVerifier
+    elif config.batch_verify_mode:
+        engine = Ed25519RandomizedBatchVerifier
+    else:
+        engine = Ed25519BatchVerifier
     return engine(
         pad_pow2=config.crypto_pad_pow2,
         min_device_batch=config.crypto_tpu_min_batch,
@@ -133,12 +137,25 @@ class Ed25519VerifierMixin(Verifier):
         engine: Optional[Ed25519BatchVerifier] = None,
         batch_verify_mode: bool = False,
     ) -> None:
-        if batch_verify_mode:
-            raise _not_ported(
-                "batch_verify_mode", "item 8: the randomized lane with kernel B3"
-            )
+        """``batch_verify_mode`` selects the randomized engine as the
+        default; an explicit ``engine`` wins, but a non-randomized engine
+        together with the flag is a contradiction and raises."""
         self._public_keys = dict(public_keys)
-        self._engine = engine if engine is not None else Ed25519BatchVerifier()
+        if engine is None:
+            engine = (
+                Ed25519RandomizedBatchVerifier()
+                if batch_verify_mode
+                else Ed25519BatchVerifier()
+            )
+        elif batch_verify_mode and not getattr(engine, "randomized", False):
+            raise ValueError(
+                "batch_verify_mode=True requires a randomized engine "
+                f"(got {type(engine).__name__})"
+            )
+        self._engine = engine
+        #: Read by the Verifier port's default multi-batch loop: whether it
+        #: may coalesce groups through this verifier's engine.
+        self.batch_verify_enabled = bool(getattr(engine, "randomized", False))
 
     def set_public_keys(self, public_keys: Mapping[int, bytes]) -> None:
         """Swap the key registry (reconfiguration)."""
@@ -204,6 +221,49 @@ class Ed25519VerifierMixin(Verifier):
             signatures[i].msg if (known[i] and ok[i]) else None
             for i in range(len(signatures))
         ]
+
+    def verify_consenter_sigs_multi_batch(
+        self, groups: Sequence[tuple[Proposal, Sequence[Signature]]]
+    ) -> list[list[Optional[bytes]]]:
+        """Flatten every (proposal, signatures) group into ONE engine call:
+        the per-item message array lets signatures over different proposals
+        share a wave, so a whole sync chunk verifies as one batch.
+
+        Groups of half-aggregated ``QuorumCert``s take the per-cert path
+        (which rejects them until half-aggregation is ported); mixing cert
+        kinds in one call raises."""
+        if groups:
+            kinds = {isinstance(sigs, QuorumCert) for _, sigs in groups}
+            if len(kinds) > 1:
+                raise ValueError(
+                    "verify_consenter_sigs_multi_batch: groups mix "
+                    "half-aggregated QuorumCerts with full signature tuples "
+                    "-- cert modes contradict; partition the groups first"
+                )
+            if kinds == {True}:
+                return [
+                    self.verify_consenter_sigs_batch(cert, proposal)
+                    for proposal, cert in groups
+                ]
+        messages, sigs, keys, known = [], [], [], []
+        for proposal, cert in groups:
+            m, s, k, kn = self.consenter_sig_triples(cert, proposal)
+            messages += m
+            sigs += s
+            keys += k
+            known += kn
+        if not messages:
+            return [[] for _ in groups]
+        ok = self._engine.verify_batch(messages, sigs, keys)
+        out: list[list[Optional[bytes]]] = []
+        i = 0
+        for _, cert in groups:
+            out.append([
+                sig.msg if (known[i + j] and ok[i + j]) else None
+                for j, sig in enumerate(cert)
+            ])
+            i += len(cert)
+        return out
 
     def auxiliary_data(self, msg: bytes) -> bytes:
         return msg

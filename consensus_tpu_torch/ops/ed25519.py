@@ -7,9 +7,11 @@ Formulas: add-2008-hwcd-3 (8M) and dbl-2008-hwcd (4M + 4S), complete for
 this curve, in the JAX module's exact operation order so both packages
 return the same limbs.
 
-Decompression (RFC 8032 section 5.1.3) and the fixed-base comb [S]B run
-here as plain torch; the variable-base Horner scan has its hand-written
-kernel in :mod:`consensus_tpu_torch.ops.scan_kernels`.
+Decompression (RFC 8032 section 5.1.3), the fixed-base comb [S]B and the
+shared-doubling Straus MSM of the randomized verifier run here as plain
+torch; the variable-base Horner scan and the MSM have their hand-written
+kernels in :mod:`consensus_tpu_torch.ops.scan_kernels`.  The JAX module's
+``lax.scan`` loops are Python loops here.
 """
 
 from __future__ import annotations
@@ -249,6 +251,90 @@ def multiples_table(p: Point, size: int = 16) -> Point:
     return Point(*(torch.stack([getattr(q, c) for q in entries]) for c in Point._fields))
 
 
+def multiples_table9(p: Point) -> Point:
+    """j*p for j = 0..8 (the signed-4-bit window table), laid out like
+    ``multiples_table(p, 9)`` but built as the JAX module builds it: even
+    multiples by doubling (4p and 6p in one double of (2p, 3p) stacked on a
+    trailing entry axis), the odd chain 3p, 5p, 7p by adds of 2p."""
+    p2 = double(p)
+    odd = []
+    prev = p
+    for _ in range(3):
+        prev = add(prev, p2)
+        odd.append(prev)
+    p3, p5, p7 = odd
+    pair = double(Point(*(torch.stack([a, b], dim=-1) for a, b in zip(p2, p3))))
+    p4 = Point(*(c[..., 0] for c in pair))
+    p6 = Point(*(c[..., 1] for c in pair))
+    p8 = double(p4)
+    entries = [identity_like(p.x), p, p2, p3, p4, p5, p6, p7, p8]
+    return Point(*(torch.stack([getattr(q, c) for q in entries]) for c in Point._fields))
+
+
+# --- shared-doubling batch multi-scalar multiplication --------------------
+
+
+def batch_sum(p: Point) -> Point:
+    """Sum a point batch down to batch 1 over the trailing axis: a halving
+    tree, one vectorized add over half the remaining lanes per level, an odd
+    width carrying its last lane up to the next level."""
+    n = p.x.shape[-1]
+    while n > 1:
+        half = n // 2
+        head = add(
+            Point(*(c[..., :half] for c in p)), Point(*(c[..., half : 2 * half] for c in p))
+        )
+        if n % 2:
+            p = Point(*(torch.cat([hc, c[..., 2 * half :]], dim=-1) for hc, c in zip(head, p)))
+        else:
+            p = head
+        n = half + (n % 2)
+    return p
+
+
+def _signed_window_contribution(table: Point, digits_row: torch.Tensor) -> Point:
+    """Per-lane table[|d|] with the sign of d applied, from one row of
+    signed 4-bit digits stored as d + 8 (8 means digit 0: the identity)."""
+    lanes = torch.arange(table.x.shape[0], dtype=torch.int32, device=digits_row.device)[:, None]
+    d = digits_row.to(torch.int32) - 8
+    picked = table_lookup(table, (d.abs()[None] == lanes).to(torch.float32))
+    return select(d < 0, negate(picked), picked)
+
+
+def straus_shared_msm(
+    a_table: Point, r_table: Point, zk_digits: torch.Tensor, z_digits: torch.Tensor
+) -> Point:
+    """sum_i [zk_i]A_i' + sum_i [z_i]R_i' with one doubling chain for the
+    whole batch.
+
+    ``a_table``/``r_table`` are (9, 32, batch) multiples tables of the
+    (already negated) points; ``zk_digits`` is (64, batch) and ``z_digits``
+    (n_low, batch), signed 4-bit digits stored as d + 8, MSB window first.
+    The accumulator is one (32, 1) lane: each window doubles it 4 times and
+    adds the :func:`batch_sum` of every lane's looked-up contribution.  The
+    first 64 - n_low windows read only the A table, the last n_low both."""
+    n_low = z_digits.shape[0]
+    n_high = zk_digits.shape[0] - n_low
+    acc = identity_like(a_table.x[0][..., :1])
+
+    def quad_double(acc: Point) -> Point:
+        for _ in range(3):
+            acc = double(acc, need_t=False)
+        return double(acc)  # the final double materializes T for the add
+
+    for w in range(n_high):
+        acc = quad_double(acc)
+        acc = add(acc, batch_sum(_signed_window_contribution(a_table, zk_digits[w])))
+    for w in range(n_low):
+        acc = quad_double(acc)
+        contrib = add(
+            _signed_window_contribution(a_table, zk_digits[n_high + w]),
+            _signed_window_contribution(r_table, z_digits[w]),
+        )
+        acc = add(acc, batch_sum(contrib))
+    return acc
+
+
 __all__ = [
     "Point",
     "identity_like",
@@ -261,6 +347,9 @@ __all__ = [
     "is_identity",
     "table_lookup",
     "multiples_table",
+    "multiples_table9",
+    "batch_sum",
+    "straus_shared_msm",
     "add_affine",
     "comb_table",
     "fixed_base_mul_comb",

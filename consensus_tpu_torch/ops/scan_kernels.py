@@ -1,20 +1,22 @@
 """Hand-written scan kernels and their plain torch versions.
 
-Port of the scan kernels in ``consensus_tpu/ops/pallas_scan.py``: the
-Ed25519 Horner scan (``horner_scan``, TPU body ``_scan_kernel``) and the
-P-256 Horner scan (``horner_scan_p256``, TPU body ``_scan_kernel_p256``).
-The Straus MSM comes in a later slice.
+Port of the three kernels in ``consensus_tpu/ops/pallas_scan.py``: the
+Ed25519 Horner scan (``horner_scan``, TPU body ``_scan_kernel``), the P-256
+Horner scan (``horner_scan_p256``, TPU body ``_scan_kernel_p256``) and the
+randomized verifier's shared-doubling Straus MSM (``straus_msm``, TPU body
+``_msm_kernel``).
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
 tensor it runs its plain torch version (``horner_scan_reference``,
-``horner_scan_p256_reference``).  Every kernel is built by one helper: nvcc
-for ``sm_90a`` on first use, into ``csrc/build/`` keyed by a hash of the
-source, loaded through ctypes; a build or load failure raises.
+``horner_scan_p256_reference``, ``straus_msm_reference``).  Every kernel is
+built by one helper: nvcc for ``sm_90a`` on first use, into ``csrc/build/``
+keyed by a hash of the source and of the headers beside it, loaded through
+ctypes; a build or load failure raises.
 
-``launches`` and ``launches_p256`` count kernel launches (the plain versions
-are not counted), so a caller can show that its path went through the
-kernels.
+``launches``, ``launches_p256`` and ``launches_msm`` count kernel launches
+(the plain versions are not counted), so a caller can show that its path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -44,16 +46,24 @@ _SOURCE = _CSRC / "horner_scan.cu"
 BUILD_DIR = _CSRC / "build"
 
 #: The kernels of this module: name -> (source, number of pointer arguments
-#: of its C launch function, inputs then outputs).
+#: of its C launch function (inputs, then outputs and scratch), names of the
+#: int arguments that follow the batch).
 KERNELS = {
-    "horner_scan": (_SOURCE, 9),
-    "horner_scan_p256": (_CSRC / "horner_scan_p256.cu", 6),
+    "horner_scan": (_SOURCE, 9, ()),
+    "horner_scan_p256": (_CSRC / "horner_scan_p256.cu", 6, ()),
+    "straus_msm": (_CSRC / "straus_msm.cu", 15, ("n_low",)),
 }
+# Lanes per block of the Straus MSM kernel (THREADS in straus_msm.cu): sizes
+# its partial-sum scratch.
+_MSM_THREADS = 128
 
 #: Kernel launches made by :func:`horner_scan` in this process.
 launches = 0
 #: Kernel launches made by :func:`horner_scan_p256` in this process.
 launches_p256 = 0
+#: Kernel launches made by :func:`straus_msm` in this process (one per call:
+#: the partial sums and their join).
+launches_msm = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +97,14 @@ def _nvcc() -> str:
 def _library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (once per source content) and load the library of kernel
     ``name``, and declare its C entry points ``<name>_launch`` (the
-    pointers, then batch, device and stream) and ``<name>_error_string``."""
-    source_path, n_pointers = KERNELS[name]
-    source = source_path.read_bytes()
-    tag = hashlib.sha256(source).hexdigest()[:16]
+    pointers, then batch, the kernel's int arguments, device and stream) and
+    ``<name>_error_string``.  The build key covers the headers of ``csrc/``
+    too, so an edited header never loads a stale library."""
+    source_path, n_pointers, int_args = KERNELS[name]
+    digest = hashlib.sha256(source_path.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"{name}-{tag}.so"
     command = ""
     seconds = 0.0
@@ -114,9 +128,9 @@ def _library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [ctypes.c_void_p] * n_pointers + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    launch.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * (
+        2 + len(int_args)
+    ) + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     error_string = getattr(lib, f"{name}_error_string")
     error_string.argtypes = [ctypes.c_int]
@@ -130,7 +144,9 @@ def build(name: str = "horner_scan") -> BuildInfo:
     return _library(name)[1]
 
 
-def _launch(name: str, inputs, outputs, batch: int, device: torch.device) -> None:
+def _launch(
+    name: str, inputs, outputs, batch: int, device: torch.device, int_args=()
+) -> None:
     """Launch kernel ``name`` on the current stream of ``device`` inside an
     op-scope profiler range, and raise if the launch was refused.
 
@@ -142,7 +158,7 @@ def _launch(name: str, inputs, outputs, batch: int, device: torch.device) -> Non
     with torch._C._profiler._RecordFunctionFast(f"{name}_kernel"):
         code = getattr(lib, f"{name}_launch")(
             *(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outputs),
-            batch, device.index or 0, stream,
+            batch, *int_args, device.index or 0, stream,
         )
     if code != 0:
         reason = getattr(lib, f"{name}_error_string")(code).decode()
@@ -150,11 +166,13 @@ def _launch(name: str, inputs, outputs, batch: int, device: torch.device) -> Non
 
 
 def _check_inputs(
-    name: str, coords: dict[str, torch.Tensor], digits: torch.Tensor, windows: int
+    name: str,
+    coords: dict[str, torch.Tensor],
+    digits: dict[str, tuple[torch.Tensor, int]],
 ) -> int:
     """Check what the kernel ``name`` takes -- float32 (32, batch)
-    coordinates, int32 (windows, batch) digits, one device, contiguous --
-    and return the batch."""
+    coordinates, int32 (windows, batch) digit arrays (label -> (array,
+    windows)), one device, contiguous -- and return the batch."""
     first = next(iter(coords.values()))
     batch = first.shape[-1] if first.dim() == 2 else -1
     for label, t in coords.items():
@@ -165,13 +183,14 @@ def _check_inputs(
                 f"{name}: {label} must be ({fe.LIMBS}, batch), got "
                 f"{tuple(t.shape)} against batch {batch}"
             )
-    if digits.dtype != torch.int32:
-        raise TypeError(f"{name}: digits must be int32, got {digits.dtype}")
-    if digits.shape != (windows, batch):
-        raise ValueError(
-            f"{name}: digits must be ({windows}, {batch}), got {tuple(digits.shape)}"
-        )
-    for t in (*coords.values(), digits):
+    for label, (d, windows) in digits.items():
+        if d.dtype != torch.int32:
+            raise TypeError(f"{name}: {label} must be int32, got {d.dtype}")
+        if d.shape != (windows, batch):
+            raise ValueError(
+                f"{name}: {label} must be ({windows}, {batch}), got {tuple(d.shape)}"
+            )
+    for t in (*coords.values(), *(d for d, _ in digits.values())):
         if t.device != first.device:
             raise ValueError(f"{name}: all inputs must be on one device")
         if not t.is_contiguous():
@@ -198,7 +217,7 @@ def horner_scan(
     coords = (neg_a_x, neg_a_y, neg_a_z, neg_a_t)
     batch = _check_inputs(
         "horner_scan", dict(zip(("neg_a_x", "neg_a_y", "neg_a_z", "neg_a_t"), coords)),
-        k_digits, _WINDOWS,
+        {"k_digits": (k_digits, _WINDOWS)},
     )
     device = neg_a_x.device
     if device.type == "cpu":
@@ -251,7 +270,7 @@ def horner_scan_p256(
     limbs; on the CPU it is the plain version's output."""
     global launches_p256
     batch = _check_inputs(
-        "horner_scan_p256", {"qx": qx, "qy": qy}, u2_digits, _WINDOWS_P256
+        "horner_scan_p256", {"qx": qx, "qy": qy}, {"u2_digits": (u2_digits, _WINDOWS_P256)}
     )
     device = qx.device
     if device.type == "cpu":
@@ -286,6 +305,58 @@ def horner_scan_p256_reference(
     return acc
 
 
+def straus_msm(
+    neg_a: ed.Point,          # four (32, batch) f32 coordinates of (-A)
+    neg_r: ed.Point,          # four (32, batch) f32 coordinates of (-R)
+    zk_digits: torch.Tensor,  # (64, batch) int32, digit + 8, MSB first
+    z_digits: torch.Tensor,   # (n_low, batch) int32, digit + 8, MSB first
+) -> ed.Point:
+    """sum_i [zk_i](-A_i) + sum_i [z_i](-R_i) over every lane, as one
+    (32, 1) point.
+
+    The z digits cover the last ``n_low`` (<= 64) windows of the zk digits'
+    schedule; a lane whose digits are all 8 contributes the identity.  On
+    CUDA the result is the plain version's group element as canonical limbs
+    of another projective representative (compare it in affine
+    coordinates); on the CPU it is the plain version's output."""
+    global launches_msm
+    n_low = z_digits.shape[0] if z_digits.dim() == 2 else -1
+    if not 0 <= n_low <= _WINDOWS:
+        raise ValueError(
+            f"straus_msm: z_digits must be (n_low <= {_WINDOWS}, batch), got "
+            f"{tuple(z_digits.shape)}"
+        )
+    coords = {f"neg_a_{c}": v for c, v in zip("xyzt", neg_a)}
+    coords.update({f"neg_r_{c}": v for c, v in zip("xyzt", neg_r)})
+    batch = _check_inputs(
+        "straus_msm", coords,
+        {"zk_digits": (zk_digits, _WINDOWS), "z_digits": (z_digits, n_low)},
+    )
+    device = neg_a.x.device
+    if device.type == "cpu":
+        return straus_msm_reference(neg_a, neg_r, zk_digits, z_digits)
+    blocks = -(-batch // _MSM_THREADS)
+    partials = torch.empty((20, blocks), dtype=torch.int64, device=device)
+    outs = [torch.empty((fe.LIMBS, 1), dtype=torch.float32, device=device) for _ in range(4)]
+    _launch(
+        "straus_msm", (*neg_a, *neg_r, zk_digits, z_digits), (partials, *outs),
+        batch, device, (n_low,),
+    )
+    launches_msm += 1
+    return ed.Point(*outs)
+
+
+def straus_msm_reference(
+    neg_a: ed.Point, neg_r: ed.Point, zk_digits: torch.Tensor, z_digits: torch.Tensor
+) -> ed.Point:
+    """The plain torch version of the kernel: both points' 9-entry tables by
+    ``multiples_table9``, then the shared-doubling ``straus_shared_msm`` --
+    the JAX package's default path for the randomized verifier."""
+    return ed.straus_shared_msm(
+        ed.multiples_table9(neg_a), ed.multiples_table9(neg_r), zk_digits, z_digits
+    )
+
+
 __all__ = [
     "BUILD_DIR",
     "BuildInfo",
@@ -296,5 +367,8 @@ __all__ = [
     "horner_scan_p256_reference",
     "horner_scan_reference",
     "launches",
+    "launches_msm",
     "launches_p256",
+    "straus_msm",
+    "straus_msm_reference",
 ]

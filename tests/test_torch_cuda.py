@@ -167,3 +167,84 @@ def test_p256_engine_on_card_matches_reference_and_launches_once(cuda_device):
     assert (scan_kernels.launches, scan_kernels.launches_p256) == (before[0], before[1] + 1)
     want = [mp.ref_p256_verify(k, s, m) for m, s, k in zip(msgs, sigs, keys)]
     assert got.tolist() == want == [False] * 3 + [True] * 5
+
+
+def _msm_case(n: int, device):
+    """-A and -R for A = jB, R = (j + 50)B in weak limbs with negative
+    entries, digits of random zk < L and z < 2^128; every 5th lane is masked
+    (all digits 8, zero coordinates, as a padded lane) and every 7th has all
+    digits 0 (d = -8 in every window)."""
+    pts, cur = [], (ed._BX, ed._BY)
+    for _ in range(n + 50):
+        pts.append(cur)
+        cur = ed._edwards_add_int(cur, (ed._BX, ed._BY))
+
+    def neg(points):
+        cols = ([x for x, _ in points], [y for _, y in points], [1] * n,
+                [x * y % P for x, y in points])
+        coords = [torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in c], axis=1)) for c in cols]
+        out = [weaken(c) for c in ed.negate(ed.Point(*coords))]
+        for c in out:
+            c[:, 4::5] = 0
+        return ed.Point(*(c.contiguous().to(device) for c in out))
+
+    rng = np.random.default_rng(n)
+    zk = [int.from_bytes(rng.bytes(32), "little") % med.L for _ in range(n)]
+    zs = [int.from_bytes(rng.bytes(16), "little") or 1 for _ in range(n)]
+    zk_digits = med._signed_digits_rows(zk, 64).astype(np.int32)
+    z_digits = med._signed_digits_rows(zs, 33).astype(np.int32)
+    for d in (zk_digits, z_digits):
+        d[:, 6::7] = 0
+        d[:, 4::5] = 8  # a masked lane stays masked
+    return (neg(pts[:n]), neg(pts[50:]), torch.from_numpy(zk_digits).to(device),
+            torch.from_numpy(z_digits).to(device))
+
+
+def _affine(p: ed.Point):
+    zinv = fe.invert(p.z)
+    return fe.freeze(fe.mul(p.x, zinv)), fe.freeze(fe.mul(p.y, zinv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 256])
+def test_msm_kernel_matches_reference_on_card(cuda_device, n):
+    """Kernel B3's point equals the plain version's in affine coordinates
+    (tolerance 0; the projective representatives differ by design), with
+    masked and zero-digit lanes, at a batch that does and one that does not
+    fill its last block; canonical limbs out; one launch per call."""
+    inputs = _msm_case(n, cuda_device)
+    assert min(float(c.min()) for c in inputs[0]) < 0  # weak limbs reach the kernel
+    before = scan_kernels.launches_msm
+    got = scan_kernels.straus_msm(*inputs)
+    torch.cuda.synchronize()
+    assert scan_kernels.launches_msm == before + 1
+    want = scan_kernels.straus_msm_reference(*inputs)
+    assert got.x.shape == (32, 1)
+    for g, w in zip(_affine(got), _affine(want)):
+        assert torch.equal(g, w)
+    for g in got:
+        assert torch.equal(g, fe.freeze(g).to(torch.float32))
+    assert not bool(ed.is_identity(got).all())
+
+
+@pytest.mark.cuda
+def test_msm_kernel_rejects_mixed_devices(cuda_device):
+    neg_a, neg_r, zk, z = _msm_case(8, cuda_device)
+    with pytest.raises(ValueError):
+        scan_kernels.straus_msm(neg_a, neg_r, zk, z.cpu())
+
+
+@pytest.mark.cuda
+def test_randomized_engine_on_card_matches_strict_and_launches_once(cuda_device):
+    rng = np.random.default_rng(11)
+    seeds = [rng.bytes(32) for _ in range(8)]
+    keys = [med.ref_public_key(s) for s in seeds] * 8
+    msgs = [b"honest-%d" % i for i in range(64)]
+    sigs = [med.ref_sign(seeds[i % 8], m) for i, m in enumerate(msgs)]
+    engine = engine_for_config(Configuration(batch_verify_mode=True))
+    assert engine.randomized and engine.device.type == "cuda"
+    before = (scan_kernels.launches, scan_kernels.launches_msm)
+    got = engine.verify_batch(msgs, sigs, keys)
+    assert (scan_kernels.launches, scan_kernels.launches_msm) == (before[0], before[1] + 1)
+    strict = engine_for_config(Configuration()).verify_batch(msgs, sigs, keys)
+    assert got.all() and np.array_equal(got, strict)

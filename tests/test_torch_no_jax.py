@@ -4,9 +4,9 @@ chip_smoke.py whose phases rehearse on the CPU.
 ``consensus_tpu_torch`` and ``chip_smoke.py`` may import neither ``jax``,
 ``jaxlib`` nor ``consensus_tpu`` (the exact names or their submodules),
 checked both statically (AST) and in a fresh interpreter (``sys.modules``).
-The smoke script's phases (the Ed25519 path's and the P-256 path's) run
-here with ``device="cpu"`` at 8-16 lanes, and its entry point refuses to run
-without a card.
+The smoke script's phases (the strict Ed25519 path's, the P-256 path's and
+the randomized path's) run here with ``device="cpu"`` at 8-32 lanes, and its
+entry point refuses to run without a card.
 """
 
 import ast
@@ -150,6 +150,70 @@ def test_p256_bound_counts_the_work():
     assert b["bytes"] == (5 * 32 + 65) * 2048 * 4 == 1_843_200
     assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
     assert abs(b["ops_ms"] - 0.031710) < 1e-6
+
+
+def test_chip_smoke_randomized_phases_rehearse_on_cpu(monkeypatch):
+    # 32 lanes: one intra-op thread runs the plain path faster than many.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _rehearse_randomized_phases(monkeypatch)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _rehearse_randomized_phases(monkeypatch):
+    corpus = chip_smoke.make_corpus(32, per_class=1, classes=chip_smoke.RANDOMIZED_CLASSES)
+    msgs, sigs, keys, expected, bad = corpus
+    assert len(msgs) == 32 and sorted(np.flatnonzero(~expected).tolist()) == sorted(bad)
+    assert len(bad) == 6
+    # Phase 6 on the first aggregate: 28 lanes pass the host pre-checks (4
+    # padded to 32), 2 of them undecodable and masked.
+    k = chip_smoke.phase_kernel_msm("cpu", corpus, replicas=1, reps=1)
+    assert (k["lanes"], k["n_low"], k["masked_lanes"], k["padded_lanes"]) == (32, 33, 2, 4)
+    assert k["live_lanes"] == 32 - 2 - 4
+    assert k["max_abs_err"] == 0.0
+    # As in the P-256 rehearsal, the MSM's result on the same inputs stands
+    # in for it after its first call, so the profiler has few ops to sort.
+    real, seen, calls = scan_kernels.straus_msm, {}, []
+
+    def remembered_msm(neg_a, neg_r, zk, z):
+        calls.append(zk.shape[1])
+        key = tuple(t.numpy().tobytes() for t in (*neg_a, *neg_r, zk, z))
+        if key not in seen:
+            seen[key] = real(neg_a, neg_r, zk, z)
+        return seen[key]
+
+    monkeypatch.setattr(scan_kernels, "straus_msm", remembered_msm)
+    w = chip_smoke.phase_wave_randomized("cpu", corpus, replicas=1)
+    # The aggregate and the survivors' re-check, in the wave and its re-run.
+    assert calls == [32] * 4 and len(seen) == 2
+    assert w["signatures"] == 32 and w["padded"] == 32
+    assert w["rejected"] == 6 and w["host_rejected"] == 4 and w["reference_checked"] == 32
+    assert (w["msm_launches"], w["horner_launches"], w["horner_p256_launches"]) == (0, 0, 0)
+    p = w["profiled"]
+    assert list(p["ranges"]) == list(chip_smoke.BATCH_RANGES)
+    assert all(r["host_ms"] > 0 and r["device_ms"] is None for r in p["ranges"].values())
+    assert p["busy_ms"] is None and p["unranged_ms"] is None
+    # Phase 8 at 4 decisions: 20 votes, 3 forged; the host-side count of
+    # bisection nodes of >= 16 votes equals the MSM calls the engine made.
+    calls.clear()
+    c = chip_smoke.phase_catch_up("cpu", 4)
+    assert c["votes"] == 20 and c["padded"] == 32 and c["rejected"] == 3
+    assert len(c["forged"]) == 3 and c["min_device_batch"] == 16
+    assert len(calls) == c["device_checks"] == 1 and c["host_checks"] >= 2
+    assert (c["msm_launches"], c["horner_launches"]) == (0, 0)
+
+
+def test_bisection_node_count():
+    # No forgery: one check.  One forgery at 0 of 256: the root, both halves,
+    # then both halves of each part that holds it down to 16 on the device
+    # (9), and the 8-, 4- and 2-lane pairs on the host (6).
+    assert chip_smoke.bisection_nodes(256, [], 16) == (1, 0)
+    assert chip_smoke.bisection_nodes(256, [0], 16) == (9, 6)
+    assert chip_smoke.bisection_nodes(15, [3], 16) == (0, 7)
+    device, host = chip_smoke.bisection_nodes(255, [7, 100, 254], 16)
+    assert device >= 1 + 2 * 3 and host > 0
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys):

@@ -208,12 +208,11 @@ class TestVerifierPort:
 
 def test_engine_for_config_default_and_unported_lanes():
     engine = tver.engine_for_config(Configuration(), device="cpu")
-    assert isinstance(engine, tmed.Ed25519BatchVerifier)
+    assert type(engine) is tmed.Ed25519BatchVerifier
     assert engine._min_device_batch == 16 and engine._pad_pow2 and engine.padded_size(7000) == 8192
     for field in dataclasses.fields(Configuration):
         assert getattr(Configuration(), field.name) == getattr(JaxConfiguration(), field.name)
     for knobs in (
-        dict(batch_verify_mode=True),
         dict(device_prep=True),
         dict(mesh_shards=2),
         dict(mesh_topology=(2, 4)),
@@ -221,15 +220,21 @@ def test_engine_for_config_default_and_unported_lanes():
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tver.engine_for_config(Configuration(**knobs), device="cpu")
-    # P-256 is ported: its default configuration routes to the P-256 engine
-    # (its own lanes are pinned in tests/test_torch_ecdsa_p256.py).
+    # P-256 and the randomized lane are ported: their configurations route to
+    # their engines (their own lanes are pinned in tests/test_torch_ecdsa_p256.py
+    # and tests/test_torch_batch_verify.py).
     assert isinstance(
         tver.engine_for_config(Configuration(), "p256", device="cpu"),
         EcdsaP256BatchVerifier,
     )
+    assert isinstance(
+        tver.engine_for_config(Configuration(batch_verify_mode=True), device="cpu"),
+        tmed.Ed25519RandomizedBatchVerifier,
+    )
     with pytest.raises(ValueError):
         tver.engine_for_config(Configuration(), "ed448", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A strict engine with batch_verify_mode is a contradiction, as in JAX.
+    with pytest.raises(ValueError, match="randomized"):
         SigOnlyVerifier({}, engine=engine, batch_verify_mode=True)
 
 
