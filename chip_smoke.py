@@ -40,7 +40,10 @@ Phases:
 6. the Straus MSM kernel B3 against its plain torch version on the card on
    the phase-7 wave's first aggregate (its transcript's digits, padded and
    undecodable lanes masked to digit 8), compared in affine coordinates with
-   tolerance 0, with its time, the plain version's and its bound;
+   tolerance 0, with its time, the plain version's and its bound; then the
+   same on the aggregate's first 256 columns (the catch-up chunk's width),
+   and the registers, stack frame and spills ptxas reports for B3's four
+   kernels;
 7. the randomized path: the config-3 wave with the host-rejected and
    undecodable classes mixed in, through ``engine_for_config(
    Configuration(batch_verify_mode=True))``, verdicts held against the
@@ -62,6 +65,7 @@ raises and exits non-zero.  It runs on CUDA only; the phases take a
 from __future__ import annotations
 
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -168,6 +172,8 @@ DOUBLE_MULS, DOUBLE_SQUARES = 3, 4
 DOUBLE_T_MULS, DOUBLE_T_SQUARES = 4, 4
 #: The sync catch-up chunk of phase 8: 51 decisions, a 2f+1 quorum each.
 CATCH_UP_DECISIONS = 51
+#: Its 255 votes padded: the width phase 6 also checks and times B3 at.
+CATCH_UP_LANES = 256
 
 
 def log(*parts) -> None:
@@ -816,15 +822,12 @@ def affine(p: ed.Point) -> tuple[torch.Tensor, torch.Tensor]:
     return fe.freeze(fe.mul(p.x, zinv)), fe.freeze(fe.mul(p.y, zinv))
 
 
-def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
-    """straus_msm (the kernel on CUDA) against straus_msm_reference on the
-    randomized wave's first aggregate: the affine x and y of the two
-    results equal (the projective representatives differ by design),
-    tolerance 0, and not the identity.  The plain version runs once."""
-    device = torch.device(device)
-    inputs, masked, padded = msm_wave_inputs(corpus, replicas, device)
-    lanes = inputs[2].shape[1]
-    live = int(((inputs[2] != 8).any(0) | (inputs[3] != 8).any(0)).sum())
+def _check_msm(inputs, label: str) -> tuple[float, float]:
+    """straus_msm (the kernel on CUDA) against straus_msm_reference on
+    ``inputs``: affine x and y equal (the projective representatives differ
+    by design), tolerance 0, and not the identity.  Returns the max abs
+    err and the plain version's milliseconds (one run, host clock)."""
+    device = inputs[2].device
     got = scan_kernels.straus_msm(*inputs)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -837,12 +840,71 @@ def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
     for name, g, w in zip("xy", affine(got), affine(want)):
         max_err = max(max_err, float((g - w).abs().max()))
         if not torch.equal(g, w):
-            raise AssertionError(f"straus_msm: affine {name} differs from the plain version")
+            raise AssertionError(
+                f"straus_msm at {label}: affine {name} differs from the plain version"
+            )
     if bool(ed.is_identity(got).all()):
-        raise AssertionError("straus_msm: the wave's aggregate MSM is the identity")
+        raise AssertionError(f"straus_msm at {label}: the aggregate MSM is the identity")
+    return max_err, plain_ms
+
+
+def _live_lanes(inputs) -> int:
+    """Lanes with a nonzero digit: the others add the identity."""
+    return int(((inputs[2] != 8).any(0) | (inputs[3] != 8).any(0)).sum())
+
+
+def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
+    """straus_msm against straus_msm_reference on the randomized wave's
+    first aggregate, then on its first ``CATCH_UP_LANES`` columns made
+    contiguous (the catch-up chunk's width), each checked by
+    :func:`_check_msm` and timed over ``reps`` launches.  The plain version
+    runs once at each width."""
+    device = torch.device(device)
+    inputs, masked, padded = msm_wave_inputs(corpus, replicas, device)
+    lanes = inputs[2].shape[1]
+    max_err, plain_ms = _check_msm(inputs, f"{lanes} lanes")
     ms = _time_ms(lambda: scan_kernels.straus_msm(*inputs), reps, device)
+    cols = min(CATCH_UP_LANES, lanes)
+    sub = tuple(
+        ed.Point(*(c[:, :cols].contiguous() for c in p)) if isinstance(p, ed.Point)
+        else p[:, :cols].contiguous()
+        for p in inputs
+    )
+    sub_err, sub_plain_ms = _check_msm(sub, f"{cols} lanes")
+    sub_ms = _time_ms(lambda: scan_kernels.straus_msm(*sub), reps, device)
     return {"lanes": lanes, "n_low": inputs[3].shape[0], "masked_lanes": masked,
-            "padded_lanes": padded, "live_lanes": live, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "padded_lanes": padded, "live_lanes": _live_lanes(inputs),
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "sub_lanes": cols, "sub_live_lanes": _live_lanes(sub), "sub_max_abs_err": sub_err,
+            "sub_ms": sub_ms, "sub_plain_ms": sub_plain_ms}
+
+
+def ptxas_summary(report: str) -> dict:
+    """Per function of an ``nvcc -Xptxas -v`` report: registers (kernels
+    only), stack frame and spill bytes, and shared memory, keyed by the
+    kernel's name (a device function's mangled symbol)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            name = m.group(1)
+            plain = re.match(r"_Z(\d+)", name)  # a global function: _Z<length><name>
+            if plain:
+                name = name[plain.end():plain.end() + int(plain.group(1))]
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def _launch_counts() -> tuple[int, int, int]:
@@ -1166,12 +1228,14 @@ def main() -> int:
     k3 = phase_kernel_msm(device, rand_corpus, REPLICAS, reps=20)
     bound3 = msm_bound(k3["lanes"], k3["live_lanes"], k3["n_low"],
                        props.multi_processor_count, sm_clock_hz)
+    sub_bound3 = msm_bound(k3["sub_lanes"], k3["sub_live_lanes"], k3["n_low"],
+                           props.multi_processor_count, sm_clock_hz)
     log(f"straus_msm at {k3['lanes']} lanes (the first aggregate of the phase-7 wave; "
         f"{k3['masked_lanes']} undecodable and {k3['padded_lanes']} padded lanes masked to "
         f"digit 8): affine x and y equal to the plain version's (max abs err "
         f"{k3['max_abs_err']}), not the identity")
     log(f"  kernel {k3['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up; "
-        f"the blocks' partial sums and their join)")
+        f"tables, window sums, join and chain)")
     log(f"  plain torch version {k3['plain_ms']:.6f} ms (one run, host clock to synchronize)")
     log(f"  bound {bound3['bound_ms']:.6f} ms, by {bound3['bound_by']}: {bound3['adds']} adds "
         f"(14 + {k3['n_low']} + 64 for each of the {k3['live_lanes']} lanes with a nonzero "
@@ -1179,7 +1243,25 @@ def main() -> int:
         f"{bound3['products']} IMAD.WIDE over {props.multi_processor_count} SMs x "
         f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
         f"{bound3['ops_ms']:.6f} ms; {bound3['bytes']} bytes over 3.35 TB/s = "
-        f"{bound3['bytes_ms']:.6f} ms")
+        f"{bound3['bytes_ms']:.6f} ms; kernel at {100 * bound3['bound_ms'] / k3['ms']:.3f} % "
+        f"of it")
+    log(f"straus_msm at {k3['sub_lanes']} lanes (the first {k3['sub_lanes']} columns, "
+        f"contiguous: the catch-up chunk's width; {k3['sub_live_lanes']} with a nonzero "
+        f"digit): affine x and y equal to the plain version's (max abs err "
+        f"{k3['sub_max_abs_err']}), not the identity")
+    log(f"  kernel {k3['sub_ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+    log(f"  plain torch version {k3['sub_plain_ms']:.6f} ms (one run, host clock to synchronize)")
+    log(f"  bound {sub_bound3['bound_ms']:.6f} ms, by {sub_bound3['bound_by']} "
+        f"({sub_bound3['adds']} adds, {sub_bound3['doubles']} doubles); kernel at "
+        f"{100 * sub_bound3['bound_ms'] / k3['sub_ms']:.3f} % of it")
+    kernels = ptxas_summary(infos["straus_msm"].ptxas)
+    if not kernels:
+        log("  ptxas: not reported (an existing build was loaded)")
+    for name, r in kernels.items():
+        regs = f"{r['registers']} registers" if "registers" in r else "a device function"
+        log(f"  ptxas {name}: {regs}, {r.get('stack')}-byte stack frame, "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes of spill stores/loads, "
+            f"{r.get('smem', 0)} bytes of shared memory")
     log("  library: none (no PyTorch call computes an Edwards multi-scalar multiplication)")
 
     # Phase 7: the randomized path.

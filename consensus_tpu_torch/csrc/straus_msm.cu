@@ -5,110 +5,227 @@
 // _msm_kernel): the one point
 //
 //     sum_i [zk_i](-A_i) + sum_i [z_i](-R_i)
+//                      = sum_w 16^(63 - w) * S_w,   S_w = sum_i c(w, i)
 //
-// over every lane, with one doubling chain per block of lanes instead of one
-// per signature.  Per lane it builds the 9-entry tables j*(-A) and j*(-R) by
-// 7 sequential adds from the base point (as _msm_kernel does), then walks the
-// 64 signed 4-bit windows MSB first: the first 64 - n_low windows look up only
-// the A table, the last n_low add the R table's entry too (z < 2^128, so its
-// high windows are all zero).  A lane whose digits are all 8 (d = 0)
-// contributes the identity whatever its coordinates hold: that is how the
-// engine masks padded and undecodable lanes.
+// over signed 4-bit windows, MSB first: c(w, i) is lane i's A entry
+// [d](-A_i) for its zk digit d, plus its R entry in the last n_low windows
+// (z < 2^128, so its high windows are all zero).  A lane whose digits are
+// all 8 (d = 0) contributes the identity whatever its coordinates hold: that
+// is how the engine masks padded and undecodable lanes.
 //
 // The result is the same group element as the plain torch version
 // (consensus_tpu_torch/ops/scan_kernels.py::straus_msm_reference) but another
 // projective representative: the tables are built by adds rather than by
-// doublings, and the lanes are summed in this kernel's block tree rather than
-// in one tree over the whole batch.  Compare it in affine coordinates.
+// doublings, and the lanes are summed in this kernel's order (per window
+// over the lanes of each chunk, then over the chunks, then a two-level
+// Horner chain over the windows) rather than in the plain version's.
+// Compare it in affine coordinates.
 //
-// What bounds it on this card: integer multiplies.  Per lane it does about
-// 111 point adds (14 for the tables, n_low = 33 combining A and R, one tree
-// add per window), about 1,000 field multiplications of 25 64x64->128
-// products each; per block 64 x 4 doubles and 64 adds on the accumulator.  Its
-// bytes (eight (32, batch) f32 coordinates and 97 digit rows) are a tenth of
-// that time at the card's memory rate.
+// What bounds it on this card: the latency of one serial chain, then
+// products.  The 64 window sums S_w do not depend on each other, but their
+// combination is serial: 16^63 S_0 alone takes 252 doubles in a row.  The
+// products (about 750 k point adds at
+// 8,192 lanes, 9 field multiplications of 25 64x64->128 products each) need
+// about 0.03 ms over every SM; the bytes a tenth of that.  The first version
+// (one block of 128 lanes per tile, a shared-memory halving tree per window,
+// thread 0 doubling) ran about 110 serial field multiplications per window
+// in each of 64 blocks and took 6.945 ms at 8,192 lanes.
 //
-// What the design does about it, first version: one thread per lane and one
-// block of THREADS = 128 lanes per tile.  Each window,
-// every thread writes its contribution to shared memory, the block sums them
-// by a halving tree (thread t adds slot t + s into slot t), and thread 0
-// doubles the block's accumulator 4 times and adds the block sum.  Thread 0's
-// doublings come before its own lookup, so they overlap the other warps'
-// lookups.  A second kernel joins the blocks' partial sums (radix-2^51 limbs
-// in a scratch buffer the wrapper allocates) by the same tree in one block and
-// writes the point as canonical 8-bit limbs.  At 8,192 lanes that is 64 blocks
-// on 132 SMs, and the tree leaves half the threads idle at each level:
-// Pippenger buckets, warp-shuffle reductions and more lanes per SM are later
-// work.
+// What the design does about it, in four kernels:
+// 1. Tables (straus_msm_tables_kernel): one thread per (lane, point) builds
+//    j * P for j = 1..8 by 7 sequential adds and writes them to a
+//    scratch buffer in radix 2^51, one entry as 160 contiguous bytes
+//    (16-byte accesses).  The identity entry is implicit.  At 8,192 lanes the
+//    tables take 21 MB and stay in the 50 MB L2 for the next kernel; no
+//    thread keeps a table in local memory.
+// 2. Window sums (straus_msm_windows_kernel): a grid of (lane chunk,
+//    window) blocks, so every SM has work.  Each thread walks its lanes of
+//    the chunk strided by THREADS (coalesced digit reads), looks its entries
+//    up (16-byte loads, X and T negated for d < 0), skips d = 0 and adds the
+//    rest into a thread-local accumulator.  The block meets by a halving
+//    tree in shared memory down to one warp, then a __shfl_xor_sync
+//    butterfly, and writes one partial point per (window, chunk).
+// 3. Join (straus_msm_join_kernel): one warp per window reduces its chunk
+//    partials to S_w by a butterfly of log depth, on 64 SMs at once.
+// 4. Chain (straus_msm_chain_kernel, one warp): sum_w 16^(63 - w) S_w by
+//    Horner in two levels: each group of four lanes folds 8 windows, then
+//    the 8 group sums are folded with 32 doubles each.  The 252 doubles stay
+//    in a row, but the adds on that path fall from 63 to 14.  Each point
+//    operation runs on four lanes: the four independent products of each
+//    stage of ge_dbl and ge_add (dbl_stage1/2, add_stage1/2 below) go one to
+//    a lane and __shfl_sync hands every lane all four.  That is 2
+//    multiplication latencies per double and 3 per add instead of 7-8 and
+//    10, 546 in all.  The stages call ed25519_field.cuh's fe_mul, fe_add and
+//    fe_sub on ge_dbl's and ge_add's formulas in their order, so they are
+//    limb-identical to the unsplit operations.  Lanes 0..3 write X, Y, Z,
+//    T as canonical 8-bit limbs.
+//
+// First chip runs of this design (NVIDIA H100 80GB HBM3, 700.00 W; CUDA
+// events over 20 launches, per-kernel device times from torch.profiler;
+// scripts/msm_times.py and chip_smoke.py phase 6): 0.816-0.825 ms at 8,192
+// lanes (tables 0.051, window sums 0.336, join 0.014, chain 0.398 ms) and
+// 0.528-0.530 ms at 256 lanes (chain 0.389 ms), where the first version took
+// 6.922 and 6.544 ms.  ptxas: 178 registers and a 104-byte stack frame for
+// the tables, 166 for the window sums and the join, 168 for the chain, no
+// spills.  The chain is now the largest part and bounds the narrow calls:
+// one warp issues some 600 instructions per fe_mul, about 0.7 us a stage.
 //
 // Layout at the C boundary (batch trailing, limbs leading, as in the JAX
 // package): eight (32, batch) float32 coordinates -A (X, Y, Z, T) then -R,
 // weakly reduced; (64, batch) int32 zk digits and (n_low, batch) int32 z
-// digits, stored as d + 8, MSB window first; a (20, ceil(batch / THREADS))
-// int64 scratch; four (32, 1) float32 outputs.
+// digits, stored as d + 8, MSB window first; an int64 scratch of
+// straus_msm_scratch_words(batch, n_low) words; four (32, 1) float32 outputs.
+//
+// Everything above the __CUDACC__ line is __host__ __device__, so the host
+// check compiles it with g++ and replays the four kernels' schedule.
 
 #include "ed25519_field.cuh"
 
 namespace {
 
-struct msm_inputs {
+constexpr int POINT_WORDS = 20;   // one ge: 4 coordinates x 5 limbs
+constexpr int ENTRIES = TABLE - 1;  // j = 1..8; the identity is implicit
+constexpr int SPAN = 8;             // windows per group of the chain
+constexpr int GROUPS = WINDOWS / SPAN;  // groups of four lanes: a warp
+
+struct msm_args {
   const float* a[4];   // -A: X, Y, Z, T, each (32, batch)
   const float* r[4];   // -R
   const int32_t* zk;   // (64, batch)
   const int32_t* z;    // (n_low, batch)
   long long batch;
   int n_low;
+  u64* scratch;        // tables, (window, chunk) partial sums, window sums
 };
 
-// A point's 20 limbs to and from column `col` of a (20, stride) u64 array:
-// the block's shared-memory slots and the partial sums both use it, so
-// neighbouring threads touch neighbouring words.
-HD void fe_put(u64* base, long long stride, long long col, int k, const fe& f) {
-  for (int i = 0; i < 5; ++i) base[(5 * k + i) * stride + col] = f.v[i];
+// A point as 20 contiguous words (X limbs 0..4, Y, Z, T), read and written
+// 16 bytes at a time on the device.
+HD ge ge_read(const u64* p) {
+  u64 w[POINT_WORDS];
+#ifdef __CUDA_ARCH__
+  const ulonglong2* s = reinterpret_cast<const ulonglong2*>(p);
+#pragma unroll
+  for (int i = 0; i < POINT_WORDS / 2; ++i) {
+    const ulonglong2 x = s[i];
+    w[2 * i] = x.x;
+    w[2 * i + 1] = x.y;
+  }
+#else
+  for (int i = 0; i < POINT_WORDS; ++i) w[i] = p[i];
+#endif
+  ge q;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    q.X.v[i] = w[i];
+    q.Y.v[i] = w[5 + i];
+    q.Z.v[i] = w[10 + i];
+    q.T.v[i] = w[15 + i];
+  }
+  return q;
 }
 
-HD fe fe_get(const u64* base, long long stride, long long col, int k) {
-  fe f;
-  for (int i = 0; i < 5; ++i) f.v[i] = base[(5 * k + i) * stride + col];
-  return f;
+HD void ge_write(u64* p, const ge& q) {
+  u64 w[POINT_WORDS];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    w[i] = q.X.v[i];
+    w[5 + i] = q.Y.v[i];
+    w[10 + i] = q.Z.v[i];
+    w[15 + i] = q.T.v[i];
+  }
+#ifdef __CUDA_ARCH__
+  ulonglong2* d = reinterpret_cast<ulonglong2*>(p);
+#pragma unroll
+  for (int i = 0; i < POINT_WORDS / 2; ++i) d[i] = make_ulonglong2(w[2 * i], w[2 * i + 1]);
+#else
+  for (int i = 0; i < POINT_WORDS; ++i) p[i] = w[i];
+#endif
 }
 
-HD void ge_put(u64* base, long long stride, long long col, const ge& p) {
-  fe_put(base, stride, col, 0, p.X);
-  fe_put(base, stride, col, 1, p.Y);
-  fe_put(base, stride, col, 2, p.Z);
-  fe_put(base, stride, col, 3, p.T);
+// --- out-of-line field multiplication ------------------------------------------
+// The adds of the tables, window sums and join call one out-of-line copy of
+// fe_mul on the device (about 600 instructions) where ge_add inlines nine:
+// measured faster, likely because the loops' code then fits the SM's
+// instruction cache.  The chain, one warp with nothing to hide a call
+// behind, was slower that way and inlines fe_mul.
+
+#ifdef __CUDA_ARCH__
+__device__ __noinline__ fe fe_mul_call(fe f, fe g) { return fe_mul(f, g); }
+#endif
+
+HD fe mul(const fe& f, const fe& g) {
+#ifdef __CUDA_ARCH__
+  return fe_mul_call(f, g);
+#else
+  return fe_mul(f, g);
+#endif
 }
 
-HD ge ge_get(const u64* base, long long stride, long long col) {
-  return ge{fe_get(base, stride, col, 0), fe_get(base, stride, col, 1),
-            fe_get(base, stride, col, 2), fe_get(base, stride, col, 3)};
+// ge_add (add-2008-hwcd-3, the same operations in the same order) on mul.
+HD ge point_add(const ge& p, const ge& q) {
+  const fe a = mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
+  const fe b = mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
+  const fe c = mul(mul(p.T, fe_d2()), q.T);
+  const fe d = mul(fe_add(p.Z, p.Z), q.Z);
+  const fe e = fe_sub(b, a);
+  const fe f = fe_sub(d, c);
+  const fe g = fe_add(d, c);
+  const fe h = fe_add(b, a);
+  return ge{mul(e, f), mul(g, h), mul(f, g), mul(e, h)};
 }
 
-// j*p for j = 0..8: the identity, p, then 7 sequential adds of p.
-HD void table9(const ge& p, ge* tab) {
-  tab[0] = ge_identity();
-  tab[1] = p;
-  for (int j = 2; j < TABLE; ++j) tab[j] = ge_add(tab[j - 1], p);
+// --- scratch layout -----------------------------------------------------------
+// Tables: point pt (0 = -A, 1 = -R; no R table when n_low = 0), lane, entry
+// j - 1, as (points, batch, 8, 20) words.  Then the partial sums as
+// (64, chunks, 20) words, then the window sums S_w as (64, 20) words.
+
+HD int msm_points(int n_low) { return n_low > 0 ? 2 : 1; }
+
+HD long long msm_chunks(long long batch, long long chunk) { return (batch + chunk - 1) / chunk; }
+
+HD long long msm_table_words(long long batch, int n_low) {
+  return msm_points(n_low) * batch * ENTRIES * POINT_WORDS;
 }
 
-// Both tables of lane `lane`.
-HD void msm_tables(const msm_inputs& in, long long lane, ge* a_tab, ge* r_tab) {
+HD long long msm_sums_offset(long long batch, int n_low, long long chunk) {
+  return msm_table_words(batch, n_low) + WINDOWS * msm_chunks(batch, chunk) * POINT_WORDS;
+}
+
+HD long long msm_scratch_words(long long batch, int n_low, long long chunk) {
+  return msm_sums_offset(batch, n_low, chunk) + WINDOWS * POINT_WORDS;
+}
+
+// Offset of partial (w, c) within the partial sums.
+HD long long msm_slot(long long chunks, int w, long long c) { return (w * chunks + c) * POINT_WORDS; }
+
+// --- stage 1: tables ----------------------------------------------------------
+
+// Entries 1..8 of point pt of lane `lane`: p, then 7 sequential adds of p
+// (as _msm_kernel builds them).
+HD void msm_table(const msm_args& in, int pt, long long lane) {
+  const float* const* c = pt ? in.r : in.a;
   const long long n = in.batch;
-  table9(ge{fe_load(in.a[0] + lane, n), fe_load(in.a[1] + lane, n),
-            fe_load(in.a[2] + lane, n), fe_load(in.a[3] + lane, n)}, a_tab);
-  table9(ge{fe_load(in.r[0] + lane, n), fe_load(in.r[1] + lane, n),
-            fe_load(in.r[2] + lane, n), fe_load(in.r[3] + lane, n)}, r_tab);
+  const ge p = {fe_load(c[0] + lane, n), fe_load(c[1] + lane, n),
+                fe_load(c[2] + lane, n), fe_load(c[3] + lane, n)};
+  u64* out = in.scratch + (pt * n + lane) * ENTRIES * POINT_WORDS;
+  ge cur = p;
+  ge_write(out, cur);
+  for (int j = 1; j < ENTRIES; ++j) {
+    cur = point_add(cur, p);
+    ge_write(out + j * POINT_WORDS, cur);
+  }
 }
 
-// table[|d|] with the sign of d, for a digit stored as d + 8.  A code outside
-// [0, 16] is not a valid input; the clamp only keeps such a lane from reading
-// outside the table.
-HD ge lookup(const ge* tab, int code) {
+// --- stage 2: window sums -----------------------------------------------------
+
+// [d] P for a digit stored as code = d + 8 with d != 0: entry |d| with X
+// and T negated for d < 0.  A code outside [0, 16] is not a valid input; the
+// clamp only keeps such a lane from reading outside its table.
+HD ge msm_entry(const msm_args& in, int pt, long long lane, int code) {
   const int d = code - 8;
   int idx = d < 0 ? -d : d;
-  idx = idx > TABLE - 1 ? TABLE - 1 : idx;
-  ge q = tab[idx];
+  idx = idx > ENTRIES ? ENTRIES : idx;
+  ge q = ge_read(in.scratch + ((pt * in.batch + lane) * ENTRIES + idx - 1) * POINT_WORDS);
   if (d < 0) {
     q.X = fe_neg(q.X);
     q.T = fe_neg(q.T);
@@ -116,103 +233,256 @@ HD ge lookup(const ge* tab, int code) {
   return q;
 }
 
-// Lane `lane`'s contribution to window w: its A entry, plus its R entry in
-// the last n_low windows.
-HD ge msm_contribution(const msm_inputs& in, const ge* a_tab, const ge* r_tab,
-                       int w, long long lane) {
-  ge c = lookup(a_tab, in.zk[w * in.batch + lane]);
+// Thread t's share of window w over the lanes [lo, hi) of one chunk: lanes
+// lo + t, lo + t + threads, ...; each adds its A entry, and its R entry in
+// the last n_low windows, skipping digits d = 0.
+HD ge msm_thread_sum(const msm_args& in, int w, long long lo, long long hi, int t, int threads) {
   const int n_high = WINDOWS - in.n_low;
-  if (w >= n_high) c = ge_add(c, lookup(r_tab, in.z[(w - n_high) * in.batch + lane]));
-  return c;
+  ge acc = ge_identity();
+  for (long long lane = lo + t; lane < hi; lane += threads) {
+    const int a = in.zk[w * in.batch + lane];
+    if (a != 8) acc = point_add(acc, msm_entry(in, 0, lane, a));
+    if (w >= n_high) {
+      const int r = in.z[(w - n_high) * in.batch + lane];
+      if (r != 8) acc = point_add(acc, msm_entry(in, 1, lane, r));
+    }
+  }
+  return acc;
 }
 
-// 16 * acc: 3 doubles without T, then 1 that materializes T for the add.
-HD ge ge_quad_double(ge acc) {
-  acc = ge_dbl(acc, false);
-  acc = ge_dbl(acc, false);
-  acc = ge_dbl(acc, false);
-  return ge_dbl(acc, true);
+// --- stage 3: join and chain --------------------------------------------------
+
+// Lanes of the join's butterfly per window: the chunk count rounded up to a
+// power of two, at most `warp`.
+HD int msm_group(long long chunks, int warp) {
+  int g = 1;
+  while (g < chunks && g < warp) g <<= 1;
+  return g;
+}
+
+// Lane j of a group of g: the sum of window w's partials j, j + g, ...
+HD ge msm_window_share(const u64* partials, long long chunks, int w, int j, int g) {
+  if (j >= chunks) return ge_identity();
+  ge s = ge_read(partials + msm_slot(chunks, w, j));
+  for (long long c = j + g; c < chunks; c += g) s = point_add(s, ge_read(partials + msm_slot(chunks, w, c)));
+  return s;
+}
+
+// a, b, c or d by role 0..3, without a branch.
+HD fe fe_pick(int role, const fe& a, const fe& b, const fe& c, const fe& d) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    r.v[i] = role == 0 ? a.v[i] : role == 1 ? b.v[i] : role == 2 ? c.v[i] : d.v[i];
+  return r;
+}
+
+// ge_dbl split over four roles.  Stage 1: role r's product of X^2, Y^2, Z^2,
+// (X + Y)^2.  Stage 2, from the four: role r's coordinate of 2p (role 3
+// passes p.T through when need_t is false, as ge_dbl does).
+HD fe dbl_stage1(const ge& p, int role) {
+  const fe x = fe_pick(role, p.X, p.Y, p.Z, fe_add(p.X, p.Y));
+  return fe_mul(x, x);
+}
+
+HD fe dbl_stage2(const ge& p, const fe* m, int role, bool need_t) {
+  const fe c = fe_add(m[2], m[2]);
+  const fe h = fe_add(m[0], m[1]);
+  const fe e = fe_sub(h, m[3]);
+  const fe g = fe_sub(m[0], m[1]);
+  const fe f = fe_add(c, g);
+  const fe r = fe_mul(fe_pick(role, e, g, f, e), fe_pick(role, f, h, g, h));
+  return role == 3 && !need_t ? p.T : r;
+}
+
+// ge_add split over four roles.  Stage 1: role r's product of A, B,
+// C = (T1 * 2d) * T2, D = 2 Z1 * Z2 (every role forms T1 * 2d, so the stage
+// is two multiplications long for all).  Stage 2: role r's coordinate of
+// p + q.
+HD fe add_stage1(const ge& p, const ge& q, int role) {
+  const fe t2d = fe_mul(p.T, fe_d2());
+  return fe_mul(fe_pick(role, fe_sub(p.Y, p.X), fe_add(p.Y, p.X), t2d, fe_add(p.Z, p.Z)),
+                fe_pick(role, fe_sub(q.Y, q.X), fe_add(q.Y, q.X), q.T, q.Z));
+}
+
+HD fe add_stage2(const fe* m, int role) {
+  const fe e = fe_sub(m[1], m[0]);
+  const fe f = fe_sub(m[3], m[2]);
+  const fe g = fe_add(m[3], m[2]);
+  const fe h = fe_add(m[1], m[0]);
+  return fe_mul(fe_pick(role, e, g, f, e), fe_pick(role, f, h, g, h));
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
 
-constexpr int THREADS = 128;  // lanes per block; a power of two
+constexpr int WARP = 32;
+constexpr int THREADS = 256;           // window-sum block; WARP times a power of two
+constexpr int LANES_PER_THREAD = 8;
+constexpr long long CHUNK = THREADS * LANES_PER_THREAD;  // lanes per window-sum block
+constexpr int TABLE_THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Halving tree over the block's THREADS slots of `sh`; slot 0 ends with the
-// sum.  Every thread of the block must call it.
-__device__ __forceinline__ void block_tree(u64* sh, int t) {
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) ge_put(sh, THREADS, t, ge_add(ge_get(sh, THREADS, t), ge_get(sh, THREADS, t + s)));
+__device__ __forceinline__ fe fe_shfl(const fe& f, int src) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) r.v[i] = __shfl_sync(FULL, (unsigned long long)f.v[i], src);
+  return r;
+}
+
+__device__ __forceinline__ ge ge_shfl_xor(const ge& p, int m) {
+  ge q;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    q.X.v[i] = __shfl_xor_sync(FULL, (unsigned long long)p.X.v[i], m);
+    q.Y.v[i] = __shfl_xor_sync(FULL, (unsigned long long)p.Y.v[i], m);
+    q.Z.v[i] = __shfl_xor_sync(FULL, (unsigned long long)p.Z.v[i], m);
+    q.T.v[i] = __shfl_xor_sync(FULL, (unsigned long long)p.T.v[i], m);
+  }
+  return q;
+}
+
+// Butterfly over aligned groups of `width` lanes (a power of two): lane 0
+// of each group ends with the group's sum.  The whole warp must call it.
+__device__ __forceinline__ ge warp_sum(ge acc, int width) {
+  for (int m = width / 2; m > 0; m >>= 1) acc = point_add(acc, ge_shfl_xor(acc, m));
+  return acc;
+}
+
+// Every lane of a group of four gets the four roles' values.
+__device__ __forceinline__ void exchange(const fe& mine, fe* all, int lane) {
+  const int base = lane & ~3;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) all[k] = fe_shfl(mine, base + k);
+}
+
+__device__ __forceinline__ ge chain_dbl(const ge& p, int lane, bool need_t) {
+  fe m[4], o[4];
+  exchange(dbl_stage1(p, lane & 3), m, lane);
+  exchange(dbl_stage2(p, m, lane & 3, need_t), o, lane);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+
+__device__ __forceinline__ ge chain_add(const ge& p, const ge& q, int lane) {
+  fe m[4], o[4];
+  exchange(add_stage1(p, q, lane & 3), m, lane);
+  exchange(add_stage2(m, lane & 3), o, lane);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+
+__global__ void __launch_bounds__(TABLE_THREADS) straus_msm_tables_kernel(msm_args in) {
+  const long long lane = (long long)blockIdx.x * TABLE_THREADS + threadIdx.x;
+  if (lane < in.batch) msm_table(in, blockIdx.y, lane);
+}
+
+// Block (c, w): window w over the lanes of chunk c.  The threads' sums
+// meet by a halving tree in shared memory down to one warp (the upper half
+// of the remaining threads hands its sums to the lower half), then by a
+// butterfly in that warp.
+__global__ void __launch_bounds__(THREADS) straus_msm_windows_kernel(msm_args in, int chunks) {
+  __shared__ __align__(16) u64 sh[THREADS / 2 * POINT_WORDS];
+  const int t = threadIdx.x, c = blockIdx.x, w = blockIdx.y;
+  const long long lo = c * CHUNK;
+  const long long hi = lo + CHUNK < in.batch ? lo + CHUNK : in.batch;
+  ge acc = msm_thread_sum(in, w, lo, hi, t, THREADS);
+  for (int s = THREADS / 2; s >= WARP; s >>= 1) {
+    if (t >= s && t < 2 * s) ge_write(sh + (t - s) * POINT_WORDS, acc);
+    __syncthreads();
+    if (t < s) acc = point_add(acc, ge_read(sh + t * POINT_WORDS));
     __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-straus_msm_partials_kernel(msm_inputs in, u64* __restrict__ partials) {
-  __shared__ u64 sh[20 * THREADS];  // (20, THREADS)
-  const int t = threadIdx.x;
-  const long long lane = (long long)blockIdx.x * THREADS + t;
-  const bool live = lane < in.batch;  // the ragged edge contributes the identity
-  ge a_tab[TABLE], r_tab[TABLE];
-  if (live) msm_tables(in, lane, a_tab, r_tab);
-  ge acc = ge_identity();  // thread 0's
-  for (int w = 0; w < WINDOWS; ++w) {
-    if (t == 0) acc = ge_quad_double(acc);
-    ge_put(sh, THREADS, t, live ? msm_contribution(in, a_tab, r_tab, w, lane) : ge_identity());
-    __syncthreads();
-    block_tree(sh, t);
-    if (t == 0) acc = ge_add(acc, ge_get(sh, THREADS, 0));
-    __syncthreads();  // slot 0 is read before the next window overwrites it
-  }
-  if (t == 0) ge_put(partials, gridDim.x, blockIdx.x, acc);
-}
-
-__global__ void __launch_bounds__(THREADS)
-straus_msm_join_kernel(const u64* __restrict__ partials, int nblocks, float* __restrict__ ox,
-                       float* __restrict__ oy, float* __restrict__ oz, float* __restrict__ ot) {
-  __shared__ u64 sh[20 * THREADS];  // (20, THREADS)
-  const int t = threadIdx.x;
-  ge s = ge_identity();
-  for (int b = t; b < nblocks; b += THREADS) s = ge_add(s, ge_get(partials, nblocks, b));
-  ge_put(sh, THREADS, t, s);
-  __syncthreads();
-  block_tree(sh, t);
-  if (t == 0) {
-    const ge r = ge_get(sh, THREADS, 0);
-    fe_store(ox, 1, r.X);
-    fe_store(oy, 1, r.Y);
-    fe_store(oz, 1, r.Z);
-    fe_store(ot, 1, r.T);
+  if (t < WARP) {
+    acc = warp_sum(acc, WARP);
+    if (t == 0) ge_write(in.scratch + msm_table_words(in.batch, in.n_low) + msm_slot(chunks, w, c), acc);
   }
 }
 
-// Launches both kernels on `stream` of CUDA device `device` and returns the
-// first nonzero cudaGetLastError() (0 on success).  `partials` holds
-// 20 * ceil(batch / THREADS) int64.
+// Block w, one warp: S_w from window w's chunk partials, by a butterfly over
+// the chunk count rounded up to a power of two (at most a warp; each lane
+// first adds its partials j, j + 32, ... when there are more chunks).
+__global__ void __launch_bounds__(WARP)
+straus_msm_join_kernel(const u64* __restrict__ partials, int chunks, u64* __restrict__ sums) {
+  const int lane = threadIdx.x, w = blockIdx.x;
+  const int g = msm_group(chunks, WARP);
+  const ge s = warp_sum(msm_window_share(partials, chunks, w, lane, g), g);
+  if (lane == 0) ge_write(sums + w * POINT_WORDS, s);
+}
+
+__device__ __forceinline__ ge ge_shfl(const ge& p, int src) {
+  return ge{fe_shfl(p.X, src), fe_shfl(p.Y, src), fe_shfl(p.Z, src), fe_shfl(p.T, src)};
+}
+
+// One warp, four lanes per point operation.  Group i (lanes 4i..4i+3) folds
+// its SPAN windows by Horner, C_i = sum_k 16^(SPAN - 1 - k) S_(SPAN i + k);
+// then every group runs acc = C_0, acc = 16^SPAN acc + C_i for i = 1..7.
+// The critical path keeps its 252 doubles but has 14 adds instead of 63.
+__global__ void __launch_bounds__(WARP)
+straus_msm_chain_kernel(const u64* __restrict__ window_sums, float* __restrict__ ox,
+                        float* __restrict__ oy, float* __restrict__ oz, float* __restrict__ ot) {
+  static_assert(GROUPS * 4 == WARP, "one group of four lanes per SPAN windows");
+  __shared__ __align__(16) u64 sums[WINDOWS * POINT_WORDS];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < WINDOWS * POINT_WORDS / 2; i += WARP) {
+    reinterpret_cast<ulonglong2*>(sums)[i] = reinterpret_cast<const ulonglong2*>(window_sums)[i];
+  }
+  __syncwarp();
+  const u64* mine = sums + (lane / 4) * SPAN * POINT_WORDS;
+  ge c = ge_read(mine);
+  for (int k = 1; k < SPAN; ++k) {
+#pragma unroll 1
+    for (int d = 0; d < 4; ++d) c = chain_dbl(c, lane, d == 3);
+    c = chain_add(c, ge_read(mine + k * POINT_WORDS), lane);
+  }
+  ge acc = ge_shfl(c, 0);
+  for (int i = 1; i < GROUPS; ++i) {
+#pragma unroll 1
+    for (int d = 0; d < 4 * SPAN; ++d) acc = chain_dbl(acc, lane, d == 4 * SPAN - 1);
+    acc = chain_add(acc, ge_shfl(c, 4 * i), lane);
+  }
+  if (lane < 4) {
+    float* out = lane == 0 ? ox : lane == 1 ? oy : lane == 2 ? oz : ot;
+    fe_store(out, 1, fe_pick(lane, acc.X, acc.Y, acc.Z, acc.T));
+  }
+}
+
+// int64 words of the scratch buffer straus_msm_launch needs.
+extern "C" long long straus_msm_scratch_words(long long batch, int n_low) {
+  return msm_scratch_words(batch, n_low, CHUNK);
+}
+
+// Launches the four kernels on `stream` of CUDA device `device` and returns
+// the first nonzero cudaGetLastError() (0 on success).
 extern "C" int straus_msm_launch(const void* ax, const void* ay, const void* az,
                                  const void* at, const void* rx, const void* ry,
                                  const void* rz, const void* rt, const void* zk,
-                                 const void* z, void* partials, void* ox, void* oy,
+                                 const void* z, void* scratch, void* ox, void* oy,
                                  void* oz, void* ot, int batch, int n_low, int device,
                                  void* stream) {
   if (batch < 0 || n_low < 0 || n_low > WINDOWS) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const msm_inputs in = {
+  u64* const words = (u64*)scratch;
+  const msm_args in = {
       {(const float*)ax, (const float*)ay, (const float*)az, (const float*)at},
       {(const float*)rx, (const float*)ry, (const float*)rz, (const float*)rt},
-      (const int32_t*)zk, (const int32_t*)z, batch, n_low};
-  const int nblocks = (batch + THREADS - 1) / THREADS;
-  if (nblocks > 0) {
-    straus_msm_partials_kernel<<<nblocks, THREADS, 0, (cudaStream_t)stream>>>(
-        in, (u64*)partials);
+      (const int32_t*)zk, (const int32_t*)z, batch, n_low, words};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int chunks = (int)msm_chunks(batch, CHUNK);
+  u64* const sums = words + msm_sums_offset(batch, n_low, CHUNK);
+  if (batch > 0) {
+    const dim3 tables((batch + TABLE_THREADS - 1) / TABLE_THREADS, msm_points(n_low));
+    straus_msm_tables_kernel<<<tables, TABLE_THREADS, 0, s>>>(in);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    straus_msm_windows_kernel<<<dim3(chunks, WINDOWS), THREADS, 0, s>>>(in, chunks);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  straus_msm_join_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-      (const u64*)partials, nblocks, (float*)ox, (float*)oy, (float*)oz, (float*)ot);
+  straus_msm_join_kernel<<<WINDOWS, WARP, 0, s>>>(words + msm_table_words(batch, n_low), chunks, sums);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  straus_msm_chain_kernel<<<1, WARP, 0, s>>>(sums, (float*)ox, (float*)oy, (float*)oz, (float*)ot);
   return (int)cudaGetLastError();
 }
 

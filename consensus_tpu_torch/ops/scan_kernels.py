@@ -53,16 +53,13 @@ KERNELS = {
     "horner_scan_p256": (_CSRC / "horner_scan_p256.cu", 6, ()),
     "straus_msm": (_CSRC / "straus_msm.cu", 15, ("n_low",)),
 }
-# Lanes per block of the Straus MSM kernel (THREADS in straus_msm.cu): sizes
-# its partial-sum scratch.
-_MSM_THREADS = 128
 
 #: Kernel launches made by :func:`horner_scan` in this process.
 launches = 0
 #: Kernel launches made by :func:`horner_scan_p256` in this process.
 launches_p256 = 0
 #: Kernel launches made by :func:`straus_msm` in this process (one per call:
-#: the partial sums and their join).
+#: its tables, window sums, join and chain kernels).
 launches_msm = 0
 
 
@@ -335,15 +332,25 @@ def straus_msm(
     device = neg_a.x.device
     if device.type == "cpu":
         return straus_msm_reference(neg_a, neg_r, zk_digits, z_digits)
-    blocks = -(-batch // _MSM_THREADS)
-    partials = torch.empty((20, blocks), dtype=torch.int64, device=device)
+    scratch = torch.empty(_msm_scratch_words(batch, n_low), dtype=torch.int64, device=device)
     outs = [torch.empty((fe.LIMBS, 1), dtype=torch.float32, device=device) for _ in range(4)]
     _launch(
-        "straus_msm", (*neg_a, *neg_r, zk_digits, z_digits), (partials, *outs),
+        "straus_msm", (*neg_a, *neg_r, zk_digits, z_digits), (scratch, *outs),
         batch, device, (n_low,),
     )
     launches_msm += 1
     return ed.Point(*outs)
+
+
+def _msm_scratch_words(batch: int, n_low: int) -> int:
+    """int64 words of the Straus MSM kernel's scratch (its tables, partial
+    sums and window sums), from the CUDA source, which alone knows the
+    layout."""
+    lib, _ = _library("straus_msm")
+    words = lib.straus_msm_scratch_words
+    words.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    words.restype = ctypes.c_longlong
+    return words(batch, n_low)
 
 
 def straus_msm_reference(

@@ -169,11 +169,12 @@ def test_p256_engine_on_card_matches_reference_and_launches_once(cuda_device):
     assert got.tolist() == want == [False] * 3 + [True] * 5
 
 
-def _msm_case(n: int, device):
+def _msm_case(n: int, device, n_low: int = 33):
     """-A and -R for A = jB, R = (j + 50)B in weak limbs with negative
-    entries, digits of random zk < L and z < 2^128; every 5th lane is masked
-    (all digits 8, zero coordinates, as a padded lane) and every 7th has all
-    digits 0 (d = -8 in every window)."""
+    entries, digits of random zk < L and of z over ``n_low`` windows (z <
+    2^128 for the engine's 33, z < L for 64, no z digits for 0); every 5th
+    lane is masked (all digits 8, zero coordinates, as a padded lane) and
+    every 7th has all digits 0 (d = -8 in every window)."""
     pts, cur = [], (ed._BX, ed._BY)
     for _ in range(n + 50):
         pts.append(cur)
@@ -190,9 +191,10 @@ def _msm_case(n: int, device):
 
     rng = np.random.default_rng(n)
     zk = [int.from_bytes(rng.bytes(32), "little") % med.L for _ in range(n)]
-    zs = [int.from_bytes(rng.bytes(16), "little") or 1 for _ in range(n)]
+    z_bytes = 16 if n_low == 33 else 32
+    zs = [int.from_bytes(rng.bytes(z_bytes), "little") % med.L or 1 for _ in range(n)]
     zk_digits = med._signed_digits_rows(zk, 64).astype(np.int32)
-    z_digits = med._signed_digits_rows(zs, 33).astype(np.int32)
+    z_digits = (med._signed_digits_rows(zs, n_low) if n_low else np.zeros((0, n))).astype(np.int32)
     for d in (zk_digits, z_digits):
         d[:, 6::7] = 0
         d[:, 4::5] = 8  # a masked lane stays masked
@@ -206,13 +208,16 @@ def _affine(p: ed.Point):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_low", [0, 33, 64])
 @pytest.mark.parametrize("n", [37, 256])
-def test_msm_kernel_matches_reference_on_card(cuda_device, n):
+def test_msm_kernel_matches_reference_on_card(cuda_device, n, n_low):
     """Kernel B3's point equals the plain version's in affine coordinates
     (tolerance 0; the projective representatives differ by design), with
-    masked and zero-digit lanes, at a batch that does and one that does not
-    fill its last block; canonical limbs out; one launch per call."""
-    inputs = _msm_case(n, cuda_device)
+    masked and zero-digit lanes, at a batch whose window-sum threads hold
+    one lane or fewer (37) and one where each holds two (256, the catch-up
+    chunk's width), with no R table (n_low 0), the engine's 33 R windows and
+    R in every window; canonical limbs out; one count per call."""
+    inputs = _msm_case(n, cuda_device, n_low)
     assert min(float(c.min()) for c in inputs[0]) < 0  # weak limbs reach the kernel
     before = scan_kernels.launches_msm
     got = scan_kernels.straus_msm(*inputs)

@@ -173,6 +173,8 @@ def _rehearse_randomized_phases(monkeypatch):
     assert (k["lanes"], k["n_low"], k["masked_lanes"], k["padded_lanes"]) == (32, 33, 2, 4)
     assert k["live_lanes"] == 32 - 2 - 4
     assert k["max_abs_err"] == 0.0
+    # The catch-up width: all 32 columns here (fewer than 256).
+    assert (k["sub_lanes"], k["sub_live_lanes"], k["sub_max_abs_err"]) == (32, 26, 0.0)
     # As in the P-256 rehearsal, the MSM's result on the same inputs stands
     # in for it after its first call, so the profiler has few ops to sort.
     real, seen, calls = scan_kernels.straus_msm, {}, []
@@ -203,6 +205,37 @@ def _rehearse_randomized_phases(monkeypatch):
     assert len(c["forged"]) == 3 and c["min_device_batch"] == 16
     assert len(calls) == c["device_checks"] == 1 and c["host_checks"] >= 2
     assert (c["msm_launches"], c["horner_launches"]) == (0, 0)
+
+
+def test_ptxas_summary_reads_each_function():
+    # Shaped like nvcc -Xptxas -v on the Straus MSM source: two kernels
+    # around an out-of-line device function, whose properties must not be
+    # booked to the kernel before it.
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z22straus_msm_join_kernelPKmiPm' for 'sm_90a'
+ptxas info    : Function properties for _Z22straus_msm_join_kernelPKmiPm
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111fe_mul_callENS_2feES0_
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Compiling entry function '_Z24straus_msm_tables_kernel8msm_args' for 'sm_90a'
+ptxas info    : Function properties for _Z24straus_msm_tables_kernel8msm_args
+    104 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 178 registers, used 1 barriers, 20480 bytes smem, 104 bytes cumulative stack size
+"""
+    got = chip_smoke.ptxas_summary(report)
+    assert got == {
+        "straus_msm_join_kernel": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 166, "smem": 0,
+        },
+        "_ZN12_GLOBAL__N_111fe_mul_callENS_2feES0_": {
+            "stack": 16, "spill_stores": 8, "spill_loads": 12,
+        },
+        "straus_msm_tables_kernel": {
+            "stack": 104, "spill_stores": 0, "spill_loads": 0, "registers": 178, "smem": 20480,
+        },
+    }
+    assert chip_smoke.ptxas_summary("") == {}
 
 
 def test_bisection_node_count():

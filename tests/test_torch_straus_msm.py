@@ -6,9 +6,11 @@ The randomized verifier's shared-doubling multi-scalar multiplication:
 JAX module's on the same numpy inputs (the XLA path the JAX verifier takes by
 default, no ``CTPU_MXU_LIMBS``), and ``straus_msm_reference`` (the plain
 version of kernel B3) against a pure-Python sum of scalar multiplications
-in affine coordinates.  The kernel's arithmetic and block schedule are held
-against the same sum compiled as plain C++ with g++; the kernel itself runs
-only on the card (tests/test_torch_cuda.py, chip_smoke.py phase 6).
+in affine coordinates.  The kernel's arithmetic and the schedule of its
+four kernels (tables, window sums, join, split-role Horner chain) are
+held against the same sum compiled as plain C++ with g++, and the chain's
+split stages against the unsplit point operations limb for limb; the
+kernel itself runs only on the card (tests/test_torch_cuda.py, chip_smoke.py phase 6).
 """
 
 import shutil
@@ -73,19 +75,29 @@ def _digits(values, windows) -> np.ndarray:
     return tmed._signed_digits_rows(values, windows).astype(np.int32)
 
 
-def _msm_case(n: int, seed: int, masked=()):
-    """-A, -R for A = (j+1)B and R = (j+51)B, scalars zk < L and z < 2^128
-    from numpy seed ``seed``; ``masked`` lanes get all-8 digits (scalar 0)."""
+def _msm_case(n: int, seed: int, masked=(), n_low: int = tmed._Z_WINDOWS):
+    """-A, -R for A = (j+1)B and R = (j+51)B, scalars zk < L and z from
+    numpy seed ``seed`` over ``n_low`` windows (z < 2^128 for the engine's
+    33, z < L for 64, none for 0); ``masked`` lanes get all-8 digits
+    (scalar 0)."""
     a_pts, r_pts = _walk(n, 0), _walk(n, 50)
     rng = np.random.default_rng(seed)
     zk = [int.from_bytes(rng.bytes(32), "little") % tmed.L for _ in range(n)]
-    zs = [int.from_bytes(rng.bytes(16), "little") or 1 for _ in range(n)]
+    if n_low == tmed._Z_WINDOWS:
+        zs = [int.from_bytes(rng.bytes(16), "little") or 1 for _ in range(n)]
+    elif n_low == tmed._WINDOWS:
+        zs = [int.from_bytes(rng.bytes(32), "little") % tmed.L or 1 for _ in range(n)]
+    elif n_low == 0:
+        zs = [0] * n
+    else:
+        raise ValueError(f"no case for n_low {n_low}")
     for i in masked:
         zk[i] = zs[i] = 0
+    z_digits = _digits(zs, n_low) if n_low else np.zeros((0, n), dtype=np.int32)
     return {
         "a_pts": a_pts, "r_pts": r_pts, "zk": zk, "zs": zs,
         "neg_a": _neg_limbs(a_pts), "neg_r": _neg_limbs(r_pts),
-        "zk_digits": _digits(zk, tmed._WINDOWS), "z_digits": _digits(zs, tmed._Z_WINDOWS),
+        "zk_digits": _digits(zk, tmed._WINDOWS), "z_digits": z_digits,
     }
 
 
@@ -214,108 +226,218 @@ def test_msm_bound_counts_the_work():
     assert chip_smoke.msm_bound(8192, 0, 33, 132, 1.98e9)["products"] == 75_264 + 29_696
 
 
-_HOST_HARNESS = r"""
+# The split-role point operations of the chain, run role after role: what
+# the chain kernel's four lanes compute, with the shuffles replaced by arrays.
+_SPLIT_OPS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
 #include "straus_msm.cu"
-// The two kernels' schedule, one thread after another: per block, per window,
-// thread 0's four doubles, every thread's contribution into its slot, the
-// halving tree, thread 0's add; then the join of the blocks' partial sums by
-// the same tree in one block.
-static void tree(std::vector<u64>& sh, int threads) {
-  for (int s = threads / 2; s > 0; s >>= 1)
-    for (int t = 0; t < s; ++t)
-      ge_put(sh.data(), threads, t, ge_add(ge_get(sh.data(), threads, t), ge_get(sh.data(), threads, t + s)));
+static ge split_dbl(const ge& p, bool need_t) {
+  fe m[4], o[4];
+  for (int r = 0; r < 4; ++r) m[r] = dbl_stage1(p, r);
+  for (int r = 0; r < 4; ++r) o[r] = dbl_stage2(p, m, r, need_t);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+static ge split_add(const ge& p, const ge& q) {
+  fe m[4], o[4];
+  for (int r = 0; r < 4; ++r) m[r] = add_stage1(p, q, r);
+  for (int r = 0; r < 4; ++r) o[r] = add_stage2(m, r);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+static bool read_all(const char* path, void* a, size_t na, void* b = 0, size_t nb = 0,
+                     void* c = 0, size_t nc = 0) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return false;
+  const bool ok = fread(a, 1, na, f) == na && fread(b, 1, nb, f) == nb && fread(c, 1, nc, f) == nc;
+  fclose(f);
+  return ok;
+}
+static bool write_all(const char* path, const void* a, size_t n) {
+  FILE* f = fopen(path, "wb");
+  if (!f) return false;
+  const bool ok = fwrite(a, 1, n, f) == n;
+  fclose(f);
+  return ok;
+}
+"""
+
+_HOST_HARNESS = _SPLIT_OPS + r"""
+// The four kernels' schedule, one thread after another, with the block
+// geometry from the command line (threads per window-sum block, lanes per
+// warp, lanes per chunk): the tables per (lane, point); per (window, chunk)
+// every thread's share, a halving tree down to one warp and a butterfly in
+// it; per window a butterfly over its chunk partials; then the two-level
+// Horner chain on the split stages.  On the card a butterfly is
+// __shfl_xor_sync: lane 0 ends with point_add(v[0], v[m]) at each level m.
+static ge butterfly(std::vector<ge> v) {
+  for (size_t m = v.size() / 2; m > 0; m >>= 1) {
+    std::vector<ge> next(v.size());
+    for (size_t i = 0; i < v.size(); ++i) next[i] = point_add(v[i], v[i ^ m]);
+    v = next;
+  }
+  return v[0];
 }
 int main(int argc, char** argv) {
-  if (argc != 6) return 2;
+  if (argc != 8) return 2;
   const long long batch = atoll(argv[1]);
-  const int n_low = atoi(argv[2]), threads = atoi(argv[3]);
+  const int n_low = atoi(argv[2]), threads = atoi(argv[3]), warp = atoi(argv[4]);
+  const long long chunk = atoll(argv[5]);
   const long long s = 32 * batch;
   std::vector<float> c(8 * s);
   std::vector<int32_t> zk(64 * batch), z(n_low * batch);
-  FILE* f = fopen(argv[4], "rb");
-  if (!f || fread(c.data(), 4, c.size(), f) != c.size() ||
-      fread(zk.data(), 4, zk.size(), f) != zk.size() ||
-      fread(z.data(), 4, z.size(), f) != z.size()) return 3;
-  fclose(f);
-  const msm_inputs in = {{&c[0], &c[s], &c[2 * s], &c[3 * s]},
-                         {&c[4 * s], &c[5 * s], &c[6 * s], &c[7 * s]},
-                         zk.data(), z.data(), batch, n_low};
-  const int nblocks = (int)((batch + threads - 1) / threads);
-  std::vector<u64> partials(20 * nblocks), sh(20 * threads);
-  std::vector<ge> a_tab(9 * threads), r_tab(9 * threads);
-  for (int b = 0; b < nblocks; ++b) {
-    for (int t = 0; t < threads; ++t) {
-      const long long lane = (long long)b * threads + t;
-      if (lane < batch) msm_tables(in, lane, &a_tab[9 * t], &r_tab[9 * t]);
+  if (!read_all(argv[6], c.data(), 4 * c.size(), zk.data(), 4 * zk.size(), z.data(), 4 * z.size()))
+    return 3;
+  std::vector<u64> scratch(msm_scratch_words(batch, n_low, chunk));
+  const msm_args in = {{&c[0], &c[s], &c[2 * s], &c[3 * s]},
+                       {&c[4 * s], &c[5 * s], &c[6 * s], &c[7 * s]},
+                       zk.data(), z.data(), batch, n_low, scratch.data()};
+  for (int pt = 0; pt < msm_points(n_low); ++pt)
+    for (long long lane = 0; lane < batch; ++lane) msm_table(in, pt, lane);
+  const long long chunks = msm_chunks(batch, chunk);
+  u64* partials = scratch.data() + msm_table_words(batch, n_low);
+  for (int w = 0; w < WINDOWS; ++w) {
+    for (long long ch = 0; ch < chunks; ++ch) {
+      const long long lo = ch * chunk, hi = lo + chunk < batch ? lo + chunk : batch;
+      std::vector<ge> acc;
+      for (int t = 0; t < threads; ++t) acc.push_back(msm_thread_sum(in, w, lo, hi, t, threads));
+      for (int s = threads / 2; s >= warp; s >>= 1)
+        for (int t = 0; t < s; ++t) acc[t] = point_add(acc[t], acc[t + s]);
+      acc.resize(warp);
+      ge_write(partials + msm_slot(chunks, w, ch), butterfly(acc));
     }
-    ge acc = ge_identity();
-    for (int w = 0; w < WINDOWS; ++w) {
-      acc = ge_quad_double(acc);
-      for (int t = 0; t < threads; ++t) {
-        const long long lane = (long long)b * threads + t;
-        ge_put(sh.data(), threads, t, lane < batch
-               ? msm_contribution(in, &a_tab[9 * t], &r_tab[9 * t], w, lane) : ge_identity());
-      }
-      tree(sh, threads);
-      acc = ge_add(acc, ge_get(sh.data(), threads, 0));
+  }
+  const int g = msm_group(chunks, warp);
+  std::vector<ge> sums;
+  for (int w = 0; w < WINDOWS; ++w) {
+    std::vector<ge> shares;
+    for (int j = 0; j < g; ++j) shares.push_back(msm_window_share(partials, chunks, w, j, g));
+    sums.push_back(butterfly(shares));
+  }
+  std::vector<ge> groups;
+  for (int i = 0; i < GROUPS; ++i) {
+    ge c = sums[SPAN * i];
+    for (int k = 1; k < SPAN; ++k) {
+      for (int d = 0; d < 4; ++d) c = split_dbl(c, d == 3);
+      c = split_add(c, sums[SPAN * i + k]);
     }
-    ge_put(partials.data(), nblocks, b, acc);
+    groups.push_back(c);
   }
-  for (int t = 0; t < threads; ++t) {
-    ge sum = ge_identity();
-    for (int b = t; b < nblocks; b += threads) sum = ge_add(sum, ge_get(partials.data(), nblocks, b));
-    ge_put(sh.data(), threads, t, sum);
+  ge acc = groups[0];
+  for (int i = 1; i < GROUPS; ++i) {
+    for (int d = 0; d < 4 * SPAN; ++d) acc = split_dbl(acc, d == 4 * SPAN - 1);
+    acc = split_add(acc, groups[i]);
   }
-  tree(sh, threads);
-  const ge r = ge_get(sh.data(), threads, 0);
   std::vector<float> out(4 * 32);
-  fe_store(&out[0], 1, r.X);
-  fe_store(&out[32], 1, r.Y);
-  fe_store(&out[64], 1, r.Z);
-  fe_store(&out[96], 1, r.T);
-  f = fopen(argv[5], "wb");
-  if (!f || fwrite(out.data(), 4, out.size(), f) != out.size()) return 4;
-  fclose(f);
-  return 0;
+  for (int r = 0; r < 4; ++r) fe_store(&out[32 * r], 1, fe_pick(r, acc.X, acc.Y, acc.Z, acc.T));
+  printf("chunks %lld group %d\n", chunks, g);
+  return write_all(argv[7], out.data(), 4 * out.size()) ? 0 : 4;
+}
+"""
+
+# For each of n point pairs (p, q) loaded from weak limbs: ge_dbl(p) without
+# and with T, ge_add(p, q), each unsplit and split, and point_add(p, q), as
+# 20 words each.
+_SPLIT_HARNESS = _SPLIT_OPS + r"""
+int main(int argc, char** argv) {
+  if (argc != 4) return 2;
+  const long long n = atoll(argv[1]), s = 32 * n;
+  std::vector<float> c(8 * s);
+  if (!read_all(argv[2], c.data(), 4 * c.size())) return 3;
+  std::vector<u64> out(n * 7 * POINT_WORDS);
+  for (long long i = 0; i < n; ++i) {
+    const ge p = {fe_load(&c[i], n), fe_load(&c[s + i], n), fe_load(&c[2 * s + i], n),
+                  fe_load(&c[3 * s + i], n)};
+    const ge q = {fe_load(&c[4 * s + i], n), fe_load(&c[5 * s + i], n),
+                  fe_load(&c[6 * s + i], n), fe_load(&c[7 * s + i], n)};
+    const ge r[7] = {ge_dbl(p, false), split_dbl(p, false), ge_dbl(p, true),
+                     split_dbl(p, true), ge_add(p, q), split_add(p, q), point_add(p, q)};
+    for (int k = 0; k < 7; ++k) ge_write(&out[(i * 7 + k) * POINT_WORDS], r[k]);
+  }
+  return write_all(argv[3], out.data(), 8 * out.size()) ? 0 : 4;
 }
 """
 
 
-def test_kernel_arithmetic_compiled_for_the_host_matches_bigint(tmp_path):
-    """The CUDA source's tables, lookups and point code are ``__host__
-    __device__``: compiled as plain C++ (no nvcc) and run with the kernels'
-    block schedule -- 37 lanes in blocks of 32, a ragged second block, a
-    masked lane and negative weak limbs -- they must give the pure-Python
-    sum's point, in affine coordinates, as canonical limbs."""
+def _host_build(tmp_path, source: str, name: str):
+    """``source`` compiled as plain C++ with g++ against ``csrc/``; skips
+    where the box has no host C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source's arithmetic")
-    (tmp_path / "harness.cpp").write_text(_HOST_HARNESS)
-    exe = tmp_path / "harness"
+    (tmp_path / f"{name}.cpp").write_text(source)
+    exe = tmp_path / name
     subprocess.run(
         [cxx, "-O1", "-std=c++17", "-x", "c++", f"-I{scan_kernels._CSRC}",
-         "-o", str(exe), str(tmp_path / "harness.cpp")],
+         "-o", str(exe), str(tmp_path / f"{name}.cpp")],
         check=True, capture_output=True, timeout=300,
     )
-    n = 37
-    case = _msm_case(n, seed=5, masked=(4, 36))
+    return exe
+
+
+@pytest.mark.parametrize(
+    "n, n_low, masked, chunk, chunks",
+    [(37, 33, (4, 36), 16, 3), (5, 0, (1,), 16, 1), (40, 64, (0, 39), 4, 10)],
+)
+def test_kernel_arithmetic_compiled_for_the_host_matches_bigint(
+    tmp_path, n, n_low, masked, chunk, chunks
+):
+    """The CUDA source's tables, lookups, window sums, join and split-role
+    chain are ``__host__ __device__``: compiled as plain C++ (no nvcc) and
+    run with the four kernels' schedule -- blocks of 8 threads in warps of
+    4; chunks of 16 lanes (two per thread) with a ragged last one, or of 4
+    lanes, so that 10 chunks fold into a join group of 4; masked lanes;
+    negative weak limbs; n_low of 33 (the engine's), 0 (no R table) or 64
+    -- they must give the pure-Python sum's point, in affine coordinates,
+    as canonical limbs with T Z = X Y."""
+    exe = _host_build(tmp_path, _HOST_HARNESS, "harness")
+    case = _msm_case(n, seed=5 + n_low, masked=masked, n_low=n_low)
     coords = [chip_smoke.weaken(torch.from_numpy(c)).numpy() for c in (*case["neg_a"], *case["neg_r"])]
     assert min(c.min() for c in coords) < 0
+    assert case["z_digits"].shape == (n_low, n)
     (tmp_path / "in.bin").write_bytes(
         b"".join(c.astype(np.float32).tobytes() for c in coords)
         + case["zk_digits"].astype(np.int32).tobytes()
         + case["z_digits"].astype(np.int32).tobytes()
     )
-    subprocess.run(
-        [str(exe), str(n), "33", "32", str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
-        check=True, timeout=300,
+    proc = subprocess.run(
+        [str(exe), str(n), str(n_low), "8", "4", str(chunk), str(tmp_path / "in.bin"),
+         str(tmp_path / "out.bin")],
+        check=True, capture_output=True, text=True, timeout=300,
     )
+    assert proc.stdout.split()[:2] == ["chunks", str(chunks)]
     out = np.fromfile(tmp_path / "out.bin", dtype=np.float32).reshape(4, 32, 1)
     assert out.min() >= 0 and out.max() <= 255  # canonical bytes
     assert _affine(ted.Point(*(torch.from_numpy(c) for c in out))) == _bigint_msm(case)
+    x, y, z, t = (tfe.limbs_to_int(c[:, 0]) for c in out)
+    assert t * z % P == x * y % P
+
+
+def test_split_chain_stages_equal_the_point_operations_limb_for_limb(tmp_path):
+    """The chain kernel's four-role stages, put back together, are ge_dbl
+    (with and without T) and ge_add limb for limb, and so is point_add (the
+    window sums' add on the out-of-line multiplication), on seeded points in
+    weak limbs: the same field operations in the same order."""
+    exe = _host_build(tmp_path, _SPLIT_HARNESS, "split")
+    n = 64
+    rng = np.random.default_rng(23)
+    values = [int.from_bytes(rng.bytes(32), "little") % P for _ in range(8 * n)]
+    limbs = np.stack([tfe.int_to_limbs(v) for v in values], axis=1).astype(np.float32)
+    coords = [chip_smoke.weaken(torch.from_numpy(limbs[:, k * n:(k + 1) * n])).numpy()
+              for k in range(8)]
+    assert min(c.min() for c in coords) < 0
+    (tmp_path / "in.bin").write_bytes(b"".join(c.astype(np.float32).tobytes() for c in coords))
+    subprocess.run([str(exe), str(n), str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                   check=True, timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint64).reshape(n, 7, 20)
+    for name, k in (("dbl without T", 0), ("dbl with T", 2), ("add", 4)):
+        assert np.array_equal(out[:, k], out[:, k + 1]), name
+    assert np.array_equal(out[:, 4], out[:, 6]), "point_add"
+    # The three operations differ, so the comparison is not vacuous: T
+    # passes through without need_t and is a product with it.
+    assert not np.array_equal(out[:, 0, 15:], out[:, 2, 15:])
+    assert not np.array_equal(out[:, 0, :15], out[:, 4, :15])
+    assert (out < 2**52).all()
 
 
 @pytest.fixture(scope="module")
