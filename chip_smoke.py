@@ -40,10 +40,10 @@ Phases:
 6. the Straus MSM kernel B3 against its plain torch version on the card on
    the phase-7 wave's first aggregate (its transcript's digits, padded and
    undecodable lanes masked to digit 8), compared in affine coordinates with
-   tolerance 0, with its time, the plain version's and its bound; then the
-   same on the aggregate's first 256 columns (the catch-up chunk's width),
-   and the registers, stack frame and spills ptxas reports for B3's four
-   kernels;
+   tolerance 0, with its time, each of its CUDA kernels' device time, the
+   plain version's time and its bound; then the same on the aggregate's
+   first 256 columns (the catch-up chunk's width), and the registers, stack
+   frame and spills ptxas reports for B3's kernels;
 7. the randomized path: the config-3 wave with the host-rejected and
    undecodable classes mixed in, through ``engine_for_config(
    Configuration(batch_verify_mode=True))``, verdicts held against the
@@ -320,6 +320,27 @@ def _time_ms(fn, reps: int, device) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def kernel_split_ms(fn, reps: int, device) -> dict | None:
+    """Mean device milliseconds per call of each CUDA kernel ``fn`` launches,
+    keyed by the kernel's name, from ``torch.profiler`` over ``reps`` calls
+    after a warm-up; None on the CPU (rehearsal only), where none runs."""
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            name = e.name.split("(")[0]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return split
 
 
 def horner_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
@@ -857,13 +878,15 @@ def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
     """straus_msm against straus_msm_reference on the randomized wave's
     first aggregate, then on its first ``CATCH_UP_LANES`` columns made
     contiguous (the catch-up chunk's width), each checked by
-    :func:`_check_msm` and timed over ``reps`` launches.  The plain version
-    runs once at each width."""
+    :func:`_check_msm`, timed over ``reps`` launches and split by CUDA
+    kernel (:func:`kernel_split_ms`).  The plain version runs once at each
+    width."""
     device = torch.device(device)
     inputs, masked, padded = msm_wave_inputs(corpus, replicas, device)
     lanes = inputs[2].shape[1]
     max_err, plain_ms = _check_msm(inputs, f"{lanes} lanes")
     ms = _time_ms(lambda: scan_kernels.straus_msm(*inputs), reps, device)
+    split = kernel_split_ms(lambda: scan_kernels.straus_msm(*inputs), reps, device)
     cols = min(CATCH_UP_LANES, lanes)
     sub = tuple(
         ed.Point(*(c[:, :cols].contiguous() for c in p)) if isinstance(p, ed.Point)
@@ -872,11 +895,12 @@ def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
     )
     sub_err, sub_plain_ms = _check_msm(sub, f"{cols} lanes")
     sub_ms = _time_ms(lambda: scan_kernels.straus_msm(*sub), reps, device)
+    sub_split = kernel_split_ms(lambda: scan_kernels.straus_msm(*sub), reps, device)
     return {"lanes": lanes, "n_low": inputs[3].shape[0], "masked_lanes": masked,
             "padded_lanes": padded, "live_lanes": _live_lanes(inputs),
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "split": split,
             "sub_lanes": cols, "sub_live_lanes": _live_lanes(sub), "sub_max_abs_err": sub_err,
-            "sub_ms": sub_ms, "sub_plain_ms": sub_plain_ms}
+            "sub_ms": sub_ms, "sub_plain_ms": sub_plain_ms, "sub_split": sub_split}
 
 
 def ptxas_summary(report: str) -> dict:
@@ -1097,6 +1121,14 @@ def log_profile(p: dict, kernel: str) -> None:
     log(f"    device time in no range: {_ms(p['unranged_ms'])}")
 
 
+def log_split(split: dict | None) -> None:
+    """Print each CUDA kernel's device time per call (torch.profiler)."""
+    if not split:
+        log("    per CUDA kernel: not measured (the profiler saw no device activity)")
+    for name, ms in (split or {}).items():
+        log(f"    {name}: {ms:.6f} ms per call (torch.profiler, mean of 20 calls)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1236,6 +1268,7 @@ def main() -> int:
         f"{k3['max_abs_err']}), not the identity")
     log(f"  kernel {k3['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up; "
         f"tables, window sums, join and chain)")
+    log_split(k3["split"])
     log(f"  plain torch version {k3['plain_ms']:.6f} ms (one run, host clock to synchronize)")
     log(f"  bound {bound3['bound_ms']:.6f} ms, by {bound3['bound_by']}: {bound3['adds']} adds "
         f"(14 + {k3['n_low']} + 64 for each of the {k3['live_lanes']} lanes with a nonzero "
@@ -1250,6 +1283,7 @@ def main() -> int:
         f"digit): affine x and y equal to the plain version's (max abs err "
         f"{k3['sub_max_abs_err']}), not the identity")
     log(f"  kernel {k3['sub_ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+    log_split(k3["sub_split"])
     log(f"  plain torch version {k3['sub_plain_ms']:.6f} ms (one run, host clock to synchronize)")
     log(f"  bound {sub_bound3['bound_ms']:.6f} ms, by {sub_bound3['bound_by']} "
         f"({sub_bound3['adds']} adds, {sub_bound3['doubles']} doubles); kernel at "

@@ -60,12 +60,11 @@
 //    limb-identical to the unsplit operations.  Lanes 0..3 write X, Y, Z,
 //    T as canonical 8-bit limbs.
 //
-// First chip runs of this design (NVIDIA H100 80GB HBM3, 700.00 W; CUDA
-// events over 20 launches, per-kernel device times from torch.profiler;
-// scripts/msm_times.py and chip_smoke.py phase 6): 0.816-0.825 ms at 8,192
-// lanes (tables 0.051, window sums 0.336, join 0.014, chain 0.398 ms) and
-// 0.528-0.530 ms at 256 lanes (chain 0.389 ms), where the first version took
-// 6.922 and 6.544 ms.  ptxas: 178 registers and a 104-byte stack frame for
+// Chip runs of this design (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// phase 6: CUDA events over 20 launches, per-kernel device times from
+// torch.profiler): 0.816-0.822 ms at 8,192 lanes (tables 0.046, window sums
+// 0.321, join 0.013, chain 0.381 ms) and 0.525-0.530 ms at 256 lanes (chain
+// 0.372-0.392 ms), where the first version took 6.937 and 6.539 ms.  ptxas: 178 registers and a 104-byte stack frame for
 // the tables, 166 for the window sums and the join, 168 for the chain, no
 // spills.  The chain is now the largest part and bounds the narrow calls:
 // one warp issues some 600 instructions per fe_mul, about 0.7 us a stage.

@@ -209,14 +209,18 @@ def _affine(p: ed.Point):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_low", [0, 33, 64])
-@pytest.mark.parametrize("n", [37, 256])
+@pytest.mark.parametrize("n", [37, 256, 2 * 2048 + 37])
 def test_msm_kernel_matches_reference_on_card(cuda_device, n, n_low):
     """Kernel B3's point equals the plain version's in affine coordinates
     (tolerance 0; the projective representatives differ by design), with
-    masked and zero-digit lanes, at a batch whose window-sum threads hold
-    one lane or fewer (37) and one where each holds two (256, the catch-up
-    chunk's width), with no R table (n_low 0), the engine's 33 R windows and
-    R in every window; canonical limbs out; one count per call."""
+    masked and zero-digit lanes, with no R table (n_low 0), the engine's 33
+    R windows and R in every window; canonical limbs out; one count per
+    call.  The window sums run 256 threads per block over chunks of 2,048
+    lanes (8 per thread): at 37 lanes some threads hold one lane and the
+    rest none; at 256 (the catch-up chunk's width) each holds one; at
+    2 x 2,048 + 37 two full chunks, whose threads walk 8 lanes each, are
+    followed by a ragged one, and the join folds 3 chunk partials per
+    window."""
     inputs = _msm_case(n, cuda_device, n_low)
     assert min(float(c.min()) for c in inputs[0]) < 0  # weak limbs reach the kernel
     before = scan_kernels.launches_msm

@@ -175,6 +175,8 @@ def _rehearse_randomized_phases(monkeypatch):
     assert k["max_abs_err"] == 0.0
     # The catch-up width: all 32 columns here (fewer than 256).
     assert (k["sub_lanes"], k["sub_live_lanes"], k["sub_max_abs_err"]) == (32, 26, 0.0)
+    # No CUDA kernel runs on the CPU, so there is no per-kernel split.
+    assert k["split"] is None and k["sub_split"] is None
     # As in the P-256 rehearsal, the MSM's result on the same inputs stands
     # in for it after its first call, so the profiler has few ops to sort.
     real, seen, calls = scan_kernels.straus_msm, {}, []
