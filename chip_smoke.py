@@ -1129,6 +1129,18 @@ def log_split(split: dict | None) -> None:
         log(f"    {name}: {ms:.6f} ms per call (torch.profiler, mean of 20 calls)")
 
 
+def log_ptxas(info: scan_kernels.BuildInfo) -> None:
+    """Print each CUDA kernel's and device function's ptxas figures."""
+    kernels = ptxas_summary(info.ptxas)
+    if not kernels:
+        log("  ptxas: not reported (an existing build was loaded)")
+    for name, r in kernels.items():
+        regs = f"{r['registers']} registers" if "registers" in r else "a device function"
+        log(f"  ptxas {name}: {regs}, {r.get('stack')}-byte stack frame, "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes of spill stores/loads, "
+            f"{r.get('smem', 0)} bytes of shared memory")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1225,6 +1237,7 @@ def main() -> int:
         f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
         f"{bound2['ops_ms']:.6f} ms; {bound2['bytes']} bytes over 3.35 TB/s = "
         f"{bound2['bytes_ms']:.6f} ms")
+    log_ptxas(infos["horner_scan_p256"])
     log("  library: none (no PyTorch call computes a P-256 scalar multiplication)")
 
     # Phase 5: the P-256 path.
@@ -1288,14 +1301,7 @@ def main() -> int:
     log(f"  bound {sub_bound3['bound_ms']:.6f} ms, by {sub_bound3['bound_by']} "
         f"({sub_bound3['adds']} adds, {sub_bound3['doubles']} doubles); kernel at "
         f"{100 * sub_bound3['bound_ms'] / k3['sub_ms']:.3f} % of it")
-    kernels = ptxas_summary(infos["straus_msm"].ptxas)
-    if not kernels:
-        log("  ptxas: not reported (an existing build was loaded)")
-    for name, r in kernels.items():
-        regs = f"{r['registers']} registers" if "registers" in r else "a device function"
-        log(f"  ptxas {name}: {regs}, {r.get('stack')}-byte stack frame, "
-            f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes of spill stores/loads, "
-            f"{r.get('smem', 0)} bytes of shared memory")
+    log_ptxas(infos["straus_msm"])
     log("  library: none (no PyTorch call computes an Edwards multi-scalar multiplication)")
 
     # Phase 7: the randomized path.

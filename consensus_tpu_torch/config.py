@@ -20,7 +20,8 @@ class Configuration:
     # stable shapes across batch sizes).
     crypto_pad_pow2: bool = True
     # Randomized batch verification (one aggregate check per batch).  All
-    # replicas in a cluster must agree on it.  Not ported yet.
+    # replicas in a cluster must agree on it.  Ed25519 only: the engine is
+    # Ed25519RandomizedBatchVerifier (models/ed25519.py).
     batch_verify_mode: bool = False
     # Whole-pipeline-on-device verification (host prep moved into the
     # launch).  Changes only where work runs.  Not ported yet.

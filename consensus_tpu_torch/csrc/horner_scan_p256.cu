@@ -6,28 +6,53 @@
 // walk 65 signed 4-bit windows MSB first (the first holds the recoding
 // carry) -- 4 doubles, table[|d|], Y negated when d < 0, one complete add.
 // The formulas are the TPU kernel's (Renes-Costello-Batina 2015, Algorithms
-// 4 and 6 for a = -3) in the same sequence, so with exact arithmetic mod p
-// this kernel lands on the same projective representative as the plain
-// torch version (consensus_tpu_torch/ops/scan_kernels.py::
-// horner_scan_p256_reference); it writes that representative as canonical
-// 8-bit limbs.  The formulas are polynomials, so off-curve Q (padded or
-// rejected lanes) follow the same sequence to the same result.
+// 4 and 6 for a = -3), so with exact arithmetic mod p this kernel lands on
+// the same projective representative as the plain torch version
+// (consensus_tpu_torch/ops/scan_kernels.py::horner_scan_p256_reference); it
+// writes that representative as canonical 8-bit limbs.  The formulas are
+// polynomials, so off-curve Q (padded or rejected lanes) follow the same
+// sequence to the same result.  The first window's 4 doubles act on the
+// identity, which Algorithm 6 returns exactly, so they are skipped.
 //
-// What bounds it on this card: integer multiplies.  Per lane it does 72
-// complete adds (14 multiplications each, 2 of them by b) and 260 doubles
-// (10 multiplications and 3 squarings each): 3,608 multiplications at 64
-// and 780 squarings at 36 32x32->64-bit products, against ~1.8 MB of memory
-// traffic at 2,048 lanes.
+// What bounds it on this card: integer products.  Per lane the function
+// needs 72 complete adds (14 multiplications each, 2 of them by b) and 260
+// doubles (10 multiplications and 3 squarings each): 3,608 multiplications
+// at 64 and 780 squarings at 36 32x32->64-bit products, against ~1.8 MB of
+// memory traffic at 2,048 lanes.  What holds it back is latency: a point
+// operation is a chain of dependent products, and 2,048 signatures are few
+// threads for 132 SMs.  The first version ran one thread per signature in
+// 64-thread blocks (32 blocks at 2,048 lanes: 100 SMs idle), 4,388 products
+// in a row per thread with the 9-entry table in local memory (864-byte
+// stack frame), and took 5.985-6.008 ms at 2,048 lanes (NVIDIA H100 80GB
+// HBM3, 700.00 W).
 //
-// What the design does about it, first version: one thread per signature,
-// 8 x 32-bit words, so every partial product is one IMAD.WIDE, instead of
-// the TPU layout's 32 x 8-bit f32 limbs (which exist only because the TPU's
-// vector unit has no integer multiply).  Products reduce by FIPS 186-4
-// D.2.3's word assembly (the Solinas matrix of the TPU kernel, word by
-// word) with signed 64-bit word sums; every field value between operations
-// is canonical, in [0, p).  The table stays in per-thread local memory and
-// is read with a direct index on |d|.  Warp-cooperative multiplies,
-// shared-memory tables and tensor-core products are later work.
+// What the design does about it:
+// - A group of G = 8 threads per signature, in one warp.  RCB's add has
+//   three levels of products (6, 2 and 6) and the double too (6, 3 and 4):
+//   the products of a level depend only on the operation's inputs and on the
+//   levels before it.  In each level role r of the group computes product r
+//   (add_level*, dbl_level*), writes it to the group's slots in shared
+//   memory, and the group meets at __syncwarp before the next level.  An
+//   operation is then 3 multiplication latencies, where one thread ran 13 or
+//   14: a window is 15 instead of 66.  Every role forms the field additions
+//   of a level itself: the warp issues them once for all its lanes, where
+//   additions by role would run one role after another.  Squarings are
+//   formed as multiplications, so all roles of a level run the same
+//   instructions.  The multiplication is one out-of-line copy of fe_mul.
+// - 16 signatures per 128-thread block: 128 blocks at 2,048 lanes for the
+//   132 SMs, 16,384 threads, about one warp per scheduler.  A group whose
+//   signature lies past the batch leaves as a whole, so the barriers name
+//   only the group's own lanes.
+// - The table in shared memory (864 bytes per signature), built by the
+//   group's split adds and read with an index on |d|.
+// - ge_add and ge_dbl are the same stage functions run for every role in
+//   turn on one thread (serial_group), and scan_signature is the same code
+//   on the host: the host check compiled with g++ runs the card's schedule,
+//   with the slots and the table in arrays.
+// On the card (chip_smoke.py phase 4, NVIDIA H100 80GB HBM3, 700.00 W) this
+// takes 1.160 ms at 2,048 lanes; ptxas: 128 registers, no stack frame, no
+// spills, 20,992 bytes of shared memory.  The field additions between the
+// levels are now the largest cost after the products (PERF.md).
 //
 // Layout at the C boundary (batch trailing, limbs leading, as in the JAX
 // package): qx, qy as (32, batch) float32 limbs under the field module's
@@ -242,139 +267,281 @@ HD void fe_store(float* p, long long stride, const fe& a) {
 
 HD ge ge_identity() { return ge{fe_zero(), fe_one(), fe_zero()}; }
 
-// RCB15 Algorithm 4, in the order of consensus_tpu/ops/p256.py::add.
+// --- point operations by product level ----------------------------------------
+// RCB15 Algorithm 4 (add) and 6 (double), in the order of
+// consensus_tpu/ops/p256.py::add and ::double, cut into their three levels of
+// products.  Product k of an operation goes to slot k of its group's slots:
+// the add's levels are slots 0-5, 6-7 and 8-13, the double's 0-5, 6-8 and
+// 9-12.  A level reads only the slots of the levels before it, and the
+// result reads only the last level's, so one barrier after each level orders
+// a group through any sequence of operations.
+
+constexpr int G = 8;  // threads per signature: a power of two, at most 32
+constexpr int SLOTS = 14;
+
+// The stages' field multiplication: on the card one out-of-line copy of
+// fe_mul, so that the kernel's code stays small (measured faster than
+// inlining it in every stage); on the host fe_mul itself.
+#ifdef __CUDA_ARCH__
+__device__ __noinline__ fe fe_mul_call(fe a, fe b) { return fe_mul(a, b); }
+#endif
+
+HD fe mul(const fe& a, const fe& b) {
+#ifdef __CUDA_ARCH__
+  return fe_mul_call(a, b);
+#else
+  return fe_mul(a, b);
+#endif
+}
+
+// w ? a : b, word by word, without a branch.
+HD fe fe_sel(bool w, const fe& a, const fe& b) {
+  fe r;
+  for (int i = 0; i < 8; ++i) r.v[i] = w ? a.v[i] : b.v[i];
+  return r;
+}
+
+// Coordinate c of p: 0 X, 1 Y, 2 Z.
+HD fe ge_coord(const ge& p, int c) { return fe_sel(c == 0, p.X, fe_sel(c == 1, p.Y, p.Z)); }
+
+// Add, level 1, product k (slot k): X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2),
+// (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2).
+HD fe add_level1(const ge& p, const ge& q, int k) {
+  const int c0 = k < 3 ? k : (k == 4 ? 1 : 0);
+  const int c1 = k == 3 ? 1 : 2;
+  const fe a = ge_coord(p, c0), b = ge_coord(q, c0);
+  return mul(fe_sel(k < 3, a, fe_add(a, ge_coord(p, c1))),
+             fe_sel(k < 3, b, fe_add(b, ge_coord(q, c1))));
+}
+
+// Add, level 2, product k (slot 6 + k): b t2, b y3 with y3 = x3 - (t0 + t2).
+HD fe add_level2(const fe* s, int k) {
+  return mul(fe_b(), fe_sel(k == 0, s[2], fe_sub(s[5], fe_add(s[0], s[2]))));
+}
+
+// The factors of the add's level 3, from levels 1 and 2.
+struct add_terms {
+  fe t0, t3, t4, x3, y3, z3;
+};
+
+HD add_terms add_level3_terms(const fe* s) {
+  add_terms v;
+  v.t3 = fe_sub(s[3], fe_add(s[0], s[1]));
+  v.t4 = fe_sub(s[4], fe_add(s[1], s[2]));
+  fe x3 = fe_sub(fe_sub(s[5], fe_add(s[0], s[2])), s[6]);
+  x3 = fe_add(x3, fe_add(x3, x3));
+  v.z3 = fe_sub(s[1], x3);
+  v.x3 = fe_add(s[1], x3);
+  const fe t2 = fe_add(fe_add(s[2], s[2]), s[2]);
+  const fe y3 = fe_sub(fe_sub(s[7], t2), s[0]);
+  v.y3 = fe_add(fe_add(y3, y3), y3);
+  v.t0 = fe_sub(fe_add(fe_add(s[0], s[0]), s[0]), t2);
+  return v;
+}
+
+// Add, level 3, product k (slot 8 + k): t4 y3, t0 y3, x3 z3, t3 x3, t4 z3,
+// t3 t0.
+HD fe add_level3(const add_terms& v, int k) {
+  const fe a = fe_sel(k == 0 || k == 4, v.t4, fe_sel(k == 1, v.t0, fe_sel(k == 2, v.x3, v.t3)));
+  const fe b = fe_sel(k < 2, v.y3, fe_sel(k == 2 || k == 4, v.z3, fe_sel(k == 3, v.x3, v.t0)));
+  return mul(a, b);
+}
+
+HD ge add_result(const fe* s) {
+  return ge{fe_sub(s[11], s[8]), fe_add(s[10], s[9]), fe_add(s[12], s[13])};
+}
+
+// Double, level 1, product k (slot k): X^2, Y^2, Z^2, X Y, X Z, Y Z.
+HD fe dbl_level1(const ge& p, int k) {
+  const int c0 = k < 3 ? k : (k == 5 ? 1 : 0);
+  const int c1 = k < 3 ? k : (k == 3 ? 1 : 2);
+  return mul(ge_coord(p, c0), ge_coord(p, c1));
+}
+
+// Double, level 2, product k (slot 6 + k): b Z^2, b (2 X Z), (2 Y Z) Y^2.
+HD fe dbl_level2(const fe* s, int k) {
+  return mul(fe_sel(k == 2, fe_add(s[5], s[5]), fe_b()),
+             fe_sel(k == 0, s[2], fe_sel(k == 1, fe_add(s[4], s[4]), s[1])));
+}
+
+// The factors of the double's level 3, from levels 1 and 2.
+struct dbl_terms {
+  fe t0, t3, x3, y3, z3, yz2;
+};
+
+HD dbl_terms dbl_level3_terms(const fe* s) {
+  dbl_terms v;
+  v.t3 = fe_add(s[3], s[3]);
+  fe y3 = fe_sub(s[6], fe_add(s[4], s[4]));
+  y3 = fe_add(fe_add(y3, y3), y3);
+  v.x3 = fe_sub(s[1], y3);
+  v.y3 = fe_add(s[1], y3);
+  const fe t2 = fe_add(fe_add(s[2], s[2]), s[2]);
+  const fe z3 = fe_sub(fe_sub(s[7], t2), s[0]);
+  v.z3 = fe_add(fe_add(z3, z3), z3);
+  v.t0 = fe_sub(fe_add(fe_add(s[0], s[0]), s[0]), t2);
+  v.yz2 = fe_add(s[5], s[5]);
+  return v;
+}
+
+// Double, level 3, product k (slot 9 + k): x3 y3, x3 t3, t0 z3, (2 Y Z) z3.
+HD fe dbl_level3(const dbl_terms& v, int k) {
+  return mul(fe_sel(k < 2, v.x3, fe_sel(k == 2, v.t0, v.yz2)),
+             fe_sel(k == 0, v.y3, fe_sel(k == 1, v.t3, v.z3)));
+}
+
+HD ge dbl_result(const fe* s) {
+  const fe z3 = fe_add(s[8], s[8]);
+  return ge{fe_sub(s[10], s[12]), fe_add(s[9], s[11]), fe_add(z3, z3)};
+}
+
+// --- one signature's group ------------------------------------------------------
+// A group runs roles [role_lo, role_hi) of G on this thread over the
+// group's slots.  On the card each thread is one role, the slots are in
+// shared memory and group_sync is __syncwarp over the group's lanes;
+// serial_group runs every role in turn on one thread, with no barrier.
+
+struct serial_group {
+  fe* slots;
+  int role_lo, role_hi;
+};
+
+HD void group_sync(const serial_group&) {}
+
+template <class Group>
+HD ge group_add(const Group& g, const ge& p, const ge& q) {
+  fe* const s = g.slots;
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 6; k += G) s[k] = add_level1(p, q, k);
+  group_sync(g);
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 2; k += G) s[6 + k] = add_level2(s, k);
+  group_sync(g);
+  const add_terms v = add_level3_terms(s);
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 6; k += G) s[8 + k] = add_level3(v, k);
+  group_sync(g);
+  return add_result(s);
+}
+
+template <class Group>
+HD ge group_dbl(const Group& g, const ge& p) {
+  fe* const s = g.slots;
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 6; k += G) s[k] = dbl_level1(p, k);
+  group_sync(g);
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 3; k += G) s[6 + k] = dbl_level2(s, k);
+  group_sync(g);
+  const dbl_terms v = dbl_level3_terms(s);
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 4; k += G) s[9 + k] = dbl_level3(v, k);
+  group_sync(g);
+  return dbl_result(s);
+}
+
+// The complete add and double on one thread.
 HD ge ge_add(const ge& p, const ge& q) {
-  const fe b = fe_b();
-  fe t0 = fe_mul(p.X, q.X);
-  fe t1 = fe_mul(p.Y, q.Y);
-  fe t2 = fe_mul(p.Z, q.Z);
-  fe t3 = fe_add(p.X, p.Y);
-  fe t4 = fe_add(q.X, q.Y);
-  t3 = fe_mul(t3, t4);
-  t4 = fe_add(t0, t1);
-  t3 = fe_sub(t3, t4);
-  t4 = fe_add(p.Y, p.Z);
-  fe t5 = fe_add(q.Y, q.Z);
-  t4 = fe_mul(t4, t5);
-  t5 = fe_add(t1, t2);
-  t4 = fe_sub(t4, t5);
-  fe x3 = fe_add(p.X, p.Z);
-  fe y3 = fe_add(q.X, q.Z);
-  x3 = fe_mul(x3, y3);
-  y3 = fe_add(t0, t2);
-  y3 = fe_sub(x3, y3);
-  fe z3 = fe_mul(b, t2);
-  x3 = fe_sub(y3, z3);
-  z3 = fe_add(x3, x3);
-  x3 = fe_add(x3, z3);
-  z3 = fe_sub(t1, x3);
-  x3 = fe_add(t1, x3);
-  y3 = fe_mul(b, y3);
-  t1 = fe_add(t2, t2);
-  t2 = fe_add(t1, t2);
-  y3 = fe_sub(y3, t2);
-  y3 = fe_sub(y3, t0);
-  t1 = fe_add(y3, y3);
-  y3 = fe_add(t1, y3);
-  t1 = fe_add(t0, t0);
-  t0 = fe_add(t1, t0);
-  t0 = fe_sub(t0, t2);
-  t1 = fe_mul(t4, y3);
-  t2 = fe_mul(t0, y3);
-  y3 = fe_mul(x3, z3);
-  y3 = fe_add(y3, t2);
-  x3 = fe_mul(t3, x3);
-  x3 = fe_sub(x3, t1);
-  z3 = fe_mul(t4, z3);
-  t1 = fe_mul(t3, t0);
-  z3 = fe_add(z3, t1);
-  return ge{x3, y3, z3};
+  fe s[SLOTS];
+  return group_add(serial_group{s, 0, G}, p, q);
 }
 
-// RCB15 Algorithm 6, in the order of consensus_tpu/ops/p256.py::double.
 HD ge ge_dbl(const ge& p) {
-  const fe b = fe_b();
-  fe t0 = fe_sqr(p.X);
-  fe t1 = fe_sqr(p.Y);
-  fe t2 = fe_sqr(p.Z);
-  fe t3 = fe_mul(p.X, p.Y);
-  t3 = fe_add(t3, t3);
-  fe z3 = fe_mul(p.X, p.Z);
-  z3 = fe_add(z3, z3);
-  fe y3 = fe_mul(b, t2);
-  y3 = fe_sub(y3, z3);
-  fe x3 = fe_add(y3, y3);
-  y3 = fe_add(x3, y3);
-  x3 = fe_sub(t1, y3);
-  y3 = fe_add(t1, y3);
-  y3 = fe_mul(x3, y3);
-  x3 = fe_mul(x3, t3);
-  t3 = fe_add(t2, t2);
-  t2 = fe_add(t2, t3);
-  z3 = fe_mul(b, z3);
-  z3 = fe_sub(z3, t2);
-  z3 = fe_sub(z3, t0);
-  t3 = fe_add(z3, z3);
-  z3 = fe_add(z3, t3);
-  t3 = fe_add(t0, t0);
-  t0 = fe_add(t3, t0);
-  t0 = fe_sub(t0, t2);
-  t0 = fe_mul(t0, z3);
-  y3 = fe_add(y3, t0);
-  t0 = fe_mul(p.Y, p.Z);
-  t0 = fe_add(t0, t0);
-  z3 = fe_mul(t0, z3);
-  x3 = fe_sub(x3, z3);
-  z3 = fe_mul(t0, t1);
-  z3 = fe_add(z3, z3);
-  z3 = fe_add(z3, z3);
-  return ge{x3, y3, z3};
+  fe s[SLOTS];
+  return group_dbl(serial_group{s, 0, G}, p);
 }
 
-// One lane of the scan.  Coordinates and digits are read at column `lane` of
-// their (rows, batch) arrays.
-HD void horner_lane_p256(const float* qx, const float* qy, const int32_t* digits,
-                         float* ox, float* oy, float* oz, long long batch,
-                         long long lane) {
+// --- the scan of one signature ----------------------------------------------------
+
+// Coordinate r of dst <- that of p, for each role r < 3 of the group.
+template <class Group>
+HD void ge_store_by_role(const Group& g, ge& dst, const ge& p) {
+  for (int r = g.role_lo; r < g.role_hi; ++r) {
+    if (r == 0) dst.X = p.X;
+    if (r == 1) dst.Y = p.Y;
+    if (r == 2) dst.Z = p.Z;
+  }
+}
+
+// Signatures per block, and the block's threads: 128 blocks at 2,048 lanes.
+constexpr int SIGNATURES = 16;
+constexpr int THREADS = G * SIGNATURES;
+
+// The column of the signature that thread t of block b works on.
+HD long long group_lane(long long b, int t) { return b * SIGNATURES + t / G; }
+
+// The scan of the signature at column `lane` of the (rows, batch) arrays, on
+// group g with its 9-entry table.
+template <class Group>
+HD void scan_signature(const Group& g, ge* table, const float* qx, const float* qy,
+                       const int32_t* digits, float* ox, float* oy, float* oz,
+                       long long batch, long long lane) {
   const ge q = {fe_load(qx + lane, batch), fe_load(qy + lane, batch), fe_one()};
-  ge table[TABLE];
-  table[0] = ge_identity();
-  table[1] = q;
-  for (int j = 2; j < TABLE; ++j) table[j] = ge_add(table[j - 1], q);
+  ge_store_by_role(g, table[0], ge_identity());
+  ge_store_by_role(g, table[1], q);
+  ge cur = q;
+#pragma unroll 1
+  for (int j = 2; j < TABLE; ++j) {
+    cur = group_add(g, cur, q);
+    ge_store_by_role(g, table[j], cur);
+  }
+  group_sync(g);
 
   ge acc = ge_identity();
+#pragma unroll 1
   for (int w = 0; w < WINDOWS; ++w) {
     // A digit outside the d + 8 encoding's [0, 16] is not a valid input;
     // the clamp only keeps such a lane from reading outside the table.
     int digit = digits[w * batch + lane];
     digit = digit < 0 ? 0 : (digit > DIGIT_MAX ? DIGIT_MAX : digit);
     const int d = digit - (TABLE - 1);
-    acc = ge_dbl(acc);
-    acc = ge_dbl(acc);
-    acc = ge_dbl(acc);
-    acc = ge_dbl(acc);
+    if (w > 0) {  // the first window's doubles would act on the identity
+#pragma unroll 1
+      for (int i = 0; i < 4; ++i) acc = group_dbl(g, acc);
+    }
     ge t = table[d < 0 ? -d : d];
     if (d < 0) t.Y = fe_neg(t.Y);
-    acc = ge_add(acc, t);
+    acc = group_add(g, acc, t);
   }
-  fe_store(ox + lane, batch, acc.X);
-  fe_store(oy + lane, batch, acc.Y);
-  fe_store(oz + lane, batch, acc.Z);
+  for (int r = g.role_lo; r < g.role_hi; ++r) {
+    if (r == 0) fe_store(ox + lane, batch, acc.X);
+    if (r == 1) fe_store(oy + lane, batch, acc.Y);
+    if (r == 2) fe_store(oz + lane, batch, acc.Z);
+  }
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
 
-constexpr int THREADS = 64;
+static_assert(G <= 32 && 32 % G == 0, "a signature's group lies in one warp");
+
+// One role of a signature's group: the group's slots in shared memory and
+// the mask of its G lanes in the warp.
+struct warp_group {
+  fe* slots;
+  int role_lo, role_hi;
+  unsigned mask;
+};
+
+__host__ __device__ __forceinline__ void group_sync(const warp_group& g) {
+#ifdef __CUDA_ARCH__
+  __syncwarp(g.mask);
+#endif
+}
 
 __global__ void __launch_bounds__(THREADS)
 horner_scan_p256_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
                         const int32_t* __restrict__ digits, float* __restrict__ ox,
                         float* __restrict__ oy, float* __restrict__ oz, int batch) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;  // the ragged edge
-  horner_lane_p256(qx, qy, digits, ox, oy, oz, batch, lane);
+  __shared__ ge tables[SIGNATURES][TABLE];
+  __shared__ fe slots[SIGNATURES][SLOTS];
+  const int t = threadIdx.x, sig = t / G, role = t % G;
+  const long long lane = group_lane(blockIdx.x, t);
+  if (lane >= batch) return;  // the ragged edge: the whole group leaves
+  const unsigned mask = ((1u << G) - 1u) << ((t % 32) & ~(G - 1));
+  const warp_group g = {slots[sig], role, role + 1, mask};
+  scan_signature(g, tables[sig], qx, qy, digits, ox, oy, oz, batch, lane);
 }
 
 // Launches on `stream` of CUDA device `device` and returns the launch's
@@ -386,7 +553,7 @@ extern "C" int horner_scan_p256_launch(const void* qx, const void* qy,
   if (batch <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + THREADS - 1) / THREADS;
+  const int blocks = (batch + SIGNATURES - 1) / SIGNATURES;
   horner_scan_p256_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)qx, (const float*)qy, (const int32_t*)digits, (float*)ox,
       (float*)oy, (float*)oz, batch);

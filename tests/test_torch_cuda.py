@@ -104,7 +104,7 @@ def test_engine_on_card_matches_host_and_launches_once(cuda_device):
 def _p256_scan_case(n: int, device):
     """Q = jG in weak limbs with negative entries, with every 5th lane off
     the curve and every 7th a padded lane (zero coordinates, all-zero
-    digits); digits of scalars 0, 1 and random ones below n."""
+    digits); digits of scalars 0, 1 (from n = 3 on) and random ones below n."""
     pts, cur = [], (p256.GX, p256.GY)
     for _ in range(n):
         pts.append(cur)
@@ -117,18 +117,23 @@ def _p256_scan_case(n: int, device):
         for col in (xs, ys)
     )
     rng = np.random.default_rng(n)
-    scalars = [0, 1] + [int.from_bytes(rng.bytes(32), "big") % p256.N for _ in range(n - 2)]
+    fixed = [0, 1] if n > 2 else []
+    scalars = fixed + [int.from_bytes(rng.bytes(32), "big") % p256.N for _ in range(n - len(fixed))]
     digits = mp._scalars_to_signed_window_digits(scalars).astype(np.int32)
     digits[:, 6::7] = 0
     return qx, qy, torch.from_numpy(digits).to(device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [37, 256])
+@pytest.mark.parametrize("n", [1, 37, 256, 2048 + 37])
 def test_p256_kernel_matches_reference_on_card(cuda_device, n):
     """Frozen X, Y, Z of kernel B2 equal the plain version's on every lane
     (tolerance 0), off-curve and zero-digit lanes included; the kernel
-    writes canonical limbs; one launch per call."""
+    writes canonical limbs; one launch per call.  B2 runs a group of 8
+    threads per signature, 16 signatures a 128-thread block: n = 1 is one
+    group in a block of 16, 37 three blocks with the last ragged, 256
+    sixteen full blocks, 2,048 + 37 the 128 blocks of the P-256 wave and
+    three more, the last holding 5 signatures."""
     qx, qy, digits = _p256_scan_case(n, cuda_device)
     assert min(float(qx.min()), float(qy.min())) < 0  # weak limbs reach the kernel
     before = scan_kernels.launches_p256
