@@ -23,7 +23,9 @@ Phases:
    their ``-Xptxas -v`` reports;
 2. the Ed25519 kernel B1 against its plain torch version on the card at the
    main path's shape, with tolerance 0 (integer arithmetic), and its time
-   beside the plain version's and its bound;
+   beside the plain version's and its bound; then the same on the first 256
+   columns (the width of a catch-up chunk on the strict path), and the
+   registers, stack frame and spills ptxas reports for B1;
 3. the Ed25519 path: the 7,000-signature wave with every rejection class
    mixed in, verdicts held against the construction and against the
    RFC 8032 reference, kernel launch counts read around the run, then a
@@ -358,13 +360,13 @@ def horner_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
             "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def phase_kernel(device, keys, lanes: int, reps: int, plain_reps: int) -> dict:
+def _check_horner(neg_a, k_digits) -> float:
     """horner_scan (the kernel on CUDA) against horner_scan_reference on the
-    same inputs: frozen X, Y, Z, T equal on every lane, tolerance 0."""
-    device = torch.device(device)
-    neg_a, k_digits, negative_lanes = scan_inputs(keys, lanes, device)
+    same inputs: frozen X, Y, Z, T equal on every lane, tolerance 0.
+    Returns the max abs err."""
     got = scan_kernels.horner_scan(*neg_a, k_digits)
     want = scan_kernels.horner_scan_reference(*neg_a, k_digits)
+    lanes = k_digits.shape[1]
     max_err = 0.0
     for name, g, w in zip("XYZT", got, want):
         fg, fw = fe.freeze(g), fe.freeze(w)
@@ -376,12 +378,27 @@ def phase_kernel(device, keys, lanes: int, reps: int, plain_reps: int) -> dict:
                 f"horner_scan: {name} differs from the plain version on "
                 f"{bad.numel()} of {lanes} lanes (first {bad[:8].tolist()})"
             )
-    ms = _time_ms(lambda: scan_kernels.horner_scan(*neg_a, k_digits), reps, device)
-    plain_ms = _time_ms(
-        lambda: scan_kernels.horner_scan_reference(*neg_a, k_digits), plain_reps, device
-    )
-    return {"lanes": lanes, "negative_lanes": negative_lanes, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms}
+    return max_err
+
+
+def phase_kernel(device, keys, lanes: int, reps: int, plain_reps: int,
+                 sub_lanes: int = CATCH_UP_LANES) -> dict:
+    """horner_scan against horner_scan_reference (:func:`_check_horner`) at
+    ``lanes`` lanes, then on their first ``sub_lanes`` columns made
+    contiguous (the catch-up chunk's width), each timed over ``reps``
+    launches and the plain version over ``plain_reps`` calls."""
+    device = torch.device(device)
+    neg_a, k_digits, negative_lanes = scan_inputs(keys, lanes, device)
+    cols = min(sub_lanes, lanes)
+    sub = tuple(c[:, :cols].contiguous() for c in neg_a), k_digits[:, :cols].contiguous()
+    out = {"lanes": lanes, "negative_lanes": negative_lanes, "sub_lanes": cols}
+    for prefix, (a, d) in (("", (neg_a, k_digits)), ("sub_", sub)):
+        out[prefix + "max_abs_err"] = _check_horner(a, d)
+        out[prefix + "ms"] = _time_ms(lambda: scan_kernels.horner_scan(*a, d), reps, device)
+        out[prefix + "plain_ms"] = _time_ms(
+            lambda: scan_kernels.horner_scan_reference(*a, d), plain_reps, device
+        )
+    return out
 
 
 # --- phase 3: the main path --------------------------------------------------
@@ -1193,7 +1210,17 @@ def main() -> int:
         f"{bound['products']} IMAD.WIDE over {props.multi_processor_count} SMs x "
         f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
         f"{bound['ops_ms']:.6f} ms; {bound['bytes']} bytes over 3.35 TB/s = "
-        f"{bound['bytes_ms']:.6f} ms")
+        f"{bound['bytes_ms']:.6f} ms; kernel at {100 * bound['bound_ms'] / k['ms']:.3f} % "
+        f"of it")
+    sub_bound = horner_bound(k["sub_lanes"], props.multi_processor_count, sm_clock_hz)
+    log(f"horner_scan at {k['sub_lanes']} lanes (the first {k['sub_lanes']} columns, "
+        f"contiguous: the catch-up chunk's width): frozen X, Y, Z, T equal on every lane "
+        f"(max abs err {k['sub_max_abs_err']})")
+    log(f"  kernel {k['sub_ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+    log(f"  plain torch version {k['sub_plain_ms']:.6f} ms (mean of 3)")
+    log(f"  bound {sub_bound['bound_ms']:.6f} ms, by {sub_bound['bound_by']}; kernel at "
+        f"{100 * sub_bound['bound_ms'] / k['sub_ms']:.3f} % of it")
+    log_ptxas(infos["horner_scan"])
     log("  library: no single PyTorch call computes this")
 
     # Phase 3: the main path.

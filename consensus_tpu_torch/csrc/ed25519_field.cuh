@@ -5,9 +5,16 @@
 // multiply pair (a*b and __umul64hi); fe_load/fe_store convert from and to
 // the field module's weakly reduced 32 x 8-bit f32 limbs.  The point formulas
 // are add-2008-hwcd-3 (with the 2d constant) and dbl-2008-hwcd in the order of
-// consensus_tpu_torch/ops/ed25519.py.  Everything is __host__ __device__, so
-// a source that includes this header can be compiled as plain C++ for a
-// host-side check.
+// consensus_tpu_torch/ops/ed25519.py, written once, as their two levels of
+// four independent products (dbl_stage1/2, add_stage1/2).  B1 and B3's chain
+// run a level on a group of four threads, one product each; ge_add and ge_dbl
+// run the four roles in turn on one thread.  B1 on that schedule (16
+// signatures a block, slots in shared memory, fe_mul inlined) takes
+// 0.782-0.785 ms at 8,192 lanes on an NVIDIA H100 80GB HBM3 at 700.00 W,
+// where one thread per signature took 3.264-3.273 ms in the same call.
+// Everything is __host__ __device__ except the warp exchange, so a source
+// that includes this header can be compiled as plain C++ for a host-side
+// check.
 
 #pragma once
 
@@ -204,33 +211,127 @@ HD void fe_store(float* p, long long stride, const fe& h) {
 
 HD ge ge_identity() { return ge{fe_zero(), fe_one(), fe_one(), fe_zero()}; }
 
-// add-2008-hwcd-3, in the order of consensus_tpu/ops/ed25519.py::add.
-HD ge ge_add(const ge& p, const ge& q) {
-  const fe a = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-  const fe b = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-  const fe c = fe_mul(fe_mul(p.T, fe_d2()), q.T);
-  const fe d = fe_mul(fe_add(p.Z, p.Z), q.Z);
-  const fe e = fe_sub(b, a);
-  const fe f = fe_sub(d, c);
-  const fe g = fe_add(d, c);
-  const fe h = fe_add(b, a);
-  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
+// --- the point operations' multiplication ----------------------------------------
+// MUL_CALL: on the card one out-of-line copy of fe_mul (about 600
+// instructions), so that a kernel's loops fit the SM's instruction cache;
+// measured faster for B3's tables, window sums and join, which add with
+// ge_add.  MUL_INLINE: fe_mul inlined at every call; measured faster for
+// B3's one-warp chain and for B1's split stages.  On the host both are
+// fe_mul.
+
+enum { MUL_CALL = 0, MUL_INLINE = 1 };
+
+#ifdef __CUDA_ARCH__
+__device__ __noinline__ fe fe_mul_call(fe f, fe g) { return fe_mul(f, g); }
+#endif
+
+template <int K>
+HD fe mul(const fe& f, const fe& g) {
+#ifdef __CUDA_ARCH__
+  if (K == MUL_CALL) return fe_mul_call(f, g);
+#endif
+  return fe_mul(f, g);
 }
 
-// dbl-2008-hwcd, in the order of consensus_tpu/ops/ed25519.py::double.  With
-// need_t false the stale input T passes through, as there.
-HD ge ge_dbl(const ge& p, bool need_t) {
-  const fe a = fe_mul(p.X, p.X);
-  const fe b = fe_mul(p.Y, p.Y);
-  const fe zz = fe_mul(p.Z, p.Z);
-  const fe c = fe_add(zz, zz);
-  const fe h = fe_add(a, b);
-  const fe xy = fe_add(p.X, p.Y);
-  const fe e = fe_sub(h, fe_mul(xy, xy));
-  const fe g = fe_sub(a, b);
-  const fe f = fe_add(c, g);
-  const fe t = need_t ? fe_mul(e, h) : p.T;
-  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), t};
+// --- the point operations by product level -------------------------------------
+// add-2008-hwcd-3 (with the 2d constant) and dbl-2008-hwcd, in the order of
+// consensus_tpu/ops/ed25519.py::add and ::double, cut into their two levels
+// of products.  Each level has four independent products; role r of a group
+// of four computes product r, and the group hands every role all four
+// before the next level.  ge_add and ge_dbl run every role in turn on one
+// thread, so these stages are the one copy of each formula.
+
+// a, b, c or d by role 0..3, without a branch.
+HD fe fe_pick(int role, const fe& a, const fe& b, const fe& c, const fe& d) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    r.v[i] = role == 0 ? a.v[i] : role == 1 ? b.v[i] : role == 2 ? c.v[i] : d.v[i];
+  return r;
 }
+
+// Double, level 1: role r's square of X, Y, Z, X + Y.
+template <int K = MUL_CALL>
+HD fe dbl_stage1(const ge& p, int role) {
+  const fe x = fe_pick(role, p.X, p.Y, p.Z, fe_add(p.X, p.Y));
+  return mul<K>(x, x);
+}
+
+// Double, level 2, from level 1's products m[0..3]: role r's coordinate of
+// 2p.  Role 3 passes p.T through when need_t is false, as the JAX double
+// does.
+template <int K = MUL_CALL>
+HD fe dbl_stage2(const ge& p, const fe* m, int role, bool need_t) {
+  const fe c = fe_add(m[2], m[2]);
+  const fe h = fe_add(m[0], m[1]);
+  const fe e = fe_sub(h, m[3]);
+  const fe g = fe_sub(m[0], m[1]);
+  const fe f = fe_add(c, g);
+  const fe r = mul<K>(fe_pick(role, e, g, f, e), fe_pick(role, f, h, g, h));
+  return role == 3 && !need_t ? p.T : r;
+}
+
+// Role r's factor of q in the add's level 1: Y2 - X2, Y2 + X2, T2, Z2.
+HD fe add_factor(const ge& q, int role) {
+  return fe_pick(role, fe_sub(q.Y, q.X), fe_add(q.Y, q.X), q.T, q.Z);
+}
+
+// Add, level 1: role r's product of A, B, C = t1 * T2 and D = 2 Z1 * Z2,
+// from role r's factor qf of q (add_factor) and t1 = 2d T1.  A caller whose q
+// carries 2d T2 in place of T2 gives t1 = T1: C is the same mod p.
+template <int K = MUL_CALL>
+HD fe add_stage1(const ge& p, const fe& t1, const fe& qf, int role) {
+  return mul<K>(fe_pick(role, fe_sub(p.Y, p.X), fe_add(p.Y, p.X), t1, fe_add(p.Z, p.Z)), qf);
+}
+
+// Add, level 2, from level 1's products m[0..3]: role r's coordinate of
+// p + q.
+template <int K = MUL_CALL>
+HD fe add_stage2(const fe* m, int role) {
+  const fe e = fe_sub(m[1], m[0]);
+  const fe f = fe_sub(m[3], m[2]);
+  const fe g = fe_add(m[3], m[2]);
+  const fe h = fe_add(m[1], m[0]);
+  return mul<K>(fe_pick(role, e, g, f, e), fe_pick(role, f, h, g, h));
+}
+
+// The complete add and the double on one thread: every role in turn.
+HD ge ge_add(const ge& p, const ge& q) {
+  const fe t1 = mul<MUL_CALL>(p.T, fe_d2());
+  fe m[4], o[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) m[r] = add_stage1(p, t1, add_factor(q, r), r);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) o[r] = add_stage2(m, r);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+
+HD ge ge_dbl(const ge& p, bool need_t) {
+  fe m[4], o[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) m[r] = dbl_stage1(p, r);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) o[r] = dbl_stage2(p, m, r, need_t);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+
+#ifdef __CUDACC__
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ fe fe_shfl(const fe& f, int src, unsigned mask = FULL) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) r.v[i] = __shfl_sync(mask, (unsigned long long)f.v[i], src);
+  return r;
+}
+
+// Every lane of the aligned group of four lanes from `base` (named in
+// `mask`) gets the four lanes' values, in lane order.
+__device__ __forceinline__ void fe_exchange4(const fe& mine, fe* all, int base,
+                                             unsigned mask = FULL) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) all[k] = fe_shfl(mine, base + k, mask);
+}
+#endif
 
 }  // namespace

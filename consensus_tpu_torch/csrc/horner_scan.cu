@@ -10,74 +10,233 @@
 // version (consensus_tpu_torch/ops/scan_kernels.py::horner_scan_reference);
 // it writes that representative as canonical 8-bit limbs.
 //
-// What bounds it on this card: integer multiplies.  Per lane it does 2,495
-// field multiplications (63 for the table, 38 per window), each 25 64x64->128
-// products, against ~10 MB of memory traffic at 8,192 lanes.
+// What bounds it on this card: latency.  The integer products (2,495 field
+// multiplications a lane, 25 64x64->128 products each) need 0.074 ms over
+// every SM at 8,192 lanes, the bytes (~10 MB) a tenth of that; but a lane's
+// multiplications form one chain of dependent products.  The first version
+// ran one thread per signature in 64-thread blocks (128 blocks of 2 warps at
+// 8,192 lanes), 38 multiplications in a row a window, with the table in
+// local memory (254 registers, a 1,456-byte stack frame), and took
+// 3.264-3.287 ms at 8,192 lanes (NVIDIA H100 80GB HBM3, 700.00 W).
 //
-// What the design does about it, first version: one thread per signature,
-// radix 2^51 with 5 uint64 limbs so every product is one native 64-bit
-// multiply pair (a*b and __umul64hi) instead of the TPU layout's 32x8-bit f32
-// limbs, which exist only because the TPU's vector unit has no integer
-// multiply.  The table stays in per-thread local memory and is read with a
-// direct index on |d|.  Warp-cooperative multiplies, shared-memory tables and
-// fused decompression are later work.
-//
+// What the design does about it:
+// - A group of G = 4 threads per signature, in one warp.  Every level of
+//   the double and of the add has four independent products (the stages of
+//   ed25519_field.cuh): role r computes product r, writes it to the group's
+//   slots in shared memory, and the group meets at __syncwarp before the
+//   next level.  A window is 10 multiplication latencies where one thread
+//   ran 38: 4 doubles of 2 levels and the add's 2.
+// - The table in shared memory (9 entries a signature), built by the
+//   group's split adds, each role writing its own coordinate.  An entry holds
+//   X, Y, Z and 2d T (TABLE_T2D), so the accumulator's add forms C = T1 (2d
+//   T2) in one multiplication: the same value mod p, the same canonical
+//   output.  In the add's first level each role reads only the coordinates
+//   its product needs.
+// - 16 signatures a 64-thread block: 512 blocks at 8,192 lanes, about two
+//   warps a scheduler on every SM.  A group past the batch leaves as a whole;
+//   the barriers name only the group's own lanes.
+// - fe_mul inlined in every stage (MUL_INLINE).
+// - The first window's doubles act on the identity and are skipped:
+//   dbl-2008-hwcd takes (0 : 1 : 1 : 0) to (0 : -1 : -1 : 0), and the add
+//   that follows is of degree 2 in the accumulator, so the sum is the same.
+// The scan is a template over the group (scan_signature, group_add,
+// group_dbl): serial_group runs every role in turn on one thread, which is
+// what the host check compiled with g++ replays.
+// Trials on the card (scripts/horner_scan_trials.py; NVIDIA H100 80GB HBM3,
+// 700.00 W) chose the constants below: slots against __shfl_sync -2 to -3
+// %, the inlined fe_mul against one out-of-line copy -5 %, 2d T in the table
+// -6 to -7 %; 8, 16 or 32 signatures a block within 1 %.  This design takes
+// 0.782-0.785 ms at 8,192 lanes and 0.542-0.544 ms at 256 (chip_smoke.py
+// phase 2, where the first version took 3.264-3.273 and 3.053-3.062 ms in
+// the same call); ptxas: 118 registers, no stack frame, no spills, 28,160
+// bytes of shared memory.  A group runs 654 product levels (22 for the
+// table, 632 for the windows); a level costs about 2,350 cycles at 8,192
+// lanes (two warps a scheduler) and 1,620 at 256 (one), so the warps'
+// instruction throughput, not one chain's latency, now sets the time.
+
 // Layout at the C boundary (batch trailing, limbs leading, as in the JAX
 // package): four (32, batch) float32 coordinates of -A, weakly reduced
 // (|limb| <= 340, value in (-2^250, 2^255 + 2^13)); (64, batch) int32 digits
 // stored as d + 8 with d in [-8, 7]; four (32, batch) float32 outputs holding
 // canonical limbs in [0, 255].
 //
-// The field and point arithmetic (ed25519_field.cuh, shared with
-// straus_msm.cu) is written __host__ __device__ so the same source can be
-// compiled as plain C++ for a host-side check; only the kernel and the C entry
-// points need nvcc.
+// Everything above the __CUDACC__ line is __host__ __device__, so the same
+// source compiles as plain C++ for the host check; only the kernel, the
+// warp's exchange and the C entry points need nvcc.
 
 #include "ed25519_field.cuh"
 
 namespace {
 
-// One lane of the scan.  Coordinates and digits are read at column `lane` of
-// their (rows, batch) arrays.
-HD void horner_lane(const float* ax, const float* ay, const float* az, const float* at,
-                    const int32_t* digits, float* ox, float* oy, float* oz, float* ot,
-                    long long batch, long long lane) {
-  ge neg_a = {fe_load(ax + lane, batch), fe_load(ay + lane, batch),
-              fe_load(az + lane, batch), fe_load(at + lane, batch)};
-  ge table[TABLE];
-  table[0] = ge_identity();
-  table[1] = neg_a;
-  for (int j = 2; j < TABLE; ++j) table[j] = ge_add(table[j - 1], neg_a);
+// The design's constants (scripts/horner_scan_trials.py times the
+// alternatives by rewriting these lines).
+constexpr int SIGNATURES = 16;           // signatures a block
+constexpr bool SLOT_EXCHANGE = true;     // products through shared memory, not shuffles
+constexpr bool TABLE_T2D = true;         // entries hold 2d T in place of T
+constexpr int MUL = MUL_INLINE;          // the stages' multiplication
+
+constexpr int G = 4;  // threads per signature: one per product of a level
+constexpr int THREADS = G * SIGNATURES;
+constexpr int DIGIT_MAX = 2 * (TABLE - 1);  // d + 8 with |d| <= 8
+
+// The column of the signature that thread t of block b works on.
+HD long long group_lane(long long b, int t) { return b * SIGNATURES + t / G; }
+
+// Role r's factor of the add's level 1 (add_factor) from table entry e (X,
+// Y, Z and T or 2d T), with X and T negated when neg: it reads X and the
+// one other coordinate its product needs.
+HD fe entry_factor(const fe* e, int role, bool neg) {
+  const fe x = neg ? fe_neg(e[0]) : e[0];
+  const fe a = e[role <= 1 ? 1 : (role == 2 ? 3 : 2)];
+  return fe_pick(role, fe_sub(a, x), fe_add(a, x), neg ? fe_neg(a) : a, a);
+}
+
+// The left factor of the add's C for an accumulator p: T1 against an
+// entry that holds 2d T2, else 2d T1.
+HD fe add_t1(const ge& p) { return TABLE_T2D ? p.T : mul<MUL>(p.T, fe_d2()); }
+
+// What entry j's coordinate r holds for the point p.
+HD fe entry_coordinate(const ge& p, int r) {
+  return r == 3 && TABLE_T2D ? mul<MUL>(p.T, fe_d2()) : fe_pick(r, p.X, p.Y, p.Z, p.T);
+}
+
+// --- the group of one signature --------------------------------------------------
+// A group runs roles [role_lo, role_hi) of G on this thread.  serial_group
+// runs every role in turn, with no barrier, over the group's slots as the
+// card's SLOT_EXCHANGE holds them: level 1's products in slots[0], level
+// 2's in slots[1].  On the card (warp_group below) each thread is one role.
+
+struct serial_group {
+  int role_lo, role_hi;
+  fe (*slots)[G];
+};
+
+HD void group_sync(const serial_group&) {}
+
+// p + e (entry e negated when neg), every role in turn.
+HD ge group_add(const serial_group& g, const ge& p, const fe* e, bool neg) {
+  const fe t1 = add_t1(p);
+  fe* const s1 = g.slots[0];
+  fe* const s2 = g.slots[1];
+  for (int r = 0; r < G; ++r) s1[r] = add_stage1<MUL>(p, t1, entry_factor(e, r, neg), r);
+  for (int r = 0; r < G; ++r) s2[r] = add_stage2<MUL>(s1, r);
+  return ge{s2[0], s2[1], s2[2], s2[3]};
+}
+
+HD ge group_dbl(const serial_group& g, const ge& p, bool need_t) {
+  fe* const s1 = g.slots[0];
+  fe* const s2 = g.slots[1];
+  for (int r = 0; r < G; ++r) s1[r] = dbl_stage1<MUL>(p, r);
+  for (int r = 0; r < G; ++r) s2[r] = dbl_stage2<MUL>(p, s1, r, need_t);
+  return ge{s2[0], s2[1], s2[2], s2[3]};
+}
+
+// --- the scan of one signature ----------------------------------------------------
+
+// The scan of the signature at column `lane` of the (rows, batch) arrays, on
+// group g with its table of TABLE entries of G coordinates.
+template <class Group>
+HD void scan_signature(const Group& g, fe (*table)[G], const float* ax, const float* ay,
+                       const float* az, const float* at, const int32_t* digits, float* ox,
+                       float* oy, float* oz, float* ot, long long batch, long long lane) {
+  // Entries 0 (the identity) and 1 (-A): role r loads coordinate r.
+  for (int r = g.role_lo; r < g.role_hi; ++r) {
+    table[0][r] = r == 0 || r == 3 ? fe_zero() : fe_one();
+    table[1][r] = fe_load((r == 0 ? ax : r == 1 ? ay : r == 2 ? az : at) + lane, batch);
+  }
+  group_sync(g);
+  const ge neg_a = {table[1][0], table[1][1], table[1][2], table[1][3]};
+  if (TABLE_T2D) {
+    group_sync(g);  // every role has read T before role 3 replaces it
+    for (int r = g.role_lo; r < g.role_hi; ++r)
+      if (r == 3) table[1][3] = entry_coordinate(neg_a, 3);
+    group_sync(g);
+  }
+  ge cur = neg_a;
+#pragma unroll 1
+  for (int j = 2; j < TABLE; ++j) {
+    cur = group_add(g, cur, table[1], false);
+    for (int r = g.role_lo; r < g.role_hi; ++r) table[j][r] = entry_coordinate(cur, r);
+  }
+  group_sync(g);
 
   ge acc = ge_identity();
+#pragma unroll 1
   for (int w = 0; w < WINDOWS; ++w) {
-    const int d = digits[w * batch + lane] - 8;
-    acc = ge_dbl(acc, false);
-    acc = ge_dbl(acc, false);
-    acc = ge_dbl(acc, false);
-    acc = ge_dbl(acc, true);
-    // A digit outside the d + 8 encoding's [0, 15] is not a valid input;
+    // A digit outside the d + 8 encoding's [0, 16] is not a valid input;
     // the clamp only keeps such a lane from reading outside the table.
-    int idx = d < 0 ? -d : d;
-    idx = idx > TABLE - 1 ? TABLE - 1 : idx;
-    ge q = table[idx];
-    if (d < 0) {
-      q.X = fe_neg(q.X);
-      q.T = fe_neg(q.T);
+    int code = digits[w * batch + lane];
+    code = code < 0 ? 0 : (code > DIGIT_MAX ? DIGIT_MAX : code);
+    const int d = code - (TABLE - 1);
+    if (w > 0) {  // the first window's doubles would act on the identity
+#pragma unroll 1
+      for (int i = 0; i < 3; ++i) acc = group_dbl(g, acc, false);
+      acc = group_dbl(g, acc, true);
     }
-    acc = ge_add(acc, q);
+    acc = group_add(g, acc, table[d < 0 ? -d : d], d < 0);
   }
-  fe_store(ox + lane, batch, acc.X);
-  fe_store(oy + lane, batch, acc.Y);
-  fe_store(oz + lane, batch, acc.Z);
-  fe_store(ot + lane, batch, acc.T);
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    fe_store((r == 0 ? ox : r == 1 ? oy : r == 2 ? oz : ot) + lane, batch,
+             fe_pick(r, acc.X, acc.Y, acc.Z, acc.T));
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
 
-constexpr int THREADS = 64;
+static_assert(THREADS % 32 == 0, "whole warps, each holding whole groups");
+
+// One role of a signature's group: its lanes in the warp (from `base`,
+// named in `mask`) and, with SLOT_EXCHANGE, the group's slots in shared
+// memory, one set of G for each of an operation's two levels.
+struct warp_group {
+  int role_lo, role_hi;
+  int base;
+  unsigned mask;
+  fe (*slots)[G];
+};
+
+// The card's group functions are __host__ __device__ like the template that
+// calls them; their intrinsics exist only in the device pass.
+#define HDW __host__ __device__ __forceinline__
+
+HDW void group_sync(const warp_group& g) {
+#ifdef __CUDA_ARCH__
+  __syncwarp(g.mask);
+#endif
+}
+
+// Every role of the group gets the G products of one level (0 or 1).
+// Slots alternate between the levels, so one barrier a level orders the
+// group through any sequence of operations.
+HDW void share(const warp_group& g, const fe& mine, fe* all, int level) {
+#ifdef __CUDA_ARCH__
+  if (SLOT_EXCHANGE) {
+    g.slots[level][g.role_lo] = mine;
+    __syncwarp(g.mask);
+#pragma unroll
+    for (int k = 0; k < G; ++k) all[k] = g.slots[level][k];
+  } else {
+    fe_exchange4(mine, all, g.base, g.mask);
+  }
+#endif
+}
+
+HDW ge group_add(const warp_group& g, const ge& p, const fe* e, bool neg) {
+  const int r = g.role_lo;
+  fe m[G], o[G];
+  share(g, add_stage1<MUL>(p, add_t1(p), entry_factor(e, r, neg), r), m, 0);
+  share(g, add_stage2<MUL>(m, r), o, 1);
+  return ge{o[0], o[1], o[2], o[3]};
+}
+
+HDW ge group_dbl(const warp_group& g, const ge& p, bool need_t) {
+  const int r = g.role_lo;
+  fe m[G], o[G];
+  share(g, dbl_stage1<MUL>(p, r), m, 0);
+  share(g, dbl_stage2<MUL>(p, m, r, need_t), o, 1);
+  return ge{o[0], o[1], o[2], o[3]};
+}
 
 __global__ void __launch_bounds__(THREADS)
 horner_scan_kernel(const float* __restrict__ ax, const float* __restrict__ ay,
@@ -85,9 +244,15 @@ horner_scan_kernel(const float* __restrict__ ax, const float* __restrict__ ay,
                    const int32_t* __restrict__ digits, float* __restrict__ ox,
                    float* __restrict__ oy, float* __restrict__ oz,
                    float* __restrict__ ot, int batch) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;  // the ragged edge
-  horner_lane(ax, ay, az, at, digits, ox, oy, oz, ot, batch, lane);
+  __shared__ fe tables[SIGNATURES][TABLE][G];
+  __shared__ fe slots[SLOT_EXCHANGE ? SIGNATURES : 1][2][G];
+  const int t = threadIdx.x, sig = t / G, role = t % G;
+  const long long lane = group_lane(blockIdx.x, t);
+  if (lane >= batch) return;  // the ragged edge: the whole group leaves
+  const int base = (t % 32) & ~(G - 1);
+  const warp_group g = {role, role + 1, base, ((1u << G) - 1u) << base,
+                        slots[SLOT_EXCHANGE ? sig : 0]};
+  scan_signature(g, tables[sig], ax, ay, az, at, digits, ox, oy, oz, ot, batch, lane);
 }
 
 // Launches on `stream` of CUDA device `device` and returns the launch's
@@ -99,7 +264,7 @@ extern "C" int horner_scan_launch(const void* ax, const void* ay, const void* az
   if (batch <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + THREADS - 1) / THREADS;
+  const int blocks = (batch + SIGNATURES - 1) / SIGNATURES;
   horner_scan_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ax, (const float*)ay, (const float*)az, (const float*)at,
       (const int32_t*)digits, (float*)ox, (float*)oy, (float*)oz, (float*)ot, batch);

@@ -52,22 +52,24 @@
 //    the 8 group sums are folded with 32 doubles each.  The 252 doubles stay
 //    in a row, but the adds on that path fall from 63 to 14.  Each point
 //    operation runs on four lanes: the four independent products of each
-//    stage of ge_dbl and ge_add (dbl_stage1/2, add_stage1/2 below) go one to
-//    a lane and __shfl_sync hands every lane all four.  That is 2
+//    level of the double and the add (ed25519_field.cuh's dbl_stage1/2,
+//    add_stage1/2, the stages ge_dbl and ge_add run role after role) go one
+//    to a lane and __shfl_sync hands every lane all four.  That is 2
 //    multiplication latencies per double and 3 per add instead of 7-8 and
-//    10, 546 in all.  The stages call ed25519_field.cuh's fe_mul, fe_add and
-//    fe_sub on ge_dbl's and ge_add's formulas in their order, so they are
-//    limb-identical to the unsplit operations.  Lanes 0..3 write X, Y, Z,
-//    T as canonical 8-bit limbs.
+//    10, 546 in all.  The chain inlines fe_mul (MUL_INLINE); the tables,
+//    window sums and join add with ge_add on the out-of-line copy
+//    (MUL_CALL).  Lanes 0..3 write X, Y, Z, T as canonical 8-bit limbs.
 //
 // Chip runs of this design (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
 // phase 6: CUDA events over 20 launches, per-kernel device times from
 // torch.profiler): 0.816-0.822 ms at 8,192 lanes (tables 0.046, window sums
 // 0.321, join 0.013, chain 0.381 ms) and 0.525-0.530 ms at 256 lanes (chain
-// 0.372-0.392 ms), where the first version took 6.937 and 6.539 ms.  ptxas: 178 registers and a 104-byte stack frame for
-// the tables, 166 for the window sums and the join, 168 for the chain, no
-// spills.  The chain is now the largest part and bounds the narrow calls:
-// one warp issues some 600 instructions per fe_mul, about 0.7 us a stage.
+// 0.372-0.392 ms), where the first version took 6.937 and 6.539 ms; with
+// the stages in ed25519_field.cuh, 0.813-0.814 and 0.521-0.522 ms.  ptxas:
+// 185 registers and a 104-byte stack frame for the tables, 168 for the
+// window sums, 164 for the join, 130 for the chain, no spills.  The chain
+// is now the largest part and bounds the narrow calls: one warp runs some
+// 600 instructions per fe_mul, about 0.7 us a stage.
 //
 // Layout at the C boundary (batch trailing, limbs leading, as in the JAX
 // package): eight (32, batch) float32 coordinates -A (X, Y, Z, T) then -R,
@@ -141,38 +143,6 @@ HD void ge_write(u64* p, const ge& q) {
 #endif
 }
 
-// --- out-of-line field multiplication ------------------------------------------
-// The adds of the tables, window sums and join call one out-of-line copy of
-// fe_mul on the device (about 600 instructions) where ge_add inlines nine:
-// measured faster, likely because the loops' code then fits the SM's
-// instruction cache.  The chain, one warp with nothing to hide a call
-// behind, was slower that way and inlines fe_mul.
-
-#ifdef __CUDA_ARCH__
-__device__ __noinline__ fe fe_mul_call(fe f, fe g) { return fe_mul(f, g); }
-#endif
-
-HD fe mul(const fe& f, const fe& g) {
-#ifdef __CUDA_ARCH__
-  return fe_mul_call(f, g);
-#else
-  return fe_mul(f, g);
-#endif
-}
-
-// ge_add (add-2008-hwcd-3, the same operations in the same order) on mul.
-HD ge point_add(const ge& p, const ge& q) {
-  const fe a = mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-  const fe b = mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-  const fe c = mul(mul(p.T, fe_d2()), q.T);
-  const fe d = mul(fe_add(p.Z, p.Z), q.Z);
-  const fe e = fe_sub(b, a);
-  const fe f = fe_sub(d, c);
-  const fe g = fe_add(d, c);
-  const fe h = fe_add(b, a);
-  return ge{mul(e, f), mul(g, h), mul(f, g), mul(e, h)};
-}
-
 // --- scratch layout -----------------------------------------------------------
 // Tables: point pt (0 = -A, 1 = -R; no R table when n_low = 0), lane, entry
 // j - 1, as (points, batch, 8, 20) words.  Then the partial sums as
@@ -210,7 +180,7 @@ HD void msm_table(const msm_args& in, int pt, long long lane) {
   ge cur = p;
   ge_write(out, cur);
   for (int j = 1; j < ENTRIES; ++j) {
-    cur = point_add(cur, p);
+    cur = ge_add(cur, p);
     ge_write(out + j * POINT_WORDS, cur);
   }
 }
@@ -240,10 +210,10 @@ HD ge msm_thread_sum(const msm_args& in, int w, long long lo, long long hi, int 
   ge acc = ge_identity();
   for (long long lane = lo + t; lane < hi; lane += threads) {
     const int a = in.zk[w * in.batch + lane];
-    if (a != 8) acc = point_add(acc, msm_entry(in, 0, lane, a));
+    if (a != 8) acc = ge_add(acc, msm_entry(in, 0, lane, a));
     if (w >= n_high) {
       const int r = in.z[(w - n_high) * in.batch + lane];
-      if (r != 8) acc = point_add(acc, msm_entry(in, 1, lane, r));
+      if (r != 8) acc = ge_add(acc, msm_entry(in, 1, lane, r));
     }
   }
   return acc;
@@ -263,53 +233,8 @@ HD int msm_group(long long chunks, int warp) {
 HD ge msm_window_share(const u64* partials, long long chunks, int w, int j, int g) {
   if (j >= chunks) return ge_identity();
   ge s = ge_read(partials + msm_slot(chunks, w, j));
-  for (long long c = j + g; c < chunks; c += g) s = point_add(s, ge_read(partials + msm_slot(chunks, w, c)));
+  for (long long c = j + g; c < chunks; c += g) s = ge_add(s, ge_read(partials + msm_slot(chunks, w, c)));
   return s;
-}
-
-// a, b, c or d by role 0..3, without a branch.
-HD fe fe_pick(int role, const fe& a, const fe& b, const fe& c, const fe& d) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 5; ++i)
-    r.v[i] = role == 0 ? a.v[i] : role == 1 ? b.v[i] : role == 2 ? c.v[i] : d.v[i];
-  return r;
-}
-
-// ge_dbl split over four roles.  Stage 1: role r's product of X^2, Y^2, Z^2,
-// (X + Y)^2.  Stage 2, from the four: role r's coordinate of 2p (role 3
-// passes p.T through when need_t is false, as ge_dbl does).
-HD fe dbl_stage1(const ge& p, int role) {
-  const fe x = fe_pick(role, p.X, p.Y, p.Z, fe_add(p.X, p.Y));
-  return fe_mul(x, x);
-}
-
-HD fe dbl_stage2(const ge& p, const fe* m, int role, bool need_t) {
-  const fe c = fe_add(m[2], m[2]);
-  const fe h = fe_add(m[0], m[1]);
-  const fe e = fe_sub(h, m[3]);
-  const fe g = fe_sub(m[0], m[1]);
-  const fe f = fe_add(c, g);
-  const fe r = fe_mul(fe_pick(role, e, g, f, e), fe_pick(role, f, h, g, h));
-  return role == 3 && !need_t ? p.T : r;
-}
-
-// ge_add split over four roles.  Stage 1: role r's product of A, B,
-// C = (T1 * 2d) * T2, D = 2 Z1 * Z2 (every role forms T1 * 2d, so the stage
-// is two multiplications long for all).  Stage 2: role r's coordinate of
-// p + q.
-HD fe add_stage1(const ge& p, const ge& q, int role) {
-  const fe t2d = fe_mul(p.T, fe_d2());
-  return fe_mul(fe_pick(role, fe_sub(p.Y, p.X), fe_add(p.Y, p.X), t2d, fe_add(p.Z, p.Z)),
-                fe_pick(role, fe_sub(q.Y, q.X), fe_add(q.Y, q.X), q.T, q.Z));
-}
-
-HD fe add_stage2(const fe* m, int role) {
-  const fe e = fe_sub(m[1], m[0]);
-  const fe f = fe_sub(m[3], m[2]);
-  const fe g = fe_add(m[3], m[2]);
-  const fe h = fe_add(m[1], m[0]);
-  return fe_mul(fe_pick(role, e, g, f, e), fe_pick(role, f, h, g, h));
 }
 
 }  // namespace
@@ -321,14 +246,6 @@ constexpr int THREADS = 256;           // window-sum block; WARP times a power o
 constexpr int LANES_PER_THREAD = 8;
 constexpr long long CHUNK = THREADS * LANES_PER_THREAD;  // lanes per window-sum block
 constexpr int TABLE_THREADS = 128;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ fe fe_shfl(const fe& f, int src) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) r.v[i] = __shfl_sync(FULL, (unsigned long long)f.v[i], src);
-  return r;
-}
 
 __device__ __forceinline__ ge ge_shfl_xor(const ge& p, int m) {
   ge q;
@@ -345,28 +262,24 @@ __device__ __forceinline__ ge ge_shfl_xor(const ge& p, int m) {
 // Butterfly over aligned groups of `width` lanes (a power of two): lane 0
 // of each group ends with the group's sum.  The whole warp must call it.
 __device__ __forceinline__ ge warp_sum(ge acc, int width) {
-  for (int m = width / 2; m > 0; m >>= 1) acc = point_add(acc, ge_shfl_xor(acc, m));
+  for (int m = width / 2; m > 0; m >>= 1) acc = ge_add(acc, ge_shfl_xor(acc, m));
   return acc;
 }
 
-// Every lane of a group of four gets the four roles' values.
-__device__ __forceinline__ void exchange(const fe& mine, fe* all, int lane) {
-  const int base = lane & ~3;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) all[k] = fe_shfl(mine, base + k);
-}
-
+// The chain's point operations on four lanes: the header's stages with fe_mul
+// inlined, role lane & 3, fe_exchange4 handing every lane all four products.
 __device__ __forceinline__ ge chain_dbl(const ge& p, int lane, bool need_t) {
   fe m[4], o[4];
-  exchange(dbl_stage1(p, lane & 3), m, lane);
-  exchange(dbl_stage2(p, m, lane & 3, need_t), o, lane);
+  fe_exchange4(dbl_stage1<MUL_INLINE>(p, lane & 3), m, lane & ~3);
+  fe_exchange4(dbl_stage2<MUL_INLINE>(p, m, lane & 3, need_t), o, lane & ~3);
   return ge{o[0], o[1], o[2], o[3]};
 }
 
 __device__ __forceinline__ ge chain_add(const ge& p, const ge& q, int lane) {
   fe m[4], o[4];
-  exchange(add_stage1(p, q, lane & 3), m, lane);
-  exchange(add_stage2(m, lane & 3), o, lane);
+  const fe t1 = mul<MUL_INLINE>(p.T, fe_d2());
+  fe_exchange4(add_stage1<MUL_INLINE>(p, t1, add_factor(q, lane & 3), lane & 3), m, lane & ~3);
+  fe_exchange4(add_stage2<MUL_INLINE>(m, lane & 3), o, lane & ~3);
   return ge{o[0], o[1], o[2], o[3]};
 }
 
@@ -388,7 +301,7 @@ __global__ void __launch_bounds__(THREADS) straus_msm_windows_kernel(msm_args in
   for (int s = THREADS / 2; s >= WARP; s >>= 1) {
     if (t >= s && t < 2 * s) ge_write(sh + (t - s) * POINT_WORDS, acc);
     __syncthreads();
-    if (t < s) acc = point_add(acc, ge_read(sh + t * POINT_WORDS));
+    if (t < s) acc = ge_add(acc, ge_read(sh + t * POINT_WORDS));
     __syncthreads();
   }
   if (t < WARP) {

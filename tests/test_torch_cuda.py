@@ -35,7 +35,7 @@ def cuda_device():
 
 def _scan_case(n: int, device):
     """(-A) for A = j*B in weak limbs with negative entries, and digits of
-    scalars 0, 1 and random ones below L."""
+    scalars 0, 1 (from n = 3 on) and random ones below L."""
     pts, cur = [], (ed._BX, ed._BY)
     for _ in range(n):
         pts.append(cur)
@@ -48,7 +48,8 @@ def _scan_case(n: int, device):
     ]
     neg = [weaken(c).contiguous() for c in ed.negate(ed.Point(*coords))]
     rng = np.random.default_rng(n)
-    scalars = [0, 1] + [int.from_bytes(rng.bytes(32), "little") % med.L for _ in range(n - 2)]
+    fixed = [0, 1] if n > 2 else []
+    scalars = fixed + [int.from_bytes(rng.bytes(32), "little") % med.L for _ in range(n - len(fixed))]
     rows = np.frombuffer(
         b"".join(s.to_bytes(32, "little") for s in scalars), dtype=np.uint8
     ).reshape(n, 32)
@@ -57,11 +58,13 @@ def _scan_case(n: int, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [37, 256])
+@pytest.mark.parametrize("n", [1, 37, 256, 8192 + 37])
 def test_kernel_matches_reference_on_card(cuda_device, n):
     """Frozen X, Y, Z, T of the kernel equal the plain version's on every
-    lane (tolerance 0), at a batch that does and one that does not fill the
-    last block; the kernel writes canonical limbs; one launch per call."""
+    lane (tolerance 0): one lane (a block of one group), widths that do not
+    fill the last 16-signature block (37, and 8,192 + 37 past the main
+    path's 512 blocks) and one that fills 16 blocks; the kernel writes
+    canonical limbs; one launch per call."""
     neg, digits = _scan_case(n, cuda_device)
     assert min(float(c.min()) for c in neg) < 0  # weak limbs reach the kernel
     before = scan_kernels.launches

@@ -33,7 +33,8 @@ def _forbidden(name: str) -> bool:
 
 
 def _sources() -> list[Path]:
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py"))
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "horner_scan_trials.py"]
     assert len(files) > 10
     return files
 
@@ -75,8 +76,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     corpus = chip_smoke.make_corpus(16, per_class=1)
     msgs, sigs, keys, expected, bad = corpus
     assert len(msgs) == 16 and sorted(np.flatnonzero(~expected).tolist()) == sorted(bad)
-    k = chip_smoke.phase_kernel("cpu", keys, lanes=8, reps=1, plain_reps=1)
+    k = chip_smoke.phase_kernel("cpu", keys, lanes=8, reps=1, plain_reps=1, sub_lanes=3)
     assert k["lanes"] == 8 and k["max_abs_err"] == 0.0
+    assert k["sub_lanes"] == 3 and k["sub_max_abs_err"] == 0.0  # the catch-up width's check
     assert k["negative_lanes"] >= 4  # weak limbs below zero reach the scan
     w = chip_smoke.phase_wave("cpu", corpus, replicas=1)
     assert w["signatures"] == 16 and w["padded"] == 16 and w["rejected"] == 8

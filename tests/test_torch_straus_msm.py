@@ -227,7 +227,8 @@ def test_msm_bound_counts_the_work():
 
 
 # The split-role point operations of the chain, run role after role: what
-# the chain kernel's four lanes compute, with the shuffles replaced by arrays.
+# the chain kernel's four lanes compute (the header's stages on its inlined
+# multiplication), with the shuffles replaced by arrays.
 _SPLIT_OPS = r"""
 #include <cstdio>
 #include <cstdlib>
@@ -235,14 +236,15 @@ _SPLIT_OPS = r"""
 #include "straus_msm.cu"
 static ge split_dbl(const ge& p, bool need_t) {
   fe m[4], o[4];
-  for (int r = 0; r < 4; ++r) m[r] = dbl_stage1(p, r);
-  for (int r = 0; r < 4; ++r) o[r] = dbl_stage2(p, m, r, need_t);
+  for (int r = 0; r < 4; ++r) m[r] = dbl_stage1<MUL_INLINE>(p, r);
+  for (int r = 0; r < 4; ++r) o[r] = dbl_stage2<MUL_INLINE>(p, m, r, need_t);
   return ge{o[0], o[1], o[2], o[3]};
 }
 static ge split_add(const ge& p, const ge& q) {
   fe m[4], o[4];
-  for (int r = 0; r < 4; ++r) m[r] = add_stage1(p, q, r);
-  for (int r = 0; r < 4; ++r) o[r] = add_stage2(m, r);
+  const fe t1 = mul<MUL_INLINE>(p.T, fe_d2());
+  for (int r = 0; r < 4; ++r) m[r] = add_stage1<MUL_INLINE>(p, t1, add_factor(q, r), r);
+  for (int r = 0; r < 4; ++r) o[r] = add_stage2<MUL_INLINE>(m, r);
   return ge{o[0], o[1], o[2], o[3]};
 }
 static bool read_all(const char* path, void* a, size_t na, void* b = 0, size_t nb = 0,
@@ -269,11 +271,11 @@ _HOST_HARNESS = _SPLIT_OPS + r"""
 // every thread's share, a halving tree down to one warp and a butterfly in
 // it; per window a butterfly over its chunk partials; then the two-level
 // Horner chain on the split stages.  On the card a butterfly is
-// __shfl_xor_sync: lane 0 ends with point_add(v[0], v[m]) at each level m.
+// __shfl_xor_sync: lane 0 ends with ge_add(v[0], v[m]) at each level m.
 static ge butterfly(std::vector<ge> v) {
   for (size_t m = v.size() / 2; m > 0; m >>= 1) {
     std::vector<ge> next(v.size());
-    for (size_t i = 0; i < v.size(); ++i) next[i] = point_add(v[i], v[i ^ m]);
+    for (size_t i = 0; i < v.size(); ++i) next[i] = ge_add(v[i], v[i ^ m]);
     v = next;
   }
   return v[0];
@@ -302,7 +304,7 @@ int main(int argc, char** argv) {
       std::vector<ge> acc;
       for (int t = 0; t < threads; ++t) acc.push_back(msm_thread_sum(in, w, lo, hi, t, threads));
       for (int s = threads / 2; s >= warp; s >>= 1)
-        for (int t = 0; t < s; ++t) acc[t] = point_add(acc[t], acc[t + s]);
+        for (int t = 0; t < s; ++t) acc[t] = ge_add(acc[t], acc[t + s]);
       acc.resize(warp);
       ge_write(partials + msm_slot(chunks, w, ch), butterfly(acc));
     }
@@ -336,23 +338,24 @@ int main(int argc, char** argv) {
 """
 
 # For each of n point pairs (p, q) loaded from weak limbs: ge_dbl(p) without
-# and with T, ge_add(p, q), each unsplit and split, and point_add(p, q), as
-# 20 words each.
+# and with T and ge_add(p, q), each from the header (every role in turn on
+# its out-of-line multiplication) and from the chain's split stages, as 20
+# words each.
 _SPLIT_HARNESS = _SPLIT_OPS + r"""
 int main(int argc, char** argv) {
   if (argc != 4) return 2;
   const long long n = atoll(argv[1]), s = 32 * n;
   std::vector<float> c(8 * s);
   if (!read_all(argv[2], c.data(), 4 * c.size())) return 3;
-  std::vector<u64> out(n * 7 * POINT_WORDS);
+  std::vector<u64> out(n * 6 * POINT_WORDS);
   for (long long i = 0; i < n; ++i) {
     const ge p = {fe_load(&c[i], n), fe_load(&c[s + i], n), fe_load(&c[2 * s + i], n),
                   fe_load(&c[3 * s + i], n)};
     const ge q = {fe_load(&c[4 * s + i], n), fe_load(&c[5 * s + i], n),
                   fe_load(&c[6 * s + i], n), fe_load(&c[7 * s + i], n)};
-    const ge r[7] = {ge_dbl(p, false), split_dbl(p, false), ge_dbl(p, true),
-                     split_dbl(p, true), ge_add(p, q), split_add(p, q), point_add(p, q)};
-    for (int k = 0; k < 7; ++k) ge_write(&out[(i * 7 + k) * POINT_WORDS], r[k]);
+    const ge r[6] = {ge_dbl(p, false), split_dbl(p, false), ge_dbl(p, true),
+                     split_dbl(p, true), ge_add(p, q), split_add(p, q)};
+    for (int k = 0; k < 6; ++k) ge_write(&out[(i * 6 + k) * POINT_WORDS], r[k]);
   }
   return write_all(argv[3], out.data(), 8 * out.size()) ? 0 : 4;
 }
@@ -414,10 +417,11 @@ def test_kernel_arithmetic_compiled_for_the_host_matches_bigint(
 
 
 def test_split_chain_stages_equal_the_point_operations_limb_for_limb(tmp_path):
-    """The chain kernel's four-role stages, put back together, are ge_dbl
-    (with and without T) and ge_add limb for limb, and so is point_add (the
-    window sums' add on the out-of-line multiplication), on seeded points in
-    weak limbs: the same field operations in the same order."""
+    """The chain kernel's four-role stages (ed25519_field.cuh's, on the
+    inlined multiplication), put back together, are the header's ge_dbl
+    (with and without T) and ge_add (the tables', window sums' and join's
+    add, on the out-of-line multiplication) limb for limb, on seeded points
+    in weak limbs: the same field operations in the same order."""
     exe = _host_build(tmp_path, _SPLIT_HARNESS, "split")
     n = 64
     rng = np.random.default_rng(23)
@@ -429,10 +433,9 @@ def test_split_chain_stages_equal_the_point_operations_limb_for_limb(tmp_path):
     (tmp_path / "in.bin").write_bytes(b"".join(c.astype(np.float32).tobytes() for c in coords))
     subprocess.run([str(exe), str(n), str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
                    check=True, timeout=300)
-    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint64).reshape(n, 7, 20)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint64).reshape(n, 6, 20)
     for name, k in (("dbl without T", 0), ("dbl with T", 2), ("add", 4)):
         assert np.array_equal(out[:, k], out[:, k + 1]), name
-    assert np.array_equal(out[:, 4], out[:, 6]), "point_add"
     # The three operations differ, so the comparison is not vacuous: T
     # passes through without need_t and is a product with it.
     assert not np.array_equal(out[:, 0, 15:], out[:, 2, 15:])
