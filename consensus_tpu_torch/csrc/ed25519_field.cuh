@@ -318,19 +318,18 @@ HD ge ge_dbl(const ge& p, bool need_t) {
 #ifdef __CUDACC__
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ fe fe_shfl(const fe& f, int src, unsigned mask = FULL) {
+__device__ __forceinline__ fe fe_shfl(const fe& f, int src) {
   fe r;
 #pragma unroll
-  for (int i = 0; i < 5; ++i) r.v[i] = __shfl_sync(mask, (unsigned long long)f.v[i], src);
+  for (int i = 0; i < 5; ++i) r.v[i] = __shfl_sync(FULL, (unsigned long long)f.v[i], src);
   return r;
 }
 
-// Every lane of the aligned group of four lanes from `base` (named in
-// `mask`) gets the four lanes' values, in lane order.
-__device__ __forceinline__ void fe_exchange4(const fe& mine, fe* all, int base,
-                                             unsigned mask = FULL) {
+// Every lane of the aligned group of four lanes from `base` gets the four
+// lanes' values, in lane order.
+__device__ __forceinline__ void fe_exchange4(const fe& mine, fe* all, int base) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) all[k] = fe_shfl(mine, base + k, mask);
+  for (int k = 0; k < 4; ++k) all[k] = fe_shfl(mine, base + k);
 }
 #endif
 

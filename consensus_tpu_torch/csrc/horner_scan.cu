@@ -24,29 +24,29 @@
 //   the double and of the add has four independent products (the stages of
 //   ed25519_field.cuh): role r computes product r, writes it to the group's
 //   slots in shared memory, and the group meets at __syncwarp before the
-//   next level.  A window is 10 multiplication latencies where one thread
+//   next level (2-3 % faster than handing the products round by
+//   __shfl_sync).  A window is 10 multiplication latencies where one thread
 //   ran 38: 4 doubles of 2 levels and the add's 2.
 // - The table in shared memory (9 entries a signature), built by the
 //   group's split adds, each role writing its own coordinate.  An entry holds
-//   X, Y, Z and 2d T (TABLE_T2D), so the accumulator's add forms C = T1 (2d
-//   T2) in one multiplication: the same value mod p, the same canonical
-//   output.  In the add's first level each role reads only the coordinates
-//   its product needs.
+//   X, Y, Z and 2d T, so the accumulator's add forms C = T1 (2d T2) in one
+//   multiplication (6-7 % faster than T in the table): the same value mod p,
+//   the same canonical output.  In the add's first level each role reads
+//   only the coordinates its product needs.
 // - 16 signatures a 64-thread block: 512 blocks at 8,192 lanes, about two
-//   warps a scheduler on every SM.  A group past the batch leaves as a whole;
-//   the barriers name only the group's own lanes.
-// - fe_mul inlined in every stage (MUL_INLINE).
+//   warps a scheduler on every SM (8 or 32 signatures a block time within
+//   1 %).  A group past the batch leaves as a whole; the barriers name only
+//   the group's own lanes.
+// - fe_mul inlined in every stage (5 % faster than one out-of-line copy).
 // - The first window's doubles act on the identity and are skipped:
 //   dbl-2008-hwcd takes (0 : 1 : 1 : 0) to (0 : -1 : -1 : 0), and the add
 //   that follows is of degree 2 in the accumulator, so the sum is the same.
 // The scan is a template over the group (scan_signature, group_add,
 // group_dbl): serial_group runs every role in turn on one thread, which is
 // what the host check compiled with g++ replays.
-// Trials on the card (scripts/horner_scan_trials.py; NVIDIA H100 80GB HBM3,
-// 700.00 W) chose the constants below: slots against __shfl_sync -2 to -3
-// %, the inlined fe_mul against one out-of-line copy -5 %, 2d T in the table
-// -6 to -7 %; 8, 16 or 32 signatures a block within 1 %.  This design takes
-// 0.782-0.785 ms at 8,192 lanes and 0.542-0.544 ms at 256 (chip_smoke.py
+// The percentages above are the alternatives' times on an NVIDIA H100 80GB
+// HBM3 at 700.00 W, against this design's.  It takes 0.782-0.785 ms at
+// 8,192 lanes and 0.542-0.544 ms at 256 (chip_smoke.py
 // phase 2, where the first version took 3.264-3.273 and 3.053-3.062 ms in
 // the same call); ptxas: 118 registers, no stack frame, no spills, 28,160
 // bytes of shared memory.  A group runs 654 product levels (22 for the
@@ -68,13 +68,7 @@
 
 namespace {
 
-// The design's constants (scripts/horner_scan_trials.py times the
-// alternatives by rewriting these lines).
-constexpr int SIGNATURES = 16;           // signatures a block
-constexpr bool SLOT_EXCHANGE = true;     // products through shared memory, not shuffles
-constexpr bool TABLE_T2D = true;         // entries hold 2d T in place of T
-constexpr int MUL = MUL_INLINE;          // the stages' multiplication
-
+constexpr int SIGNATURES = 16;  // signatures a block
 constexpr int G = 4;  // threads per signature: one per product of a level
 constexpr int THREADS = G * SIGNATURES;
 constexpr int DIGIT_MAX = 2 * (TABLE - 1);  // d + 8 with |d| <= 8
@@ -83,28 +77,23 @@ constexpr int DIGIT_MAX = 2 * (TABLE - 1);  // d + 8 with |d| <= 8
 HD long long group_lane(long long b, int t) { return b * SIGNATURES + t / G; }
 
 // Role r's factor of the add's level 1 (add_factor) from table entry e (X,
-// Y, Z and T or 2d T), with X and T negated when neg: it reads X and the
-// one other coordinate its product needs.
+// Y, Z and 2d T), with X and 2d T negated when neg: it reads X and the one
+// other coordinate its product needs.
 HD fe entry_factor(const fe* e, int role, bool neg) {
   const fe x = neg ? fe_neg(e[0]) : e[0];
   const fe a = e[role <= 1 ? 1 : (role == 2 ? 3 : 2)];
   return fe_pick(role, fe_sub(a, x), fe_add(a, x), neg ? fe_neg(a) : a, a);
 }
 
-// The left factor of the add's C for an accumulator p: T1 against an
-// entry that holds 2d T2, else 2d T1.
-HD fe add_t1(const ge& p) { return TABLE_T2D ? p.T : mul<MUL>(p.T, fe_d2()); }
-
-// What entry j's coordinate r holds for the point p.
+// What entry j's coordinate r holds for the point p: X, Y, Z, 2d T.
 HD fe entry_coordinate(const ge& p, int r) {
-  return r == 3 && TABLE_T2D ? mul<MUL>(p.T, fe_d2()) : fe_pick(r, p.X, p.Y, p.Z, p.T);
+  return r == 3 ? mul<MUL_INLINE>(p.T, fe_d2()) : fe_pick(r, p.X, p.Y, p.Z, p.T);
 }
 
 // --- the group of one signature --------------------------------------------------
 // A group runs roles [role_lo, role_hi) of G on this thread.  serial_group
 // runs every role in turn, with no barrier, over the group's slots as the
-// card's SLOT_EXCHANGE holds them: level 1's products in slots[0], level
-// 2's in slots[1].  On the card (warp_group below) each thread is one role.
+// card holds them: level 1's products in slots[0], level 2's in slots[1].  On the card (warp_group below) each thread is one role.
 
 struct serial_group {
   int role_lo, role_hi;
@@ -113,21 +102,21 @@ struct serial_group {
 
 HD void group_sync(const serial_group&) {}
 
-// p + e (entry e negated when neg), every role in turn.
+// p + e (entry e negated when neg), every role in turn.  Against an entry
+// that holds 2d T2, the add's left factor of C is T1.
 HD ge group_add(const serial_group& g, const ge& p, const fe* e, bool neg) {
-  const fe t1 = add_t1(p);
   fe* const s1 = g.slots[0];
   fe* const s2 = g.slots[1];
-  for (int r = 0; r < G; ++r) s1[r] = add_stage1<MUL>(p, t1, entry_factor(e, r, neg), r);
-  for (int r = 0; r < G; ++r) s2[r] = add_stage2<MUL>(s1, r);
+  for (int r = 0; r < G; ++r) s1[r] = add_stage1<MUL_INLINE>(p, p.T, entry_factor(e, r, neg), r);
+  for (int r = 0; r < G; ++r) s2[r] = add_stage2<MUL_INLINE>(s1, r);
   return ge{s2[0], s2[1], s2[2], s2[3]};
 }
 
 HD ge group_dbl(const serial_group& g, const ge& p, bool need_t) {
   fe* const s1 = g.slots[0];
   fe* const s2 = g.slots[1];
-  for (int r = 0; r < G; ++r) s1[r] = dbl_stage1<MUL>(p, r);
-  for (int r = 0; r < G; ++r) s2[r] = dbl_stage2<MUL>(p, s1, r, need_t);
+  for (int r = 0; r < G; ++r) s1[r] = dbl_stage1<MUL_INLINE>(p, r);
+  for (int r = 0; r < G; ++r) s2[r] = dbl_stage2<MUL_INLINE>(p, s1, r, need_t);
   return ge{s2[0], s2[1], s2[2], s2[3]};
 }
 
@@ -146,12 +135,10 @@ HD void scan_signature(const Group& g, fe (*table)[G], const float* ax, const fl
   }
   group_sync(g);
   const ge neg_a = {table[1][0], table[1][1], table[1][2], table[1][3]};
-  if (TABLE_T2D) {
-    group_sync(g);  // every role has read T before role 3 replaces it
-    for (int r = g.role_lo; r < g.role_hi; ++r)
-      if (r == 3) table[1][3] = entry_coordinate(neg_a, 3);
-    group_sync(g);
-  }
+  group_sync(g);  // every role has read T before role 3 replaces it
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    if (r == 3) table[1][3] = entry_coordinate(neg_a, 3);
+  group_sync(g);
   ge cur = neg_a;
 #pragma unroll 1
   for (int j = 2; j < TABLE; ++j) {
@@ -186,12 +173,11 @@ HD void scan_signature(const Group& g, fe (*table)[G], const float* ax, const fl
 
 static_assert(THREADS % 32 == 0, "whole warps, each holding whole groups");
 
-// One role of a signature's group: its lanes in the warp (from `base`,
-// named in `mask`) and, with SLOT_EXCHANGE, the group's slots in shared
-// memory, one set of G for each of an operation's two levels.
+// One role of a signature's group: its lanes in the warp (named in `mask`)
+// and the group's slots in shared memory, one set of G for each of an
+// operation's two levels.
 struct warp_group {
   int role_lo, role_hi;
-  int base;
   unsigned mask;
   fe (*slots)[G];
 };
@@ -211,30 +197,26 @@ HDW void group_sync(const warp_group& g) {
 // group through any sequence of operations.
 HDW void share(const warp_group& g, const fe& mine, fe* all, int level) {
 #ifdef __CUDA_ARCH__
-  if (SLOT_EXCHANGE) {
-    g.slots[level][g.role_lo] = mine;
-    __syncwarp(g.mask);
+  g.slots[level][g.role_lo] = mine;
+  __syncwarp(g.mask);
 #pragma unroll
-    for (int k = 0; k < G; ++k) all[k] = g.slots[level][k];
-  } else {
-    fe_exchange4(mine, all, g.base, g.mask);
-  }
+  for (int k = 0; k < G; ++k) all[k] = g.slots[level][k];
 #endif
 }
 
 HDW ge group_add(const warp_group& g, const ge& p, const fe* e, bool neg) {
   const int r = g.role_lo;
   fe m[G], o[G];
-  share(g, add_stage1<MUL>(p, add_t1(p), entry_factor(e, r, neg), r), m, 0);
-  share(g, add_stage2<MUL>(m, r), o, 1);
+  share(g, add_stage1<MUL_INLINE>(p, p.T, entry_factor(e, r, neg), r), m, 0);
+  share(g, add_stage2<MUL_INLINE>(m, r), o, 1);
   return ge{o[0], o[1], o[2], o[3]};
 }
 
 HDW ge group_dbl(const warp_group& g, const ge& p, bool need_t) {
   const int r = g.role_lo;
   fe m[G], o[G];
-  share(g, dbl_stage1<MUL>(p, r), m, 0);
-  share(g, dbl_stage2<MUL>(p, m, r, need_t), o, 1);
+  share(g, dbl_stage1<MUL_INLINE>(p, r), m, 0);
+  share(g, dbl_stage2<MUL_INLINE>(p, m, r, need_t), o, 1);
   return ge{o[0], o[1], o[2], o[3]};
 }
 
@@ -245,13 +227,12 @@ horner_scan_kernel(const float* __restrict__ ax, const float* __restrict__ ay,
                    float* __restrict__ oy, float* __restrict__ oz,
                    float* __restrict__ ot, int batch) {
   __shared__ fe tables[SIGNATURES][TABLE][G];
-  __shared__ fe slots[SLOT_EXCHANGE ? SIGNATURES : 1][2][G];
+  __shared__ fe slots[SIGNATURES][2][G];
   const int t = threadIdx.x, sig = t / G, role = t % G;
   const long long lane = group_lane(blockIdx.x, t);
   if (lane >= batch) return;  // the ragged edge: the whole group leaves
-  const int base = (t % 32) & ~(G - 1);
-  const warp_group g = {role, role + 1, base, ((1u << G) - 1u) << base,
-                        slots[SLOT_EXCHANGE ? sig : 0]};
+  const warp_group g = {role, role + 1, ((1u << G) - 1u) << ((t % 32) & ~(G - 1)),
+                        slots[sig]};
   scan_signature(g, tables[sig], ax, ay, az, at, digits, ox, oy, oz, ot, batch, lane);
 }
 

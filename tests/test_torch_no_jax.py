@@ -33,8 +33,7 @@ def _forbidden(name: str) -> bool:
 
 
 def _sources() -> list[Path]:
-    files = sorted(PORT.rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "scripts" / "horner_scan_trials.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     return files
 

@@ -339,23 +339,42 @@ int main(int argc, char** argv) {
 
 # For each of n point pairs (p, q) loaded from weak limbs: ge_dbl(p) without
 # and with T and ge_add(p, q), each from the header (every role in turn on
-# its out-of-line multiplication) and from the chain's split stages, as 20
-# words each.
+# its out-of-line multiplication), from the chain's split stages and from
+# the straight-line formulas, as 20 words each.
 _SPLIT_HARNESS = _SPLIT_OPS + r"""
+// dbl-2008-hwcd and add-2008-hwcd-3 in one straight line, as
+// consensus_tpu/ops/ed25519.py writes them, on fe_mul.
+static ge line_dbl(const ge& p, bool need_t) {
+  const fe a = fe_mul(p.X, p.X), b = fe_mul(p.Y, p.Y), zz = fe_mul(p.Z, p.Z);
+  const fe xy = fe_add(p.X, p.Y);
+  const fe c = fe_add(zz, zz), h = fe_add(a, b);
+  const fe e = fe_sub(h, fe_mul(xy, xy)), g = fe_sub(a, b);
+  const fe f = fe_add(c, g);
+  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), need_t ? fe_mul(e, h) : p.T};
+}
+static ge line_add(const ge& p, const ge& q) {
+  const fe a = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
+  const fe b = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
+  const fe c = fe_mul(fe_mul(p.T, fe_d2()), q.T);
+  const fe d = fe_mul(fe_add(p.Z, p.Z), q.Z);
+  const fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
+  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
+}
 int main(int argc, char** argv) {
   if (argc != 4) return 2;
   const long long n = atoll(argv[1]), s = 32 * n;
   std::vector<float> c(8 * s);
   if (!read_all(argv[2], c.data(), 4 * c.size())) return 3;
-  std::vector<u64> out(n * 6 * POINT_WORDS);
+  std::vector<u64> out(n * 9 * POINT_WORDS);
   for (long long i = 0; i < n; ++i) {
     const ge p = {fe_load(&c[i], n), fe_load(&c[s + i], n), fe_load(&c[2 * s + i], n),
                   fe_load(&c[3 * s + i], n)};
     const ge q = {fe_load(&c[4 * s + i], n), fe_load(&c[5 * s + i], n),
                   fe_load(&c[6 * s + i], n), fe_load(&c[7 * s + i], n)};
-    const ge r[6] = {ge_dbl(p, false), split_dbl(p, false), ge_dbl(p, true),
-                     split_dbl(p, true), ge_add(p, q), split_add(p, q)};
-    for (int k = 0; k < 6; ++k) ge_write(&out[(i * 6 + k) * POINT_WORDS], r[k]);
+    const ge r[9] = {ge_dbl(p, false), split_dbl(p, false), line_dbl(p, false),
+                     ge_dbl(p, true),  split_dbl(p, true),  line_dbl(p, true),
+                     ge_add(p, q),     split_add(p, q),     line_add(p, q)};
+    for (int k = 0; k < 9; ++k) ge_write(&out[(i * 9 + k) * POINT_WORDS], r[k]);
   }
   return write_all(argv[3], out.data(), 8 * out.size()) ? 0 : 4;
 }
@@ -420,8 +439,9 @@ def test_split_chain_stages_equal_the_point_operations_limb_for_limb(tmp_path):
     """The chain kernel's four-role stages (ed25519_field.cuh's, on the
     inlined multiplication), put back together, are the header's ge_dbl
     (with and without T) and ge_add (the tables', window sums' and join's
-    add, on the out-of-line multiplication) limb for limb, on seeded points
-    in weak limbs: the same field operations in the same order."""
+    add, on the out-of-line multiplication) and the straight-line formulas
+    limb for limb, on seeded points in weak limbs: the same field operations
+    in the same order."""
     exe = _host_build(tmp_path, _SPLIT_HARNESS, "split")
     n = 64
     rng = np.random.default_rng(23)
@@ -433,13 +453,14 @@ def test_split_chain_stages_equal_the_point_operations_limb_for_limb(tmp_path):
     (tmp_path / "in.bin").write_bytes(b"".join(c.astype(np.float32).tobytes() for c in coords))
     subprocess.run([str(exe), str(n), str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
                    check=True, timeout=300)
-    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint64).reshape(n, 6, 20)
-    for name, k in (("dbl without T", 0), ("dbl with T", 2), ("add", 4)):
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint64).reshape(n, 9, 20)
+    for name, k in (("dbl without T", 0), ("dbl with T", 3), ("add", 6)):
         assert np.array_equal(out[:, k], out[:, k + 1]), name
+        assert np.array_equal(out[:, k + 1], out[:, k + 2]), name + ", straight line"
     # The three operations differ, so the comparison is not vacuous: T
     # passes through without need_t and is a product with it.
-    assert not np.array_equal(out[:, 0, 15:], out[:, 2, 15:])
-    assert not np.array_equal(out[:, 0, :15], out[:, 4, :15])
+    assert not np.array_equal(out[:, 0, 15:], out[:, 3, 15:])
+    assert not np.array_equal(out[:, 0, :15], out[:, 6, :15])
     assert (out < 2**52).all()
 
 
