@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths through the engines a user would call:
+Drives the port's three main paths through the engines a user would call,
+then through the engine layer the JAX package launches them through (the
+coalescer and the supervisor):
 
 * strict Ed25519 batch verification at the size of one block of a
   7-replica (f=2) Ed25519 deployment with 1,000 requests per block
@@ -56,7 +58,21 @@ Phases:
    them forged) through ``verify_consenter_sigs_multi_batch`` on the
    randomized engine, the forged votes localized by bisection, and B3's
    launches equal to the bisection nodes of at least
-   ``crypto_tpu_min_batch`` votes counted on the host.
+   ``crypto_tpu_min_batch`` votes counted on the host;
+9. the engine layer's coalescer at config 3: 7 replica threads, each with
+   its own ``SigOnlyVerifier`` over one shared ``ThreadCoalescingVerifier``
+   (wired as benchmarks/chain_crypto_tps.py wires it), verify their 1,000
+   requests from a barrier, then their commit quorum; every replica's
+   verdicts equal phase 3's, B1's launches equal the device flushes and are
+   fewer than the replicas, the host path is never called and the device
+   never suspect;
+10. the same at config 2: 4 replica threads x 500 P-256 requests, B2;
+11. supervision at the catch-up chunk's width: the chunk through supervised
+   strict and randomized engines (rung 0, one clean host cross-check, B1
+   and B3 launched), then injected faults around the real strict engine
+   (a raise degrades to the host twin, the probe after the backoff
+   re-promotes and launches B1, a flipped verdict is caught by the
+   cross-check), with the host seconds of each cross-check.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -71,6 +87,7 @@ import re
 import struct
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -79,14 +96,26 @@ import torch
 from torch.autograd import DeviceType
 
 from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.metrics import (
+    ENGINE_CROSSCHECK_KEY,
+    ENGINE_CROSSCHECK_MISMATCH_KEY,
+    ENGINE_DEGRADE_KEY,
+    ENGINE_RECOVERED_KEY,
+    ENGINE_RUNG_KEY,
+    InMemoryProvider,
+    Metrics,
+)
 from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
+from consensus_tpu_torch.models.engine import ThreadCoalescingVerifier
+from consensus_tpu_torch.models.supervisor import EngineSupervisor, HostTwin
 from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
     EcdsaP256VerifierMixin,
     Ed25519Signer,
     engine_for_config,
 )
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
@@ -176,6 +205,11 @@ DOUBLE_T_MULS, DOUBLE_T_SQUARES = 4, 4
 CATCH_UP_DECISIONS = 51
 #: Its 255 votes padded: the width phase 6 also checks and times B3 at.
 CATCH_UP_LANES = 256
+#: The coalescer of phases 9-10 as benchmarks/chain_crypto_tps.py wires it:
+#: submissions below this skip the window on the caller's thread.
+BYPASS_BELOW = 64
+#: The coalescer's flusher thread, by name: its engine calls are the flushes.
+FLUSHER = "verify-coalescer"
 
 
 def log(*parts) -> None:
@@ -499,8 +533,8 @@ def phase_wave(device, corpus, replicas: int) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
-    wave_launches = scan_kernels.launches
-    other_launches = scan_kernels.launches_p256 + scan_kernels.launches_msm
+    wave_launches, horner_p256, msm = _launch_counts()
+    other_launches = horner_p256 + msm
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -532,11 +566,11 @@ def phase_wave(device, corpus, replicas: int) -> dict:
     # takes the engine's host path (_verify_host) and launches no kernel.
     proposal = Proposal(payload=b"block-1", metadata=b"view-0/seq-1")
     quorum = [s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:QUORUM]]
-    before = scan_kernels.launches
+    before = sum(_launch_counts())
     results = verifier.verify_consenter_sigs_batch(quorum, proposal)
     if results != [q.msg for q in quorum]:
         raise AssertionError(f"commit quorum rejected: {results}")
-    quorum_launches = scan_kernels.launches - before
+    quorum_launches = sum(_launch_counts()) - before
 
     n = len(wave_msgs)
     return {
@@ -553,6 +587,7 @@ def phase_wave(device, corpus, replicas: int) -> dict:
         "quorum_launches": quorum_launches,
         "min_device_batch": Configuration().crypto_tpu_min_batch,
         "peak_bytes": peak,
+        "verdicts": got,
     }
 
 
@@ -740,8 +775,8 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
-    wave_launches = scan_kernels.launches_p256
-    other_launches = scan_kernels.launches + scan_kernels.launches_msm
+    horner, wave_launches, msm = _launch_counts()
+    other_launches = horner + msm
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -776,14 +811,15 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
     quorum = [
         s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:P256_QUORUM]
     ]
-    before = scan_kernels.launches + scan_kernels.launches_p256
+    before = sum(_launch_counts())
     results = verifier.verify_consenter_sigs_batch(quorum, proposal)
     if results != [q.msg for q in quorum]:
         raise AssertionError(f"P-256 commit quorum rejected: {results}")
-    quorum_launches = scan_kernels.launches + scan_kernels.launches_p256 - before
+    quorum_launches = sum(_launch_counts()) - before
 
     n = len(wave_msgs)
     return {
+        "verdicts": got,
         "signatures": n,
         "padded": engine.padded_size(n),
         "rejected": int((~got).sum()),
@@ -949,11 +985,13 @@ def ptxas_summary(report: str) -> dict:
 
 
 def _launch_counts() -> tuple[int, int, int]:
-    return scan_kernels.launches, scan_kernels.launches_p256, scan_kernels.launches_msm
+    """B1, B2 and B3's launches from the kernel ledger."""
+    return tuple(KERNELS.stats(name).launches for name in scan_kernels.KERNELS)
 
 
 def _reset_launch_counts() -> None:
-    scan_kernels.launches = scan_kernels.launches_p256 = scan_kernels.launches_msm = 0
+    for name in scan_kernels.KERNELS:
+        KERNELS.stats(name).launches = 0
 
 
 def phase_wave_randomized(device, corpus, replicas: int) -> dict:
@@ -1123,6 +1161,259 @@ def phase_catch_up(device, decisions: int) -> dict:
     }
 
 
+# --- the engine layer: phases 9-10 (coalesced waves) and 11 (supervision) -----
+
+
+def _instrumented(engine):
+    """``engine``, its class swapped for a subclass that counts the engine
+    calls made on the coalescer's flusher thread (the flushes) and the calls
+    of its host path ``verify_host`` (the escape hatch's and the host twin's
+    way to the host).  The count lives here, not in the package."""
+    base = type(engine)
+
+    class Instrumented(base):
+        def verify_batch(self, messages, signatures, public_keys):
+            if threading.current_thread().name == FLUSHER:
+                self.flushes += 1
+            return super().verify_batch(messages, signatures, public_keys)
+
+        def verify_host(self, messages, signatures, public_keys):
+            self.host_calls += 1
+            return super().verify_host(messages, signatures, public_keys)
+
+    Instrumented.__name__ = base.__name__
+    engine.__class__ = Instrumented
+    engine.flushes = engine.host_calls = 0
+    return engine
+
+
+def phase_coalesced(device, corpus, replicas: int, direct, curve: str = "ed25519",
+                    bypass_below: int = BYPASS_BELOW, window: float | None = None) -> dict:
+    """``replicas`` replica threads, each with its own Verifier-port mixin
+    over ONE shared ThreadCoalescingVerifier on
+    ``engine_for_config(Configuration(), curve)``, wired as
+    benchmarks/chain_crypto_tps.py wires it (the config's window,
+    ``max_batch`` the wave, ``hard_cap`` its padded size).  From a barrier,
+    each verifies every request of ``corpus`` through
+    ``verifier.engine.verify_batch``, then a 2f+1 commit quorum through
+    ``verify_consenter_sigs_batch``, which is below ``bypass_below`` and
+    runs on the caller's thread.  Each replica's verdicts must equal
+    ``direct``, the same wave's verdicts from one direct engine call.
+    ``window`` (the config's unless given) lets a CPU rehearsal wait out a
+    loaded host's thread start-up."""
+    device = torch.device(device)
+    msgs, sigs, keys, _, _ = corpus
+    n = len(msgs)
+    config = Configuration()
+    if curve == "p256":
+        signers = [EcdsaP256Signer(i + 1, (i + 1).to_bytes(32, "big")) for i in range(replicas)]
+        mixin, quorum_size, kernel = P256SigOnlyVerifier, P256_QUORUM, 1
+    else:
+        signers = [Ed25519Signer(i + 1, bytes([i + 1]) * 32) for i in range(replicas)]
+        mixin, quorum_size, kernel = SigOnlyVerifier, QUORUM, 0
+    engine = _instrumented(engine_for_config(config, curve, device=device))
+    wave = n * replicas
+    window = config.crypto_batch_window if window is None else window
+    coalescer = ThreadCoalescingVerifier(
+        engine,
+        window=window,
+        max_batch=wave,
+        hard_cap=engine.padded_size(wave),
+        bypass_below=bypass_below,
+        name=FLUSHER,
+    )
+    registry = {s.node_id: s.public_bytes for s in signers}
+    verifiers = [mixin(registry, engine=coalescer) for _ in range(replicas)]
+    proposal = Proposal(payload=b"block-1", metadata=b"view-0/seq-1")
+    quorum = [s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:quorum_size]]
+
+    started: list[float] = []
+    barrier = threading.Barrier(replicas, action=lambda: started.append(time.perf_counter()))
+    got, returned, quorum_out, errors = {}, {}, {}, []
+
+    def replica(r: int) -> None:
+        try:
+            barrier.wait()
+            got[r] = verifiers[r].engine.verify_batch(msgs, sigs, keys)
+            returned[r] = time.perf_counter()
+            quorum_out[r] = verifiers[r].verify_consenter_sigs_batch(quorum, proposal)
+        except Exception as exc:  # surfaced on the main thread below
+            errors.append(exc)
+            barrier.abort()
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    held = [torch.cuda.memory_allocated() if device.type == "cuda" else None]
+    _reset_launch_counts()
+    threads = [threading.Thread(target=replica, args=(r,), name=f"replica-{r}")
+               for r in range(replicas)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        coalescer.close()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    held.append(torch.cuda.memory_allocated() if device.type == "cuda" else None)
+    if errors:
+        raise AssertionError(f"a replica thread failed: {errors[0]!r}") from errors[0]
+    if coalescer._thread.is_alive():
+        raise AssertionError("the coalescer's flusher thread outlived close()")
+
+    for r in range(replicas):
+        if not np.array_equal(got[r], direct[r * n:(r + 1) * n]):
+            wrong = np.flatnonzero(got[r] != direct[r * n:(r + 1) * n])
+            raise AssertionError(f"replica {r}: coalesced verdicts differ from the direct wave at {wrong[:16]}")
+        if quorum_out[r] != [q.msg for q in quorum]:
+            raise AssertionError(f"replica {r}: commit quorum rejected: {quorum_out[r]}")
+    # On the CPU (a rehearsal) the plain versions run and nothing launches.
+    flush_launches = engine.flushes if device.type == "cuda" else 0
+    if launches[kernel] != flush_launches or not 0 < engine.flushes < replicas:
+        raise AssertionError(
+            f"{list(scan_kernels.KERNELS)[kernel]} launched {launches[kernel]} times for "
+            f"{engine.flushes} coalesced flushes of {replicas} replicas"
+        )
+    if sum(launches) != launches[kernel]:
+        raise AssertionError(f"the coalesced wave launched another kernel: {launches}")
+    if engine.host_calls:
+        raise AssertionError(f"the coalescer served {engine.host_calls} flushes from the host")
+    if coalescer.device_suspect:
+        raise AssertionError(f"the coalescer marked the device suspect ({coalescer.health.reason})")
+    return {
+        "replicas": replicas, "signatures": wave, "hard_cap": engine.padded_size(wave),
+        "window_s": window, "flushes": engine.flushes,
+        "launches": launches[kernel], "host_calls": engine.host_calls,
+        "quorum_size": quorum_size, "bypass_below": bypass_below,
+        "wave_ms": (max(returned.values()) - started[0]) * 1e3, "peak_bytes": peak,
+        "held_bytes": held,
+    }
+
+
+class _TimedHostTwin(HostTwin):
+    """A host twin that keeps the host seconds of each of its calls (the
+    supervisor's cross-checks, and the calls it serves when degraded)."""
+
+    def verify_batch(self, messages, signatures, public_keys):
+        t0 = time.perf_counter()
+        out = super().verify_batch(messages, signatures, public_keys)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _timed(sup: EngineSupervisor) -> _TimedHostTwin:
+    twin = sup._rungs[-1]
+    twin.__class__ = _TimedHostTwin
+    twin.seconds = []
+    return twin
+
+
+class _Faulty:
+    """The real strict engine behind a fault injector: its first device call
+    raises before launching, its second answers, its third flips every
+    verdict, and later ones answer.  The host path is the engine's own."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = 0
+
+    def verify_batch(self, messages, signatures, public_keys):
+        self.calls += 1
+        if self.calls == 1:
+            raise RuntimeError("injected launch failure")
+        out = self.engine.verify_batch(messages, signatures, public_keys)
+        return ~out if self.calls == 3 else out
+
+    def verify_host(self, messages, signatures, public_keys):
+        return self.engine.verify_host(messages, signatures, public_keys)
+
+
+def _engine_dump(provider: InMemoryProvider) -> dict:
+    return {k: v["value"] for k, v in provider.dump().items() if k.startswith("engine_")}
+
+
+def phase_supervised(device, decisions: int) -> dict:
+    """Supervision at the catch-up chunk's width: (a) the chunk through
+    ``engine_for_config(Configuration(engine_supervision=True,
+    engine_crosscheck_interval=1))``, strict and then randomized, which
+    must stay at rung 0 with one clean cross-check and launch B1 (B3);
+    (b) an EngineSupervisor over the real strict engine behind
+    :class:`_Faulty` with an injected clock: the raise degrades to the host
+    twin, the probe after the backoff re-promotes and launches B1, and the
+    flip is caught by the cross-check."""
+    device = torch.device(device)
+    on_card = int(device.type == "cuda")  # the CPU rehearsal launches nothing
+    signers, groups, expected, forged = catch_up_chunk(decisions)
+    keys = {s.node_id: s.public_bytes for s in signers}
+    out: dict = {"votes": decisions * QUORUM, "forged": forged}
+
+    for label, config in (
+        ("strict", Configuration(engine_supervision=True, engine_crosscheck_interval=1)),
+        ("randomized", Configuration(engine_supervision=True, engine_crosscheck_interval=1,
+                                     batch_verify_mode=True)),
+    ):
+        provider = InMemoryProvider()
+        sup = engine_for_config(config, device=device, metrics=Metrics(provider))
+        twin = _timed(sup)
+        verifier = SigOnlyVerifier(keys, engine=sup)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        got = verifier.verify_consenter_sigs_multi_batch(groups)
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        dump = _engine_dump(provider)
+        if got != expected:
+            raise AssertionError(f"supervised {label} chunk: verdicts differ from the construction")
+        if sup.rung != 0 or dump[ENGINE_RUNG_KEY] != 0 or sup.health.suspect:
+            raise AssertionError(f"supervised {label} chunk left rung 0: {dump}")
+        if (dump[ENGINE_CROSSCHECK_KEY], dump[ENGINE_CROSSCHECK_MISMATCH_KEY]) != (1, 0):
+            raise AssertionError(f"supervised {label} chunk: cross-checks {dump}")
+        degrades = sum(v for k, v in dump.items() if k.startswith(ENGINE_DEGRADE_KEY))
+        if degrades or dump[ENGINE_RECOVERED_KEY] or len(twin.seconds) != 1:
+            raise AssertionError(f"supervised {label} chunk degraded: {dump}")
+        kernel = 2 if label == "randomized" else 0
+        if bool(launches[kernel]) != bool(on_card) or sum(launches) != launches[kernel]:
+            raise AssertionError(f"supervised {label} chunk: kernel launches {launches}")
+        out[label] = {"launches": launches, "crosscheck_s": twin.seconds[0],
+                      "call_ms": seconds * 1e3, "engine": dump}
+
+    # (b) injected faults, clock injected.
+    provider = InMemoryProvider()
+    clock = [0.0]
+    faulty = _Faulty(engine_for_config(Configuration(), device=device))
+    sup = EngineSupervisor([faulty], clock=lambda: clock[0], crosscheck_interval=1,
+                           metrics=Metrics(provider), name="chip-smoke-engine")
+    twin = _timed(sup)
+    verifier = SigOnlyVerifier(keys, engine=sup)
+    steps = []
+    for step, at in (("raise", 0.0), ("probe", sup.breakers["launch_raise"].backoff_initial + 1.0),
+                     ("flip", sup.breakers["launch_raise"].backoff_initial + 1.0)):
+        clock[0] = at
+        _reset_launch_counts()
+        host_before = len(twin.seconds)
+        got = verifier.verify_consenter_sigs_multi_batch(groups)
+        if got != expected:
+            raise AssertionError(f"injected {step}: the verdicts served differ from the construction")
+        steps.append({"step": step, "rung": sup.rung, "launches": _launch_counts(),
+                      "host_s": twin.seconds[host_before:], "engine": _engine_dump(provider)})
+    raise_, probe, flip = steps
+    degrade_raise = f"{ENGINE_DEGRADE_KEY}{{launch_raise}}"
+    degrade_flip = f"{ENGINE_DEGRADE_KEY}{{wrong_answer}}"
+    if raise_["rung"] != 1 or raise_["engine"].get(degrade_raise) != 1 or sum(raise_["launches"]):
+        raise AssertionError(f"injected raise: not one degrade to the host twin: {raise_}")
+    if probe["rung"] != 0 or probe["engine"][ENGINE_RECOVERED_KEY] != 1 or probe["launches"][0] != on_card:
+        raise AssertionError(f"injected raise: the probe did not re-promote and launch B1: {probe}")
+    if (flip["engine"][ENGINE_CROSSCHECK_MISMATCH_KEY] != 1 or flip["engine"].get(degrade_flip) != 1
+            or flip["rung"] != 1 or flip["launches"][0] != on_card):
+        raise AssertionError(f"injected flip: not caught by the cross-check: {flip}")
+    if flip["engine"][degrade_raise] != 1 or flip["engine"][ENGINE_RECOVERED_KEY] != 1:
+        raise AssertionError(f"injected faults booked more than one degrade each: {flip}")
+    out["faults"] = steps
+    return out
+
+
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.3f} ms"
 
@@ -1136,6 +1427,22 @@ def log_profile(p: dict, kernel: str) -> None:
     for name, r in p["ranges"].items():
         log(f"    {name}: host {r['host_ms']:.3f} ms, device {_ms(r['device_ms'])}")
     log(f"    device time in no range: {_ms(p['unranged_ms'])}")
+
+
+def log_coalesced(c: dict, kernel: str, direct_ms: float) -> None:
+    """Print a coalesced wave's flushes, launches, time and peak memory."""
+    log(f"wave: {c['replicas']} replica threads x {c['signatures'] // c['replicas']} requests "
+        f"= {c['signatures']} signatures through one ThreadCoalescingVerifier (window "
+        f"{c['window_s']} s, max_batch {c['signatures']}, hard_cap {c['hard_cap']}, "
+        f"bypass_below {c['bypass_below']}); every replica's verdicts equal the direct wave's")
+    log(f"  device flushes {c['flushes']}, {kernel} launches {c['launches']}, host-served "
+        f"flushes {c['host_calls']}, device suspect: no; each {c['quorum_size']}-vote commit "
+        f"quorum bypassed the window on its replica's thread (host path, no launch)")
+    log(f"  barrier to the last replica's return {c['wave_ms']:.3f} ms (host clock); the direct "
+        f"wave in this run {direct_ms:.3f} ms; difference {c['wave_ms'] - direct_ms:+.3f} ms")
+    log(f"  torch.cuda.max_memory_allocated: {c['peak_bytes']} bytes; "
+        f"torch.cuda.memory_allocated before the threads {c['held_bytes'][0]} bytes, "
+        f"after the coalescer's close {c['held_bytes'][1]} bytes")
 
 
 def log_split(split: dict | None) -> None:
@@ -1369,6 +1676,29 @@ def main() -> int:
     log(f"  aggregate checks: {c['device_checks']} on the device (>= {c['min_device_batch']} "
         f"votes; straus_msm launches {c['msm_launches']}), {c['host_checks']} on the host")
     log(f"  end to end {c['chunk_ms']:.3f} ms (host clock, ending in torch.cuda.synchronize())")
+
+    # Phases 9-10: the replicas' waves through the coalescer, as the JAX
+    # package runs them; the kernels' launches must equal the flushes.
+    log("== phase 9: config-3 wave through the coalescer (7 replica threads, one card)")
+    c9 = phase_coalesced(device, corpus, REPLICAS, w["verdicts"])
+    log_coalesced(c9, "horner_scan", w["wave_ms"])
+    log("== phase 10: config-2 P-256 wave through the coalescer (4 replica threads)")
+    c10 = phase_coalesced(device, p256_corpus, P256_REPLICAS, w2["verdicts"], curve="p256")
+    log_coalesced(c10, "horner_scan_p256", w2["wave_ms"])
+
+    # Phase 11: supervision at the catch-up chunk's width.
+    log("== phase 11: engine supervision (catch-up chunk, 255 votes on 256 lanes)")
+    s11 = phase_supervised(device, CATCH_UP_DECISIONS)
+    for label, kernel in (("strict", "horner_scan"), ("randomized", "straus_msm")):
+        r = s11[label]
+        log(f"supervised {label} engine (engine_supervision, engine_crosscheck_interval=1): "
+            f"rung 0, 1 cross-check, 0 mismatches, 0 degrades; launches (horner_scan, "
+            f"horner_scan_p256, straus_msm) {r['launches']}; call {r['call_ms']:.3f} ms, of it "
+            f"the host cross-check {1e3 * r['crosscheck_s']:.3f} ms (host clock)")
+    for f in s11["faults"]:
+        log(f"injected {f['step']}: rung {f['rung']} after the call, launches {f['launches']}, "
+            f"host twin {', '.join(f'{1e3 * x:.3f} ms' for x in f['host_s'])} (host clock); "
+            f"engine series {f['engine']}")
 
     log(card)
     log(json.dumps({"kernels": [

@@ -12,7 +12,12 @@ Layout:
                wrappers (CUDA on the card, torch on CPU)
     csrc/      hand-written CUDA sources, built with nvcc on first use
     models/    the strict and randomized Ed25519 and the ECDSA-P256 batch
-               verifiers, their signers and Verifier-port mixins
+               verifiers, their signers and Verifier-port mixins, and the
+               engine layer: coalescers (engine.py), supervision
+               (supervisor.py) and the engine registry (registry.py)
+    obs/       the kernel ledger (launches and nvcc builds)
+    runtime/   the deterministic event scheduler
+    metrics.py the metric providers and the engine-layer bundles
     api/       the Signer / Verifier ports
     testing/   SigOnlyVerifier
 """

@@ -1,5 +1,6 @@
 """Replica configuration, crypto-engine part (torch port of the fields of
-``consensus_tpu/config.py`` that ``engine_for_config`` reads).
+``consensus_tpu/config.py`` that the engine layer reads: ``engine_for_config``
+and the coalescer's window).
 
 Same names, same defaults and the same ``validate()`` checks as the JAX
 ``Configuration``; the protocol, pool, timeout and tracing fields come with
@@ -14,8 +15,10 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class Configuration:
     # Minimum number of pending verifications before the engine takes the
-    # device path instead of the host path.
+    # device path instead of the host path, and the micro-batch coalescing
+    # window.
     crypto_tpu_min_batch: int = 16
+    crypto_batch_window: float = 0.002
     # Pad verification batches up to the next power of two (a handful of
     # stable shapes across batch sizes).
     crypto_pad_pow2: bool = True
@@ -24,15 +27,16 @@ class Configuration:
     # Ed25519RandomizedBatchVerifier (models/ed25519.py).
     batch_verify_mode: bool = False
     # Whole-pipeline-on-device verification (host prep moved into the
-    # launch).  Changes only where work runs.  Not ported yet.
+    # launch).  Changes only where work runs.  Not ported yet: the registry
+    # refuses it (ROADMAP.md queue A, item 10).
     device_prep: bool = False
     # Device-mesh width and layout for the batch engine.  1 and () keep the
-    # single-device engine; wider meshes are not ported yet.
+    # single-device engine; wider meshes are not ported yet (item 12).
     mesh_shards: int = 1
     mesh_topology: tuple = ()
     # Fault-classed supervision of the engine with a degrade ladder to the
-    # host, plus a sampled host cross-check every k-th launch (0 = off).
-    # Not ported yet.
+    # host (models/supervisor.py), plus a sampled host cross-check every
+    # k-th launch (0 = off).
     engine_supervision: bool = False
     engine_crosscheck_interval: int = 0
 

@@ -1,5 +1,6 @@
 """Batched signature-verification models (Ed25519 and ECDSA-P256) built on
-:mod:`consensus_tpu_torch.ops`."""
+:mod:`consensus_tpu_torch.ops`, and the engine layer above them: the
+coalescers, the supervisor and the registry."""
 
 from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
 from consensus_tpu_torch.models.ed25519 import (
@@ -7,12 +8,24 @@ from consensus_tpu_torch.models.ed25519 import (
     Ed25519RandomizedBatchVerifier,
     L,
 )
+from consensus_tpu_torch.models.engine import BatchCoalescer, ThreadCoalescingVerifier
+from consensus_tpu_torch.models.supervisor import (
+    ENGINE_HEALTH,
+    FAULT_CLASSES,
+    CircuitBreaker,
+    EngineHealth,
+    EngineHealthRegistry,
+    EngineSupervisor,
+    HostTwin,
+    LaunchTimeout,
+)
 from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
     EcdsaP256VerifierMixin,
     Ed25519Signer,
     Ed25519VerifierMixin,
     commit_message,
+    degrade_ladder_configs,
     engine_for_config,
     raw_message,
 )
@@ -23,10 +36,21 @@ __all__ = [
     "EcdsaP256VerifierMixin",
     "Ed25519BatchVerifier",
     "Ed25519RandomizedBatchVerifier",
+    "L",
+    "BatchCoalescer",
+    "ThreadCoalescingVerifier",
+    "CircuitBreaker",
+    "ENGINE_HEALTH",
+    "EngineHealth",
+    "EngineHealthRegistry",
+    "EngineSupervisor",
+    "FAULT_CLASSES",
+    "HostTwin",
+    "LaunchTimeout",
     "Ed25519Signer",
     "Ed25519VerifierMixin",
-    "L",
     "commit_message",
+    "degrade_ladder_configs",
     "engine_for_config",
     "raw_message",
 ]

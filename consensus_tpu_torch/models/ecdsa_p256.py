@@ -38,6 +38,7 @@ from torch.profiler import record_function
 
 from consensus_tpu_torch.device import DeviceLike, resolve_device
 from consensus_tpu_torch.models.ed25519 import _next_pow2
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
@@ -273,10 +274,17 @@ class EcdsaP256BatchVerifier:
         )
 
     def padded_size(self, n: int) -> int:
-        """The device batch a wave of ``n`` signatures is padded to."""
+        """The device batch a wave of ``n`` signatures is padded to: the
+        single-device case of the JAX package's ``engine_padded_size``."""
         if self._pad_to >= n:
             return self._pad_to
         return _next_pow2(n) if self._pad_pow2 else n
+
+    @property
+    def preferred_wave_size(self) -> int:
+        """The smallest padded batch that saturates this engine (see the
+        Ed25519 twin) -- coalescers read it to size waves."""
+        return self.padded_size(max(1, self._min_device_batch))
 
     def prepare_device_inputs(
         self,
@@ -305,6 +313,7 @@ class EcdsaP256BatchVerifier:
             return self._verify_host(messages, signatures, public_keys)
         with record_function("p256.host_prep"):
             inputs = self.prepare_device_inputs(messages, signatures, public_keys)
+        KERNELS.record_launch("ecdsa_p256.verify")
         result = verify_impl(*inputs)
         return result.cpu().numpy()[:n]
 

@@ -35,6 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from consensus_tpu_torch.device import DeviceLike, resolve_device
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import scan_kernels
@@ -248,10 +249,18 @@ class Ed25519BatchVerifier:
         return y_r, sign_r, y_a, sign_a, s_bits, k_bits, host_ok
 
     def padded_size(self, n: int) -> int:
-        """The device batch a wave of ``n`` signatures is padded to."""
+        """The device batch a wave of ``n`` signatures is padded to: the
+        single-device case of the JAX package's ``engine_padded_size``."""
         if self._pad_to >= n:
             return self._pad_to
         return _next_pow2(n) if self._pad_pow2 else n
+
+    @property
+    def preferred_wave_size(self) -> int:
+        """The smallest padded batch that saturates this engine -- the
+        device-batch floor rounded through the padding knobs.  Coalescers
+        (models/engine.py) read it to size waves."""
+        return self.padded_size(max(1, self._min_device_batch))
 
     def prepare_device_inputs(
         self,
@@ -294,6 +303,7 @@ class Ed25519BatchVerifier:
             return self._verify_host(messages, signatures, public_keys)
         with record_function("ed25519.host_prep"):
             inputs = self.prepare_device_inputs(messages, signatures, public_keys)
+        KERNELS.record_launch("ed25519.verify")
         result = verify_impl(*inputs)
         return result.cpu().numpy()[:n]
 
@@ -623,9 +633,9 @@ class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
         """One device check over the subset: one launch of the MSM kernel on
         the card, and one read of the verdict and the valid lanes."""
         m = len(idx)
-        eq_ok, valid = batch_verify_impl(
-            *self._aggregate_device_inputs(idx, signatures, public_keys, scalars, zs)
-        )
+        inputs = self._aggregate_device_inputs(idx, signatures, public_keys, scalars, zs)
+        KERNELS.record_launch("ed25519.batch_verify")
+        eq_ok, valid = batch_verify_impl(*inputs)
         out = torch.cat([eq_ok.reshape(1), valid[:m]]).cpu().numpy()
         return bool(out[0]), out[1:].tolist()
 

@@ -15,11 +15,17 @@ signature covers ``b"ctpu/commit" + proposal-digest + len(aux) + aux`` and a
 raw signature ``b"ctpu/raw" + data``, so a cluster that mixes replicas of
 both packages verifies every vote the same way.
 
-:func:`engine_for_config` returns the strict single-device engine of the
-curve for the default configuration and the randomized Ed25519 engine for
-``batch_verify_mode``; every other lane raises ``NotImplementedError``
-naming its ROADMAP item (queue A), except the Ed25519-only features on
-P-256, which raise ``ValueError`` with the JAX registry's reasons.
+:func:`engine_for_config` routes a ``Configuration`` through the engine
+registry (:mod:`consensus_tpu_torch.models.registry`), as the JAX package
+does: the strict single-device engine of the curve for the default
+configuration, the randomized Ed25519 engine for ``batch_verify_mode``,
+and, with ``engine_supervision``, an
+:class:`~consensus_tpu_torch.models.supervisor.EngineSupervisor` over the
+ladder of :func:`degrade_ladder_configs` with the host twin as its floor.
+Every other lane raises :class:`~consensus_tpu_torch.models.registry
+.UnknownEngineError`: the JAX registry's own reasons for the Ed25519-only
+features on P-256, and the ROADMAP.md queue A item for a lane not ported
+yet.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ from consensus_tpu_torch.models.ed25519 import (
     ref_public_key,
     ref_sign,
 )
+from consensus_tpu_torch.models.registry import ENGINE_REGISTRY, engine_key_for
+from consensus_tpu_torch.models.supervisor import EngineSupervisor
+from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
 from consensus_tpu_torch.types import Proposal, QuorumCert, Signature
 
 _COMMIT_TAG = b"ctpu/commit"
@@ -57,42 +66,82 @@ def raw_message(data: bytes) -> bytes:
     return _RAW_TAG + data
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"consensus_tpu_torch: {what} is not ported yet (ROADMAP.md queue A, {item})"
-    )
+def engine_for_config(
+    config, curve: str = "ed25519", *, device: DeviceLike = None, metrics=None
+):
+    """The batch engine matching a ``Configuration``'s crypto knobs
+    (``batch_verify_mode``, ``crypto_pad_pow2``, ``crypto_tpu_min_batch``,
+    ``mesh_shards`` / ``mesh_topology``, ``device_prep``), routed through the
+    engine registry on ``device`` (``cuda`` unless the caller names one).
+    The config maps to an ``EngineKey`` (:func:`~consensus_tpu_torch.models
+    .registry.engine_key_for`), and an unregistered key fails loudly with the
+    curve-specific reason or the queue A item of the lane.  On the card the
+    builder also builds the engine's kernel libraries, so its first launch
+    never waits on nvcc.
 
+    Pass a ``Metrics`` bundle as ``metrics`` to book this construction's
+    kernel-library loads (hits) and nvcc builds (misses) into the pinned
+    ``engine_compile_cache_{hits,misses}_total`` counters, and a supervised
+    engine's degrades, recoveries, cross-checks and rung into the
+    ``engine_*`` series (the JAX package books those only for a supervisor
+    built with its own ``metrics``).
 
-def engine_for_config(config, curve: str = "ed25519", *, device: DeviceLike = None):
-    """The batch engine matching a ``Configuration``'s crypto knobs.
-
-    The default configuration maps to the strict single-device engine of
-    ``curve`` -- :class:`Ed25519BatchVerifier` or
-    :class:`EcdsaP256BatchVerifier` -- and ``batch_verify_mode`` to
-    :class:`Ed25519RandomizedBatchVerifier`, with the config's padding and
-    host-path threshold, on ``device`` (``cuda`` unless the caller names
-    one)."""
-    if curve not in ("ed25519", "p256"):
-        raise ValueError(f"unknown curve {curve!r}")
-    if curve == "p256":
-        # The JAX registry's own reasons: these lanes do not exist for P-256.
-        if config.batch_verify_mode:
-            raise ValueError("batch_verify_mode is Ed25519-only (no randomized P-256 lane)")
-        if config.device_prep:
-            raise ValueError("device_prep is Ed25519-only (no fused P-256 front-end)")
-    if config.device_prep:
-        raise _not_ported("device_prep", "item 10: fused device prep")
-    if config.mesh_shards > 1 or config.mesh_topology:
-        raise _not_ported("mesh_shards > 1 / mesh_topology", "item 12: multi-GPU")
-    if config.engine_supervision:
-        raise _not_ported("engine_supervision", "item 6: registry and supervisor")
-    if curve == "p256":
-        engine = EcdsaP256BatchVerifier
-    elif config.batch_verify_mode:
-        engine = Ed25519RandomizedBatchVerifier
+    ``engine_supervision`` wraps the result in an
+    :class:`~consensus_tpu_torch.models.supervisor.EngineSupervisor` over
+    the config's degrade ladder (:func:`degrade_ladder_configs`) with the
+    host twin as its floor, cross-checking every
+    ``engine_crosscheck_interval``-th launch on the host.  Supervision
+    changes only WHERE work runs, never the verdict."""
+    before = COMPILE_CACHE.snapshot()
+    if not getattr(config, "engine_supervision", False):
+        engine = _engine_for_config(config, curve, device)
     else:
-        engine = Ed25519BatchVerifier
-    return engine(
+        rungs = [
+            _engine_for_config(c, curve, device) for c in degrade_ladder_configs(config)
+        ]
+        engine = EngineSupervisor(
+            rungs,
+            crosscheck_interval=int(
+                getattr(config, "engine_crosscheck_interval", 0) or 0
+            ),
+            metrics=metrics,
+            name=f"{curve}-engine",
+        )
+    if metrics is not None:
+        after = COMPILE_CACHE.snapshot()
+        metrics.engine.count_compile_cache_hits.add(
+            after["hits"] - before["hits"]
+        )
+        metrics.engine.count_compile_cache_misses.add(
+            after["misses"] - before["misses"]
+        )
+    return engine
+
+
+def degrade_ladder_configs(config) -> list:
+    """The best-first ``Configuration`` ladder supervision degrades down:
+    as configured, then mesh -> single device, then fused -> unfused
+    host-prep.  Derived by walking the engine registry's degrade keys
+    (:meth:`~consensus_tpu_torch.models.registry.EngineRegistry.degrade_keys`)
+    and mapping each key transition back onto the config, so the ladder
+    always mirrors what is actually registered.  (The host twin is not a
+    config -- the supervisor appends it as the ladder's floor itself.)"""
+    ladder = [config]
+    keys = ENGINE_REGISTRY.degrade_keys(engine_key_for(config))
+    for prev_key, next_key in zip(keys, keys[1:]):
+        prev = ladder[-1]
+        if prev_key.topology == "mesh" and next_key.topology == "single":
+            ladder.append(prev.with_(mesh_shards=1, mesh_topology=()))
+        elif prev_key.device_prep and not next_key.device_prep:
+            ladder.append(prev.with_(device_prep=False))
+    return ladder
+
+
+def _engine_for_config(config, curve: str, device: DeviceLike):
+    """The unsupervised engine routing (see :func:`engine_for_config`):
+    config -> ``EngineKey`` -> registered builder."""
+    return ENGINE_REGISTRY.build(
+        engine_key_for(config, curve),
         pad_pow2=config.crypto_pad_pow2,
         min_device_batch=config.crypto_tpu_min_batch,
         device=device,
@@ -331,6 +380,7 @@ __all__ = [
     "Ed25519Signer",
     "Ed25519VerifierMixin",
     "commit_message",
+    "degrade_ladder_configs",
     "engine_for_config",
     "raw_message",
 ]

@@ -12,27 +12,34 @@ tensor it runs its plain torch version (``horner_scan_reference``,
 ``horner_scan_p256_reference``, ``straus_msm_reference``).  Every kernel is
 built by one helper: nvcc for ``sm_90a`` on first use, into ``csrc/build/``
 keyed by a hash of the source and of the headers beside it, loaded through
-ctypes; a build or load failure raises.
+ctypes; a build or load failure raises.  A lock per kernel serializes its
+first build and load, so threads that launch a kernel for the first time
+together (a coalescer's flusher and a caller) run nvcc once.
 
-``launches``, ``launches_p256`` and ``launches_msm`` count kernel launches
-(the plain versions are not counted), so a caller can show that its path
-went through the kernels.
+Every launch is booked into the kernel ledger
+(:data:`consensus_tpu_torch.obs.kernels.KERNELS`) under the kernel's name
+(the plain versions are not launches), and every library obtained into
+``COMPILE_CACHE`` (a miss where nvcc ran, a hit where an existing build was
+loaded; the ledger's ``compiles`` counts the nvcc builds), so a caller can
+show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import torch
 
+from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
+from consensus_tpu_torch.obs.kernels import KERNELS as LEDGER
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import p256
@@ -54,13 +61,10 @@ KERNELS = {
     "straus_msm": (_CSRC / "straus_msm.cu", 15, ("n_low",)),
 }
 
-#: Kernel launches made by :func:`horner_scan` in this process.
-launches = 0
-#: Kernel launches made by :func:`horner_scan_p256` in this process.
-launches_p256 = 0
-#: Kernel launches made by :func:`straus_msm` in this process (one per call:
-#: its tables, window sums, join and chain kernels).
-launches_msm = 0
+#: Loaded libraries, name -> (library, BuildInfo), and the lock that
+#: serializes each kernel's first build and load.
+_LIBRARIES: dict[str, tuple[ctypes.CDLL, "BuildInfo"]] = {}
+_BUILD_LOCKS = {name: threading.Lock() for name in KERNELS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +94,20 @@ def _nvcc() -> str:
     return found
 
 
-@functools.lru_cache(maxsize=None)
 def _library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
+    """The loaded library of kernel ``name``: built and loaded on the first
+    call in this process, under the kernel's lock, so concurrent first
+    callers wait for one build."""
+    loaded = _LIBRARIES.get(name)
+    if loaded is None:
+        with _BUILD_LOCKS[name]:
+            loaded = _LIBRARIES.get(name)
+            if loaded is None:
+                loaded = _LIBRARIES[name] = _build_and_load(name)
+    return loaded
+
+
+def _build_and_load(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (once per source content) and load the library of kernel
     ``name``, and declare its C entry points ``<name>_launch`` (the
     pointers, then batch, the kernel's int arguments, device and stream) and
@@ -132,6 +148,9 @@ def _library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     error_string = getattr(lib, f"{name}_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
+    COMPILE_CACHE.record(hit=cached)
+    if not cached:
+        LEDGER.record_compile(name)
     return lib, BuildInfo(str(lib_path), command, seconds, ptxas, cached)
 
 
@@ -210,7 +229,6 @@ def horner_scan(
     signed 4-bit windows stored as d + 8 with d in [-8, 7].  On CUDA the
     result is the same projective point as the plain version's, written as
     canonical limbs; on the CPU it is the plain version's output."""
-    global launches
     coords = (neg_a_x, neg_a_y, neg_a_z, neg_a_t)
     batch = _check_inputs(
         "horner_scan", dict(zip(("neg_a_x", "neg_a_y", "neg_a_z", "neg_a_t"), coords)),
@@ -221,7 +239,7 @@ def horner_scan(
         return horner_scan_reference(*coords, k_digits)
     outs = [torch.empty_like(neg_a_x) for _ in range(4)]
     _launch("horner_scan", (*coords, k_digits), outs, batch, device)
-    launches += 1
+    LEDGER.record_launch("horner_scan")
     return ed.Point(*outs)
 
 
@@ -265,7 +283,6 @@ def horner_scan_p256(
     (the first window holds the recoding carry).  On CUDA the result is the
     same projective point as the plain version's, written as canonical
     limbs; on the CPU it is the plain version's output."""
-    global launches_p256
     batch = _check_inputs(
         "horner_scan_p256", {"qx": qx, "qy": qy}, {"u2_digits": (u2_digits, _WINDOWS_P256)}
     )
@@ -274,7 +291,7 @@ def horner_scan_p256(
         return horner_scan_p256_reference(qx, qy, u2_digits)
     outs = [torch.empty_like(qx) for _ in range(3)]
     _launch("horner_scan_p256", (qx, qy, u2_digits), outs, batch, device)
-    launches_p256 += 1
+    LEDGER.record_launch("horner_scan_p256")
     return p256.Point(*outs)
 
 
@@ -316,7 +333,6 @@ def straus_msm(
     CUDA the result is the plain version's group element as canonical limbs
     of another projective representative (compare it in affine
     coordinates); on the CPU it is the plain version's output."""
-    global launches_msm
     n_low = z_digits.shape[0] if z_digits.dim() == 2 else -1
     if not 0 <= n_low <= _WINDOWS:
         raise ValueError(
@@ -338,7 +354,7 @@ def straus_msm(
         "straus_msm", (*neg_a, *neg_r, zk_digits, z_digits), (scratch, *outs),
         batch, device, (n_low,),
     )
-    launches_msm += 1
+    LEDGER.record_launch("straus_msm")
     return ed.Point(*outs)
 
 
@@ -373,9 +389,6 @@ __all__ = [
     "horner_scan_p256",
     "horner_scan_p256_reference",
     "horner_scan_reference",
-    "launches",
-    "launches_msm",
-    "launches_p256",
     "straus_msm",
     "straus_msm_reference",
 ]

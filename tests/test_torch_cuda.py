@@ -17,6 +17,7 @@ from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
 from consensus_tpu_torch.models.verifier import engine_for_config
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
@@ -67,10 +68,10 @@ def test_kernel_matches_reference_on_card(cuda_device, n):
     canonical limbs; one launch per call."""
     neg, digits = _scan_case(n, cuda_device)
     assert min(float(c.min()) for c in neg) < 0  # weak limbs reach the kernel
-    before = scan_kernels.launches
+    before = KERNELS.stats("horner_scan").launches
     got = scan_kernels.horner_scan(*neg, digits)
     torch.cuda.synchronize()
-    assert scan_kernels.launches == before + 1
+    assert KERNELS.stats("horner_scan").launches == before + 1
     want = scan_kernels.horner_scan_reference(*neg, digits)
     for g, w in zip(got, want):
         assert torch.equal(fe.freeze(g), fe.freeze(w))
@@ -97,9 +98,9 @@ def test_engine_on_card_matches_host_and_launches_once(cuda_device):
     msgs[3] = b"x" + msgs[3]                                   # wrong message
     engine = engine_for_config(Configuration(crypto_tpu_min_batch=1))
     assert engine.device.type == "cuda"
-    before = scan_kernels.launches
+    before = KERNELS.stats("horner_scan").launches
     got = engine.verify_batch(msgs, sigs, keys)
-    assert scan_kernels.launches == before + 1
+    assert KERNELS.stats("horner_scan").launches == before + 1
     np.testing.assert_array_equal(got, engine.verify_host(msgs, sigs, keys))
     assert got.tolist() == [False] * 4 + [True] * 4
 
@@ -139,10 +140,10 @@ def test_p256_kernel_matches_reference_on_card(cuda_device, n):
     three more, the last holding 5 signatures."""
     qx, qy, digits = _p256_scan_case(n, cuda_device)
     assert min(float(qx.min()), float(qy.min())) < 0  # weak limbs reach the kernel
-    before = scan_kernels.launches_p256
+    before = KERNELS.stats("horner_scan_p256").launches
     got = scan_kernels.horner_scan_p256(qx, qy, digits)
     torch.cuda.synchronize()
-    assert scan_kernels.launches_p256 == before + 1
+    assert KERNELS.stats("horner_scan_p256").launches == before + 1
     want = scan_kernels.horner_scan_p256_reference(qx, qy, digits)
     for g, w in zip(got, want):
         assert torch.equal(fp.freeze(g), fp.freeze(w))
@@ -170,9 +171,9 @@ def test_p256_engine_on_card_matches_reference_and_launches_once(cuda_device):
     sigs[3] = sigs[3][:32] + (mp.N - s3).to_bytes(32, "big")              # high s: accepted
     engine = engine_for_config(Configuration(crypto_tpu_min_batch=1), curve="p256")
     assert engine.device.type == "cuda"
-    before = (scan_kernels.launches, scan_kernels.launches_p256)
+    before = (KERNELS.stats("horner_scan").launches, KERNELS.stats("horner_scan_p256").launches)
     got = engine.verify_batch(msgs, sigs, keys)
-    assert (scan_kernels.launches, scan_kernels.launches_p256) == (before[0], before[1] + 1)
+    assert (KERNELS.stats("horner_scan").launches, KERNELS.stats("horner_scan_p256").launches) == (before[0], before[1] + 1)
     want = [mp.ref_p256_verify(k, s, m) for m, s, k in zip(msgs, sigs, keys)]
     assert got.tolist() == want == [False] * 3 + [True] * 5
 
@@ -231,10 +232,10 @@ def test_msm_kernel_matches_reference_on_card(cuda_device, n, n_low):
     window."""
     inputs = _msm_case(n, cuda_device, n_low)
     assert min(float(c.min()) for c in inputs[0]) < 0  # weak limbs reach the kernel
-    before = scan_kernels.launches_msm
+    before = KERNELS.stats("straus_msm").launches
     got = scan_kernels.straus_msm(*inputs)
     torch.cuda.synchronize()
-    assert scan_kernels.launches_msm == before + 1
+    assert KERNELS.stats("straus_msm").launches == before + 1
     want = scan_kernels.straus_msm_reference(*inputs)
     assert got.x.shape == (32, 1)
     for g, w in zip(_affine(got), _affine(want)):
@@ -260,8 +261,134 @@ def test_randomized_engine_on_card_matches_strict_and_launches_once(cuda_device)
     sigs = [med.ref_sign(seeds[i % 8], m) for i, m in enumerate(msgs)]
     engine = engine_for_config(Configuration(batch_verify_mode=True))
     assert engine.randomized and engine.device.type == "cuda"
-    before = (scan_kernels.launches, scan_kernels.launches_msm)
+    before = (KERNELS.stats("horner_scan").launches, KERNELS.stats("straus_msm").launches)
     got = engine.verify_batch(msgs, sigs, keys)
-    assert (scan_kernels.launches, scan_kernels.launches_msm) == (before[0], before[1] + 1)
+    assert (KERNELS.stats("horner_scan").launches, KERNELS.stats("straus_msm").launches) == (before[0], before[1] + 1)
     strict = engine_for_config(Configuration()).verify_batch(msgs, sigs, keys)
     assert got.all() and np.array_equal(got, strict)
+
+
+# --- the engine layer on the card ----------------------------------------------
+
+
+def _signed_corpus(n: int, seed: int):
+    """``n`` requests over 8 keys, every 9th tampered (S + 1)."""
+    rng = np.random.default_rng(seed)
+    seeds = [rng.bytes(32) for _ in range(8)]
+    keys = [med.ref_public_key(seeds[i % 8]) for i in range(n)]
+    msgs = [b"request-%d" % i for i in range(n)]
+    sigs = [med.ref_sign(seeds[i % 8], m) for i, m in enumerate(msgs)]
+    for i in range(0, n, 9):
+        sigs[i] = sigs[i][:32] + bytes([sigs[i][32] ^ 1]) + sigs[i][33:]
+    return msgs, sigs, keys
+
+
+@pytest.mark.cuda
+def test_seven_replica_threads_through_a_coalescer_launch_once_per_flush(cuda_device):
+    """7 replica threads x 36 requests (252 on 256 lanes) through one
+    coalescer over the strict engine: B1's launches equal the device
+    flushes, no flush is served from the host, and every replica's verdicts
+    equal the CPU plain path's."""
+    import threading
+
+    from consensus_tpu_torch.models.engine import ThreadCoalescingVerifier
+
+    msgs, sigs, keys = _signed_corpus(36, 5)
+    engine = engine_for_config(Configuration(), device=cuda_device)
+    flushes, host_calls = [], []
+
+    class _Counted:
+        def verify_batch(self, m, s, k):
+            flushes.append(len(m))
+            return engine.verify_batch(m, s, k)
+
+        def verify_host(self, m, s, k):
+            host_calls.append(len(m))
+            return engine.verify_host(m, s, k)
+
+    coalescer = ThreadCoalescingVerifier(
+        _Counted(), window=0.05, max_batch=7 * 36, hard_cap=256, bypass_below=16
+    )
+    barrier = threading.Barrier(7)
+    got = {}
+
+    def replica(r):
+        barrier.wait()
+        got[r] = coalescer.verify_batch(msgs, sigs, keys)
+
+    before = KERNELS.stats("horner_scan").launches
+    threads = [threading.Thread(target=replica, args=(r,)) for r in range(7)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120.0)
+    coalescer.close()
+    assert not any(t.is_alive() for t in threads)
+    assert KERNELS.stats("horner_scan").launches - before == len(flushes) < 7
+    assert sum(flushes) == 7 * 36 and not host_calls and not coalescer.device_suspect
+    want = engine_for_config(Configuration(), device="cpu").verify_batch(msgs, sigs, keys)
+    assert want.tolist() == [i % 9 != 0 for i in range(36)]
+    for r in range(7):
+        assert got[r].tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_concurrent_first_launches_build_the_kernel_once(cuda_device, monkeypatch, tmp_path):
+    """Two threads launch B1 for the first time together in an empty build
+    directory: one nvcc build, one library, both results right."""
+    import threading
+
+    from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
+
+    monkeypatch.setattr(scan_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(scan_kernels, "_LIBRARIES", {})
+    neg, digits = _scan_case(37, cuda_device)
+    misses = COMPILE_CACHE.snapshot()["misses"]
+    barrier = threading.Barrier(2)
+    got, errors = [], []
+
+    def launch():
+        try:
+            barrier.wait()
+            out = scan_kernels.horner_scan(*neg, digits)
+            torch.cuda.synchronize()
+            got.append(out)
+        except Exception as exc:
+            errors.append(exc)
+
+    threads = [threading.Thread(target=launch) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600.0)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert COMPILE_CACHE.snapshot()["misses"] == misses + 1
+    assert len(list((tmp_path / "build").glob("horner_scan-*.so"))) == 1
+    assert not list((tmp_path / "build").glob(".*"))  # no temporary left behind
+    want = scan_kernels.horner_scan_reference(*neg, digits)
+    for out in got:
+        for g, w in zip(out, want):
+            assert torch.equal(fe.freeze(g), fe.freeze(w))
+
+
+@pytest.mark.cuda
+def test_supervised_engine_cross_checks_clean_on_card(cuda_device):
+    from consensus_tpu_torch.metrics import InMemoryProvider, Metrics
+    from consensus_tpu_torch.models.supervisor import EngineSupervisor
+
+    msgs, sigs, keys = _signed_corpus(40, 9)
+    provider = InMemoryProvider()
+    sup = engine_for_config(
+        Configuration(engine_supervision=True, engine_crosscheck_interval=1),
+        device=cuda_device, metrics=Metrics(provider),
+    )
+    assert isinstance(sup, EngineSupervisor) and sup.engine.device.type == "cuda"
+    before = KERNELS.stats("horner_scan").launches
+    got = sup.verify_batch(msgs, sigs, keys)
+    assert KERNELS.stats("horner_scan").launches == before + 1
+    assert got.tolist() == [i % 9 != 0 for i in range(40)]
+    dump = provider.dump()
+    assert dump["engine_crosscheck_total"]["value"] == 1
+    assert dump["engine_crosscheck_mismatch_total"]["value"] == 0
+    assert sup.rung == 0 and not sup.health.suspect

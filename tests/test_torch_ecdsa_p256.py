@@ -24,6 +24,8 @@ from consensus_tpu.types import Signature as JaxSignature
 from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models import ecdsa_p256 as tmodel
 from consensus_tpu_torch.models import verifier as tver
+from consensus_tpu_torch.models.registry import UnknownEngineError
+from consensus_tpu_torch.models.supervisor import EngineSupervisor
 from consensus_tpu_torch.types import Proposal, Signature
 
 N = tmodel.N
@@ -296,9 +298,15 @@ def test_engine_for_config_routes_p256_and_raises_like_jax():
             jver.engine_for_config(JaxConfiguration(self_id=1, **knobs), curve="p256")
         assert str(port_err.value) in str(jax_err.value)
         assert "Ed25519-only" in str(port_err.value)
-    for knobs in (dict(mesh_shards=2), dict(engine_supervision=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tver.engine_for_config(Configuration(**knobs), curve="p256", device="cpu")
+    with pytest.raises(UnknownEngineError, match="ROADMAP.md queue A, item 12"):
+        tver.engine_for_config(Configuration(mesh_shards=2), curve="p256", device="cpu")
+    supervised = tver.engine_for_config(
+        Configuration(engine_supervision=True), curve="p256", device="cpu"
+    )
+    assert isinstance(supervised, EngineSupervisor)
+    assert [supervised.rung_label(i) for i in range(supervised.rung_count)] == [
+        "EcdsaP256BatchVerifier", "HostTwin",
+    ]
 
 
 def test_default_p256_engine_raises_without_a_card(monkeypatch):

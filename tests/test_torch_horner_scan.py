@@ -28,6 +28,7 @@ from consensus_tpu_torch.models.ed25519 import (
 )
 from consensus_tpu_torch.ops import ed25519 as ted
 from consensus_tpu_torch.ops import field25519 as tfe
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import scan_kernels
 from test_torch_straus_msm import _host_build
 
@@ -128,12 +129,12 @@ def test_reference_matches_bigint_on_every_lane(scan_case):
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch(scan_case):
-    before = scan_kernels.launches
+    before = KERNELS.stats("horner_scan").launches
     got = scan_kernels.horner_scan(
         *(torch.from_numpy(c.copy()) for c in scan_case["neg"]),
         torch.from_numpy(scan_case["kd"].copy()),
     )
-    assert scan_kernels.launches == before
+    assert KERNELS.stats("horner_scan").launches == before
     for g, r in zip(got, scan_case["ref"]):
         assert torch.equal(g, r)
 
@@ -160,12 +161,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(scan_kernels, "BUILD_DIR", tmp_path / "build")
-    scan_kernels._library.cache_clear()
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            scan_kernels.build()
-    finally:
-        scan_kernels._library.cache_clear()
+    monkeypatch.setattr(scan_kernels, "_LIBRARIES", {})  # nothing loaded yet
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        scan_kernels.build()
 
 
 _HOST_HARNESS = r"""

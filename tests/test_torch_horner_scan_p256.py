@@ -27,6 +27,7 @@ from consensus_tpu.models import ecdsa_p256 as jmodel
 from consensus_tpu.ops import field_p256 as jfp
 from consensus_tpu.ops.pallas_scan import horner_scan_p256 as jax_horner_scan_p256
 from consensus_tpu_torch.models import ecdsa_p256 as tmodel
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import field_p256 as tfp
 from consensus_tpu_torch.ops import p256 as tp
 from consensus_tpu_torch.ops import scan_kernels
@@ -108,13 +109,13 @@ def test_reference_matches_bigint_on_every_lane(scan_case):
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch(scan_case):
-    before = (scan_kernels.launches, scan_kernels.launches_p256)
+    before = (KERNELS.stats("horner_scan").launches, KERNELS.stats("horner_scan_p256").launches)
     got = scan_kernels.horner_scan_p256(
         torch.from_numpy(scan_case["qx"].copy()),
         torch.from_numpy(scan_case["qy"].copy()),
         torch.from_numpy(scan_case["kd"].copy()),
     )
-    assert (scan_kernels.launches, scan_kernels.launches_p256) == before
+    assert (KERNELS.stats("horner_scan").launches, KERNELS.stats("horner_scan_p256").launches) == before
     for g, r in zip(got, scan_case["ref"]):
         assert torch.equal(g, r)
 
@@ -141,12 +142,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(scan_kernels, "BUILD_DIR", tmp_path / "build")
-    scan_kernels._library.cache_clear()
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            scan_kernels.build("horner_scan_p256")
-    finally:
-        scan_kernels._library.cache_clear()
+    monkeypatch.setattr(scan_kernels, "_LIBRARIES", {})  # nothing loaded yet
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        scan_kernels.build("horner_scan_p256")
 
 
 _HOST_HARNESS = r"""

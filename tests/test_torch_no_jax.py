@@ -4,9 +4,9 @@ chip_smoke.py whose phases rehearse on the CPU.
 ``consensus_tpu_torch`` and ``chip_smoke.py`` may import neither ``jax``,
 ``jaxlib`` nor ``consensus_tpu`` (the exact names or their submodules),
 checked both statically (AST) and in a fresh interpreter (``sys.modules``).
-The smoke script's phases (the strict Ed25519 path's, the P-256 path's and
-the randomized path's) run here with ``device="cpu"`` at 8-32 lanes, and its
-entry point refuses to run without a card.
+The smoke script's phases (the strict Ed25519 path's, the P-256 path's, the
+randomized path's and the engine layer's) run here with ``device="cpu"`` at
+8-32 lanes, and its entry point refuses to run without a card.
 """
 
 import ast
@@ -267,3 +267,49 @@ def test_chip_smoke_alone_fails(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_coalesced_phases_rehearse_on_cpu():
+    """Phases 9 and 10 at 16 requests x 2 replicas: one shared coalescer,
+    every replica's verdicts equal the direct wave's, one flush, no host
+    fallback; on the CPU the plain versions run, so nothing launches."""
+    for curve, corpus in (
+        ("ed25519", chip_smoke.make_corpus(16, per_class=1)),
+        ("p256", chip_smoke.make_p256_corpus(16, per_class=1)),
+    ):
+        direct = np.tile(corpus[3], 2)
+        c = chip_smoke.phase_coalesced(
+            "cpu", corpus, 2, direct, curve=curve, bypass_below=8, window=5.0
+        )
+        assert (c["signatures"], c["hard_cap"], c["flushes"]) == (32, 32, 1)
+        assert c["launches"] == 0 and c["host_calls"] == 0
+        assert c["quorum_size"] == (5 if curve == "ed25519" else 3) < c["bypass_below"]
+        assert c["wave_ms"] > 0 and c["peak_bytes"] is None and c["held_bytes"] == [None, None]
+
+
+def test_chip_smoke_coalesced_phase_fails_on_a_wrong_verdict():
+    corpus = chip_smoke.make_corpus(16, per_class=1)
+    direct = np.tile(corpus[3], 2)
+    direct[20] = not direct[20]
+    with pytest.raises(AssertionError, match="replica 1: coalesced verdicts differ"):
+        chip_smoke.phase_coalesced("cpu", corpus, 2, direct, bypass_below=8, window=5.0)
+
+
+def test_chip_smoke_supervised_phase_rehearses_on_cpu():
+    """Phase 11 on 4 decisions (20 votes, 3 forged): clean supervised strict
+    and randomized chunks with one cross-check each, then the injected
+    raise, probe and flip, each booked once."""
+    s = chip_smoke.phase_supervised("cpu", 4)
+    assert s["votes"] == 20 and len(s["forged"]) == 3
+    for label in ("strict", "randomized"):
+        r = s[label]
+        assert r["launches"] == (0, 0, 0) and r["crosscheck_s"] > 0
+        assert r["engine"]["engine_crosscheck_total"] == 1 and r["engine"]["engine_rung"] == 0
+    raise_, probe, flip = s["faults"]
+    assert [f["step"] for f in s["faults"]] == ["raise", "probe", "flip"]
+    assert [f["rung"] for f in s["faults"]] == [1, 0, 1]
+    assert flip["engine"]["engine_degrade_total{launch_raise}"] == 1
+    assert flip["engine"]["engine_degrade_total{wrong_answer}"] == 1
+    assert flip["engine"]["engine_recovered_total"] == 1
+    assert flip["engine"]["engine_crosscheck_total"] == 2  # the probe's and the flip's
+    assert [len(f["host_s"]) for f in s["faults"]] == [1, 1, 1]

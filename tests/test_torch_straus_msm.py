@@ -28,6 +28,7 @@ from consensus_tpu.models import ed25519 as jmed
 from consensus_tpu.ops import ed25519 as jed
 from consensus_tpu.ops import pallas_scan
 from consensus_tpu_torch.models import ed25519 as tmed
+from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ted
 from consensus_tpu_torch.ops import field25519 as tfe
 from consensus_tpu_torch.ops import scan_kernels
@@ -177,12 +178,12 @@ def test_plain_msm_matches_bigint_sum(msm_case):
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch(msm_case):
-    before = scan_kernels.launches_msm
+    before = KERNELS.stats("straus_msm").launches
     got = scan_kernels.straus_msm(
         ted.Point(*_torch(msm_case["neg_a"])), ted.Point(*_torch(msm_case["neg_r"])),
         *_torch([msm_case["zk_digits"], msm_case["z_digits"]]),
     )
-    assert scan_kernels.launches_msm == before
+    assert KERNELS.stats("straus_msm").launches == before
     for g, r in zip(got, msm_case["ref"]):
         assert torch.equal(g, r)
 

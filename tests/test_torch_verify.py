@@ -22,6 +22,8 @@ from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
 from consensus_tpu_torch.models import ed25519 as tmed
 from consensus_tpu_torch.models import verifier as tver
+from consensus_tpu_torch.models.registry import UnknownEngineError
+from consensus_tpu_torch.models.supervisor import EngineSupervisor
 from consensus_tpu_torch.testing.crypto_app import SigOnlyVerifier
 from consensus_tpu_torch.types import Proposal, QuorumCert, Signature
 
@@ -212,14 +214,19 @@ def test_engine_for_config_default_and_unported_lanes():
     assert engine._min_device_batch == 16 and engine._pad_pow2 and engine.padded_size(7000) == 8192
     for field in dataclasses.fields(Configuration):
         assert getattr(Configuration(), field.name) == getattr(JaxConfiguration(), field.name)
-    for knobs in (
-        dict(device_prep=True),
-        dict(mesh_shards=2),
-        dict(mesh_topology=(2, 4)),
-        dict(engine_supervision=True),
+    for knobs, item in (
+        (dict(device_prep=True), "item 10"),
+        (dict(mesh_shards=2), "item 12"),
+        (dict(mesh_topology=(2, 4)), "item 12"),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(UnknownEngineError, match=f"ROADMAP.md queue A, {item}"):
             tver.engine_for_config(Configuration(**knobs), device="cpu")
+    # Supervision is ported: the configured engine over the host twin.
+    supervised = tver.engine_for_config(Configuration(engine_supervision=True), device="cpu")
+    assert isinstance(supervised, EngineSupervisor)
+    assert [supervised.rung_label(i) for i in range(supervised.rung_count)] == [
+        "Ed25519BatchVerifier", "HostTwin",
+    ]
     # P-256 and the randomized lane are ported: their configurations route to
     # their engines (their own lanes are pinned in tests/test_torch_ecdsa_p256.py
     # and tests/test_torch_batch_verify.py).
