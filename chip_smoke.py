@@ -4,7 +4,8 @@
 
 Drives the port's three main paths through the engines a user would call,
 then through the engine layer the JAX package launches them through (the
-coalescer and the supervisor):
+coalescer and the supervisor), then through the protocol core (a replica
+cluster ordering blocks):
 
 * strict Ed25519 batch verification at the size of one block of a
   7-replica (f=2) Ed25519 deployment with 1,000 requests per block
@@ -72,7 +73,17 @@ Phases:
    and B3 launched), then injected faults around the real strict engine
    (a raise degrades to the host twin, the probe after the backoff
    re-promotes and launches B1, a flipped verdict is caught by the
-   cross-check), with the host seconds of each cross-check.
+   cross-check), with the host seconds of each cross-check;
+12. the protocol core at config 3: the port's ``Cluster`` of 7
+   ``SignedRequestApp`` replicas (one strict engine on the card shared by
+   all, wired as benchmarks/chain_crypto_tps.py wires its device mode
+   without the coalescer; a file WAL per replica) orders 4 blocks of 1,000
+   signed requests; all ledgers identical, every decision's 2f+1 commit
+   signatures verified, B1's launches equal to the engine's device calls
+   (every replica's proposal wave, counted by a counting subclass), B2 and
+   B3 never launched; each block's time split into the engine's device
+   calls, the host-path verifications and the rest, the chain's tx/s, and
+   a profiled re-run of a follower wave.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -87,9 +98,11 @@ import re
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -113,6 +126,7 @@ from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
     EcdsaP256VerifierMixin,
     Ed25519Signer,
+    commit_message,
     engine_for_config,
 )
 from consensus_tpu_torch.obs.kernels import KERNELS
@@ -121,8 +135,10 @@ from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
-from consensus_tpu_torch.testing.crypto_app import SigOnlyVerifier
+from consensus_tpu_torch.testing import Cluster
+from consensus_tpu_torch.testing.crypto_app import ClientKeyring, SigOnlyVerifier, SignedRequestApp
 from consensus_tpu_torch.types import Proposal
+from consensus_tpu_torch.wal import DEFAULT_SEGMENT_MAX_BYTES
 
 #: BASELINE.json config 3: 7 replicas (f = 2), 1,000 requests per block.
 REPLICAS = 7
@@ -210,6 +226,12 @@ CATCH_UP_LANES = 256
 BYPASS_BELOW = 64
 #: The coalescer's flusher thread, by name: its engine calls are the flushes.
 FLUSHER = "verify-coalescer"
+#: Phase 12's cluster, wired as benchmarks/chain_crypto_tps.py wires its
+#: device mode without the coalescer: 16 clients, device batches from 32
+#: signatures; the first of 4 blocks is warm-up.
+CLUSTER_BLOCKS = 4
+CLUSTER_CLIENTS = 16
+CLUSTER_MIN_DEVICE_BATCH = 32
 
 
 def log(*parts) -> None:
@@ -1414,6 +1436,219 @@ def phase_supervised(device, decisions: int) -> dict:
     return out
 
 
+# --- the protocol core: phase 12 (a config-3 cluster ordering blocks) ---------
+
+
+class _ClusterEngine(med.Ed25519BatchVerifier):
+    """The strict engine, counting and timing each of its calls: a device
+    call where the batch reaches ``min_device_batch``, else a host-path call
+    (``_verify_host``), each with the replica whose proposal wave it was,
+    if any.  The count lives here, not in the package."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.calls: list[dict] = []
+        self.wave_of = None  # (node id, leader?) while a proposal wave runs
+        self.follower_wave = None  # the inputs of the last follower wave
+
+    def verify_batch(self, messages, signatures, public_keys):
+        t0 = time.perf_counter()
+        out = super().verify_batch(messages, signatures, public_keys)
+        device = len(messages) >= self._min_device_batch
+        self.calls.append({
+            "device": device, "n": len(messages),
+            "s": time.perf_counter() - t0, "wave_of": self.wave_of,
+        })
+        if device and self.wave_of is not None and not self.wave_of[1]:
+            self.follower_wave = (list(messages), list(signatures), list(public_keys))
+        return out
+
+
+class _WaveApp(SignedRequestApp):
+    """SignedRequestApp marking its fused proposal wave (the proposal's
+    request signatures and the previous decision's commit certificate in one
+    engine call) on the engine, so each device call can be told apart."""
+
+    def verify_proposal_and_prev_commits(self, proposal, prev_commits, prev_proposal):
+        leader = self.cluster.nodes[self.node_id].consensus.get_leader_id()
+        self._engine.wave_of = (self.node_id, leader == self.node_id)
+        try:
+            return super().verify_proposal_and_prev_commits(proposal, prev_commits, prev_proposal)
+        finally:
+            self._engine.wave_of = None
+
+
+def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
+                  blocks: int = CLUSTER_BLOCKS, clients: int = CLUSTER_CLIENTS,
+                  min_device_batch: int = CLUSTER_MIN_DEVICE_BATCH) -> dict:
+    """``replicas`` SignedRequestApp replicas of the port's ``Cluster`` on
+    the simulated network, wired as benchmarks/chain_crypto_tps.py wires
+    its device mode without the coalescer: one strict engine on ``device``
+    shared by every replica, an Ed25519 signer per replica, ``clients``
+    client keys, 1,000-request batches, no leader rotation, a file WAL per
+    replica at the default segment size.  ``blocks`` blocks of ``requests``
+    signed requests each; the first is warm-up, the rest are measured."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    phase_t0 = time.perf_counter()
+    engine = _ClusterEngine(device=device, min_device_batch=min_device_batch)
+    signers = {i: Ed25519Signer(i, bytes([i]) * 32) for i in range(1, replicas + 1)}
+    keys = {i: s.public_bytes for i, s in signers.items()}
+    keyring = ClientKeyring([Ed25519Signer(1000 + c, (1000 + c).to_bytes(32, "big"))
+                             for c in range(clients)])
+    t0 = time.perf_counter()
+    raws = [[keyring.make_request(r % clients, b * requests + r) for r in range(requests)]
+            for b in range(blocks)]
+    sign_s = time.perf_counter() - t0
+    tweaks = {"request_batch_max_count": requests, "request_batch_max_interval": 0.02,
+              "request_pool_size": 3 * requests}
+    ed.comb_table(device)  # the constant table is set-up, not part of a block
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wal-") as wal_dir:
+        cluster = Cluster(replicas, seed=SEED, config_tweaks=tweaks, wal_dir=wal_dir,
+                          wal_segment_bytes=DEFAULT_SEGMENT_MAX_BYTES)
+        for node_id, node in cluster.nodes.items():
+            node.app = _WaveApp(node_id, cluster, signers[node_id],
+                                SigOnlyVerifier(keys, engine=engine),
+                                client_keys=keyring.public_keys, engine=engine)
+        try:
+            cluster.start()
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() if on_card else None
+            verify_before = KERNELS.stats("ed25519.verify").launches
+            _reset_launch_counts()
+            block_log = []
+            for b in range(blocks):
+                first_call = len(engine.calls)
+                t0 = time.perf_counter()
+                for raw in raws[b]:
+                    cluster.submit_to_all(raw)
+                if not cluster.run_until_ledger(b + 1, max_time=600.0):
+                    raise AssertionError(f"block {b + 1} was not ordered")
+                if on_card:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                block = engine.calls[first_call:]
+                device_s = sum(c["s"] for c in block if c["device"])
+                host_s = sum(c["s"] for c in block if not c["device"])
+                block_log.append({
+                    "wall_ms": wall * 1e3, "device_ms": device_s * 1e3, "host_ms": host_s * 1e3,
+                    "rest_ms": (wall - device_s - host_s) * 1e3,
+                    "device_calls": sum(c["device"] for c in block),
+                    "host_calls": sum(not c["device"] for c in block),
+                    "host_sigs": sum(c["n"] for c in block if not c["device"]),
+                })
+            launches = _launch_counts()
+            verify_calls = KERNELS.stats("ed25519.verify").launches - verify_before
+            calls = list(engine.calls)
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            ledgers = {i: list(n.app.ledger) for i, n in cluster.nodes.items()}
+            views = {n.consensus.controller.curr_view_number for n in cluster.nodes.values()}
+        finally:
+            for node in cluster.nodes.values():
+                if node.consensus is not None:
+                    node.consensus.stop()
+                if node.wal is not None:
+                    node.wal.close()
+        wal_bytes = sum(f.stat().st_size for f in Path(wal_dir).rglob("*.wal"))
+
+    # All replicas ordered the same blocks, each with every request.
+    digests = {i: [d.proposal.digest() for d in ledger] for i, ledger in ledgers.items()}
+    if any(len(v) != blocks for v in digests.values()) or len({tuple(v) for v in digests.values()}) != 1:
+        raise AssertionError(f"the replicas' ledgers differ: {digests}")
+    for d in ledgers[1]:
+        if int.from_bytes(d.proposal.payload[:4], "big") != requests:
+            raise AssertionError("a block does not carry its 1,000 requests")
+    if views != {0}:
+        raise AssertionError(f"the cluster changed view: {views}")
+    # Every decision carries 2f+1 commit signatures that verify under the
+    # registered keys: all on the engine, a sample on the RFC 8032 reference.
+    quorum = 2 * ((replicas - 1) // 3) + 1
+    votes = [(commit_message(d.proposal, s.msg), s.value, keys[s.id])
+             for ledger in ledgers.values() for d in ledger for s in d.signatures]
+    if min(len(d.signatures) for ledger in ledgers.values() for d in ledger) < quorum:
+        raise AssertionError(f"a decision carries fewer than {quorum} commit signatures")
+    if not engine.verify_batch(*map(list, zip(*votes))).all():
+        raise AssertionError("a decision carries a commit signature that does not verify")
+    rng = np.random.default_rng(SEED + 12)
+    sample = rng.choice(len(votes), size=min(8, len(votes)), replace=False)
+    for i in sample:
+        msg, sig, key = votes[i]
+        if not med.ref_verify(key, sig, msg):
+            raise AssertionError(f"commit signature {i} fails the RFC 8032 reference")
+
+    # The device calls: each replica's proposal wave, nothing else; B1 once
+    # per device call on the card (the CPU runs the plain version), B2 and
+    # B3 never.
+    device_calls = [c for c in calls if c["device"]]
+    others = [c for c in device_calls if c["wave_of"] is None]
+    if others:
+        raise AssertionError(f"device calls outside a proposal wave: {[c['n'] for c in others]}")
+    followers = [c for c in device_calls if not c["wave_of"][1]]
+    if verify_calls != len(device_calls):
+        raise AssertionError(f"{len(device_calls)} engine calls of >= {min_device_batch} signatures "
+                             f"but {verify_calls} device calls in the kernel ledger")
+    if launches[0] != (len(device_calls) if on_card else 0) or launches[1] or launches[2]:
+        raise AssertionError(f"kernel launches {launches} for {len(device_calls)} device calls")
+    if len(followers) < (replicas - 1) * blocks:
+        raise AssertionError(f"{len(followers)} follower waves for {blocks} blocks of {replicas} replicas")
+    # The stages of the last follower wave, read off a profiled re-run of
+    # its engine call after the counts were read.
+    prof = profile_wave(engine, *engine.follower_wave, device)
+    if not prof.pop("verdicts").all():
+        raise AssertionError("the profiled re-run of a follower wave rejected a signature")
+    measured = block_log[1:] or block_log
+    return {
+        "replicas": replicas, "requests": requests, "blocks": blocks, "clients": clients,
+        "min_device_batch": min_device_batch, "block_log": block_log,
+        "device_calls": len(device_calls), "follower_waves": len(followers),
+        "leader_waves": len(device_calls) - len(followers),
+        "wave_sizes": sorted({c["n"] for c in device_calls}),
+        "padded": sorted({engine.padded_size(c["n"]) for c in device_calls}),
+        "wave_ms": [c["s"] * 1e3 for c in device_calls],
+        "host_calls": sum(b["host_calls"] for b in block_log),
+        "host_sigs": sum(b["host_sigs"] for b in block_log),
+        "launches": launches, "quorum": quorum, "votes_checked": len(votes),
+        "reference_checked": len(sample),
+        "tx_per_s": requests * len(measured) / sum(b["wall_ms"] / 1e3 for b in measured),
+        "peak_bytes": peak, "held_bytes": held, "profiled": prof,
+        "profiled_sigs": len(engine.follower_wave[0]),
+        "sign_s": sign_s, "wal_bytes": wal_bytes,
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+
+
+def log_cluster(c: dict, direct_ms: float) -> None:
+    """Print phase 12's blocks, their time split, the waves and the checks."""
+    log(f"cluster: {c['replicas']} replicas x {c['blocks']} blocks x {c['requests']} signed requests "
+        f"from {c['clients']} clients (signed with ref_sign in {c['sign_s']:.3f} s, set-up); "
+        f"all ledgers identical, view 0, every block carries its {c['requests']} requests")
+    for i, b in enumerate(c["block_log"]):
+        log(f"  block {i + 1}{' (warm-up)' if i == 0 else ''}: {b['wall_ms']:.3f} ms (host clock, ending "
+            f"in torch.cuda.synchronize()) = device calls {b['device_ms']:.3f} ms ({b['device_calls']}) "
+            f"+ host-path verifications {b['host_ms']:.3f} ms ({b['host_calls']} calls, "
+            f"{b['host_sigs']} signatures) + the rest (protocol, codec, WAL fsync) {b['rest_ms']:.3f} ms")
+    log(f"  chain: {c['tx_per_s']:.1f} tx/s over blocks 2-{c['blocks']}")
+    ms = c["wave_ms"]
+    log(f"  device calls {c['device_calls']}: {c['follower_waves']} follower proposal waves and "
+        f"{c['leader_waves']} of the leader's own proposal (it verifies what it proposed, "
+        f"core/view.py reveal-before-verify), {c['wave_sizes']} signatures on {c['padded']} lanes; "
+        f"per wave {min(ms):.3f}-{max(ms):.3f} ms, mean {sum(ms) / len(ms):.3f} ms (host clock, "
+        f"through the engine's read-back); phase 3's direct 7-replica wave {direct_ms:.3f} ms")
+    log(f"  kernel launches (horner_scan, horner_scan_p256, straus_msm) {c['launches']}; "
+        f"host-path calls {c['host_calls']} ({c['host_sigs']} signatures < min_device_batch "
+        f"{c['min_device_batch']}); no coalescer, so nothing can mark the device suspect")
+    log(f"  commit certificates: >= {c['quorum']} signatures a decision, {c['votes_checked']} "
+        f"verified on the engine, {c['reference_checked']} on the RFC 8032 reference")
+    log(f"  the last follower wave ({c['profiled_sigs']} signatures), profiled again after the blocks:")
+    log_profile(c["profiled"], "horner_scan")
+    log(f"  torch.cuda.max_memory_allocated: {c['peak_bytes']} bytes (torch.cuda.memory_allocated "
+        f"before the blocks {c['held_bytes']} bytes); WAL on disk {c['wal_bytes']} bytes; "
+        f"phase {c['phase_s']:.3f} s")
+
+
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.3f} ms"
 
@@ -1699,6 +1934,11 @@ def main() -> int:
         log(f"injected {f['step']}: rung {f['rung']} after the call, launches {f['launches']}, "
             f"host twin {', '.join(f'{1e3 * x:.3f} ms' for x in f['host_s'])} (host clock); "
             f"engine series {f['engine']}")
+
+    # Phase 12: the protocol core, a config-3 cluster ordering blocks.
+    log("== phase 12: config-3 cluster (7 replicas, f=2, 1,000 signed requests per block)")
+    c12 = phase_cluster(device)
+    log_cluster(c12, w["wave_ms"])
 
     log(card)
     log(json.dumps({"kernels": [

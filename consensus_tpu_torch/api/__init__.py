@@ -1,5 +1,20 @@
-"""The ports (dependency interfaces) the signature slice implements."""
+"""Dependency-injection ports: the interfaces an embedding application
+implements to wire the consensus core to its transport, storage, crypto, and
+ledger.
 
-from consensus_tpu_torch.api.deps import Signer, Verifier
+The PyTorch port's copy of ``consensus_tpu/api/__init__.py``, its imports renamed.
+"""
 
-__all__ = ["Signer", "Verifier"]
+from consensus_tpu_torch.api.deps import (  # noqa: F401
+    Application,
+    Assembler,
+    BatchVerifier,
+    Comm,
+    MembershipNotifier,
+    RequestInspector,
+    Signer,
+    Synchronizer,
+    TracerPort,
+    Verifier,
+    WriteAheadLog,
+)

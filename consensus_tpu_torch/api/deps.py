@@ -1,12 +1,18 @@
-"""The Signer and Verifier ports (torch port of those two ABCs in
-``consensus_tpu/api/deps.py``).
+"""The ports (dependency interfaces) of the consensus core.
 
-``Verifier`` exposes *batch* verification entry points with looping
-defaults; the protocol core always calls the batch forms, and a
-device-backed verifier overrides them to drain whole quorums and request
-batches into one kernel launch.  The other ports of the JAX module
-(Application, Comm, WriteAheadLog, ...) come with the protocol core in a
-later slice.
+Parity: reference pkg/api/dependencies.go:14-99 — Application, Comm,
+Assembler, WriteAheadLog, Signer, Verifier, MembershipNotifier,
+RequestInspector, Synchronizer (Logger is Python ``logging`` here).
+
+Batch-first deviation: ``Verifier`` exposes *batch* verification entry
+points (``verify_requests_batch``, ``verify_consenter_sigs_batch``) with
+looping defaults.  The protocol core always calls the batch forms — a
+device-backed verifier overrides them to drain whole quorums / request
+batches into one kernel launch (the reference instead spawns one goroutine
+per commit signature, internal/bft/view.go:537-541).
+
+The PyTorch port's copy of ``consensus_tpu/api/deps.py``: the same ports,
+its imports renamed.
 """
 
 from __future__ import annotations
@@ -14,7 +20,69 @@ from __future__ import annotations
 import abc
 from typing import Optional, Sequence
 
-from consensus_tpu_torch.types import Proposal, QuorumCert, RequestInfo, Signature
+from consensus_tpu_torch.types import (
+    Decision,
+    Proposal,
+    QuorumCert,
+    Reconfig,
+    RequestInfo,
+    Signature,
+    SyncResponse,
+)
+
+
+class Application(abc.ABC):
+    """The replicated state machine being driven by consensus.
+
+    Parity: reference pkg/api/dependencies.go:14-19.
+    """
+
+    @abc.abstractmethod
+    def deliver(self, proposal: Proposal, signatures: Sequence[Signature]) -> Reconfig:
+        """Commit a decided proposal; returns membership/config changes."""
+
+
+class Comm(abc.ABC):
+    """Unreliable, unordered, fire-and-forget message transport.
+
+    The protocol tolerates loss; delivery guarantees are *not* part of the
+    contract.  Parity: reference pkg/api/dependencies.go:22-30.
+    """
+
+    @abc.abstractmethod
+    def send_consensus(self, target_id: int, message) -> None: ...
+
+    @abc.abstractmethod
+    def send_transaction(self, target_id: int, request: bytes) -> None: ...
+
+    @abc.abstractmethod
+    def nodes(self) -> Sequence[int]: ...
+
+
+class Assembler(abc.ABC):
+    """Builds application proposals out of request batches.
+
+    Parity: reference pkg/api/dependencies.go:33-37.
+    """
+
+    @abc.abstractmethod
+    def assemble_proposal(self, metadata: bytes, requests: Sequence[bytes]) -> Proposal: ...
+
+
+class WriteAheadLog(abc.ABC):
+    """Persistence for protocol step records (crash recovery).
+
+    ``on_durable`` (when given) must fire once the entry is on stable
+    storage; implementations that fsync synchronously call it before
+    returning, group-commit implementations defer it to the batched fsync.
+    Parity: reference pkg/api/dependencies.go:40-44 (callback is ours — the
+    seam that lets the protocol defer sends under group commit).
+    """
+
+    @abc.abstractmethod
+    def append(
+        self, entry: bytes, truncate_to: bool = False, on_durable=None
+    ) -> None: ...
 
 
 class Signer(abc.ABC):
@@ -227,4 +295,73 @@ class Verifier(abc.ABC):
         return requests, cert_results
 
 
-__all__ = ["Signer", "Verifier"]
+# Convenience alias for implementations that only provide the batch forms.
+BatchVerifier = Verifier
+
+
+class MembershipNotifier(abc.ABC):
+    """Notified when a decision changed cluster membership.
+
+    Parity: reference pkg/api/dependencies.go:74-77.
+    """
+
+    @abc.abstractmethod
+    def membership_change(self) -> None: ...
+
+
+class RequestInspector(abc.ABC):
+    """Extracts (client, request) identity from raw request bytes.
+
+    Parity: reference pkg/api/dependencies.go:80-83.
+    """
+
+    @abc.abstractmethod
+    def request_id(self, raw_request: bytes) -> RequestInfo: ...
+
+
+class Synchronizer(abc.ABC):
+    """Application-level catch-up: fetch and deliver decided proposals from
+    peers, returning the latest decision reached.
+
+    Parity: reference pkg/api/dependencies.go:86-90.
+    """
+
+    @abc.abstractmethod
+    def sync(self) -> SyncResponse: ...
+
+
+class TracerPort(abc.ABC):
+    """Decision-lifecycle tracing sink (no reference counterpart).
+
+    Implemented by ``trace.Tracer`` and ``trace.NoopTracer``.  Call sites
+    MUST guard emission with ``if tracer.enabled:`` so the disabled hot
+    path stays allocation-free; ``seq``/``view`` key per-decision spans.
+    """
+
+    #: False on the no-op tracer; the emission guard reads this.
+    enabled: bool = False
+
+    @abc.abstractmethod
+    def begin(self, track: str, name: str, *, seq=None, view=None, **args) -> None: ...
+
+    @abc.abstractmethod
+    def end(self, track: str, name: str, *, seq=None, view=None, **args) -> None: ...
+
+    @abc.abstractmethod
+    def instant(self, track: str, name: str, *, seq=None, view=None, **args) -> None: ...
+
+
+__all__ = [
+    "Application",
+    "Comm",
+    "Assembler",
+    "WriteAheadLog",
+    "Signer",
+    "Verifier",
+    "BatchVerifier",
+    "MembershipNotifier",
+    "RequestInspector",
+    "Synchronizer",
+    "TracerPort",
+    "Decision",
+]

@@ -1,17 +1,23 @@
-"""Value types the signature ports share (torch port of the part of
-``consensus_tpu/types.py`` that the crypto slice needs).
+"""Core value types shared by the protocol, the ports, and applications.
 
-``RequestInfo``, ``Proposal``, ``Signature`` and ``QuorumCert`` behave byte
-for byte as in the JAX package: ``Proposal.digest`` is the same
-length-prefixed SHA-256, so commit messages signed by either package verify
-in the other.
+Parity: reference pkg/types/types.go:18-123 (Proposal, Signature, Decision,
+RequestInfo, Checkpoint, Reconfig, SyncResponse).  The digest construction is
+deterministic SHA-256 over a length-prefixed field encoding (the reference
+uses ASN.1 + SHA-256, pkg/types/types.go:50-62; byte-compatibility with the Go
+wire is a non-goal — shape compatibility is).
+
+The PyTorch port's copy of ``consensus_tpu/types.py``.  ``Proposal.digest``
+and the signature types are byte for byte the JAX package's, so commit
+messages signed by either package verify in the other.
 """
 
 from __future__ import annotations
 
 import hashlib
 import struct
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field, replace
+from typing import Optional, Sequence
 
 
 def _lp(buf: bytes) -> bytes:
@@ -88,6 +94,21 @@ class Signature:
 
 
 @dataclass(frozen=True)
+class Decision:
+    """A committed proposal together with its quorum of signatures.
+
+    ``signatures`` is either a plain tuple of :class:`Signature` (the full
+    cert, ``cert_mode="full"``) or a :class:`QuorumCert` — which quacks like
+    that tuple (len / iteration / indexing yield per-signer ``Signature``
+    views) so cert-shape-agnostic consumers need no branch.
+    Parity: reference pkg/types/types.go:39-42.
+    """
+
+    proposal: Proposal
+    signatures: "tuple[Signature, ...] | QuorumCert" = ()
+
+
+@dataclass(frozen=True)
 class QuorumCert:
     """Half-aggregated Ed25519 quorum certificate (arXiv:2302.00418).
 
@@ -129,4 +150,89 @@ class QuorumCert:
         )
 
 
-__all__ = ["RequestInfo", "Proposal", "Signature", "QuorumCert"]
+def as_cert(signatures):
+    """Preserve a :class:`QuorumCert` through call sites that historically
+    flattened signature sequences with ``tuple(...)`` — flattening a cert
+    to its component views would silently discard ``s_agg``."""
+    if isinstance(signatures, QuorumCert):
+        return signatures
+    return tuple(signatures)
+
+
+@dataclass(frozen=True)
+class Reconfig:
+    """Signals that the latest decision changed membership or configuration.
+
+    Parity: reference pkg/types/types.go:107-111.
+    """
+
+    in_latest_decision: bool = False
+    current_nodes: tuple[int, ...] = ()
+    current_config: Optional["object"] = None  # Configuration; avoid cycle
+    #: Optional membership.MembershipConfig for the epoch this decision
+    #: opens (held opaque: types must not import the membership package).
+    #: None preserves the pre-epoch Reconfig shape — consumers that only
+    #: need the node set keep reading current_nodes.
+    membership: Optional["object"] = None
+
+
+@dataclass(frozen=True)
+class SyncResponse:
+    """Result of Synchronizer.sync(): the latest decision plus any reconfig.
+
+    Parity: reference pkg/types/types.go:113-116.
+    """
+
+    latest: Optional[Decision] = None
+    reconfig: Reconfig = field(default_factory=Reconfig)
+
+
+@dataclass(frozen=True)
+class ViewSequence:
+    """A replica's current (view, proposal sequence) and whether the view is
+    active.  Exchanged in state-transfer responses.
+
+    Parity: reference internal/bft types (ViewSequence in controller.go).
+    """
+
+    view_active: bool = False
+    view: int = 0
+    seq: int = 0
+
+
+class Checkpoint:
+    """Thread-safe holder of the last decided proposal + its signature quorum.
+
+    Fed on every decision and by sync; anchors view changes (the last-decision
+    proof inside ViewData) and the leader's proposal metadata.
+    Parity: reference pkg/types/types.go:71-105.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._proposal: Proposal = Proposal()
+        self._signatures: tuple[Signature, ...] = ()
+
+    def get(self) -> tuple[Proposal, tuple[Signature, ...]]:
+        with self._lock:
+            return self._proposal, self._signatures
+
+    def set(self, proposal: Proposal, signatures: Sequence[Signature]) -> None:
+        with self._lock:
+            self._proposal = proposal
+            self._signatures = as_cert(signatures)
+
+
+__all__ = [
+    "RequestInfo",
+    "Proposal",
+    "Signature",
+    "Decision",
+    "QuorumCert",
+    "as_cert",
+    "Reconfig",
+    "SyncResponse",
+    "ViewSequence",
+    "Checkpoint",
+    "replace",
+]

@@ -16,13 +16,14 @@ from chip_smoke import weaken
 from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
-from consensus_tpu_torch.models.verifier import engine_for_config
+from consensus_tpu_torch.models.verifier import Ed25519Signer, engine_for_config
 from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
+from consensus_tpu_torch.testing import ClientKeyring, Cluster, SigOnlyVerifier, SignedRequestApp
 
 P = fe.P
 
@@ -392,3 +393,39 @@ def test_supervised_engine_cross_checks_clean_on_card(cuda_device):
     assert dump["engine_crosscheck_total"]["value"] == 1
     assert dump["engine_crosscheck_mismatch_total"]["value"] == 0
     assert sup.rung == 0 and not sup.health.suspect
+
+
+def _signed_request_cluster(engine, replicas: int = 4, clients: int = 4):
+    cluster = Cluster(replicas, seed=9,
+                      config_tweaks={"request_batch_max_count": 64, "request_pool_size": 256})
+    signers = {i: Ed25519Signer(i, bytes([i]) * 32) for i in cluster.nodes}
+    keys = {i: s.public_bytes for i, s in signers.items()}
+    keyring = ClientKeyring([Ed25519Signer(100 + c, bytes([100 + c]) * 32) for c in range(clients)])
+    for node_id, node in cluster.nodes.items():
+        node.app = SignedRequestApp(
+            node_id, cluster, signers[node_id], SigOnlyVerifier(keys, engine=engine),
+            client_keys=keyring.public_keys, engine=engine,
+        )
+    cluster.start()
+    for block in range(2):
+        for r in range(64):
+            cluster.submit_to_all(keyring.make_request(r % clients, block * 64 + r))
+        assert cluster.run_until_ledger(block + 1, max_time=300.0)
+    cluster.assert_ledgers_consistent()
+    return [[d.proposal.digest() for d in n.app.ledger] for n in cluster.nodes.values()]
+
+
+@pytest.mark.cuda
+def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(cuda_device):
+    """4 SignedRequestApp replicas order 2 blocks of 64 signed requests with
+    one strict engine on the card: every replica's proposal wave (64
+    requests, then 64 + the previous commit certificate) launches B1, and
+    the ledgers equal those of the same cluster on the host path."""
+    card = med.Ed25519BatchVerifier(device=cuda_device, min_device_batch=32)
+    before = KERNELS.stats("horner_scan").launches
+    on_card = _signed_request_cluster(card)
+    launches = KERNELS.stats("horner_scan").launches - before
+    assert launches >= 2 * 4  # each replica's wave, each block
+    host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
+    assert _signed_request_cluster(host) == on_card
+    assert len(on_card[0]) == 2

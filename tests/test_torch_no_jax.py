@@ -313,3 +313,41 @@ def test_chip_smoke_supervised_phase_rehearses_on_cpu():
     assert flip["engine"]["engine_recovered_total"] == 1
     assert flip["engine"]["engine_crosscheck_total"] == 2  # the probe's and the flip's
     assert [len(f["host_s"]) for f in s["faults"]] == [1, 1, 1]
+
+
+def test_chip_smoke_cluster_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 12 at 4 replicas x 20 signed requests, 2 blocks, device calls
+    from 16 signatures: identical ledgers, every replica's proposal wave
+    (the 3 followers' and the leader's own) a device call of the plain
+    version, the commit quorums on the host path, nothing launched."""
+    # As in the P-256 rehearsal, the plain scan's result on the same inputs
+    # stands in for it in the profiled re-run (its first call is real), so
+    # the profiler has few ops to sort.
+    real, seen = scan_kernels.horner_scan, {}
+
+    def remembered_scan(*args):
+        key = tuple(t.numpy().tobytes() for t in args)
+        if key not in seen:
+            seen[key] = real(*args)
+        return seen[key]
+
+    monkeypatch.setattr(scan_kernels, "horner_scan", remembered_scan)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        c = chip_smoke.phase_cluster("cpu", replicas=4, requests=20, blocks=2, min_device_batch=16)
+    finally:
+        torch.set_num_threads(threads)
+    p = c["profiled"]
+    assert c["profiled_sigs"] == 23 and list(p["ranges"]) == list(chip_smoke.WAVE_RANGES)
+    assert p["busy_ms"] is None and p["unranged_ms"] is None
+    assert (c["replicas"], c["blocks"], c["quorum"]) == (4, 2, 3)
+    assert (c["device_calls"], c["follower_waves"], c["leader_waves"]) == (8, 6, 2)
+    # 20 requests, then 20 + the previous decision's 3-vote certificate.
+    assert c["wave_sizes"] == [20, 23] and c["padded"] == [32]
+    assert c["launches"] == (0, 0, 0) and c["host_calls"] > 0 and c["host_sigs"] < 16 * c["host_calls"]
+    assert [b["device_calls"] for b in c["block_log"]] == [4, 4]
+    for b in c["block_log"]:
+        assert b["wall_ms"] >= b["device_ms"] + b["host_ms"] > 0
+    assert c["votes_checked"] >= 2 * 4 * 3 and c["reference_checked"] == 8
+    assert c["tx_per_s"] > 0 and c["peak_bytes"] is None and c["wal_bytes"] > 0

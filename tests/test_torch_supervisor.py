@@ -361,11 +361,11 @@ def test_engine_for_config_routes_through_supervision():
 
 
 def test_config_validates_crosscheck_requires_supervision():
-    Configuration(engine_supervision=True, engine_crosscheck_interval=2).validate()
+    Configuration(self_id=1, engine_supervision=True, engine_crosscheck_interval=2).validate()
     with pytest.raises(ValueError, match="requires engine_supervision"):
-        Configuration(engine_crosscheck_interval=2).validate()
+        Configuration(self_id=1, engine_crosscheck_interval=2).validate()
     with pytest.raises(ValueError, match="engine_crosscheck_interval"):
-        Configuration(engine_supervision=True, engine_crosscheck_interval=-1).validate()
+        Configuration(self_id=1, engine_supervision=True, engine_crosscheck_interval=-1).validate()
 
 
 # --- differential: one seeded schedule through both supervisors ---------------

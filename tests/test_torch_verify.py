@@ -212,8 +212,11 @@ def test_engine_for_config_default_and_unported_lanes():
     engine = tver.engine_for_config(Configuration(), device="cpu")
     assert type(engine) is tmed.Ed25519BatchVerifier
     assert engine._min_device_batch == 16 and engine._pad_pow2 and engine.padded_size(7000) == 8192
-    for field in dataclasses.fields(Configuration):
-        assert getattr(Configuration(), field.name) == getattr(JaxConfiguration(), field.name)
+    # Every field, nested ones (trace, compile_cache) by value.
+    assert [f.name for f in dataclasses.fields(Configuration)] == [
+        f.name for f in dataclasses.fields(JaxConfiguration)
+    ]
+    assert dataclasses.asdict(Configuration()) == dataclasses.asdict(JaxConfiguration())
     for knobs, item in (
         (dict(device_prep=True), "item 10"),
         (dict(mesh_shards=2), "item 12"),
@@ -253,7 +256,7 @@ def test_engine_for_config_default_and_unported_lanes():
 )
 def test_configuration_validate_matches_jax(knobs):
     with pytest.raises(ValueError) as port_err:
-        Configuration(**knobs).validate()
+        Configuration(self_id=1, **knobs).validate()
     with pytest.raises(ValueError) as jax_err:
         JaxConfiguration(self_id=1, **knobs).validate()
     assert str(port_err.value) == str(jax_err.value)
