@@ -1,6 +1,6 @@
 """Device and kernel accounting (the port's part of ``consensus_tpu/obs``):
 the kernel ledger and the kernel-library build ledger.  The sampler,
-detectors, exporters and flight recorder come with the protocol core."""
+detectors, exporters and flight recorder are ROADMAP.md queue A item 7b."""
 
 from consensus_tpu_torch.obs.kernels import (
     COMPILE_CACHE,
