@@ -82,8 +82,10 @@ Phases:
    signatures verified, B1's launches equal to the engine's device calls
    (every replica's proposal wave, counted by a counting subclass), B2 and
    B3 never launched; each block's time split into the engine's device
-   calls, the host-path verifications and the rest, the chain's tx/s, and
-   a profiled re-run of a follower wave.
+   calls, the host-path verifications and the rest, the sim's serial tx/s
+   (the replicas' waves of a block run in turn on one thread), a profiled
+   re-run of a follower wave, and B1 against its plain version on that
+   wave's own inputs (1,024 lanes).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -435,6 +437,16 @@ def _check_horner(neg_a, k_digits) -> float:
                 f"{bad.numel()} of {lanes} lanes (first {bad[:8].tolist()})"
             )
     return max_err
+
+
+def wave_scan_inputs(engine, msgs, sigs, keys):
+    """Kernel B1's inputs on an engine's own path for one wave: its padded
+    device inputs, then (-A) and the k digits as ``verify_impl`` builds
+    them (decompression is per lane, so A alone gives the same points)."""
+    _, _, y_a, sign_a, _, k_digits, _ = engine.prepare_device_inputs(msgs, sigs, keys)
+    pt, _ = ed.decompress(y_a.to(torch.float32), sign_a.to(torch.int32))
+    neg_a = tuple(c.contiguous() for c in ed.negate(pt))
+    return neg_a, k_digits.to(torch.int32).contiguous()
 
 
 def phase_kernel(device, keys, lanes: int, reps: int, plain_reps: int,
@@ -1599,6 +1611,13 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
     prof = profile_wave(engine, *engine.follower_wave, device)
     if not prof.pop("verdicts").all():
         raise AssertionError("the profiled re-run of a follower wave rejected a signature")
+    # B1 against its plain version at this phase's own width, on the last
+    # follower wave's scan inputs as the engine builds them.
+    neg_a, k_digits = wave_scan_inputs(engine, *engine.follower_wave)
+    scan = {"lanes": k_digits.shape[1], "max_abs_err": _check_horner(neg_a, k_digits),
+            "ms": _time_ms(lambda: scan_kernels.horner_scan(*neg_a, k_digits), 20, device),
+            "plain_ms": _time_ms(
+                lambda: scan_kernels.horner_scan_reference(*neg_a, k_digits), 3, device)}
     measured = block_log[1:] or block_log
     return {
         "replicas": replicas, "requests": requests, "blocks": blocks, "clients": clients,
@@ -1614,7 +1633,7 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
         "reference_checked": len(sample),
         "tx_per_s": requests * len(measured) / sum(b["wall_ms"] / 1e3 for b in measured),
         "peak_bytes": peak, "held_bytes": held, "profiled": prof,
-        "profiled_sigs": len(engine.follower_wave[0]),
+        "profiled_sigs": len(engine.follower_wave[0]), "scan": scan,
         "sign_s": sign_s, "wal_bytes": wal_bytes,
         "phase_s": time.perf_counter() - phase_t0,
     }
@@ -1630,7 +1649,8 @@ def log_cluster(c: dict, direct_ms: float) -> None:
             f"in torch.cuda.synchronize()) = device calls {b['device_ms']:.3f} ms ({b['device_calls']}) "
             f"+ host-path verifications {b['host_ms']:.3f} ms ({b['host_calls']} calls, "
             f"{b['host_sigs']} signatures) + the rest (protocol, codec, WAL fsync) {b['rest_ms']:.3f} ms")
-    log(f"  chain: {c['tx_per_s']:.1f} tx/s over blocks 2-{c['blocks']}")
+    log(f"  the sim's serial tx/s (the {c['replicas']} waves of a block run in turn on one thread, "
+        f"not side by side as in a deployment): {c['tx_per_s']:.1f} over blocks 2-{c['blocks']}")
     ms = c["wave_ms"]
     log(f"  device calls {c['device_calls']}: {c['follower_waves']} follower proposal waves and "
         f"{c['leader_waves']} of the leader's own proposal (it verifies what it proposed, "
@@ -1644,6 +1664,11 @@ def log_cluster(c: dict, direct_ms: float) -> None:
         f"verified on the engine, {c['reference_checked']} on the RFC 8032 reference")
     log(f"  the last follower wave ({c['profiled_sigs']} signatures), profiled again after the blocks:")
     log_profile(c["profiled"], "horner_scan")
+    sc = c["scan"]
+    log(f"  horner_scan on that wave's own inputs ({sc['lanes']} lanes): frozen X, Y, Z, T equal "
+        f"to horner_scan_reference on every lane (max abs err {sc['max_abs_err']}); kernel "
+        f"{sc['ms']:.6f} ms (CUDA events, mean of 20), plain torch version {sc['plain_ms']:.6f} ms "
+        f"(mean of 3)")
     log(f"  torch.cuda.max_memory_allocated: {c['peak_bytes']} bytes (torch.cuda.memory_allocated "
         f"before the blocks {c['held_bytes']} bytes); WAL on disk {c['wal_bytes']} bytes; "
         f"phase {c['phase_s']:.3f} s")

@@ -32,9 +32,11 @@ from __future__ import annotations
 
 import os
 import struct
+import warnings
 from typing import Mapping, Optional, Sequence
 
 from consensus_tpu_torch.api.deps import Signer, Verifier
+from consensus_tpu_torch.config import CompileCacheConfig
 from consensus_tpu_torch.device import DeviceLike
 from consensus_tpu_torch.models.ecdsa_p256 import (
     N as P256_N,
@@ -91,7 +93,18 @@ def engine_for_config(
     the config's degrade ladder (:func:`degrade_ladder_configs`) with the
     host twin as its floor, cross-checking every
     ``engine_crosscheck_interval``-th launch on the host.  Supervision
-    changes only WHERE work runs, never the verdict."""
+    changes only WHERE work runs, never the verdict.
+
+    ``compile_cache`` is inert in the port (it has no jit memo and no XLA
+    cache; kernel libraries are cached on disk by their source's hash), so
+    a non-default value warns instead of being ignored in silence."""
+    cache = getattr(config, "compile_cache", CompileCacheConfig())
+    if cache != CompileCacheConfig():
+        warnings.warn(
+            f"compile_cache={cache} has no effect in the PyTorch port: it has no "
+            "jit memo and no XLA cache to configure (ROADMAP.md queue C, divergence 14)",
+            stacklevel=2,
+        )
     before = COMPILE_CACHE.snapshot()
     if not getattr(config, "engine_supervision", False):
         engine = _engine_for_config(config, curve, device)

@@ -1,0 +1,164 @@
+"""The port's copies of the JAX package's JAX-free modules stay copies.
+
+Each module below is the JAX module with ``consensus_tpu.`` imports renamed
+to ``consensus_tpu_torch.``.  With the rename undone:
+
+- every module's code (its AST, docstrings left out) equals the JAX
+  module's, apart from the divergences listed in ``DIVERGENCES``;
+- the verbatim copies' text, comments included, equals the JAX module's
+  outside the module docstring (where the port says whose copy it is).
+
+The reworded copies differ from the JAX text in comments and docstrings
+only (they speak of the device where the JAX text speaks of the TPU).
+The test reads both files and imports neither.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "consensus_tpu_torch"
+JAX = ROOT / "consensus_tpu"
+
+VERBATIM = [
+    "api/__init__.py",
+    "consensus.py",
+    "core/__init__.py",
+    "core/batcher.py",
+    "core/collector.py",
+    "core/controller.py",
+    "core/heartbeat.py",
+    "core/pool.py",
+    "core/state.py",
+    "core/view.py",
+    "core/viewchanger.py",
+    "membership/__init__.py",
+    "membership/bootstrap.py",
+    "membership/epoch.py",
+    "net/framing.py",
+    "sync/__init__.py",
+    "sync/client.py",
+    "sync/server.py",
+    "sync/store.py",
+    "sync/transport.py",
+    "testing/app.py",
+    "testing/network.py",
+    "trace/tracer.py",
+    "types.py",
+    "utils/__init__.py",
+    "utils/blacklist.py",
+    "utils/digests.py",
+    "utils/leader.py",
+    "utils/quorum.py",
+    "wal/__init__.py",
+    "wal/log.py",
+    "wal/scrub.py",
+    "wire/__init__.py",
+    "wire/codec.py",
+    "wire/messages.py",
+]
+REWORDED = ["api/deps.py", "config.py", "metrics.py", "testing/crypto_app.py"]
+
+#: The divergences the port keeps on purpose, each as (the JAX text, the
+#: port's text in its place).
+DIVERGENCES = {
+    # ROADMAP.md queue C, divergence 13: a cluster asked to sample refuses
+    # to run without the observability plane.
+    "testing/app.py": (
+        """            from consensus_tpu.obs.sampler import ClusterSampler
+
+            self.sampler = ClusterSampler(
+                self,
+                interval=obs.sample_interval,
+                capacity=obs.ring_capacity,
+                thresholds=obs.detector_thresholds,
+            )
+""",
+        """            # The JAX package builds its ClusterSampler here; the port has
+            # no observability plane yet, and a cluster asked to sample must
+            # not run without it.
+            raise NotImplementedError(
+                "Cluster(obs=...): the observability plane (obs/sampler.py, "
+                "detectors.py, flightrec.py, export.py) is not ported yet "
+                "(ROADMAP.md queue A, item 7b)"
+            )
+""",
+    ),
+    # The engine bundle's compile-cache keys are exported as well (the
+    # port's engine layer books them, models/verifier.py).
+    "metrics.py": (
+        """    "ENGINE_RUNG_KEY",
+    "ENGINE_KEYS",
+""",
+        """    "ENGINE_RUNG_KEY",
+    "ENGINE_COMPILE_CACHE_HITS_KEY",
+    "ENGINE_COMPILE_CACHE_MISSES_KEY",
+    "ENGINE_KEYS",
+""",
+    ),
+}
+# Divergence 14 (``compile_cache`` inert in the port) is a comment and a
+# warning in models/verifier.py, not a code difference in config.py.
+
+
+def _sources(module: str) -> tuple[str, str]:
+    """(the port's source with the rename undone, the JAX source with the
+    listed divergence applied)."""
+    port = (PORT / module).read_text().replace("consensus_tpu_torch", "consensus_tpu")
+    jax_src = (JAX / module).read_text()
+    if module in DIVERGENCES:
+        old, new = DIVERGENCES[module]
+        assert jax_src.count(old) == 1, f"{module}: the JAX text of the divergence moved"
+        assert port.count(new) == 1, f"{module}: the port's text of the divergence moved"
+        jax_src = jax_src.replace(old, new)
+    return port, jax_src
+
+
+def _code(source: str) -> str:
+    """The AST of ``source`` without its docstrings."""
+    tree = ast.parse(source)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def _outside_module_docstring(source: str) -> list[str]:
+    lines = source.splitlines()
+    doc = ast.parse(source).body[0]
+    assert isinstance(doc, ast.Expr) and isinstance(doc.value, ast.Constant)
+    return lines[:doc.lineno - 1] + lines[doc.end_lineno:]
+
+
+@pytest.mark.parametrize("module", VERBATIM + REWORDED)
+def test_copy_has_the_jax_modules_code(module):
+    port, jax_src = _sources(module)
+    assert _code(port) == _code(jax_src)
+
+
+@pytest.mark.parametrize("module", VERBATIM)
+def test_verbatim_copy_has_the_jax_modules_text(module):
+    port, jax_src = _sources(module)
+    assert _outside_module_docstring(port) == _outside_module_docstring(jax_src)
+
+
+def test_every_copy_is_listed():
+    """Every port module whose JAX namesake it copies whole is listed; the
+    rest of the port (the engine layer, the kernels, the package
+    ``__init__`` files that export less) is its own code."""
+    own = {
+        "__init__.py", "device.py", "net/__init__.py", "trace/__init__.py",
+        "testing/__init__.py",
+    }
+    own_dirs = {"models", "ops", "obs", "runtime", "csrc"}
+    listed = set(VERBATIM) | set(REWORDED)
+    for path in PORT.rglob("*.py"):
+        rel = path.relative_to(PORT).as_posix()
+        if rel in own or rel.split("/")[0] in own_dirs:
+            continue
+        assert rel in listed, f"{rel} is neither a listed copy nor the port's own"

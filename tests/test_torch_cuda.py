@@ -415,17 +415,32 @@ def _signed_request_cluster(engine, replicas: int = 4, clients: int = 4):
     return [[d.proposal.digest() for d in n.app.ledger] for n in cluster.nodes.values()]
 
 
+class _CountingEngine(med.Ed25519BatchVerifier):
+    """The strict engine, counting its calls that reach ``min_device_batch``
+    (its device calls)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.device_calls = 0
+
+    def verify_batch(self, messages, signatures, public_keys):
+        self.device_calls += len(messages) >= self._min_device_batch
+        return super().verify_batch(messages, signatures, public_keys)
+
+
 @pytest.mark.cuda
 def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(cuda_device):
     """4 SignedRequestApp replicas order 2 blocks of 64 signed requests with
     one strict engine on the card: every replica's proposal wave (64
-    requests, then 64 + the previous commit certificate) launches B1, and
-    the ledgers equal those of the same cluster on the host path."""
-    card = med.Ed25519BatchVerifier(device=cuda_device, min_device_batch=32)
-    before = KERNELS.stats("horner_scan").launches
+    requests, then 64 + the previous commit certificate) is a device call,
+    B1 launches once per device call and B2 and B3 never, and the ledgers
+    equal those of the same cluster on the host path."""
+    card = _CountingEngine(device=cuda_device, min_device_batch=32)
+    before = {name: KERNELS.stats(name).launches for name in scan_kernels.KERNELS}
     on_card = _signed_request_cluster(card)
-    launches = KERNELS.stats("horner_scan").launches - before
-    assert launches >= 2 * 4  # each replica's wave, each block
+    launches = {name: KERNELS.stats(name).launches - n for name, n in before.items()}
+    assert card.device_calls >= 2 * 4  # each replica's wave, each block
+    assert launches == {"horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0}
     host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
     assert _signed_request_cluster(host) == on_card
     assert len(on_card[0]) == 2

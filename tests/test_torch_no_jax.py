@@ -351,3 +351,33 @@ def test_chip_smoke_cluster_phase_rehearses_on_cpu(monkeypatch):
         assert b["wall_ms"] >= b["device_ms"] + b["host_ms"] > 0
     assert c["votes_checked"] >= 2 * 4 * 3 and c["reference_checked"] == 8
     assert c["tx_per_s"] > 0 and c["peak_bytes"] is None and c["wal_bytes"] > 0
+    # B1 held against its plain version on the last follower wave's inputs.
+    assert c["scan"]["lanes"] == 32 and c["scan"]["max_abs_err"] == 0
+
+
+def test_wave_scan_inputs_are_the_engines_own(monkeypatch):
+    """The inputs phase 12 holds B1 to its plain version on are the ones
+    the engine's own verify call hands horner_scan, padding included."""
+    from consensus_tpu_torch.models import ed25519 as med
+    from consensus_tpu_torch.models.verifier import Ed25519Signer
+
+    signers = [Ed25519Signer(1 + i, bytes([1 + i]) * 32) for i in range(3)]
+    msgs = [b"wave-%d" % i for i in range(19)]
+    sigs = [signers[i % 3].sign_raw(m) for i, m in enumerate(msgs)]
+    keys = [signers[i % 3].public_bytes for i in range(len(msgs))]
+    sigs[4] = sigs[4][:10] + bytes([sigs[4][10] ^ 1]) + sigs[4][11:]
+    engine = med.Ed25519BatchVerifier(device="cpu", min_device_batch=16)
+    seen = []
+    real = scan_kernels.horner_scan
+
+    def recording_scan(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(scan_kernels, "horner_scan", recording_scan)
+    assert engine.verify_batch(msgs, sigs, keys).tolist() == [i != 4 for i in range(19)]
+    neg_a, k_digits = chip_smoke.wave_scan_inputs(engine, msgs, sigs, keys)
+    (got,) = seen
+    assert k_digits.shape == (64, 32)
+    for g, w in zip(got, (*neg_a, k_digits)):
+        assert g.dtype == w.dtype and torch.equal(g, w)

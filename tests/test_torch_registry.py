@@ -199,6 +199,22 @@ def test_engine_for_config_books_the_kernel_builds_it_triggers(monkeypatch):
     assert dump[tmetrics.ENGINE_COMPILE_CACHE_MISSES_KEY]["value"] == 1
 
 
+def test_engine_for_config_warns_that_compile_cache_is_inert():
+    """``compile_cache`` is kept for parity and read by nothing in the port,
+    so setting it to anything but its default warns; the default does not."""
+    import warnings
+
+    from consensus_tpu_torch.config import CompileCacheConfig
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tver.engine_for_config(Configuration(), device="cpu")
+    for cache in (CompileCacheConfig(enabled=False), CompileCacheConfig(persistent_dir="cache")):
+        with pytest.warns(UserWarning, match="compile_cache.*no effect in the PyTorch port"):
+            engine = tver.engine_for_config(Configuration(compile_cache=cache), device="cpu")
+        assert isinstance(engine, Ed25519BatchVerifier)
+
+
 def test_engine_metric_names_match_jax_and_the_golden():
     assert tmetrics.ENGINE_KEYS == jmetrics.ENGINE_KEYS
     assert tmetrics.GROUPS_KEYS == jmetrics.GROUPS_KEYS
