@@ -17,7 +17,10 @@ cluster ordering blocks):
   signatures, padded to 2,048 lanes;
 * randomized Ed25519 batch verification (``batch_verify_mode``) at config
   3's size: the same 7,000-signature block wave, checked in aggregate, and
-  a sync catch-up chunk of 51 decisions' 5-vote quorums.
+  a sync catch-up chunk of 51 decisions' 5-vote quorums;
+* the fused front end (``device_prep``: the SHA-512 challenges, the
+  transcript and the scalars on the card, kernel S1) on the same waves, and
+  half-aggregated quorum certificates (``cert_mode="half-agg"``).
 
 Phases:
 
@@ -85,7 +88,37 @@ Phases:
    calls, the host-path verifications and the rest, the sim's serial tx/s
    (the replicas' waves of a block run in turn on one thread), a profiled
    re-run of a follower wave, and B1 against its plain version on that
-   wave's own inputs (1,024 lanes).
+   wave's own inputs (1,024 lanes);
+13. kernel S1 (SHA-512, ``csrc/sha512.cu``) against its plain version on
+   the strict wave's challenge blocks ``R || A || M`` (7,000 signatures on
+   8,192 lanes, as the fused engine packs them), tolerance 0, and every live
+   lane's digest against ``hashlib.sha512``; then on one lane holding the
+   randomized wave's transcript root message (``tag || n || n leaf
+   digests`` over its 6,860 live lanes) against hashlib only; CUDA-event
+   times, and bounds from the block loop's instructions as ``cuobjdump
+   -sass`` lists them;
+14. the fused strict wave (``device_prep``): phase 3's corpus through
+   ``engine_for_config(Configuration(device_prep=True))``, verdicts equal to
+   phase 3's lane for lane, S1 and B1 launched once, B2 and B3 never; both
+   engines' host prep timed on the wave, a profiled re-run, peak memory,
+   and three replicas' waves through ``verify_stream``;
+15. the fused randomized wave: phase 7's corpus through
+   ``FusedEd25519RandomizedBatchVerifier``, verdicts equal to phase 7's, B3
+   launched once per aggregate check (as many as phase 7's) and S1 four
+   times a check;
+16. half-aggregated certificates: the catch-up chunk's 51 decisions'
+   honest quorums aggregated over the fused engine at
+   ``min_device_batch=1``, each cert verified on the card (one B3 launch)
+   and on the host twin, tampered certs rejected, and each forged vote of
+   the chunk localized by bisection exactly as the strict engine does;
+17. the configuration path: phase 12's cluster with the engine that
+   ``engine_for_config`` builds from ``Configuration(device_prep=True,
+   cert_mode="half-agg", crypto_tpu_min_batch=32)``, ordering the first 2
+   of the same 4 blocks of signed requests (cut from 4 to keep the script
+   near its time); all ledgers identical, every decided certificate a
+   ``QuorumCert`` that verifies on the host twin, B1 and S1 once per device
+   call, and S1 against its plain version on the last follower wave's
+   blocks.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -95,6 +128,7 @@ raises and exits non-zero.  It runs on CUDA only; the phases take a
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import struct
@@ -122,7 +156,14 @@ from consensus_tpu_torch.metrics import (
 )
 from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
+from consensus_tpu_torch.models.aggregate import HalfAggregator
 from consensus_tpu_torch.models.engine import ThreadCoalescingVerifier
+from consensus_tpu_torch.models.fused import (
+    FusedEd25519BatchVerifier,
+    FusedEd25519RandomizedBatchVerifier,
+    canonical_ok_fast,
+)
+from consensus_tpu_torch.models.fused import _frame as frame
 from consensus_tpu_torch.models.supervisor import EngineSupervisor, HostTwin
 from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
@@ -137,9 +178,10 @@ from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
+from consensus_tpu_torch.ops import sha512 as sh
 from consensus_tpu_torch.testing import Cluster
 from consensus_tpu_torch.testing.crypto_app import ClientKeyring, SigOnlyVerifier, SignedRequestApp
-from consensus_tpu_torch.types import Proposal
+from consensus_tpu_torch.types import Proposal, QuorumCert
 from consensus_tpu_torch.wal import DEFAULT_SEGMENT_MAX_BYTES
 
 #: BASELINE.json config 3: 7 replicas (f = 2), 1,000 requests per block.
@@ -234,6 +276,30 @@ FLUSHER = "verify-coalescer"
 CLUSTER_BLOCKS = 4
 CLUSTER_CLIENTS = 16
 CLUSTER_MIN_DEVICE_BATCH = 32
+#: Phase 17 runs the same cluster on the configuration path for 2 of those
+#: blocks (one warm-up, one measured), to keep the script near its time.
+FUSED_CLUSTER_BLOCKS = 2
+
+#: The fused engines' record_function ranges (models/fused.py), in the order
+#: they run: the strict wave's, then an aggregate check's.
+FUSED_RANGES = (
+    "ed25519.fused.host_prep", "ed25519.fused.sha512", "ed25519.fused.scalars",
+    "ed25519.fused.checks", "ed25519.decompress", "ed25519.negate", "ed25519.horner_scan",
+    "ed25519.comb", "ed25519.add_and_equal",
+)
+FUSED_BATCH_RANGES = (
+    "ed25519.fused.host_prep", "ed25519.fused.challenge", "ed25519.fused.transcript",
+    "ed25519.fused.scalars", "ed25519.batch.decompress", "ed25519.batch.negate",
+    "ed25519.batch.straus_msm", "ed25519.batch.comb", "ed25519.batch.check",
+)
+#: S1 launches of one fused aggregate check: the challenges, the transcript's
+#: leaves, its root and its coefficients (models/fused.py).
+S1_PER_CHECK = 4
+#: 32-bit integer add, logical and shift results per clock per SM on compute
+#: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput table); S1's bound counts every instruction of its block loop
+#: at this rate, so it stays a lower bound.
+INT_PER_CLOCK_PER_SM = 64
 
 
 def log(*parts) -> None:
@@ -1020,7 +1086,14 @@ def ptxas_summary(report: str) -> dict:
 
 def _launch_counts() -> tuple[int, int, int]:
     """B1, B2 and B3's launches from the kernel ledger."""
-    return tuple(KERNELS.stats(name).launches for name in scan_kernels.KERNELS)
+    return tuple(
+        KERNELS.stats(name).launches for name in ("horner_scan", "horner_scan_p256", "straus_msm")
+    )
+
+
+def _s1_launches() -> int:
+    """S1's launches from the kernel ledger."""
+    return KERNELS.stats("sha512").launches
 
 
 def _reset_launch_counts() -> None:
@@ -1093,6 +1166,7 @@ def phase_wave_randomized(device, corpus, replicas: int) -> dict:
         "horner_launches": horner,
         "horner_p256_launches": horner_p256,
         "peak_bytes": peak,
+        "verdicts": got,
     }
 
 
@@ -1451,29 +1525,53 @@ def phase_supervised(device, decisions: int) -> dict:
 # --- the protocol core: phase 12 (a config-3 cluster ordering blocks) ---------
 
 
-class _ClusterEngine(med.Ed25519BatchVerifier):
-    """The strict engine, counting and timing each of its calls: a device
-    call where the batch reaches ``min_device_batch``, else a host-path call
-    (``_verify_host``), each with the replica whose proposal wave it was,
-    if any.  The count lives here, not in the package."""
+def _cluster_engine(engine):
+    """``engine``, its class swapped for a subclass that counts and times
+    each of its calls: a device call where the batch reaches
+    ``min_device_batch``, else a host-path call (``_verify_host``), each with
+    the replica whose proposal wave it was, if any.  The count lives here,
+    not in the package."""
+    base = type(engine)
 
-    def __init__(self, **kw):
-        super().__init__(**kw)
-        self.calls: list[dict] = []
-        self.wave_of = None  # (node id, leader?) while a proposal wave runs
-        self.follower_wave = None  # the inputs of the last follower wave
+    class ClusterEngine(base):
+        def verify_batch(self, messages, signatures, public_keys):
+            t0 = time.perf_counter()
+            out = super().verify_batch(messages, signatures, public_keys)
+            device = len(messages) >= self._min_device_batch
+            self.calls.append({
+                "device": device, "n": len(messages),
+                "s": time.perf_counter() - t0, "wave_of": self.wave_of,
+            })
+            if device and self.wave_of is not None and not self.wave_of[1]:
+                self.follower_wave = (list(messages), list(signatures), list(public_keys))
+            return out
 
-    def verify_batch(self, messages, signatures, public_keys):
-        t0 = time.perf_counter()
-        out = super().verify_batch(messages, signatures, public_keys)
-        device = len(messages) >= self._min_device_batch
-        self.calls.append({
-            "device": device, "n": len(messages),
-            "s": time.perf_counter() - t0, "wave_of": self.wave_of,
-        })
-        if device and self.wave_of is not None and not self.wave_of[1]:
-            self.follower_wave = (list(messages), list(signatures), list(public_keys))
-        return out
+    ClusterEngine.__name__ = base.__name__
+    engine.__class__ = ClusterEngine
+    engine.calls = []
+    engine.wave_of = None  # (node id, leader?) while a proposal wave runs
+    engine.follower_wave = None  # the inputs of the last follower wave
+    return engine
+
+
+_SIGNED: dict = {}
+
+
+def _signed_requests(blocks: int, requests: int, clients: int):
+    """The cluster phases' client keyring and ``blocks`` x ``requests``
+    signed requests, signed once per process, so phase 17 orders the very
+    requests phase 12 ordered; and whether any were signed by this call,
+    and how many seconds that took."""
+    keyring, raws = _SIGNED.get((requests, clients), (None, []))
+    if keyring is None:
+        keyring = ClientKeyring([Ed25519Signer(1000 + c, (1000 + c).to_bytes(32, "big"))
+                                 for c in range(clients)])
+    fresh = len(raws) < blocks
+    t0 = time.perf_counter()
+    raws = raws + [[keyring.make_request(r % clients, b * requests + r) for r in range(requests)]
+                   for b in range(len(raws), blocks)]
+    _SIGNED[(requests, clients)] = (keyring, raws)
+    return keyring, raws[:blocks], fresh, time.perf_counter() - t0
 
 
 class _WaveApp(SignedRequestApp):
@@ -1492,28 +1590,38 @@ class _WaveApp(SignedRequestApp):
 
 def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
                   blocks: int = CLUSTER_BLOCKS, clients: int = CLUSTER_CLIENTS,
-                  min_device_batch: int = CLUSTER_MIN_DEVICE_BATCH) -> dict:
+                  min_device_batch: int = CLUSTER_MIN_DEVICE_BATCH,
+                  config: Configuration | None = None) -> dict:
     """``replicas`` SignedRequestApp replicas of the port's ``Cluster`` on
     the simulated network, wired as benchmarks/chain_crypto_tps.py wires
-    its device mode without the coalescer: one strict engine on ``device``
-    shared by every replica, an Ed25519 signer per replica, ``clients``
-    client keys, 1,000-request batches, no leader rotation, a file WAL per
-    replica at the default segment size.  ``blocks`` blocks of ``requests``
-    signed requests each; the first is warm-up, the rest are measured."""
+    its device mode without the coalescer: one engine on ``device`` shared
+    by every replica, an Ed25519 signer per replica, ``clients`` client
+    keys, 1,000-request batches, no leader rotation, a file WAL per replica
+    at the default segment size.  ``blocks`` blocks of ``requests`` signed
+    requests each; the first is warm-up, the rest are measured.
+
+    The engine is the strict ``Ed25519BatchVerifier`` at
+    ``min_device_batch``, or, given a ``config``, the one
+    ``engine_for_config`` builds from it, with the cluster in the config's
+    ``cert_mode``."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     phase_t0 = time.perf_counter()
-    engine = _ClusterEngine(device=device, min_device_batch=min_device_batch)
+    if config is None:
+        engine = med.Ed25519BatchVerifier(device=device, min_device_batch=min_device_batch)
+    else:
+        engine = engine_for_config(config, device=device)
+        min_device_batch = engine._min_device_batch
+    engine = _cluster_engine(engine)
+    fused = bool(getattr(engine, "fused", False))
+    half_agg = config is not None and config.cert_mode == "half-agg"
     signers = {i: Ed25519Signer(i, bytes([i]) * 32) for i in range(1, replicas + 1)}
     keys = {i: s.public_bytes for i, s in signers.items()}
-    keyring = ClientKeyring([Ed25519Signer(1000 + c, (1000 + c).to_bytes(32, "big"))
-                             for c in range(clients)])
-    t0 = time.perf_counter()
-    raws = [[keyring.make_request(r % clients, b * requests + r) for r in range(requests)]
-            for b in range(blocks)]
-    sign_s = time.perf_counter() - t0
+    keyring, raws, signed_now, sign_s = _signed_requests(blocks, requests, clients)
     tweaks = {"request_batch_max_count": requests, "request_batch_max_interval": 0.02,
               "request_pool_size": 3 * requests}
+    if config is not None:
+        tweaks["cert_mode"] = config.cert_mode
     ed.comb_table(device)  # the constant table is set-up, not part of a block
 
     with tempfile.TemporaryDirectory(prefix="chip-smoke-wal-") as wal_dir:
@@ -1529,7 +1637,8 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated() if on_card else None
-            verify_before = KERNELS.stats("ed25519.verify").launches
+            ledger_name = "ed25519.fused_verify" if fused else "ed25519.verify"
+            verify_before = KERNELS.stats(ledger_name).launches
             _reset_launch_counts()
             block_log = []
             for b in range(blocks):
@@ -1553,7 +1662,8 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
                     "host_sigs": sum(c["n"] for c in block if not c["device"]),
                 })
             launches = _launch_counts()
-            verify_calls = KERNELS.stats("ed25519.verify").launches - verify_before
+            s1_launches = _s1_launches()
+            verify_calls = KERNELS.stats(ledger_name).launches - verify_before
             calls = list(engine.calls)
             peak = torch.cuda.max_memory_allocated() if on_card else None
             ledgers = {i: list(n.app.ledger) for i, n in cluster.nodes.items()}
@@ -1575,25 +1685,40 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
             raise AssertionError("a block does not carry its 1,000 requests")
     if views != {0}:
         raise AssertionError(f"the cluster changed view: {views}")
-    # Every decision carries 2f+1 commit signatures that verify under the
-    # registered keys: all on the engine, a sample on the RFC 8032 reference.
     quorum = 2 * ((replicas - 1) // 3) + 1
-    votes = [(commit_message(d.proposal, s.msg), s.value, keys[s.id])
-             for ledger in ledgers.values() for d in ledger for s in d.signatures]
     if min(len(d.signatures) for ledger in ledgers.values() for d in ledger) < quorum:
         raise AssertionError(f"a decision carries fewer than {quorum} commit signatures")
-    if not engine.verify_batch(*map(list, zip(*votes))).all():
-        raise AssertionError("a decision carries a commit signature that does not verify")
-    rng = np.random.default_rng(SEED + 12)
-    sample = rng.choice(len(votes), size=min(8, len(votes)), replace=False)
-    for i in sample:
-        msg, sig, key = votes[i]
-        if not med.ref_verify(key, sig, msg):
-            raise AssertionError(f"commit signature {i} fails the RFC 8032 reference")
+    if half_agg:
+        # Every decision carries a half-aggregated certificate of 2f+1
+        # components that verifies on the host twin under the registered keys.
+        host_twin = HalfAggregator(min_device_batch=10**9, device=device)
+        certs = [d for ledger in ledgers.values() for d in ledger]
+        for d in certs:
+            cert = d.signatures
+            if not isinstance(cert, QuorumCert):
+                raise AssertionError(f"a decision carries {type(cert).__name__}, not a QuorumCert")
+            if not host_twin.verify([commit_message(d.proposal, c.msg) for c in cert],
+                                    list(cert.rs), cert.s_agg, [keys[c.id] for c in cert]):
+                raise AssertionError("a decided certificate fails the host twin")
+        votes, sample = certs, []
+    else:
+        # Every decision carries 2f+1 commit signatures that verify under the
+        # registered keys: all on the engine, a sample on the RFC 8032
+        # reference.
+        votes = [(commit_message(d.proposal, s.msg), s.value, keys[s.id])
+                 for ledger in ledgers.values() for d in ledger for s in d.signatures]
+        if not engine.verify_batch(*map(list, zip(*votes))).all():
+            raise AssertionError("a decision carries a commit signature that does not verify")
+        rng = np.random.default_rng(SEED + 12)
+        sample = rng.choice(len(votes), size=min(8, len(votes)), replace=False)
+        for i in sample:
+            msg, sig, key = votes[i]
+            if not med.ref_verify(key, sig, msg):
+                raise AssertionError(f"commit signature {i} fails the RFC 8032 reference")
 
-    # The device calls: each replica's proposal wave, nothing else; B1 once
-    # per device call on the card (the CPU runs the plain version), B2 and
-    # B3 never.
+    # The device calls: each replica's proposal wave, nothing else; B1 (and
+    # S1 on the fused engine) once per device call on the card (the CPU runs
+    # the plain versions), B2 and B3 never.
     device_calls = [c for c in calls if c["device"]]
     others = [c for c in device_calls if c["wave_of"] is None]
     if others:
@@ -1604,20 +1729,32 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
                              f"but {verify_calls} device calls in the kernel ledger")
     if launches[0] != (len(device_calls) if on_card else 0) or launches[1] or launches[2]:
         raise AssertionError(f"kernel launches {launches} for {len(device_calls)} device calls")
+    if s1_launches != (len(device_calls) if on_card and fused else 0):
+        raise AssertionError(f"S1 launches {s1_launches} for {len(device_calls)} device calls")
     if len(followers) < (replicas - 1) * blocks:
         raise AssertionError(f"{len(followers)} follower waves for {blocks} blocks of {replicas} replicas")
     # The stages of the last follower wave, read off a profiled re-run of
     # its engine call after the counts were read.
-    prof = profile_wave(engine, *engine.follower_wave, device)
+    prof = profile_wave(engine, *engine.follower_wave, device,
+                        wave_ranges=FUSED_RANGES if fused else WAVE_RANGES)
     if not prof.pop("verdicts").all():
         raise AssertionError("the profiled re-run of a follower wave rejected a signature")
-    # B1 against its plain version at this phase's own width, on the last
-    # follower wave's scan inputs as the engine builds them.
-    neg_a, k_digits = wave_scan_inputs(engine, *engine.follower_wave)
-    scan = {"lanes": k_digits.shape[1], "max_abs_err": _check_horner(neg_a, k_digits),
-            "ms": _time_ms(lambda: scan_kernels.horner_scan(*neg_a, k_digits), 20, device),
-            "plain_ms": _time_ms(
-                lambda: scan_kernels.horner_scan_reference(*neg_a, k_digits), 3, device)}
+    if fused:
+        # S1 against its plain version at this phase's own width, on the last
+        # follower wave's blocks as the engine packs them (phase 12 holds B1
+        # to its plain version at the same width).
+        _, _, blocks_t, n_blocks_t, _ = engine._device_args(*engine.follower_wave)
+        scan = {"kernel": "sha512", "lanes": n_blocks_t.shape[0], "blocks": blocks_t.shape[0],
+                "max_abs_err": _check_sha512(blocks_t, n_blocks_t)}
+    else:
+        # B1 against its plain version at this phase's own width, on the last
+        # follower wave's scan inputs as the engine builds them.
+        neg_a, k_digits = wave_scan_inputs(engine, *engine.follower_wave)
+        scan = {"kernel": "horner_scan", "lanes": k_digits.shape[1],
+                "max_abs_err": _check_horner(neg_a, k_digits),
+                "ms": _time_ms(lambda: scan_kernels.horner_scan(*neg_a, k_digits), 20, device),
+                "plain_ms": _time_ms(
+                    lambda: scan_kernels.horner_scan_reference(*neg_a, k_digits), 3, device)}
     measured = block_log[1:] or block_log
     return {
         "replicas": replicas, "requests": requests, "blocks": blocks, "clients": clients,
@@ -1629,20 +1766,335 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
         "wave_ms": [c["s"] * 1e3 for c in device_calls],
         "host_calls": sum(b["host_calls"] for b in block_log),
         "host_sigs": sum(b["host_sigs"] for b in block_log),
-        "launches": launches, "quorum": quorum, "votes_checked": len(votes),
+        "launches": launches, "s1_launches": s1_launches, "fused": fused,
+        "half_agg": half_agg, "quorum": quorum, "votes_checked": len(votes),
         "reference_checked": len(sample),
         "tx_per_s": requests * len(measured) / sum(b["wall_ms"] / 1e3 for b in measured),
         "peak_bytes": peak, "held_bytes": held, "profiled": prof,
         "profiled_sigs": len(engine.follower_wave[0]), "scan": scan,
-        "sign_s": sign_s, "wal_bytes": wal_bytes,
+        "sign_s": sign_s, "signed_now": signed_now, "wal_bytes": wal_bytes,
         "phase_s": time.perf_counter() - phase_t0,
     }
 
 
+# --- the fused front end and half-aggregated certs: phases 13-17 ---------------
+
+
+def _check_sha512(blocks: torch.Tensor, n_blocks: torch.Tensor) -> int:
+    """sha512_blocks (S1 on CUDA) against sha512_blocks_reference on the same
+    inputs: the state equal on every lane, tolerance 0.  Returns the max abs
+    err of the 32-bit words."""
+    got = sh.sha512_blocks(blocks, n_blocks)
+    want = sh.sha512_blocks_reference(blocks, n_blocks)
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    bad = torch.nonzero(diff.amax(dim=(0, 1))).flatten()
+    if bad.numel():
+        raise AssertionError(
+            f"sha512: the state differs from the plain version on {bad.numel()} of "
+            f"{n_blocks.shape[0]} lanes (first {bad[:8].tolist()})"
+        )
+    return int(diff.max())
+
+
+def _prehash(message: bytes, signature: bytes, key: bytes) -> bytes:
+    """R || A || M as the fused engine hashes it (a signature or key of the
+    wrong length stands as zeros)."""
+    sig = bytes(signature) if len(signature) == 64 else b"\x00" * 64
+    key = bytes(key) if len(key) == 32 else b"\x00" * 32
+    return sig[:32] + key + bytes(message)
+
+
+def root_message(msgs, sigs, keys) -> bytes:
+    """The randomized transcript's root message over the lanes that pass the
+    host pre-checks (the first aggregate check's live lanes):
+    ``tag || n || leaf digests``, the leaves hashed with hashlib."""
+    live = np.flatnonzero(canonical_ok_fast(sigs, keys)).tolist()
+    leaves = [hashlib.sha512(frame(msgs[i]) + frame(sigs[i]) + frame(keys[i])).digest()
+              for i in live]
+    return med._Z_TAG + len(live).to_bytes(8, "little") + b"".join(leaves)
+
+
+def sass_block_loop(library: str, kernel: str = "sha512_kernel") -> dict:
+    """S1's instructions per block, from ``cuobjdump -sass`` of its library:
+    the instructions of the kernel's outermost loop (from the target of its
+    widest backward branch to the branch), which runs once per 128-byte
+    block, and of the whole kernel."""
+    cuobjdump = Path(scan_kernels._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True,
+                         text=True, check=True).stdout
+    body, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for addr, text in body:
+        m = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((addr - int(m.group(1), 16), int(m.group(1), 16), addr))
+    if not body or not loops:
+        raise AssertionError(f"sass: no block loop found in {kernel}")
+    _, start, end = max(loops)
+    per_block = sum(1 for addr, _ in body if start <= addr <= end)
+    real = [t for _, t in body if t != "NOP"]
+    return {"per_block": per_block, "kernel": len(real), "loop": (hex(start), hex(end))}
+
+
+def sha512_bound(n_blocks: np.ndarray, per_block: int, sm_count: int,
+                 sm_clock_hz: float) -> dict:
+    """Least time for S1's work on lanes with ``n_blocks`` blocks each: the
+    larger of the block loop's instructions (``per_block`` from the SASS,
+    times the blocks this data needs) at 64 integer results per clock per SM
+    over every SM, and the bytes (the blocks read, the counts read, the
+    state written) over the memory rate.  One lane cannot spread over the
+    SMs: its instructions issue in order, at most one a clock, so a lane's
+    chain of blocks takes at least its instructions' count in clocks; the
+    bound takes the longest lane's chain where that is larger."""
+    blocks = int(n_blocks.sum())
+    lanes = int(n_blocks.shape[0])
+    instructions = per_block * blocks
+    ops_ms = instructions / (sm_count * INT_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
+    chain_ms = per_block * int(n_blocks.max(initial=0)) / sm_clock_hz * 1e3
+    n_bytes = blocks * sh.BLOCK_BYTES + 4 * lanes + 64 * lanes
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, chain_ms, bytes_ms)
+    bound_by = "bytes" if bound_ms == bytes_ms else "operations"
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "blocks": blocks,
+            "instructions": instructions, "ops_ms": ops_ms, "chain_ms": chain_ms,
+            "bytes": n_bytes, "bytes_ms": bytes_ms}
+
+
+def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_reps: int) -> dict:
+    """S1 against its plain version and hashlib: (1) on the strict wave's
+    challenge blocks (``R || A || M`` of every lane of ``corpus``'s wave,
+    packed by the fused engine, padded lanes included), tolerance 0, every
+    live lane's digest equal to ``hashlib.sha512``; (2) on one lane holding
+    the randomized wave's transcript root message, against hashlib only
+    (the plain version runs its thousands of blocks one after another, each
+    some 8,000 eager torch calls).  Each timed with CUDA events."""
+    device = torch.device(device)
+    msgs, sigs, keys, _ = replica_wave(corpus, replicas)
+    engine = FusedEd25519BatchVerifier(device=device)
+    _, _, blocks, n_blocks, _ = engine._device_args(msgs, sigs, keys)
+    max_err = _check_sha512(blocks, n_blocks)
+    digest = sh.digest_bytes(sh.sha512_blocks(blocks, n_blocks)).cpu().numpy().astype(np.uint8)
+    for i, (m, s, k) in enumerate(zip(msgs, sigs, keys)):
+        if bytes(digest[:, i]) != hashlib.sha512(_prehash(m, s, k)).digest():
+            raise AssertionError(f"sha512: lane {i}'s digest differs from hashlib's")
+    ms = _time_ms(lambda: sh.sha512_blocks(blocks, n_blocks), reps, device)
+    plain_ms = _time_ms(lambda: sh.sha512_blocks_reference(blocks, n_blocks), plain_reps, device)
+
+    rmsgs, rsigs, rkeys, _ = replica_wave(rand_corpus, replicas)
+    root = root_message(rmsgs, rsigs, rkeys)
+    rblocks, rn = sh.pad_messages([root])
+    rblocks = sh.blocks_tensor(rblocks).to(device)
+    rn_t = torch.from_numpy(rn).to(device)
+    got = sh.digest_bytes(sh.sha512_blocks(rblocks, rn_t)).cpu().numpy().astype(np.uint8)
+    if bytes(got[:, 0]) != hashlib.sha512(root).digest():
+        raise AssertionError("sha512: the transcript root differs from hashlib's")
+    root_ms = _time_ms(lambda: sh.sha512_blocks(rblocks, rn_t), 5, device)
+    return {
+        "lanes": n_blocks.shape[0], "live": len(msgs), "block_axis": blocks.shape[0],
+        "n_blocks": n_blocks.cpu().numpy(), "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "root_live": (len(root) - len(med._Z_TAG) - 8) // 64,
+        "root_bytes": len(root), "root_blocks": int(rn[0]), "root_ms": root_ms,
+    }
+
+
+def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
+    """The strict config-3 wave of ``corpus`` through
+    ``engine_for_config(Configuration(device_prep=True))``: verdicts equal to
+    ``direct`` (phase 3's host-prep engine) lane for lane, S1 and B1 launched
+    once, B2 and B3 never; the host prep of both engines timed on the same
+    wave; a profiled re-run; then three replicas' request waves through
+    ``verify_stream``."""
+    device = torch.device(device)
+    engine = engine_for_config(Configuration(device_prep=True), device=device)
+    if type(engine) is not FusedEd25519BatchVerifier:
+        raise AssertionError(f"device_prep built {type(engine).__name__}")
+    wave_msgs, wave_sigs, wave_keys, _ = replica_wave(corpus, replicas)
+    t0 = time.perf_counter()
+    engine._prepare_fused(wave_msgs, wave_sigs, wave_keys)
+    fused_prep_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    med.Ed25519BatchVerifier(device=device)._prepare(wave_msgs, wave_sigs, wave_keys)
+    host_prep_ms = (time.perf_counter() - t0) * 1e3
+
+    # The main path, with the launch counts read around it.
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    calls_before = KERNELS.stats("ed25519.fused_verify").launches
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    launches, s1 = _launch_counts(), _s1_launches()
+    calls = KERNELS.stats("ed25519.fused_verify").launches - calls_before
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    if not np.array_equal(got, direct):
+        wrong = np.flatnonzero(got != direct)
+        raise AssertionError(f"fused verdicts differ from the host-prep engine's at {wrong[:16]}")
+
+    prof = profile_wave(engine, wave_msgs, wave_sigs, wave_keys, device,
+                        wave_ranges=FUSED_RANGES, kernel="horner_scan")
+    if not np.array_equal(prof.pop("verdicts"), got):
+        raise AssertionError("profiled re-run of the fused wave disagrees with the wave")
+
+    n_requests = len(corpus[0])
+    waves = [(wave_msgs[r * n_requests:(r + 1) * n_requests],
+              wave_sigs[r * n_requests:(r + 1) * n_requests],
+              wave_keys[r * n_requests:(r + 1) * n_requests]) for r in range(min(3, replicas))]
+    s1_before = _s1_launches()
+    t0 = time.perf_counter()
+    streamed = list(engine.verify_stream(iter(waves)))
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    stream_s1 = _s1_launches() - s1_before
+    for r, out in enumerate(streamed):
+        if not np.array_equal(out, direct[r * n_requests:(r + 1) * n_requests]):
+            raise AssertionError(f"verify_stream: wave {r}'s verdicts differ")
+    n = len(wave_msgs)
+    return {
+        "signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
+        "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches, "s1": s1,
+        "calls": calls, "fused_prep_ms": fused_prep_ms, "host_prep_ms": host_prep_ms,
+        "profiled": prof, "peak_bytes": peak, "stream_waves": len(waves),
+        "stream_ms": stream_ms, "stream_s1": stream_s1,
+    }
+
+
+def phase_fused_randomized(device, corpus, replicas: int, direct) -> dict:
+    """The randomized config-3 wave of ``corpus`` through
+    ``engine_for_config(Configuration(device_prep=True,
+    batch_verify_mode=True))``: verdicts equal to ``direct`` (phase 7's),
+    the launch counts read around the run, a profiled re-run."""
+    device = torch.device(device)
+    config = Configuration(device_prep=True, batch_verify_mode=True)
+    engine = engine_for_config(config, device=device)
+    if type(engine) is not FusedEd25519RandomizedBatchVerifier:
+        raise AssertionError(f"device_prep with batch_verify_mode built {type(engine).__name__}")
+    wave_msgs, wave_sigs, wave_keys, _ = replica_wave(corpus, replicas)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    checks_before = KERNELS.stats("ed25519.fused_batch_verify").launches
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    launches, s1 = _launch_counts(), _s1_launches()
+    checks = KERNELS.stats("ed25519.fused_batch_verify").launches - checks_before
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    if not np.array_equal(got, direct):
+        wrong = np.flatnonzero(got != direct)
+        raise AssertionError(f"fused randomized verdicts differ from phase 7's at {wrong[:16]}")
+    prof = profile_wave(engine, wave_msgs, wave_sigs, wave_keys, device,
+                        wave_ranges=FUSED_BATCH_RANGES, kernel="straus_msm")
+    if not np.array_equal(prof.pop("verdicts"), got):
+        raise AssertionError("profiled re-run of the fused randomized wave disagrees")
+    n = len(wave_msgs)
+    return {"signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
+            "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches,
+            "s1": s1, "checks": checks, "profiled": prof, "peak_bytes": peak}
+
+
+def phase_halfagg_certs(device, decisions: int) -> dict:
+    """Config 3's catch-up chunk as ``decisions`` half-aggregated
+    certificates: each decision's honest 5-vote quorum aggregated through a
+    ``SigOnlyVerifier`` over ``FusedEd25519BatchVerifier(min_device_batch=1)``
+    (its ``HalfAggregator`` inherits the fused front end), then every cert
+    verified on the card (one B3 launch each) and on the host twin, with a
+    tampered ``s_agg`` rejected by both; then each of the chunk's 3 forged
+    votes in its decision's otherwise honest quorum: the aggregate fails,
+    bisection localizes exactly that signer, and the strict engine
+    agrees."""
+    device = torch.device(device)
+    signers, groups, _, forged = catch_up_chunk(decisions)
+    keys = {s.node_id: s.public_bytes for s in signers}
+    engine = FusedEd25519BatchVerifier(device=device, min_device_batch=1)
+    verifier = SigOnlyVerifier(keys, engine=engine)
+    host = HalfAggregator(min_device_batch=10**9, device=device)
+    honest = []
+    for g, (proposal, votes) in enumerate(groups):
+        votes = list(votes)
+        for j, vote in enumerate(votes):
+            if g * QUORUM + j in forged:
+                votes[j] = signers[vote.id - 1].sign_proposal(proposal, vote.msg)
+        honest.append((proposal, votes))
+
+    t0 = time.perf_counter()
+    certs = [verifier.aggregate_cert(proposal, votes) for proposal, votes in honest]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    aggregate_ms = (time.perf_counter() - t0) * 1e3
+    if any(not isinstance(c, QuorumCert) for c in certs):
+        raise AssertionError("an honest quorum did not aggregate")
+
+    def parts(proposal, cert):
+        return ([commit_message(proposal, c.msg) for c in cert], list(cert.rs), cert.s_agg,
+                [keys[c.id] for c in cert])
+
+    checks_before = KERNELS.stats("ed25519.fused_halfagg_verify").launches
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    device_verdicts = [verifier.verify_aggregate_cert(c, p) for (p, _), c in zip(honest, certs)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    launches, s1 = _launch_counts(), _s1_launches()
+    checks = KERNELS.stats("ed25519.fused_halfagg_verify").launches - checks_before
+    t0 = time.perf_counter()
+    host_verdicts = [host.verify(*parts(p, c)) for (p, _), c in zip(honest, certs)]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for (proposal, votes), got, want in zip(honest, device_verdicts, host_verdicts):
+        if got != [v.msg for v in votes] or not want:
+            raise AssertionError("a certificate's device verdict differs from the host twin's")
+    tampered = 0
+    for (proposal, _), cert in list(zip(honest, certs))[:3]:
+        msgs_c, rs, s_agg, keys_c = parts(proposal, cert)
+        bad = bytearray(s_agg)
+        bad[0] ^= 1
+        if verifier.aggregator.verify(msgs_c, rs, bytes(bad), keys_c) or host.verify(
+            msgs_c, rs, bytes(bad), keys_c
+        ):
+            raise AssertionError("a tampered s_agg was accepted")
+        tampered += 1
+
+    localized = []
+    for pos in forged:
+        proposal, votes = honest[pos // QUORUM]
+        votes = list(votes)
+        votes[pos % QUORUM] = groups[pos // QUORUM][1][pos % QUORUM]
+        msgs_f = [commit_message(proposal, v.msg) for v in votes]
+        values = [v.value for v in votes]
+        keys_f = [keys[v.id] for v in votes]
+        agg, bad = verifier.aggregator.aggregate(msgs_f, values, keys_f)
+        strict = engine.verify_host(msgs_f, values, keys_f)
+        if agg is not None or set(bad) != {pos % QUORUM} or set(bad) != {
+            j for j in range(len(votes)) if not strict[j]
+        }:
+            raise AssertionError(f"forged vote {pos}: bisection localized {bad}")
+        if verifier.aggregate_cert(proposal, votes) is not None:
+            raise AssertionError(f"forged vote {pos}: the quorum aggregated")
+        localized.append((pos, votes[pos % QUORUM].id))
+    return {"certs": len(certs), "components": QUORUM, "aggregate_ms": aggregate_ms,
+            "verify_ms": verify_ms, "host_ms": host_ms, "checks": checks,
+            "launches": launches, "s1": s1, "tampered": tampered, "localized": localized}
+
+
 def log_cluster(c: dict, direct_ms: float) -> None:
     """Print phase 12's blocks, their time split, the waves and the checks."""
+    signed = (f"signed with ref_sign in {c['sign_s']:.3f} s, set-up" if c["signed_now"]
+              else "the requests phase 12 signed, reused")
     log(f"cluster: {c['replicas']} replicas x {c['blocks']} blocks x {c['requests']} signed requests "
-        f"from {c['clients']} clients (signed with ref_sign in {c['sign_s']:.3f} s, set-up); "
+        f"from {c['clients']} clients ({signed}); "
         f"all ledgers identical, view 0, every block carries its {c['requests']} requests")
     for i, b in enumerate(c["block_log"]):
         log(f"  block {i + 1}{' (warm-up)' if i == 0 else ''}: {b['wall_ms']:.3f} ms (host clock, ending "
@@ -1650,25 +2102,39 @@ def log_cluster(c: dict, direct_ms: float) -> None:
             f"+ host-path verifications {b['host_ms']:.3f} ms ({b['host_calls']} calls, "
             f"{b['host_sigs']} signatures) + the rest (protocol, codec, WAL fsync) {b['rest_ms']:.3f} ms")
     log(f"  the sim's serial tx/s (the {c['replicas']} waves of a block run in turn on one thread, "
-        f"not side by side as in a deployment): {c['tx_per_s']:.1f} over blocks 2-{c['blocks']}")
+        f"not side by side as in a deployment): {c['tx_per_s']:.1f} over "
+        + (f"blocks 2-{c['blocks']}" if c["blocks"] > 2 else "block 2"))
     ms = c["wave_ms"]
     log(f"  device calls {c['device_calls']}: {c['follower_waves']} follower proposal waves and "
         f"{c['leader_waves']} of the leader's own proposal (it verifies what it proposed, "
         f"core/view.py reveal-before-verify), {c['wave_sizes']} signatures on {c['padded']} lanes; "
         f"per wave {min(ms):.3f}-{max(ms):.3f} ms, mean {sum(ms) / len(ms):.3f} ms (host clock, "
         f"through the engine's read-back); phase 3's direct 7-replica wave {direct_ms:.3f} ms")
-    log(f"  kernel launches (horner_scan, horner_scan_p256, straus_msm) {c['launches']}; "
-        f"host-path calls {c['host_calls']} ({c['host_sigs']} signatures < min_device_batch "
-        f"{c['min_device_batch']}); no coalescer, so nothing can mark the device suspect")
-    log(f"  commit certificates: >= {c['quorum']} signatures a decision, {c['votes_checked']} "
-        f"verified on the engine, {c['reference_checked']} on the RFC 8032 reference")
+    log(f"  kernel launches (horner_scan, horner_scan_p256, straus_msm) {c['launches']}, "
+        f"sha512 {c['s1_launches']}; host-path calls {c['host_calls']} ({c['host_sigs']} signatures "
+        f"< min_device_batch {c['min_device_batch']}); no coalescer, so nothing can mark the "
+        f"device suspect")
+    if c["half_agg"]:
+        log(f"  half-aggregated certificates: all {c['votes_checked']} decided certificates are "
+            f"QuorumCerts of >= {c['quorum']} components, each verified on the host twin; a "
+            f"{c['quorum']}-component cert is below min_device_batch {c['min_device_batch']}, so the "
+            f"reference's routing aggregates and checks it on the host twin (phase 16 covers the "
+            f"device side)")
+    else:
+        log(f"  commit certificates: >= {c['quorum']} signatures a decision, {c['votes_checked']} "
+            f"verified on the engine, {c['reference_checked']} on the RFC 8032 reference")
     log(f"  the last follower wave ({c['profiled_sigs']} signatures), profiled again after the blocks:")
     log_profile(c["profiled"], "horner_scan")
     sc = c["scan"]
-    log(f"  horner_scan on that wave's own inputs ({sc['lanes']} lanes): frozen X, Y, Z, T equal "
-        f"to horner_scan_reference on every lane (max abs err {sc['max_abs_err']}); kernel "
-        f"{sc['ms']:.6f} ms (CUDA events, mean of 20), plain torch version {sc['plain_ms']:.6f} ms "
-        f"(mean of 3)")
+    if sc["kernel"] == "sha512":
+        log(f"  sha512 on that wave's own blocks ({sc['lanes']} lanes, {sc['blocks']} blocks on the "
+            f"block axis): the state equal to sha512_blocks_reference on every lane (max abs err "
+            f"{sc['max_abs_err']})")
+    else:
+        log(f"  horner_scan on that wave's own inputs ({sc['lanes']} lanes): frozen X, Y, Z, T equal "
+            f"to horner_scan_reference on every lane (max abs err {sc['max_abs_err']}); kernel "
+            f"{sc['ms']:.6f} ms (CUDA events, mean of 20), plain torch version {sc['plain_ms']:.6f} ms "
+            f"(mean of 3)")
     log(f"  torch.cuda.max_memory_allocated: {c['peak_bytes']} bytes (torch.cuda.memory_allocated "
         f"before the blocks {c['held_bytes']} bytes); WAL on disk {c['wal_bytes']} bytes; "
         f"phase {c['phase_s']:.3f} s")
@@ -1965,6 +2431,123 @@ def main() -> int:
     c12 = phase_cluster(device)
     log_cluster(c12, w["wave_ms"])
 
+    sm_count = props.multi_processor_count
+    # Phase 13: kernel S1 against its plain version and hashlib.
+    log("== phase 13: sha512 (S1) against sha512_blocks_reference and hashlib")
+    k13 = phase_sha512(device, corpus, rand_corpus, REPLICAS, reps=20, plain_reps=2)
+    sass = sass_block_loop(infos["sha512"].library)
+    bound13 = sha512_bound(k13["n_blocks"], sass["per_block"], sm_count, sm_clock_hz)
+    root_bound = sha512_bound(np.array([k13["root_blocks"]]), sass["per_block"], sm_count,
+                              sm_clock_hz)
+    log(f"the strict wave's challenge blocks R || A || M: {k13['live']} signatures on "
+        f"{k13['lanes']} lanes, {bound13['blocks']} blocks in all (a block axis of "
+        f"{k13['block_axis']}, padded lanes 0 blocks): the state equal to the plain version on "
+        f"every lane (max abs err {k13['max_abs_err']}), every live lane's digest equal to "
+        f"hashlib.sha512's")
+    log(f"  kernel {k13['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+    log(f"  plain torch version {k13['plain_ms']:.6f} ms (mean of 2)")
+    log(f"  bound {bound13['bound_ms']:.6f} ms, by {bound13['bound_by']}: {sass['per_block']} "
+        f"instructions in the block loop (cuobjdump -sass, {sass['loop'][0]}-{sass['loop'][1]}; "
+        f"{sass['kernel']} in the kernel) x {bound13['blocks']} blocks = "
+        f"{bound13['instructions']} over {sm_count} SMs x {INT_PER_CLOCK_PER_SM}/clock x "
+        f"{sm_clock_hz / 1e6:.0f} MHz = {bound13['ops_ms']:.6f} ms; the longest lane's chain "
+        f"{bound13['chain_ms']:.6f} ms; {bound13['bytes']} bytes over 3.35 TB/s = "
+        f"{bound13['bytes_ms']:.6f} ms; kernel at {100 * bound13['bound_ms'] / k13['ms']:.3f} % "
+        f"of it")
+    log(f"the randomized wave's transcript root: tag || n || {k13['root_live']} leaf digests = "
+        f"{k13['root_bytes']} bytes, {k13['root_blocks']} blocks on one lane: digest equal to "
+        f"hashlib.sha512's (the plain version is not run there: {k13['root_blocks']} blocks of "
+        f"thousands of eager calls each)")
+    log(f"  kernel {k13['root_ms']:.6f} ms (CUDA events, mean of 5 launches after warm-up)")
+    log(f"  bound {root_bound['bound_ms']:.6f} ms, by {root_bound['bound_by']}: one lane's chain of "
+        f"{root_bound['instructions']} instructions issues in order, at most one a clock, at "
+        f"{sm_clock_hz / 1e6:.0f} MHz; kernel at "
+        f"{100 * root_bound['bound_ms'] / k13['root_ms']:.3f} % of it")
+    log_ptxas(infos["sha512"])
+    log("  library: none (no PyTorch call computes SHA-512)")
+
+    # Phase 14: the fused strict wave.
+    log("== phase 14: config-3 fused strict wave (device_prep=True)")
+    log("  expected launches: sha512 1, horner_scan 1, horner_scan_p256 0, straus_msm 0")
+    f14 = phase_fused_wave(device, corpus, REPLICAS, w["verdicts"])
+    if f14["launches"] != (1, 0, 0) or f14["s1"] != 1 or f14["calls"] != 1:
+        raise AssertionError(
+            f"the fused wave launched (B1, B2, B3) {f14['launches']}, S1 {f14['s1']} in "
+            f"{f14['calls']} device calls, not (1, 0, 0) and 1 in 1"
+        )
+    if f14["stream_s1"] != f14["stream_waves"]:
+        raise AssertionError(f"verify_stream launched S1 {f14['stream_s1']} times")
+    log(f"wave: {f14['signatures']} signatures padded to {f14['padded']} through "
+        f"FusedEd25519BatchVerifier, {f14['rejected']} rejected: verdicts equal to phase 3's "
+        f"host-prep engine on every lane")
+    log(f"  launches: sha512 {f14['s1']}, (horner_scan, horner_scan_p256, straus_msm) "
+        f"{f14['launches']}, in {f14['calls']} device call")
+    log(f"  end to end {f14['wave_ms']:.3f} ms = {f14['sigs_per_s']:.1f} signatures/s (host clock, "
+        f"ending in torch.cuda.synchronize()); phase 3's host-prep wave {w['wave_ms']:.3f} ms")
+    log(f"  host prep on this wave: _prepare_fused {f14['fused_prep_ms']:.3f} ms, the host-prep "
+        f"engine's _prepare {f14['host_prep_ms']:.3f} ms (host clock)")
+    log_profile(f14["profiled"], "horner_scan")
+    log(f"  torch.cuda.max_memory_allocated: {f14['peak_bytes']} bytes (phase 3's wave "
+        f"{w['peak_bytes']} bytes)")
+    log(f"  verify_stream over {f14['stream_waves']} replicas' 1,000-request waves: verdicts in "
+        f"wave order, equal to phase 3's; sha512 launches {f14['stream_s1']}; "
+        f"{f14['stream_ms']:.3f} ms (host clock, through the last verdict's read)")
+
+    # Phase 15: the fused randomized wave.
+    log("== phase 15: config-3 fused randomized wave (device_prep=True, batch_verify_mode=True)")
+    log(f"  expected launches: straus_msm {w3['msm_launches']} (phase 7's aggregate checks), "
+        f"sha512 {S1_PER_CHECK * w3['msm_launches']} ({S1_PER_CHECK} a check: challenges, "
+        f"leaves, root, coefficients), horner_scan 0, horner_scan_p256 0")
+    f15 = phase_fused_randomized(device, rand_corpus, REPLICAS, w3["verdicts"])
+    if (f15["launches"] != (0, 0, w3["msm_launches"]) or f15["checks"] != w3["msm_launches"]
+            or f15["s1"] != S1_PER_CHECK * f15["checks"]):
+        raise AssertionError(
+            f"the fused randomized wave launched (B1, B2, B3) {f15['launches']}, S1 {f15['s1']} "
+            f"in {f15['checks']} checks; phase 7 made {w3['msm_launches']}"
+        )
+    log(f"wave: {f15['signatures']} signatures padded to {f15['padded']} through "
+        f"FusedEd25519RandomizedBatchVerifier, {f15['rejected']} rejected: verdicts equal to "
+        f"phase 7's on every lane")
+    log(f"  launches: straus_msm {f15['launches'][2]} in {f15['checks']} aggregate checks, sha512 "
+        f"{f15['s1']}, horner_scan {f15['launches'][0]}, horner_scan_p256 {f15['launches'][1]}")
+    log(f"  end to end {f15['wave_ms']:.3f} ms = {f15['sigs_per_s']:.1f} signatures/s (host clock, "
+        f"ending in torch.cuda.synchronize()); phase 7's host-prep wave {w3['wave_ms']:.3f} ms")
+    log_profile(f15["profiled"], "straus_msm")
+    log(f"  torch.cuda.max_memory_allocated: {f15['peak_bytes']} bytes (phase 7's wave "
+        f"{w3['peak_bytes']} bytes)")
+
+    # Phase 16: half-aggregated certificates.
+    log("== phase 16: half-aggregated certificates (the catch-up chunk's 51 decisions)")
+    h16 = phase_halfagg_certs(device, CATCH_UP_DECISIONS)
+    if (h16["launches"] != (0, 0, h16["certs"]) or h16["checks"] != h16["certs"]
+            or h16["s1"] != S1_PER_CHECK * h16["certs"]):
+        raise AssertionError(
+            f"{h16['certs']} cert verifies launched (B1, B2, B3) {h16['launches']} and S1 "
+            f"{h16['s1']} in {h16['checks']} checks"
+        )
+    log(f"certs: {h16['certs']} QuorumCerts of {h16['components']} components aggregated through "
+        f"a SigOnlyVerifier over FusedEd25519BatchVerifier(min_device_batch=1) in "
+        f"{h16['aggregate_ms']:.3f} ms (each a self-check on the card; host clock)")
+    log(f"  verified on the card: every verdict equal to the host twin's; straus_msm "
+        f"{h16['launches'][2]} launches (one a cert), sha512 {h16['s1']}, {h16['checks']} "
+        f"fused_halfagg_verify checks; {h16['verify_ms']:.3f} ms for all (host clock), "
+        f"{h16['verify_ms'] / h16['certs']:.3f} ms a cert; the host twin {h16['host_ms']:.3f} ms "
+        f"for all")
+    log(f"  {h16['tampered']} certs with a tampered s_agg rejected on the card and the host twin")
+    log(f"  forged votes (flat position, signer) {h16['localized']}: each quorum's aggregate failed, "
+        f"bisection localized exactly that signer, equal to the strict engine's verdicts")
+
+    # Phase 17: the configuration path, a config-3 cluster on the fused
+    # engine with half-aggregated certificates.
+    log("== phase 17: config-3 cluster, Configuration(device_prep=True, cert_mode=\"half-agg\"), "
+        f"{FUSED_CLUSTER_BLOCKS} of phase 12's {CLUSTER_BLOCKS} blocks")
+    config17 = Configuration(device_prep=True, cert_mode="half-agg",
+                             crypto_tpu_min_batch=CLUSTER_MIN_DEVICE_BATCH)
+    c17 = phase_cluster(device, blocks=FUSED_CLUSTER_BLOCKS, config=config17)
+    if not c17["fused"] or not c17["half_agg"]:
+        raise AssertionError("phase 17 did not run the fused engine with half-agg certificates")
+    log_cluster(c17, f14["wave_ms"])
+
     log(card)
     log(json.dumps({"kernels": [
         {
@@ -2004,6 +2587,19 @@ def main() -> int:
             "plain_ms": k3["plain_ms"],
             "bound_ms": bound3["bound_ms"],
             "bound_by": bound3["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "sha512",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/sha512.cu",
+            "replaces": "consensus_tpu/ops/sha512.py:191",
+            "launches": f14["s1"],
+            "max_abs_err": k13["max_abs_err"],
+            "ms": k13["ms"],
+            "plain_ms": k13["plain_ms"],
+            "bound_ms": bound13["bound_ms"],
+            "bound_by": bound13["bound_by"],
             "library_ms": None,
         },
     ]}))

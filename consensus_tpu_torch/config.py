@@ -154,16 +154,17 @@ class Configuration:
     # replicas in a cluster must agree on it.  Ed25519 only: the engine is
     # Ed25519RandomizedBatchVerifier (models/ed25519.py).
     batch_verify_mode: bool = False
-    # Quorum-certificate encoding: "full" (n full signatures) or "half-agg"
-    # (half-aggregated Ed25519 certs).  All replicas in a cluster must agree
-    # on it.  The port has no aggregator yet (ROADMAP.md queue A, item 9):
-    # its verifiers report supports_cert_aggregation = False, so the core
-    # keeps full certs under either value, as the JAX core does for a
-    # verifier without aggregation.
+    # Quorum-certificate encoding (models/aggregate.py): "full" (n full
+    # signatures) or "half-agg" (half-aggregated Ed25519 certs, (R_1..R_n,
+    # s_agg), verified in one MSM check).  All replicas in a cluster must
+    # agree on it.  P-256 verifiers report supports_cert_aggregation = False,
+    # so the core keeps full certs for them under either value.
     cert_mode: str = "full"
-    # Whole-pipeline-on-device verification (host prep moved into the
-    # launch).  Changes only where work runs.  Not ported yet: the registry
-    # refuses it (ROADMAP.md queue A, item 10).
+    # Whole-pipeline-on-device verification (models/fused.py): the engine's
+    # host prep (SHA-512 challenge hashing, mod-L reduction, range checks,
+    # digit recoding) moves onto the device; the host only slices bytes into
+    # SHA-512 block layout.  Verdicts are bit-identical to the host-prep
+    # engines, so it changes only where work runs.  Ed25519-only.
     device_prep: bool = False
     # Device-mesh width and layout for the batch engine.  1 and () keep the
     # single-device engine; wider meshes are not ported yet (item 12).

@@ -1,12 +1,19 @@
 """Batched signature-verification models (Ed25519 and ECDSA-P256) built on
-:mod:`consensus_tpu_torch.ops`, and the engine layer above them: the
+:mod:`consensus_tpu_torch.ops`, the fused Ed25519 engines and the
+half-aggregator of quorum certs, and the engine layer above them: the
 coalescers, the supervisor and the registry."""
+
+from consensus_tpu_torch.models.aggregate import HalfAggregator
 
 from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
 from consensus_tpu_torch.models.ed25519 import (
     Ed25519BatchVerifier,
     Ed25519RandomizedBatchVerifier,
     L,
+)
+from consensus_tpu_torch.models.fused import (
+    FusedEd25519BatchVerifier,
+    FusedEd25519RandomizedBatchVerifier,
 )
 from consensus_tpu_torch.models.engine import BatchCoalescer, ThreadCoalescingVerifier
 from consensus_tpu_torch.models.supervisor import (
@@ -36,6 +43,9 @@ __all__ = [
     "EcdsaP256VerifierMixin",
     "Ed25519BatchVerifier",
     "Ed25519RandomizedBatchVerifier",
+    "FusedEd25519BatchVerifier",
+    "FusedEd25519RandomizedBatchVerifier",
+    "HalfAggregator",
     "L",
     "BatchCoalescer",
     "ThreadCoalescingVerifier",

@@ -51,6 +51,7 @@ def _bytes_rows_to_bits(rows: np.ndarray) -> np.ndarray:
 
 _WINDOW_BITS = 4
 _WINDOWS = 256 // _WINDOW_BITS  # 64
+_TABLE = 9  # signed digits: |d| <= 8 -> multiples 0..8 of the point
 
 
 def verify_impl(
@@ -653,7 +654,7 @@ class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
         def table(p):
             neg = _ref_negate(p)
             tbl = [_REF_IDENTITY, neg]
-            for _ in range(7):  # 2p .. 8p
+            for _ in range(_TABLE - 2):  # 2p .. 8p
                 tbl.append(_ref_add(tbl[-1], neg))
             return tbl
 

@@ -10,8 +10,9 @@ the port does not have yet, it names the lane's ROADMAP.md queue A item.
 The supervisor's degrade ladder is derived by walking registered keys
 (:meth:`EngineRegistry.degrade_keys`), as in the JAX package.
 
-The port registers Ed25519 strict and randomized and P-256 strict, on a
-single device, with host prep and the CUDA-core field lane.  Whether an
+The port registers Ed25519 strict and randomized, each with host prep and
+with the fused device prep (``device_prep``), and P-256 strict with host
+prep, on a single device and the CUDA-core field lane.  Whether an
 engine runs on the card or the CPU is the ``device`` argument, not a key
 axis: the plain torch versions serve the CPU and the tests, never a card's
 fallback.
@@ -28,6 +29,10 @@ from consensus_tpu_torch.models.ed25519 import (
     Ed25519BatchVerifier,
     Ed25519RandomizedBatchVerifier,
 )
+from consensus_tpu_torch.models.fused import (
+    FusedEd25519BatchVerifier,
+    FusedEd25519RandomizedBatchVerifier,
+)
 from consensus_tpu_torch.ops import scan_kernels
 
 #: The two verification modes an engine key can select.
@@ -38,7 +43,6 @@ TOPOLOGIES = ("single", "mesh")
 #: The lanes of the JAX registry the port does not have yet, by key axis:
 #: (what, ROADMAP.md queue A item).
 _NOT_PORTED = {
-    "device_prep": ("device_prep (the fused engines)", "item 10: fused device prep"),
     "mesh": ("a mesh topology (the sharded engines)", "item 12: multi-GPU"),
     "mxu": ("the MXU field lane (CTPU_MXU_LIMBS=1)", "item 13: tensor-core field lane"),
 }
@@ -129,7 +133,6 @@ class EngineRegistry:
         missing = [
             _NOT_PORTED[axis]
             for axis, on in (
-                ("device_prep", key.device_prep),
                 ("mesh", key.topology == "mesh"),
                 ("mxu", key.mxu),
             )
@@ -179,7 +182,15 @@ def _with_kernels(engine, *names: str):
     return engine
 
 
-def _ed25519_single(*, randomized: bool, **kw):
+def _ed25519_single(*, randomized: bool, fused: bool, **kw):
+    if fused:
+        # The fused engines hash on the card (S1); the randomized one's
+        # subsets below the randomized floor take the fused strict path.
+        if randomized:
+            return _with_kernels(
+                FusedEd25519RandomizedBatchVerifier(**kw), "sha512", "straus_msm", "horner_scan"
+            )
+        return _with_kernels(FusedEd25519BatchVerifier(**kw), "sha512", "horner_scan")
     if randomized:
         # Subsets below the randomized floor take the strict device path.
         return _with_kernels(Ed25519RandomizedBatchVerifier(**kw), "straus_msm", "horner_scan")
@@ -195,10 +206,11 @@ def _default_registry() -> EngineRegistry:
 
     reg = EngineRegistry()
     for mode in MODES:
-        reg.register(
-            EngineKey("ed25519", mode, "single", False, False),
-            partial(_ed25519_single, randomized=mode == "randomized"),
-        )
+        for fused in (False, True):
+            reg.register(
+                EngineKey("ed25519", mode, "single", fused, False),
+                partial(_ed25519_single, randomized=mode == "randomized", fused=fused),
+            )
     reg.register(EngineKey("p256", "strict", "single", False, False), _p256_single)
     return reg
 

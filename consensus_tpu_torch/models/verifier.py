@@ -1,5 +1,5 @@
 """Ed25519 and ECDSA-P256 implementations of the signature ports (torch
-port of the strict half of ``consensus_tpu/models/verifier.py``).
+port of ``consensus_tpu/models/verifier.py``).
 
 * :class:`Ed25519Signer` holds this replica's private key on the host and
   signs raw payloads and proposals with the RFC 8032 reference;
@@ -7,8 +7,12 @@ port of the strict half of ``consensus_tpu/models/verifier.py``).
 * :class:`Ed25519VerifierMixin` implements the signature-verification
   methods of the ``Verifier`` port against a node-id -> public-key
   registry, draining ``verify_consenter_sigs_batch`` -- and all the groups
-  of ``verify_consenter_sigs_multi_batch`` -- into one engine call;
-  :class:`EcdsaP256VerifierMixin` is the same over the P-256 engine.
+  of ``verify_consenter_sigs_multi_batch`` -- into one engine call, and
+  builds and checks half-aggregated quorum certs (``aggregate_cert``,
+  ``verify_aggregate_cert``) through a
+  :class:`~consensus_tpu_torch.models.aggregate.HalfAggregator` over its
+  engine; :class:`EcdsaP256VerifierMixin` is the same over the P-256
+  engine, without cert aggregation.
 
 Message binding is byte-identical to the JAX package: a consenter
 signature covers ``b"ctpu/commit" + proposal-digest + len(aux) + aux`` and a
@@ -19,7 +23,8 @@ both packages verifies every vote the same way.
 registry (:mod:`consensus_tpu_torch.models.registry`), as the JAX package
 does: the strict single-device engine of the curve for the default
 configuration, the randomized Ed25519 engine for ``batch_verify_mode``,
-and, with ``engine_supervision``, an
+the fused engines of :mod:`consensus_tpu_torch.models.fused` for
+``device_prep``, and, with ``engine_supervision``, an
 :class:`~consensus_tpu_torch.models.supervisor.EngineSupervisor` over the
 ladder of :func:`degrade_ladder_configs` with the host twin as its floor.
 Every other lane raises :class:`~consensus_tpu_torch.models.registry
@@ -218,6 +223,24 @@ class Ed25519VerifierMixin(Verifier):
         #: Read by the Verifier port's default multi-batch loop: whether it
         #: may coalesce groups through this verifier's engine.
         self.batch_verify_enabled = bool(getattr(engine, "randomized", False))
+        self._aggregator = None
+
+    #: Half-aggregated quorum certs are Ed25519-only (the aggregator's MSM
+    #: rides the Ed25519 shared-doubling kernel); the P-256 subclass
+    #: overrides this back to False.
+    supports_cert_aggregation = True
+
+    @property
+    def aggregator(self):
+        """The lazily built :class:`~consensus_tpu_torch.models.aggregate
+        .HalfAggregator` sharing this verifier's engine (same padding,
+        device threshold, device and fused front end, so cert checks route
+        host/device exactly like the engine's own batches)."""
+        if self._aggregator is None:
+            from consensus_tpu_torch.models.aggregate import HalfAggregator
+
+            self._aggregator = HalfAggregator(engine=self._engine)
+        return self._aggregator
 
     def set_public_keys(self, public_keys: Mapping[int, bytes]) -> None:
         """Swap the key registry (reconfiguration)."""
@@ -251,6 +274,69 @@ class Ed25519VerifierMixin(Verifier):
             keys.append(key if key is not None else b"")
         return messages, sigs, keys, known
 
+    # --- half-aggregated quorum certs (models/aggregate.py) --------------
+
+    def aggregate_cert(
+        self, proposal: Proposal, signatures: Sequence[Signature]
+    ) -> Optional[QuorumCert]:
+        if not self.supports_cert_aggregation:
+            return None
+        if isinstance(signatures, QuorumCert):
+            return signatures
+        sigs = list(signatures)
+        if not sigs:
+            return None
+        messages, values, keys = [], [], []
+        for sig in sigs:
+            key = self._public_keys.get(sig.id)
+            if key is None:
+                return None
+            messages.append(commit_message(proposal, sig.msg))
+            values.append(sig.value)
+            keys.append(key)
+        agg, _bad = self.aggregator.aggregate(messages, values, keys)
+        if agg is None:
+            return None
+        rs, s_agg = agg
+        aux_table: list[bytes] = []
+        aux_index: list[int] = []
+        seen: dict[bytes, int] = {}
+        for sig in sigs:
+            idx = seen.get(sig.msg)
+            if idx is None:
+                idx = len(aux_table)
+                seen[sig.msg] = idx
+                aux_table.append(sig.msg)
+            aux_index.append(idx)
+        return QuorumCert(
+            signer_ids=tuple(s.id for s in sigs),
+            rs=tuple(rs),
+            s_agg=s_agg,
+            aux_table=tuple(aux_table),
+            aux_index=tuple(aux_index),
+        )
+
+    def verify_aggregate_cert(
+        self, cert: QuorumCert, proposal: Proposal
+    ) -> Optional[list[bytes]]:
+        if not self.supports_cert_aggregation or len(cert) == 0:
+            return None
+        messages, keys, aux = [], [], []
+        for comp in cert:
+            key = self._public_keys.get(comp.id)
+            if key is None:
+                return None
+            messages.append(commit_message(proposal, comp.msg))
+            keys.append(key)
+            aux.append(comp.msg)
+        try:
+            ok = self.aggregator.verify(
+                messages, list(cert.rs), cert.s_agg, keys
+            )
+        except ValueError:
+            return None
+        return aux if ok else None
+
     def verify_consenter_sig(self, signature: Signature, proposal: Proposal) -> bytes:
         result = self.verify_consenter_sigs_batch([signature], proposal)[0]
         if result is None:
@@ -271,8 +357,8 @@ class Ed25519VerifierMixin(Verifier):
         self, signatures: Sequence[Signature], proposal: Proposal
     ) -> list[Optional[bytes]]:
         if isinstance(signatures, QuorumCert):
-            # Half-aggregated certs are not ported: the port's default
-            # verify_aggregate_cert rejects them.
+            # A half-aggregated cert: all-or-nothing through the aggregate
+            # path (one MSM check), never flattened into a strict wave.
             aux = self.verify_aggregate_cert(signatures, proposal)
             if aux is None:
                 return [None] * len(signatures)
@@ -291,9 +377,9 @@ class Ed25519VerifierMixin(Verifier):
         the per-item message array lets signatures over different proposals
         share a wave, so a whole sync chunk verifies as one batch.
 
-        Groups of half-aggregated ``QuorumCert``s take the per-cert path
-        (which rejects them until half-aggregation is ported); mixing cert
-        kinds in one call raises."""
+        Groups of half-aggregated ``QuorumCert``s take the per-cert
+        aggregate path (one MSM check each); mixing cert kinds in one call
+        raises."""
         if groups:
             kinds = {isinstance(sigs, QuorumCert) for _, sigs in groups}
             if len(kinds) > 1:

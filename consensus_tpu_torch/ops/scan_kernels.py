@@ -4,7 +4,8 @@ Port of the three kernels in ``consensus_tpu/ops/pallas_scan.py``: the
 Ed25519 Horner scan (``horner_scan``, TPU body ``_scan_kernel``), the P-256
 Horner scan (``horner_scan_p256``, TPU body ``_scan_kernel_p256``) and the
 randomized verifier's shared-doubling Straus MSM (``straus_msm``, TPU body
-``_msm_kernel``).
+``_msm_kernel``).  The build registry :data:`KERNELS` also holds the port's
+SHA-512 kernel S1, whose wrapper is ``ops/sha512.py::sha512_blocks``.
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
@@ -59,6 +60,9 @@ KERNELS = {
     "horner_scan": (_SOURCE, 9, ()),
     "horner_scan_p256": (_CSRC / "horner_scan_p256.cu", 6, ()),
     "straus_msm": (_CSRC / "straus_msm.cu", 15, ("n_low",)),
+    # Kernel S1, SHA-512 for the fused front end; its wrapper is
+    # ops/sha512.py::sha512_blocks.
+    "sha512": (_CSRC / "sha512.cu", 3, ("block_count",)),
 }
 
 #: Loaded libraries, name -> (library, BuildInfo), and the lock that

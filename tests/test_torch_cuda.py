@@ -8,6 +8,8 @@ has no JAX), so it runs there on its own:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,11 @@ from chip_smoke import weaken
 from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models import ecdsa_p256 as mp
 from consensus_tpu_torch.models import ed25519 as med
+from consensus_tpu_torch.models.aggregate import HalfAggregator
+from consensus_tpu_torch.models.fused import (
+    FusedEd25519BatchVerifier,
+    FusedEd25519RandomizedBatchVerifier,
+)
 from consensus_tpu_torch.models.verifier import Ed25519Signer, engine_for_config
 from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
@@ -23,6 +30,7 @@ from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
+from consensus_tpu_torch.ops import sha512 as sh
 from consensus_tpu_torch.testing import ClientKeyring, Cluster, SigOnlyVerifier, SignedRequestApp
 
 P = fe.P
@@ -440,7 +448,112 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
     on_card = _signed_request_cluster(card)
     launches = {name: KERNELS.stats(name).launches - n for name, n in before.items()}
     assert card.device_calls >= 2 * 4  # each replica's wave, each block
-    assert launches == {"horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0}
+    assert launches == {
+        "horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 0,
+    }
     host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
     assert _signed_request_cluster(host) == on_card
     assert len(on_card[0]) == 2
+
+
+# --- kernel S1 (SHA-512) and the fused front end ------------------------------
+
+
+def _launches() -> dict:
+    return {name: KERNELS.stats(name).launches for name in scan_kernels.KERNELS}
+
+
+def _delta(before: dict) -> dict:
+    return {name: n - before[name] for name, n in _launches().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 256, 8192 + 37])
+def test_sha512_kernel_matches_hashlib_and_plain_version_on_card(cuda_device, n):
+    """S1 at widths 1, 37, 256 and 8,229 on ragged messages of 0-360 bytes
+    (1-3 blocks), with one lane's count forced past the block axis: the
+    state equal to the plain version's, the digests to hashlib's."""
+    rng = np.random.default_rng(n)
+    msgs = [rng.bytes(int(k)) for k in rng.integers(0, 360, size=n)]
+    blocks, n_blocks = sh.pad_messages(msgs)
+    assert blocks.shape[0] == (3 if n > 1 else sh.padded_blocks_for(len(msgs[0])))
+    b = sh.blocks_tensor(blocks).to(cuda_device)
+    c = torch.from_numpy(n_blocks).to(cuda_device)
+    before = KERNELS.stats("sha512").launches
+    got = sh.sha512_blocks(b, c)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("sha512").launches == before + 1
+    assert torch.equal(got, sh.sha512_blocks_reference(b, c))
+    digests = sh.digest_bytes(got).cpu().numpy().astype(np.uint8)
+    assert [bytes(digests[:, i]) for i in range(n)] == [hashlib.sha512(m).digest() for m in msgs]
+    forced = c.clone()
+    forced[-1] = 99
+    assert torch.equal(sh.sha512_blocks(b, forced), sh.sha512_blocks_reference(b, forced))
+
+
+@pytest.mark.cuda
+def test_sha512_kernel_rejects_mixed_devices(cuda_device):
+    blocks, n_blocks = sh.pad_messages([b"abc"])
+    with pytest.raises(ValueError, match="one device"):
+        sh.sha512_blocks(sh.blocks_tensor(blocks).to(cuda_device), torch.from_numpy(n_blocks))
+
+
+def _signed(n, seed):
+    rng = np.random.default_rng(seed)
+    seeds = [rng.bytes(32) for _ in range(n)]
+    msgs = [rng.bytes(int(k)) for k in rng.integers(0, 300, size=n)]
+    return msgs, [med.ref_sign(s, m) for s, m in zip(seeds, msgs)], [
+        med.ref_public_key(s) for s in seeds
+    ]
+
+
+@pytest.mark.cuda
+def test_fused_waves_launch_as_counted_on_card(cuda_device):
+    """A fused strict wave is one S1 and one B1 launch; a fused randomized
+    wave with one forged signature launches B3 once per aggregate check it
+    books and S1 four times a check, plus one S1 and one B1 per strict-floor
+    call; both equal the host-prep engine's verdicts."""
+    msgs, sigs, keys = _signed(40, seed=5)
+    sigs[7] = sigs[7][:40] + bytes([sigs[7][40] ^ 1]) + sigs[7][41:]  # S off by one bit
+    sigs[9] = sigs[9][:63]  # bad length: rejected before the device
+    want = med.Ed25519BatchVerifier(device=cuda_device).verify_batch(msgs, sigs, keys)
+    assert want.sum() == 38
+    strict = FusedEd25519BatchVerifier(device=cuda_device)
+    before = _launches()
+    assert np.array_equal(strict.verify_batch(msgs, sigs, keys), want)
+    assert _delta(before) == {"horner_scan": 1, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 1}
+
+    randomized = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_randomized=4)
+    before = _launches()
+    checks = KERNELS.stats("ed25519.fused_batch_verify").launches
+    floors = KERNELS.stats("ed25519.fused_verify").launches
+    assert np.array_equal(randomized.verify_batch(msgs, sigs, keys), want)
+    checks = KERNELS.stats("ed25519.fused_batch_verify").launches - checks
+    floors = KERNELS.stats("ed25519.fused_verify").launches - floors
+    assert checks >= 3 and floors >= 1  # the aggregate fails, then bisection
+    assert _delta(before) == {
+        "horner_scan": floors, "horner_scan_p256": 0, "straus_msm": checks,
+        "sha512": 4 * checks + floors,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_prep", [False, True])
+def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
+    """A half-aggregated cert verify on the card is one B3 launch (and four
+    S1 launches on the fused path), accepting the honest cert and
+    rejecting a tampered one as the host twin does."""
+    msgs, sigs, keys = _signed(5, seed=6)
+    host = HalfAggregator(min_device_batch=10**9, device=cuda_device)
+    agg, bad = host.aggregate(msgs, sigs, keys)
+    assert bad == ()
+    rs, s_agg = agg
+    card = HalfAggregator(min_device_batch=1, device_prep=device_prep, device=cuda_device)
+    for s_value, verdict in ((s_agg, True), (bytes([s_agg[0] ^ 1]) + s_agg[1:], False)):
+        before = _launches()
+        assert card.verify(msgs, list(rs), s_value, keys) is verdict
+        assert host.verify(msgs, list(rs), s_value, keys) is verdict
+        assert _delta(before) == {
+            "horner_scan": 0, "horner_scan_p256": 0, "straus_msm": 1,
+            "sha512": 4 if device_prep else 0,
+        }

@@ -29,6 +29,10 @@ from consensus_tpu_torch.models.ed25519 import (
     Ed25519BatchVerifier,
     Ed25519RandomizedBatchVerifier,
 )
+from consensus_tpu_torch.models.fused import (
+    FusedEd25519BatchVerifier,
+    FusedEd25519RandomizedBatchVerifier,
+)
 from consensus_tpu_torch.models.registry import (
     ENGINE_REGISTRY,
     MODES,
@@ -40,7 +44,7 @@ from consensus_tpu_torch.models.registry import (
 from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "obs_prometheus_3node.txt"
-_ITEMS = {"device_prep": "item 10", "mesh": "item 12", "mxu": "item 13"}
+_ITEMS = {"mesh": "item 12", "mxu": "item 13"}
 
 
 def _matrix():
@@ -60,6 +64,8 @@ def test_registry_completeness_and_loud_failures():
         assert key in ENGINE_REGISTRY and callable(ENGINE_REGISTRY.builder(key))
     assert set(ENGINE_REGISTRY.keys()) == {
         EngineKey("ed25519", "strict"), EngineKey("ed25519", "randomized"), EngineKey("p256"),
+        EngineKey("ed25519", "strict", device_prep=True),
+        EngineKey("ed25519", "randomized", device_prep=True),
     }
     for cell in _matrix():
         key = EngineKey(*cell)
@@ -90,17 +96,17 @@ def test_every_jax_key_builds_or_names_its_queue_item(cell):
     if tkey in ENGINE_REGISTRY:
         engine = ENGINE_REGISTRY.build(tkey, pad_pow2=True, min_device_batch=16, device="cpu")
         want = {
-            ("ed25519", "strict"): Ed25519BatchVerifier,
-            ("ed25519", "randomized"): Ed25519RandomizedBatchVerifier,
-            ("p256", "strict"): EcdsaP256BatchVerifier,
-        }[(tkey.curve, tkey.mode)]
+            ("ed25519", "strict", False): Ed25519BatchVerifier,
+            ("ed25519", "randomized", False): Ed25519RandomizedBatchVerifier,
+            ("ed25519", "strict", True): FusedEd25519BatchVerifier,
+            ("ed25519", "randomized", True): FusedEd25519RandomizedBatchVerifier,
+            ("p256", "strict", False): EcdsaP256BatchVerifier,
+        }[(tkey.curve, tkey.mode, tkey.device_prep)]
         assert type(engine) is want and engine.device.type == "cpu"
         return
     with pytest.raises(UnknownEngineError) as exc:
         ENGINE_REGISTRY.builder(tkey)
-    lanes = [axis for axis, on in (
-        ("device_prep", tkey.device_prep), ("mesh", tkey.topology == "mesh"), ("mxu", tkey.mxu),
-    ) if on]
+    lanes = [axis for axis, on in (("mesh", tkey.topology == "mesh"), ("mxu", tkey.mxu)) if on]
     assert lanes
     for axis in lanes:
         assert f"ROADMAP.md queue A, {_ITEMS[axis]}" in str(exc.value)
@@ -157,11 +163,11 @@ def test_degrade_ladder_configs_match_jax_where_the_port_builds():
             assert engine is not None
             built += 1
         else:
-            with pytest.raises(UnknownEngineError, match="ROADMAP.md queue A, item 1[02]"):
+            with pytest.raises(UnknownEngineError, match="ROADMAP.md queue A, item 12"):
                 tver.engine_for_config(Configuration(**knobs), device="cpu")
-    # Strict and randomized, supervised or not, at mesh_shards 1 with
-    # mesh_topology () and (1,).
-    assert built == 8
+    # Strict and randomized, host prep and fused, supervised or not, at
+    # mesh_shards 1 with mesh_topology () and (1,).
+    assert built == 16
 
 
 def test_mxu_keys_are_refused_from_the_environment(monkeypatch):

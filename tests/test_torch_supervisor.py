@@ -339,8 +339,15 @@ def test_degrade_ladder_configs_of_the_ported_lanes():
     # engine is refused with the lane's queue A item.
     fused_mesh = Configuration(mesh_shards=2, device_prep=True)
     assert degrade_ladder_configs(fused_mesh)[0] == fused_mesh
-    with pytest.raises(UnknownEngineError, match="item 10.*item 12"):
+    with pytest.raises(UnknownEngineError, match="item 12"):
         engine_for_config(fused_mesh.with_(engine_supervision=True), device="cpu")
+    # The fused lane is ported: its ladder keeps JAX's fused -> host-prep rung.
+    fused = Configuration(device_prep=True)
+    assert degrade_ladder_configs(fused) == [fused, fused.with_(device_prep=False)]
+    sup = engine_for_config(fused.with_(engine_supervision=True), device="cpu")
+    assert [sup.rung_label(i) for i in range(sup.rung_count)] == [
+        "FusedEd25519BatchVerifier", "Ed25519BatchVerifier", "HostTwin",
+    ]
 
 
 def test_engine_for_config_routes_through_supervision():

@@ -217,10 +217,15 @@ def test_engine_for_config_default_and_unported_lanes():
         f.name for f in dataclasses.fields(JaxConfiguration)
     ]
     assert dataclasses.asdict(Configuration()) == dataclasses.asdict(JaxConfiguration())
+    # device_prep is ported: it routes to the fused engine (its lane is
+    # pinned in tests/test_torch_fused.py); the mesh lanes are not.
+    fused = tver.engine_for_config(Configuration(device_prep=True), device="cpu")
+    assert type(fused).__name__ == "FusedEd25519BatchVerifier"
+    assert isinstance(fused, tmed.Ed25519BatchVerifier) and fused._min_device_batch == 16
     for knobs, item in (
-        (dict(device_prep=True), "item 10"),
         (dict(mesh_shards=2), "item 12"),
         (dict(mesh_topology=(2, 4)), "item 12"),
+        (dict(mesh_shards=2, device_prep=True), "item 12"),
     ):
         with pytest.raises(UnknownEngineError, match=f"ROADMAP.md queue A, {item}"):
             tver.engine_for_config(Configuration(**knobs), device="cpu")
