@@ -34,8 +34,9 @@ Phases:
    registers, stack frame and spills ptxas reports for B1;
 3. the Ed25519 path: the 7,000-signature wave with every rejection class
    mixed in, verdicts held against the construction and against the
-   RFC 8032 reference, kernel launch counts read around the run, then a
-   2f+1 commit quorum through ``verify_consenter_sigs_batch``;
+   RFC 8032 reference, kernel launch counts read around the run (D1, B1
+   and D2 once each), then a 2f+1 commit quorum through
+   ``verify_consenter_sigs_batch``;
 4. the P-256 kernel B2 against its plain torch version on the card on the
    phase-5 wave's own kernel inputs (real keys and u2 digits, off-curve keys
    and padded zero lanes included), tolerance 0, with its time, the plain
@@ -56,8 +57,8 @@ Phases:
    undecodable classes mixed in, through ``engine_for_config(
    Configuration(batch_verify_mode=True))``, verdicts held against the
    construction, the strict engine and the RFC 8032 reference, launch counts
-   read around the run (B3 twice: the aggregate, then the survivors'
-   re-check), and a profiled re-run's stage split;
+   read around the run (B3, D1 and D2 twice: the aggregate, then the
+   survivors' re-check), and a profiled re-run's stage split;
 8. a sync catch-up chunk: 51 decisions' 5-vote quorums (255 votes, 3 of
    them forged) through ``verify_consenter_sigs_multi_batch`` on the
    randomized engine, the forged votes localized by bisection, and B3's
@@ -82,10 +83,12 @@ Phases:
    all, wired as benchmarks/chain_crypto_tps.py wires its device mode
    without the coalescer; a file WAL per replica) orders 4 blocks of 1,000
    signed requests; all ledgers identical, every decision's 2f+1 commit
-   signatures verified, B1's launches equal to the engine's device calls
-   (every replica's proposal wave, counted by a counting subclass), B2 and
-   B3 never launched; each block's time split into the engine's device
-   calls, the host-path verifications and the rest, the sim's serial tx/s
+   signatures verified, B1's, D1's and D2's launches equal to the engine's
+   device calls (every replica's proposal wave, counted by a counting
+   subclass), B2 and B3 never launched; each block's time split into the
+   engine's device calls, the host-path verifications and the rest, and
+   the rest into WAL fsyncs (``os.fsync`` timed), collector pauses outside
+   the engine's calls (``gc.callbacks``) and what is left; the sim's serial tx/s
    (the replicas' waves of a block run in turn on one thread), a profiled
    re-run of a follower wave, and B1 against its plain version on that
    wave's own inputs (1,024 lanes);
@@ -118,7 +121,16 @@ Phases:
    near its time); all ledgers identical, every decided certificate a
    ``QuorumCert`` that verifies on the host twin, B1 and S1 once per device
    call, and S1 against its plain version on the last follower wave's
-   blocks.
+   blocks;
+18. kernels D1 (decompression, ``csrc/decompress25519.cu``) and D2 (the
+   fixed-base comb, ``csrc/comb25519.cu``) against their plain torch
+   versions on phase 3's own inputs, tolerance 0: D1 on the wave's R || A
+   stack (16,384 points) and on its first 256 lanes' (512), with the valid
+   masks equal; D2 on the wave's S digits (8,192 lanes) and on one lane;
+   each with its time, the plain version's and its bound, and the
+   registers, stack frame and spills ptxas reports.  D1 and D2 launch once
+   per device call on every Ed25519 path (phases 3, 7, 8, 12 and 14-17
+   count them).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -128,8 +140,10 @@ raises and exits non-zero.  It runs on CUDA only; the phases take a
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
+import os
 import re
 import struct
 import subprocess
@@ -211,6 +225,17 @@ SQUARE_PRODUCTS = 8 * 9 // 2 + 8
 #: squarings, 4 multiplications) and 1 add (9 multiplications, one by 2d).
 HORNER_MULS = 7 * 9 + 64 * (3 * 3 + 4 + 9)
 HORNER_SQUARES = 64 * 4 * 4
+#: Field multiplications and squarings per point in decompression (kernel
+#: D1, csrc/decompress25519.cu): y^2, v^2, v3^2, x^2 and the 251 squarings of
+#: the (p-5)/8 power; d y^2, v^3, v^7, u v^3, u v^7, the power's 11
+#: multiplications, x, v x^2, x sqrt(-1) (on every lane) and T = x y.
+DECOMPRESS_MULS = 5 + 11 + 4
+DECOMPRESS_SQUARES = 4 + 251
+#: Field multiplications per lane in the comb (kernel D2,
+#: csrc/comb25519.cu): 32 mixed adds of 7 (the table holds 2d x y).
+COMB_MULS = 32 * 7
+#: Bytes of one entry of D2's table: (y - x, y + x, 2d x y), 5 uint64 limbs each.
+COMB_ENTRY_BYTES = 3 * 5 * 8
 
 #: The record_function ranges of the engine's wave, in the order they run.
 WAVE_RANGES = (
@@ -484,13 +509,10 @@ def horner_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
             "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def _check_horner(neg_a, k_digits) -> float:
-    """horner_scan (the kernel on CUDA) against horner_scan_reference on the
-    same inputs: frozen X, Y, Z, T equal on every lane, tolerance 0.
-    Returns the max abs err."""
-    got = scan_kernels.horner_scan(*neg_a, k_digits)
-    want = scan_kernels.horner_scan_reference(*neg_a, k_digits)
-    lanes = k_digits.shape[1]
+def _frozen_max_err(kernel: str, got: ed.Point, want: ed.Point) -> float:
+    """The max abs err of frozen X, Y, Z, T of a kernel's point against its
+    plain version's; raises where any lane differs (tolerance 0)."""
+    lanes = got.x.shape[-1]
     max_err = 0.0
     for name, g, w in zip("XYZT", got, want):
         fg, fw = fe.freeze(g), fe.freeze(w)
@@ -499,10 +521,20 @@ def _check_horner(neg_a, k_digits) -> float:
         bad = torch.nonzero(diff.amax(dim=0)).flatten()
         if bad.numel():
             raise AssertionError(
-                f"horner_scan: {name} differs from the plain version on "
+                f"{kernel}: {name} differs from the plain version on "
                 f"{bad.numel()} of {lanes} lanes (first {bad[:8].tolist()})"
             )
     return max_err
+
+
+def _check_horner(neg_a, k_digits) -> float:
+    """horner_scan (the kernel on CUDA) against horner_scan_reference on the
+    same inputs: frozen X, Y, Z, T equal on every lane, tolerance 0.
+    Returns the max abs err."""
+    return _frozen_max_err(
+        "horner_scan", scan_kernels.horner_scan(*neg_a, k_digits),
+        scan_kernels.horner_scan_reference(*neg_a, k_digits),
+    )
 
 
 def wave_scan_inputs(engine, msgs, sigs, keys):
@@ -634,6 +666,7 @@ def phase_wave(device, corpus, replicas: int) -> dict:
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     wave_launches, horner_p256, msm = _launch_counts()
+    d_launches = _d_launches()
     other_launches = horner_p256 + msm
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
@@ -666,11 +699,11 @@ def phase_wave(device, corpus, replicas: int) -> dict:
     # takes the engine's host path (_verify_host) and launches no kernel.
     proposal = Proposal(payload=b"block-1", metadata=b"view-0/seq-1")
     quorum = [s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:QUORUM]]
-    before = sum(_launch_counts())
+    before = sum(_launch_counts()) + sum(_d_launches())
     results = verifier.verify_consenter_sigs_batch(quorum, proposal)
     if results != [q.msg for q in quorum]:
         raise AssertionError(f"commit quorum rejected: {results}")
-    quorum_launches = sum(_launch_counts()) - before
+    quorum_launches = sum(_launch_counts()) + sum(_d_launches()) - before
 
     n = len(wave_msgs)
     return {
@@ -682,6 +715,7 @@ def phase_wave(device, corpus, replicas: int) -> dict:
         "sigs_per_s": n / wave_s,
         "profiled": prof,
         "wave_launches": wave_launches,
+        "d_launches": d_launches,
         "other_launches": other_launches,
         "quorum_size": len(quorum),
         "quorum_launches": quorum_launches,
@@ -876,7 +910,7 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     horner, wave_launches, msm = _launch_counts()
-    other_launches = horner + msm
+    other_launches = horner + msm + sum(_d_launches())
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -1096,6 +1130,11 @@ def _s1_launches() -> int:
     return KERNELS.stats("sha512").launches
 
 
+def _d_launches() -> tuple[int, int]:
+    """D1 and D2's launches from the kernel ledger."""
+    return KERNELS.stats("decompress25519").launches, KERNELS.stats("comb25519").launches
+
+
 def _reset_launch_counts() -> None:
     for name in scan_kernels.KERNELS:
         KERNELS.stats(name).launches = 0
@@ -1126,6 +1165,7 @@ def phase_wave_randomized(device, corpus, replicas: int) -> dict:
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     horner, horner_p256, msm = _launch_counts()
+    d_launches = _d_launches()
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -1163,6 +1203,7 @@ def phase_wave_randomized(device, corpus, replicas: int) -> dict:
         "sigs_per_s": n / wave_s,
         "profiled": prof,
         "msm_launches": msm,
+        "d_launches": d_launches,
         "horner_launches": horner,
         "horner_p256_launches": horner_p256,
         "peak_bytes": peak,
@@ -1254,6 +1295,7 @@ def phase_catch_up(device, decisions: int) -> dict:
         torch.cuda.synchronize()
     chunk_s = time.perf_counter() - t0
     horner, horner_p256, msm = _launch_counts()
+    d_launches = _d_launches()
     if out != expected:
         raise AssertionError("catch-up chunk: verdicts differ from the construction")
     if out != strict_out:
@@ -1263,7 +1305,8 @@ def phase_catch_up(device, decisions: int) -> dict:
     return {
         "decisions": decisions, "votes": n, "padded": verifier.engine.padded_size(n),
         "forged": forged, "rejected": sum(v is None for row in out for v in row),
-        "chunk_ms": chunk_s * 1e3, "msm_launches": msm, "horner_launches": horner,
+        "chunk_ms": chunk_s * 1e3, "msm_launches": msm, "d_launches": d_launches,
+        "horner_launches": horner,
         "horner_p256_launches": horner_p256, "device_checks": device_checks,
         "host_checks": host_checks, "min_device_batch": config.crypto_tpu_min_batch,
     }
@@ -1525,22 +1568,70 @@ def phase_supervised(device, decisions: int) -> dict:
 # --- the protocol core: phase 12 (a config-3 cluster ordering blocks) ---------
 
 
-def _cluster_engine(engine):
+class _BlockClocks:
+    """WAL fsync and collector pause time while installed: ``os.fsync``
+    wrapped in a timer (the WAL calls it through the ``os`` module) and a
+    ``gc.callbacks`` entry timing each collection from its start to its
+    stop.  Lives here, not in the copied protocol modules."""
+
+    def __init__(self) -> None:
+        self.fsync_s = self.gc_s = 0.0
+        self.fsyncs = self.collections = 0
+        self._lock = threading.Lock()
+        self._gc_t0: float | None = None
+
+    def __enter__(self) -> "_BlockClocks":
+        self._fsync = real = os.fsync
+
+        def timed_fsync(fd):
+            t0 = time.perf_counter()
+            try:
+                return real(fd)
+            finally:
+                with self._lock:
+                    self.fsync_s += time.perf_counter() - t0
+                    self.fsyncs += 1
+
+        os.fsync = timed_fsync
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        os.fsync = self._fsync
+        gc.callbacks.remove(self._on_gc)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            with self._lock:
+                self.gc_s += time.perf_counter() - self._gc_t0
+                self.collections += 1
+            self._gc_t0 = None
+
+    def read(self) -> tuple[float, int, float, int]:
+        with self._lock:
+            return self.fsync_s, self.fsyncs, self.gc_s, self.collections
+
+
+def _cluster_engine(engine, clocks: _BlockClocks):
     """``engine``, its class swapped for a subclass that counts and times
     each of its calls: a device call where the batch reaches
     ``min_device_batch``, else a host-path call (``_verify_host``), each with
-    the replica whose proposal wave it was, if any.  The count lives here,
-    not in the package."""
+    the replica whose proposal wave it was, if any, and the collector pauses
+    ``clocks`` saw inside it.  The count lives here, not in the package."""
     base = type(engine)
 
     class ClusterEngine(base):
         def verify_batch(self, messages, signatures, public_keys):
+            gc_before = self.clocks.read()[2]
             t0 = time.perf_counter()
             out = super().verify_batch(messages, signatures, public_keys)
             device = len(messages) >= self._min_device_batch
             self.calls.append({
                 "device": device, "n": len(messages),
                 "s": time.perf_counter() - t0, "wave_of": self.wave_of,
+                "gc_s": self.clocks.read()[2] - gc_before,
             })
             if device and self.wave_of is not None and not self.wave_of[1]:
                 self.follower_wave = (list(messages), list(signatures), list(public_keys))
@@ -1548,6 +1639,7 @@ def _cluster_engine(engine):
 
     ClusterEngine.__name__ = base.__name__
     engine.__class__ = ClusterEngine
+    engine.clocks = clocks
     engine.calls = []
     engine.wave_of = None  # (node id, leader?) while a proposal wave runs
     engine.follower_wave = None  # the inputs of the last follower wave
@@ -1612,7 +1704,8 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
     else:
         engine = engine_for_config(config, device=device)
         min_device_batch = engine._min_device_batch
-    engine = _cluster_engine(engine)
+    clocks = _BlockClocks()
+    engine = _cluster_engine(engine, clocks)
     fused = bool(getattr(engine, "fused", False))
     half_agg = config is not None and config.cert_mode == "half-agg"
     signers = {i: Ed25519Signer(i, bytes([i]) * 32) for i in range(1, replicas + 1)}
@@ -1641,28 +1734,40 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
             verify_before = KERNELS.stats(ledger_name).launches
             _reset_launch_counts()
             block_log = []
-            for b in range(blocks):
-                first_call = len(engine.calls)
-                t0 = time.perf_counter()
-                for raw in raws[b]:
-                    cluster.submit_to_all(raw)
-                if not cluster.run_until_ledger(b + 1, max_time=600.0):
-                    raise AssertionError(f"block {b + 1} was not ordered")
-                if on_card:
-                    torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                block = engine.calls[first_call:]
-                device_s = sum(c["s"] for c in block if c["device"])
-                host_s = sum(c["s"] for c in block if not c["device"])
-                block_log.append({
-                    "wall_ms": wall * 1e3, "device_ms": device_s * 1e3, "host_ms": host_s * 1e3,
-                    "rest_ms": (wall - device_s - host_s) * 1e3,
-                    "device_calls": sum(c["device"] for c in block),
-                    "host_calls": sum(not c["device"] for c in block),
-                    "host_sigs": sum(c["n"] for c in block if not c["device"]),
-                })
+            with clocks:
+                for b in range(blocks):
+                    first_call = len(engine.calls)
+                    fsync0, fsyncs0, gc0, collections0 = clocks.read()
+                    t0 = time.perf_counter()
+                    for raw in raws[b]:
+                        cluster.submit_to_all(raw)
+                    if not cluster.run_until_ledger(b + 1, max_time=600.0):
+                        raise AssertionError(f"block {b + 1} was not ordered")
+                    if on_card:
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    fsync1, fsyncs1, gc1, collections1 = clocks.read()
+                    block = engine.calls[first_call:]
+                    device_s = sum(c["s"] for c in block if c["device"])
+                    host_s = sum(c["s"] for c in block if not c["device"])
+                    # The rest of the block: WAL fsyncs, collector pauses
+                    # outside the engine's calls (those inside are in the
+                    # calls' own time), and what is left.
+                    fsync_s = fsync1 - fsync0
+                    gc_s = (gc1 - gc0) - sum(c["gc_s"] for c in block)
+                    block_log.append({
+                        "wall_ms": wall * 1e3, "device_ms": device_s * 1e3, "host_ms": host_s * 1e3,
+                        "rest_ms": (wall - device_s - host_s) * 1e3,
+                        "fsync_ms": fsync_s * 1e3, "fsyncs": fsyncs1 - fsyncs0,
+                        "gc_ms": gc_s * 1e3, "collections": collections1 - collections0,
+                        "left_ms": (wall - device_s - host_s - fsync_s - gc_s) * 1e3,
+                        "device_calls": sum(c["device"] for c in block),
+                        "host_calls": sum(not c["device"] for c in block),
+                        "host_sigs": sum(c["n"] for c in block if not c["device"]),
+                    })
             launches = _launch_counts()
             s1_launches = _s1_launches()
+            d_launches = _d_launches()
             verify_calls = KERNELS.stats(ledger_name).launches - verify_before
             calls = list(engine.calls)
             peak = torch.cuda.max_memory_allocated() if on_card else None
@@ -1716,9 +1821,9 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
             if not med.ref_verify(key, sig, msg):
                 raise AssertionError(f"commit signature {i} fails the RFC 8032 reference")
 
-    # The device calls: each replica's proposal wave, nothing else; B1 (and
-    # S1 on the fused engine) once per device call on the card (the CPU runs
-    # the plain versions), B2 and B3 never.
+    # The device calls: each replica's proposal wave, nothing else; B1, D1
+    # and D2 (and S1 on the fused engine) once per device call on the card
+    # (the CPU runs the plain versions), B2 and B3 never.
     device_calls = [c for c in calls if c["device"]]
     others = [c for c in device_calls if c["wave_of"] is None]
     if others:
@@ -1731,6 +1836,8 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
         raise AssertionError(f"kernel launches {launches} for {len(device_calls)} device calls")
     if s1_launches != (len(device_calls) if on_card and fused else 0):
         raise AssertionError(f"S1 launches {s1_launches} for {len(device_calls)} device calls")
+    if d_launches != ((len(device_calls),) * 2 if on_card else (0, 0)):
+        raise AssertionError(f"D1, D2 launches {d_launches} for {len(device_calls)} device calls")
     if len(followers) < (replicas - 1) * blocks:
         raise AssertionError(f"{len(followers)} follower waves for {blocks} blocks of {replicas} replicas")
     # The stages of the last follower wave, read off a profiled re-run of
@@ -1766,7 +1873,8 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
         "wave_ms": [c["s"] * 1e3 for c in device_calls],
         "host_calls": sum(b["host_calls"] for b in block_log),
         "host_sigs": sum(b["host_sigs"] for b in block_log),
-        "launches": launches, "s1_launches": s1_launches, "fused": fused,
+        "launches": launches, "s1_launches": s1_launches, "d_launches": d_launches,
+        "fused": fused,
         "half_agg": half_agg, "quorum": quorum, "votes_checked": len(votes),
         "reference_checked": len(sample),
         "tx_per_s": requests * len(measured) / sum(b["wall_ms"] / 1e3 for b in measured),
@@ -1775,6 +1883,107 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
         "sign_s": sign_s, "signed_now": signed_now, "wal_bytes": wal_bytes,
         "phase_s": time.perf_counter() - phase_t0,
     }
+
+
+# --- kernels D1 (decompression) and D2 (the comb): phase 18 --------------------
+
+
+def _products_or_bytes(products: int, n_bytes: int, sm_count: int, sm_clock_hz: float) -> dict:
+    """Least time for ``products`` 32x32->64-bit products over the card's
+    IMAD rate and ``n_bytes`` over its memory rate: the larger bounds."""
+    ops_ms = products / (sm_count * IMAD_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def decompress_bound(points: int, sm_count: int, sm_clock_hz: float) -> dict:
+    """D1 at ``points`` points: its field products (DECOMPRESS_MULS and
+    DECOMPRESS_SQUARES a point), and its bytes: (32,) f32 y limbs and an
+    int32 sign in, four (32,) f32 coordinates and a mask byte out."""
+    products = (DECOMPRESS_MULS * MUL_PRODUCTS + DECOMPRESS_SQUARES * SQUARE_PRODUCTS) * points
+    n_bytes = points * (fe.LIMBS * 4 + 4) + points * (4 * fe.LIMBS * 4 + 1)
+    return _products_or_bytes(products, n_bytes, sm_count, sm_clock_hz)
+
+
+def comb_bound(digits: torch.Tensor, sm_count: int, sm_clock_hz: float) -> dict:
+    """D2 on ``digits`` ((32, n) int32): COMB_MULS field products a lane,
+    and its bytes: the digits in, four (32,) f32 coordinates a lane out, and
+    each table entry these digits pick read once."""
+    lanes = digits.shape[1]
+    windows = torch.arange(digits.shape[0], device=digits.device)[:, None]
+    entries = int(torch.unique(windows * 256 + digits.to(torch.int64)).numel())
+    n_bytes = lanes * fe.LIMBS * 4 + entries * COMB_ENTRY_BYTES + lanes * 4 * fe.LIMBS * 4
+    out = _products_or_bytes(COMB_MULS * MUL_PRODUCTS * lanes, n_bytes, sm_count, sm_clock_hz)
+    out["entries"] = entries
+    return out
+
+
+def _check_decompress(y: torch.Tensor, sign: torch.Tensor) -> float:
+    """decompress (D1 on CUDA) against decompress_reference on the same
+    inputs: the valid masks equal and frozen X, Y, Z, T equal on every lane,
+    valid or not, tolerance 0.  Returns the max abs err."""
+    got, ok = scan_kernels.decompress(y, sign)
+    want, want_ok = scan_kernels.decompress_reference(y, sign)
+    if not torch.equal(ok, want_ok):
+        raise AssertionError(
+            f"decompress25519: the valid mask differs on {int((ok != want_ok).sum())} lanes"
+        )
+    return _frozen_max_err("decompress25519", got, want)
+
+
+def _check_comb(digits: torch.Tensor) -> float:
+    """fixed_base_mul_comb (D2 on CUDA) against its plain version on the
+    same digits: frozen X, Y, Z, T equal on every lane, tolerance 0."""
+    return _frozen_max_err(
+        "comb25519", scan_kernels.fixed_base_mul_comb(digits),
+        scan_kernels.fixed_base_mul_comb_reference(digits),
+    )
+
+
+def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: int,
+                          sub_lanes: int = CATCH_UP_LANES) -> dict:
+    """D1 and D2 against their plain versions on the strict wave's own
+    inputs as the engine packs them (``replicas`` copies of ``corpus``):
+    D1 on the R || A stack of every lane (phase 3's wave: 16,384 points) and
+    of the first ``sub_lanes`` lanes, D2 on every lane's S digits and on one
+    lane; each kernel timed over ``reps`` launches after its check, the
+    plain version over ``plain_reps`` calls."""
+    device = torch.device(device)
+    engine = med.Ed25519BatchVerifier(device=device)
+    y_r, sign_r, y_a, sign_a, s_digits8, _, _ = engine.prepare_device_inputs(
+        *replica_wave(corpus, replicas)[:3]
+    )
+    lanes = y_r.shape[1]
+    cols = min(sub_lanes, lanes)
+
+    def stack(c: int):
+        return (torch.cat([y_r[:, :c], y_a[:, :c]], dim=-1).to(torch.float32).contiguous(),
+                torch.cat([sign_r[:c], sign_a[:c]]).to(torch.int32).contiguous())
+
+    digits = s_digits8.to(torch.int32).contiguous()
+    cases = {
+        "d1": ("decompress", stack(lanes)), "d1_sub": ("decompress", stack(cols)),
+        "d2": ("comb", (digits,)), "d2_one": ("comb", (digits[:, :1].contiguous(),)),
+    }
+    kernels = {
+        "decompress": (_check_decompress, scan_kernels.decompress,
+                       scan_kernels.decompress_reference),
+        "comb": (_check_comb, scan_kernels.fixed_base_mul_comb,
+                 scan_kernels.fixed_base_mul_comb_reference),
+    }
+    out = {"lanes": lanes, "sub_lanes": cols}
+    for key, (kind, args) in cases.items():
+        check, kernel, plain = kernels[kind]
+        out[key] = {
+            "width": args[0].shape[-1], "inputs": args,
+            "max_abs_err": check(*args),
+            "ms": _time_ms(lambda: kernel(*args), reps, device),
+            "plain_ms": _time_ms(lambda: plain(*args), plain_reps, device),
+        }
+    out["invalid_points"] = int((~scan_kernels.decompress_reference(*cases["d1"][1])[1]).sum())
+    return out
 
 
 # --- the fused front end and half-aggregated certs: phases 13-17 ---------------
@@ -1934,7 +2143,7 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
-    launches, s1 = _launch_counts(), _s1_launches()
+    launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
     calls = KERNELS.stats("ed25519.fused_verify").launches - calls_before
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     if not np.array_equal(got, direct):
@@ -1962,7 +2171,7 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
     return {
         "signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
         "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches, "s1": s1,
-        "calls": calls, "fused_prep_ms": fused_prep_ms, "host_prep_ms": host_prep_ms,
+        "d_launches": d_launches, "calls": calls, "fused_prep_ms": fused_prep_ms, "host_prep_ms": host_prep_ms,
         "profiled": prof, "peak_bytes": peak, "stream_waves": len(waves),
         "stream_ms": stream_ms, "stream_s1": stream_s1,
     }
@@ -1989,7 +2198,7 @@ def phase_fused_randomized(device, corpus, replicas: int, direct) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
-    launches, s1 = _launch_counts(), _s1_launches()
+    launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
     checks = KERNELS.stats("ed25519.fused_batch_verify").launches - checks_before
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     if not np.array_equal(got, direct):
@@ -2002,7 +2211,8 @@ def phase_fused_randomized(device, corpus, replicas: int, direct) -> dict:
     n = len(wave_msgs)
     return {"signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
             "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches,
-            "s1": s1, "checks": checks, "profiled": prof, "peak_bytes": peak}
+            "s1": s1, "d_launches": d_launches, "checks": checks, "profiled": prof,
+            "peak_bytes": peak}
 
 
 def phase_halfagg_certs(device, decisions: int) -> dict:
@@ -2048,7 +2258,7 @@ def phase_halfagg_certs(device, decisions: int) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     verify_ms = (time.perf_counter() - t0) * 1e3
-    launches, s1 = _launch_counts(), _s1_launches()
+    launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
     checks = KERNELS.stats("ed25519.fused_halfagg_verify").launches - checks_before
     t0 = time.perf_counter()
     host_verdicts = [host.verify(*parts(p, c)) for (p, _), c in zip(honest, certs)]
@@ -2086,7 +2296,8 @@ def phase_halfagg_certs(device, decisions: int) -> dict:
         localized.append((pos, votes[pos % QUORUM].id))
     return {"certs": len(certs), "components": QUORUM, "aggregate_ms": aggregate_ms,
             "verify_ms": verify_ms, "host_ms": host_ms, "checks": checks,
-            "launches": launches, "s1": s1, "tampered": tampered, "localized": localized}
+            "launches": launches, "s1": s1, "d_launches": d_launches, "tampered": tampered,
+            "localized": localized}
 
 
 def log_cluster(c: dict, direct_ms: float) -> None:
@@ -2100,7 +2311,11 @@ def log_cluster(c: dict, direct_ms: float) -> None:
         log(f"  block {i + 1}{' (warm-up)' if i == 0 else ''}: {b['wall_ms']:.3f} ms (host clock, ending "
             f"in torch.cuda.synchronize()) = device calls {b['device_ms']:.3f} ms ({b['device_calls']}) "
             f"+ host-path verifications {b['host_ms']:.3f} ms ({b['host_calls']} calls, "
-            f"{b['host_sigs']} signatures) + the rest (protocol, codec, WAL fsync) {b['rest_ms']:.3f} ms")
+            f"{b['host_sigs']} signatures) + the rest {b['rest_ms']:.3f} ms")
+        log(f"    the rest = WAL fsync {b['fsync_ms']:.3f} ms ({b['fsyncs']} calls of os.fsync) "
+            f"+ collector pauses outside the engine's calls {b['gc_ms']:.3f} ms "
+            f"({b['collections']} collections in the block, gc.callbacks) + what is left "
+            f"(protocol, codec, WAL writes, the sim) {b['left_ms']:.3f} ms")
     log(f"  the sim's serial tx/s (the {c['replicas']} waves of a block run in turn on one thread, "
         f"not side by side as in a deployment): {c['tx_per_s']:.1f} over "
         + (f"blocks 2-{c['blocks']}" if c["blocks"] > 2 else "block 2"))
@@ -2111,7 +2326,7 @@ def log_cluster(c: dict, direct_ms: float) -> None:
         f"per wave {min(ms):.3f}-{max(ms):.3f} ms, mean {sum(ms) / len(ms):.3f} ms (host clock, "
         f"through the engine's read-back); phase 3's direct 7-replica wave {direct_ms:.3f} ms")
     log(f"  kernel launches (horner_scan, horner_scan_p256, straus_msm) {c['launches']}, "
-        f"sha512 {c['s1_launches']}; host-path calls {c['host_calls']} ({c['host_sigs']} signatures "
+        f"sha512 {c['s1_launches']}, (decompress25519, comb25519) {c['d_launches']}; host-path calls {c['host_calls']} ({c['host_sigs']} signatures "
         f"< min_device_batch {c['min_device_batch']}); no coalescer, so nothing can mark the "
         f"device suspect")
     if c["half_agg"]:
@@ -2216,7 +2431,12 @@ def main() -> int:
     t0 = time.perf_counter()
     ed.comb_table(device)
     log(f"comb table [d * 2^(8j)]B, 32 x 256 entries, built from integers and "
-        f"copied to the card in {time.perf_counter() - t0:.3f} s (set-up)")
+        f"copied to the card in {time.perf_counter() - t0:.3f} s (set-up; the plain comb's)")
+    t0 = time.perf_counter()
+    scan_kernels.comb_niels_table(device)
+    log(f"D2's table, the same entries as (y - x, y + x, 2d x y) in radix-2^51 limbs "
+        f"({scan_kernels.comb_niels_np().nbytes} bytes), built and copied to the card in "
+        f"{time.perf_counter() - t0:.3f} s (set-up)")
     t0 = time.perf_counter()
     p256.comb_table(device)
     log(f"P-256 comb table [d * 2^(8j)]G, 32 x 256 entries, built from integers "
@@ -2259,14 +2479,18 @@ def main() -> int:
     # Phase 3: the main path.
     log("== phase 3: config-3 wave (7 replicas, f=2, 1,000 requests per block)")
     w = phase_wave(device, corpus, replicas=REPLICAS)
-    if w["wave_launches"] != 1:
-        raise AssertionError(f"wave launched horner_scan {w['wave_launches']} times, not 1")
+    if w["wave_launches"] != 1 or w["d_launches"] != (1, 1):
+        raise AssertionError(
+            f"wave launched horner_scan {w['wave_launches']} times and (decompress25519, "
+            f"comb25519) {w['d_launches']}, not 1 and (1, 1)"
+        )
     if w["quorum_launches"] != 0:
         raise AssertionError("the commit quorum launched the kernel")
     log(f"wave: {w['signatures']} signatures padded to {w['padded']}, "
         f"{w['rejected']} rejected as constructed; {w['reference_checked']} "
         f"requests held against ref_verify + _canonical_ok")
-    log(f"  horner_scan launches in the wave: {w['wave_launches']}")
+    log(f"  launches in the wave: decompress25519 {w['d_launches'][0]}, horner_scan "
+        f"{w['wave_launches']}, comb25519 {w['d_launches'][1]}")
     log(f"  end to end {w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize())")
     if w["other_launches"] != 0:
@@ -2373,13 +2597,16 @@ def main() -> int:
         )
     if w3["horner_launches"] or w3["horner_p256_launches"]:
         raise AssertionError("the randomized wave launched a Horner scan kernel")
+    if w3["d_launches"] != (w3["msm_launches"],) * 2:
+        raise AssertionError(f"randomized wave launched (D1, D2) {w3['d_launches']}")
     log(f"wave: {w3['signatures']} signatures padded to {w3['padded']}, {w3['rejected']} "
         f"rejected as constructed ({w3['host_rejected']} by the host pre-checks, the rest "
         f"undecodable), equal to the strict engine's verdicts; {w3['reference_checked']} "
         f"requests held against ref_verify + _canonical_ok")
     log(f"  straus_msm launches in the wave: {w3['msm_launches']} (the aggregate, then the "
-        f"survivors' re-check); horner_scan {w3['horner_launches']}, horner_scan_p256 "
-        f"{w3['horner_p256_launches']}")
+        f"survivors' re-check); decompress25519 {w3['d_launches'][0]}, comb25519 "
+        f"{w3['d_launches'][1]} (one each a check); horner_scan {w3['horner_launches']}, "
+        f"horner_scan_p256 {w3['horner_p256_launches']}")
     log(f"  end to end {w3['wave_ms']:.3f} ms = {w3['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize()); the strict wave of phase 3: "
         f"{w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s")
@@ -2396,11 +2623,14 @@ def main() -> int:
         )
     if c["horner_launches"] or c["horner_p256_launches"]:
         raise AssertionError("the catch-up chunk launched a Horner scan kernel")
+    if c["d_launches"] != (c["device_checks"],) * 2:
+        raise AssertionError(f"catch-up chunk launched (D1, D2) {c['d_launches']}")
     log(f"chunk: {c['votes']} votes padded to {c['padded']} in one "
         f"verify_consenter_sigs_multi_batch call; forged votes at {c['forged']} came back "
         f"None ({c['rejected']} rejected), equal to the strict engine's answer")
     log(f"  aggregate checks: {c['device_checks']} on the device (>= {c['min_device_batch']} "
-        f"votes; straus_msm launches {c['msm_launches']}), {c['host_checks']} on the host")
+        f"votes; straus_msm launches {c['msm_launches']}, decompress25519 {c['d_launches'][0]}, "
+        f"comb25519 {c['d_launches'][1]}), {c['host_checks']} on the host")
     log(f"  end to end {c['chunk_ms']:.3f} ms (host clock, ending in torch.cuda.synchronize())")
 
     # Phases 9-10: the replicas' waves through the coalescer, as the JAX
@@ -2468,9 +2698,11 @@ def main() -> int:
 
     # Phase 14: the fused strict wave.
     log("== phase 14: config-3 fused strict wave (device_prep=True)")
-    log("  expected launches: sha512 1, horner_scan 1, horner_scan_p256 0, straus_msm 0")
+    log("  expected launches: sha512 1, decompress25519 1, horner_scan 1, comb25519 1, "
+        "horner_scan_p256 0, straus_msm 0")
     f14 = phase_fused_wave(device, corpus, REPLICAS, w["verdicts"])
-    if f14["launches"] != (1, 0, 0) or f14["s1"] != 1 or f14["calls"] != 1:
+    if (f14["launches"] != (1, 0, 0) or f14["s1"] != 1 or f14["calls"] != 1
+            or f14["d_launches"] != (1, 1)):
         raise AssertionError(
             f"the fused wave launched (B1, B2, B3) {f14['launches']}, S1 {f14['s1']} in "
             f"{f14['calls']} device calls, not (1, 0, 0) and 1 in 1"
@@ -2481,7 +2713,8 @@ def main() -> int:
         f"FusedEd25519BatchVerifier, {f14['rejected']} rejected: verdicts equal to phase 3's "
         f"host-prep engine on every lane")
     log(f"  launches: sha512 {f14['s1']}, (horner_scan, horner_scan_p256, straus_msm) "
-        f"{f14['launches']}, in {f14['calls']} device call")
+        f"{f14['launches']}, (decompress25519, comb25519) {f14['d_launches']}, in "
+        f"{f14['calls']} device call")
     log(f"  end to end {f14['wave_ms']:.3f} ms = {f14['sigs_per_s']:.1f} signatures/s (host clock, "
         f"ending in torch.cuda.synchronize()); phase 3's host-prep wave {w['wave_ms']:.3f} ms")
     log(f"  host prep on this wave: _prepare_fused {f14['fused_prep_ms']:.3f} ms, the host-prep "
@@ -2500,7 +2733,8 @@ def main() -> int:
         f"leaves, root, coefficients), horner_scan 0, horner_scan_p256 0")
     f15 = phase_fused_randomized(device, rand_corpus, REPLICAS, w3["verdicts"])
     if (f15["launches"] != (0, 0, w3["msm_launches"]) or f15["checks"] != w3["msm_launches"]
-            or f15["s1"] != S1_PER_CHECK * f15["checks"]):
+            or f15["s1"] != S1_PER_CHECK * f15["checks"]
+            or f15["d_launches"] != (f15["checks"],) * 2):
         raise AssertionError(
             f"the fused randomized wave launched (B1, B2, B3) {f15['launches']}, S1 {f15['s1']} "
             f"in {f15['checks']} checks; phase 7 made {w3['msm_launches']}"
@@ -2509,7 +2743,8 @@ def main() -> int:
         f"FusedEd25519RandomizedBatchVerifier, {f15['rejected']} rejected: verdicts equal to "
         f"phase 7's on every lane")
     log(f"  launches: straus_msm {f15['launches'][2]} in {f15['checks']} aggregate checks, sha512 "
-        f"{f15['s1']}, horner_scan {f15['launches'][0]}, horner_scan_p256 {f15['launches'][1]}")
+        f"{f15['s1']}, decompress25519 {f15['d_launches'][0]}, comb25519 {f15['d_launches'][1]}, "
+        f"horner_scan {f15['launches'][0]}, horner_scan_p256 {f15['launches'][1]}")
     log(f"  end to end {f15['wave_ms']:.3f} ms = {f15['sigs_per_s']:.1f} signatures/s (host clock, "
         f"ending in torch.cuda.synchronize()); phase 7's host-prep wave {w3['wave_ms']:.3f} ms")
     log_profile(f15["profiled"], "straus_msm")
@@ -2520,7 +2755,8 @@ def main() -> int:
     log("== phase 16: half-aggregated certificates (the catch-up chunk's 51 decisions)")
     h16 = phase_halfagg_certs(device, CATCH_UP_DECISIONS)
     if (h16["launches"] != (0, 0, h16["certs"]) or h16["checks"] != h16["certs"]
-            or h16["s1"] != S1_PER_CHECK * h16["certs"]):
+            or h16["s1"] != S1_PER_CHECK * h16["certs"]
+            or h16["d_launches"] != (h16["certs"],) * 2):
         raise AssertionError(
             f"{h16['certs']} cert verifies launched (B1, B2, B3) {h16['launches']} and S1 "
             f"{h16['s1']} in {h16['checks']} checks"
@@ -2529,7 +2765,8 @@ def main() -> int:
         f"a SigOnlyVerifier over FusedEd25519BatchVerifier(min_device_batch=1) in "
         f"{h16['aggregate_ms']:.3f} ms (each a self-check on the card; host clock)")
     log(f"  verified on the card: every verdict equal to the host twin's; straus_msm "
-        f"{h16['launches'][2]} launches (one a cert), sha512 {h16['s1']}, {h16['checks']} "
+        f"{h16['launches'][2]} launches (one a cert), decompress25519 {h16['d_launches'][0]}, "
+        f"comb25519 {h16['d_launches'][1]}, sha512 {h16['s1']}, {h16['checks']} "
         f"fused_halfagg_verify checks; {h16['verify_ms']:.3f} ms for all (host clock), "
         f"{h16['verify_ms'] / h16['certs']:.3f} ms a cert; the host twin {h16['host_ms']:.3f} ms "
         f"for all")
@@ -2547,6 +2784,45 @@ def main() -> int:
     if not c17["fused"] or not c17["half_agg"]:
         raise AssertionError("phase 17 did not run the fused engine with half-agg certificates")
     log_cluster(c17, f14["wave_ms"])
+
+    # Phase 18: kernels D1 and D2 against their plain versions.
+    log("== phase 18: decompress25519 (D1) and comb25519 (D2) against their plain versions")
+    k18 = phase_decompress_comb(device, corpus, REPLICAS, reps=20, plain_reps=3)
+    bounds18 = {
+        "d1": decompress_bound(k18["d1"]["width"], sm_count, sm_clock_hz),
+        "d1_sub": decompress_bound(k18["d1_sub"]["width"], sm_count, sm_clock_hz),
+        "d2": comb_bound(k18["d2"]["inputs"][0], sm_count, sm_clock_hz),
+        "d2_one": comb_bound(k18["d2_one"]["inputs"][0], sm_count, sm_clock_hz),
+    }
+    labels = {
+        "d1": f"decompress25519 on phase 3's R || A stack ({k18['lanes']} lanes, "
+              f"{k18['invalid_points']} points invalid: off-curve keys, y >= p, padding)",
+        "d1_sub": f"decompress25519 on the first {k18['sub_lanes']} lanes' R || A stack "
+                  f"(the catch-up chunk's width)",
+        "d2": f"comb25519 on phase 3's S digits ({k18['lanes']} lanes)",
+        "d2_one": "comb25519 on one lane (the randomized check's batch)",
+    }
+    for key, label in labels.items():
+        r, b = k18[key], bounds18[key]
+        log(f"{label}, {r['width']} {'points' if key.startswith('d1') else 'lanes'}: "
+            + ("valid mask and " if key.startswith("d1") else "")
+            + f"frozen X, Y, Z, T equal on every lane (max abs err {r['max_abs_err']})")
+        log(f"  kernel {r['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+        log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3)")
+        if key.startswith("d1"):
+            work = (f"{DECOMPRESS_MULS} multiplications x {MUL_PRODUCTS} + {DECOMPRESS_SQUARES} "
+                    f"squarings x {SQUARE_PRODUCTS} 32x32->64 products per point")
+        else:
+            work = (f"{COMB_MULS} multiplications x {MUL_PRODUCTS} 32x32->64 products per lane; "
+                    f"{b['entries']} distinct table entries x {COMB_ENTRY_BYTES} bytes read")
+        log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: {work} = {b['products']} "
+            f"IMAD.WIDE over {sm_count} SMs x {IMAD_PER_CLOCK_PER_SM}/clock x "
+            f"{sm_clock_hz / 1e6:.0f} MHz = {b['ops_ms']:.6f} ms; {b['bytes']} bytes over "
+            f"3.35 TB/s = {b['bytes_ms']:.6f} ms; kernel at "
+            f"{100 * b['bound_ms'] / r['ms']:.3f} % of it")
+    log_ptxas(infos["decompress25519"])
+    log_ptxas(infos["comb25519"])
+    log("  library: none (no PyTorch call decompresses an Edwards point or computes [S]B)")
 
     log(card)
     log(json.dumps({"kernels": [
@@ -2600,6 +2876,32 @@ def main() -> int:
             "plain_ms": k13["plain_ms"],
             "bound_ms": bound13["bound_ms"],
             "bound_by": bound13["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "decompress25519",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/decompress25519.cu",
+            "replaces": "consensus_tpu/ops/ed25519.py:139",
+            "launches": w["d_launches"][0],
+            "max_abs_err": k18["d1"]["max_abs_err"],
+            "ms": k18["d1"]["ms"],
+            "plain_ms": k18["d1"]["plain_ms"],
+            "bound_ms": bounds18["d1"]["bound_ms"],
+            "bound_by": bounds18["d1"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "comb25519",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/comb25519.cu",
+            "replaces": "consensus_tpu/ops/ed25519.py:261",
+            "launches": w["d_launches"][1],
+            "max_abs_err": k18["d2"]["max_abs_err"],
+            "ms": k18["d2"]["ms"],
+            "plain_ms": k18["d2"]["plain_ms"],
+            "bound_ms": bounds18["d2"]["bound_ms"],
+            "bound_by": bounds18["d2"]["bound_by"],
             "library_ms": None,
         },
     ]}))

@@ -315,6 +315,124 @@ HD ge ge_dbl(const ge& p, bool need_t) {
   return ge{o[0], o[1], o[2], o[3]};
 }
 
+// --- decompression's field operations (kernel D1) --------------------------------
+
+// d and sqrt(-1) = 2^((p-1)/4).
+HD fe fe_d() {
+  return fe{{0x34dca135978a3ULL, 0x1a8283b156ebdULL, 0x5e7a26001c029ULL,
+             0x739c663a03cbbULL, 0x52036cee2b6ffULL}};
+}
+
+HD fe fe_sqrtm1() {
+  return fe{{0x61b274a0ea0b0ULL, 0xd5a5fc8f189dULL, 0x7ef5e9cbd0c60ULL,
+             0x78595a6804c9eULL, 0x2b8324804fc1dULL}};
+}
+
+// f^2: fe_mul's columns with the cross terms doubled, 15 products where the
+// multiplication takes 25.  Reduced input: each term < 2^51.01 * 2^56.3,
+// each column < 2^109.
+HD fe fe_sq(const fe& f) {
+  const u64 f0 = f.v[0], f1 = f.v[1], f2 = f.v[2], f3 = f.v[3], f4 = f.v[4];
+  const u64 f0_2 = 2 * f0, f1_2 = 2 * f1;
+  const u64 f1_38 = 38 * f1, f2_38 = 38 * f2, f3_38 = 38 * f3;
+  const u64 f3_19 = 19 * f3, f4_19 = 19 * f4;
+  u128 r0 = {0, 0}, r1 = {0, 0}, r2 = {0, 0}, r3 = {0, 0}, r4 = {0, 0};
+  mac(r0, f0, f0);   mac(r0, f1_38, f4); mac(r0, f2_38, f3);
+  mac(r1, f0_2, f1); mac(r1, f2_38, f4); mac(r1, f3_19, f3);
+  mac(r2, f0_2, f2); mac(r2, f1, f1);    mac(r2, f3_38, f4);
+  mac(r3, f0_2, f3); mac(r3, f1_2, f2);  mac(r3, f4_19, f4);
+  mac(r4, f0_2, f4); mac(r4, f1_2, f3);  mac(r4, f2, f2);
+  fe h;
+  u64 c;
+  c = shr51(r0); h.v[0] = r0.lo & MASK51; add_small(r1, c);
+  c = shr51(r1); h.v[1] = r1.lo & MASK51; add_small(r2, c);
+  c = shr51(r2); h.v[2] = r2.lo & MASK51; add_small(r3, c);
+  c = shr51(r3); h.v[3] = r3.lo & MASK51; add_small(r4, c);
+  c = shr51(r4); h.v[4] = r4.lo & MASK51;
+  h.v[0] += 19 * c;
+  c = h.v[0] >> 51; h.v[0] &= MASK51; h.v[1] += c;
+  return h;
+}
+
+// f^(2^n) by n squarings in a loop that is not unrolled: on the card one
+// out-of-line copy, so that the 251 squarings of fe_pow22523 stay a few
+// hundred instructions of code (see MUL_CALL above).
+#ifdef __CUDACC__
+__host__ __device__ __noinline__
+#else
+static
+#endif
+fe fe_sqn(fe f, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) f = fe_sq(f);
+  return f;
+}
+
+// z^((p-5)/8) = z^(2^252 - 3): the chain of ref10's fe_pow22523, 251
+// squarings and 11 multiplications.
+HD fe fe_pow22523(const fe& z) {
+  const fe z2 = fe_sq(z);
+  const fe z9 = mul<MUL_CALL>(z, fe_sqn(z2, 2));
+  const fe z11 = mul<MUL_CALL>(z2, z9);
+  const fe z_5_0 = mul<MUL_CALL>(z9, fe_sq(z11));                  // 2^5 - 1
+  const fe z_10_0 = mul<MUL_CALL>(fe_sqn(z_5_0, 5), z_5_0);       // 2^10 - 1
+  const fe z_20_0 = mul<MUL_CALL>(fe_sqn(z_10_0, 10), z_10_0);    // 2^20 - 1
+  const fe z_40_0 = mul<MUL_CALL>(fe_sqn(z_20_0, 20), z_20_0);    // 2^40 - 1
+  const fe z_50_0 = mul<MUL_CALL>(fe_sqn(z_40_0, 10), z_10_0);    // 2^50 - 1
+  const fe z_100_0 = mul<MUL_CALL>(fe_sqn(z_50_0, 50), z_50_0);   // 2^100 - 1
+  const fe z_200_0 = mul<MUL_CALL>(fe_sqn(z_100_0, 100), z_100_0);  // 2^200 - 1
+  const fe z_250_0 = mul<MUL_CALL>(fe_sqn(z_200_0, 50), z_50_0);  // 2^250 - 1
+  return mul<MUL_CALL>(fe_sqn(z_250_0, 2), z);                     // 2^252 - 3
+}
+
+// Reduced fe -> its canonical value in [0, p) as four little-endian 64-bit
+// words: the steps of fe_store before its byte split.
+HD void fe_canonical(const fe& h, u64 w[4]) {
+  u64 t[5] = {h.v[0], h.v[1], h.v[2], h.v[3], h.v[4]};
+  for (int pass = 0; pass < 3; ++pass) {
+    t[1] += t[0] >> 51; t[0] &= MASK51;
+    t[2] += t[1] >> 51; t[1] &= MASK51;
+    t[3] += t[2] >> 51; t[2] &= MASK51;
+    t[4] += t[3] >> 51; t[3] &= MASK51;
+    t[0] += 19 * (t[4] >> 51); t[4] &= MASK51;
+  }
+  t[0] += 19;
+  t[1] += t[0] >> 51; t[0] &= MASK51;
+  t[2] += t[1] >> 51; t[1] &= MASK51;
+  t[3] += t[2] >> 51; t[2] &= MASK51;
+  t[4] += t[3] >> 51; t[3] &= MASK51;
+  t[0] += 19 * (t[4] >> 51); t[4] &= MASK51;
+  t[0] += MASK51 + 1 - 19;
+  t[1] += MASK51;
+  t[2] += MASK51;
+  t[3] += MASK51;
+  t[4] += MASK51;
+  t[1] += t[0] >> 51; t[0] &= MASK51;
+  t[2] += t[1] >> 51; t[1] &= MASK51;
+  t[3] += t[2] >> 51; t[2] &= MASK51;
+  t[4] += t[3] >> 51; t[3] &= MASK51;
+  t[4] &= MASK51;
+  w[0] = t[0] | (t[1] << 51);
+  w[1] = (t[1] >> 13) | (t[2] << 38);
+  w[2] = (t[2] >> 26) | (t[3] << 25);
+  w[3] = (t[3] >> 39) | (t[4] << 12);
+}
+
+HD bool fe_is_zero(const fe& f) {
+  u64 w[4];
+  fe_canonical(f, w);
+  return (w[0] | w[1] | w[2] | w[3]) == 0;
+}
+
+HD bool fe_eq(const fe& f, const fe& g) { return fe_is_zero(fe_sub(f, g)); }
+
+// The low bit of the canonical value: x and p - x differ in it for x != 0.
+HD int fe_parity(const fe& f) {
+  u64 w[4];
+  fe_canonical(f, w);
+  return (int)(w[0] & 1);
+}
+
 #ifdef __CUDACC__
 constexpr unsigned FULL = 0xffffffffu;
 

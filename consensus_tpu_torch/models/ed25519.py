@@ -6,11 +6,14 @@ Split of labor:
 * **Host** (numpy): parse signatures, range-check ``S < L`` and ``y < p``,
   hash ``k = SHA-512(R || A || M) mod L``, and pack scalars and field
   elements into fixed-shape uint8 limb/digit arrays.
-* **Device**: :func:`verify_impl` decompresses R and A, computes [k](-A)
-  with the hand-written Horner-scan kernel
+* **Device**: :func:`verify_impl` decompresses R and A (kernel D1,
+  :func:`consensus_tpu_torch.ops.scan_kernels.decompress`), computes [k](-A)
+  with the hand-written Horner-scan kernel B1
   (:func:`consensus_tpu_torch.ops.scan_kernels.horner_scan`), adds [S]B
-  from the 8-bit fixed-base comb, and compares the sum with R.  Everything
-  around the kernel is plain torch on the field module's f32 limbs.
+  from the 8-bit fixed-base comb (kernel D2,
+  :func:`consensus_tpu_torch.ops.scan_kernels.fixed_base_mul_comb`), and
+  compares the sum with R.  The negation, the add and the comparison around
+  the kernels are plain torch on the field module's f32 limbs.
 
 Batches are padded to the next power of two (``pad_pow2``) or to a fixed
 ``pad_to``; padding lanes carry y = 0 and ``host_ok = False``.
@@ -78,7 +81,7 @@ def verify_impl(
     # Decompress R and A in one pass over both, stacked on the batch axis.
     batch = y_r.shape[-1]
     with record_function("ed25519.decompress"):
-        pt, pt_ok = ed.decompress(
+        pt, pt_ok = scan_kernels.decompress(
             torch.cat([y_r, y_a], dim=-1), torch.cat([sign_r, sign_a], dim=-1)
         )
     r_point = ed.Point(*(c[..., :batch] for c in pt))
@@ -89,7 +92,7 @@ def verify_impl(
     with record_function("ed25519.horner_scan"):
         acc = scan_kernels.horner_scan(*neg_a, k_digits.contiguous())
     with record_function("ed25519.comb"):
-        comb = ed.fixed_base_mul_comb(s_digits8)
+        comb = scan_kernels.fixed_base_mul_comb(s_digits8.to(torch.int32).contiguous())
     with record_function("ed25519.add_and_equal"):
         return host_ok & r_ok & a_ok & ed.equal(ed.add(acc, comb), r_point)
 
@@ -442,7 +445,7 @@ def msm_inputs(
     contributes the identity -- padding lanes ride the same mechanism."""
     batch = y_r.shape[-1]
     with record_function("ed25519.batch.decompress"):
-        pt, pt_ok = ed.decompress(
+        pt, pt_ok = scan_kernels.decompress(
             torch.cat([y_r, y_a], dim=-1).to(torch.float32),
             torch.cat([sign_r, sign_a], dim=-1).to(torch.int32),
         )
@@ -472,8 +475,9 @@ def batch_verify_impl(
     sum [z_i k_i mod L](-A_i) + sum [z_i](-R_i) against the identity.
 
     Returns ``(eq_ok, valid)``: the aggregate verdict (a 0-d bool) and the
-    lanes that passed the host pre-checks and decompressed.  The MSM is the
-    Straus kernel (its plain version on a CPU tensor), the comb is batch 1.
+    lanes that passed the host pre-checks and decompressed.  Decompression
+    is kernel D1, the MSM the Straus kernel B3 and the comb kernel D2 at
+    batch 1 (each its plain version on a CPU tensor).
     Each stage runs in a ``record_function`` range ``ed25519.batch.<stage>``."""
     neg_a, neg_r, zk_digits, z_digits, valid = msm_inputs(
         y_r, sign_r, y_a, sign_a, zk_digits, z_digits, host_ok
@@ -481,7 +485,7 @@ def batch_verify_impl(
     with record_function("ed25519.batch.straus_msm"):
         acc = scan_kernels.straus_msm(neg_a, neg_r, zk_digits, z_digits)
     with record_function("ed25519.batch.comb"):
-        comb = ed.fixed_base_mul_comb(zs_digits8)
+        comb = scan_kernels.fixed_base_mul_comb(zs_digits8.to(torch.int32).contiguous())
     with record_function("ed25519.batch.check"):
         return ed.is_identity(ed.add(acc, comb))[0], valid
 

@@ -173,28 +173,36 @@ class EngineRegistry:
 
 def _with_kernels(engine, *names: str):
     """Build and load the libraries of the kernels ``engine`` launches when
-    it runs on the card, so its first launch never waits on nvcc (a
+    it runs on the card (and put D2's comb table there), so its first launch
+    never waits on nvcc (a
     coalescer's flusher thread would otherwise spend its ``wait_timeout``
     on the build)."""
     if engine.device.type == "cuda":
         for name in names:
             scan_kernels.build(name)
+        if "comb25519" in names:
+            scan_kernels.comb_niels_table(engine.device)
     return engine
 
 
 def _ed25519_single(*, randomized: bool, fused: bool, **kw):
+    # Every Ed25519 path decompresses (D1) and runs the comb (D2).
+    ed_kernels = ("decompress25519", "comb25519")
     if fused:
         # The fused engines hash on the card (S1); the randomized one's
         # subsets below the randomized floor take the fused strict path.
         if randomized:
             return _with_kernels(
-                FusedEd25519RandomizedBatchVerifier(**kw), "sha512", "straus_msm", "horner_scan"
+                FusedEd25519RandomizedBatchVerifier(**kw), "sha512", "straus_msm",
+                "horner_scan", *ed_kernels,
             )
-        return _with_kernels(FusedEd25519BatchVerifier(**kw), "sha512", "horner_scan")
+        return _with_kernels(FusedEd25519BatchVerifier(**kw), "sha512", "horner_scan", *ed_kernels)
     if randomized:
         # Subsets below the randomized floor take the strict device path.
-        return _with_kernels(Ed25519RandomizedBatchVerifier(**kw), "straus_msm", "horner_scan")
-    return _with_kernels(Ed25519BatchVerifier(**kw), "horner_scan")
+        return _with_kernels(
+            Ed25519RandomizedBatchVerifier(**kw), "straus_msm", "horner_scan", *ed_kernels
+        )
+    return _with_kernels(Ed25519BatchVerifier(**kw), "horner_scan", *ed_kernels)
 
 
 def _p256_single(**kw):

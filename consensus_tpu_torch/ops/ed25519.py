@@ -9,9 +9,10 @@ return the same limbs.
 
 Decompression (RFC 8032 section 5.1.3), the fixed-base comb [S]B and the
 shared-doubling Straus MSM of the randomized verifier run here as plain
-torch; the variable-base Horner scan and the MSM have their hand-written
-kernels in :mod:`consensus_tpu_torch.ops.scan_kernels`.  The JAX module's
-``lax.scan`` loops are Python loops here.
+torch: they are the plain versions of the hand-written kernels in
+:mod:`consensus_tpu_torch.ops.scan_kernels` (D1, D2 and B3; the
+variable-base Horner scan B1 has its own there), which the engines launch
+on the card.  The JAX module's ``lax.scan`` loops are Python loops here.
 """
 
 from __future__ import annotations

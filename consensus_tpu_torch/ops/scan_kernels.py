@@ -5,12 +5,16 @@ Ed25519 Horner scan (``horner_scan``, TPU body ``_scan_kernel``), the P-256
 Horner scan (``horner_scan_p256``, TPU body ``_scan_kernel_p256``) and the
 randomized verifier's shared-doubling Straus MSM (``straus_msm``, TPU body
 ``_msm_kernel``).  The build registry :data:`KERNELS` also holds the port's
-SHA-512 kernel S1, whose wrapper is ``ops/sha512.py::sha512_blocks``.
+own kernels, which replace plain XLA of the JAX package: SHA-512 (S1, whose
+wrapper is ``ops/sha512.py::sha512_blocks``), Ed25519 point decompression
+(D1, :func:`decompress`) and the fixed-base comb [S]B (D2,
+:func:`fixed_base_mul_comb`).
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
 tensor it runs its plain torch version (``horner_scan_reference``,
-``horner_scan_p256_reference``, ``straus_msm_reference``).  Every kernel is
+``horner_scan_p256_reference``, ``straus_msm_reference``,
+``decompress_reference``, ``fixed_base_mul_comb_reference``).  Every kernel is
 built by one helper: nvcc for ``sm_90a`` on first use, into ``csrc/build/``
 keyed by a hash of the source and of the headers beside it, loaded through
 ctypes; a build or load failure raises.  A lock per kernel serializes its
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -37,6 +42,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
@@ -63,6 +69,10 @@ KERNELS = {
     # Kernel S1, SHA-512 for the fused front end; its wrapper is
     # ops/sha512.py::sha512_blocks.
     "sha512": (_CSRC / "sha512.cu", 3, ("block_count",)),
+    # Kernels D1 and D2, decompression and the fixed-base comb of every
+    # Ed25519 path.
+    "decompress25519": (_CSRC / "decompress25519.cu", 7, ()),
+    "comb25519": (_CSRC / "comb25519.cu", 6, ()),
 }
 
 #: Loaded libraries, name -> (library, BuildInfo), and the lock that
@@ -189,11 +199,16 @@ def _check_inputs(
     name: str,
     coords: dict[str, torch.Tensor],
     digits: dict[str, tuple[torch.Tensor, int]],
+    per_lane: dict[str, torch.Tensor] | None = None,
 ) -> int:
     """Check what the kernel ``name`` takes -- float32 (32, batch)
     coordinates, int32 (windows, batch) digit arrays (label -> (array,
-    windows)), one device, contiguous -- and return the batch."""
-    first = next(iter(coords.values()))
+    windows)), int32 (batch,) per-lane values, one device, contiguous -- and
+    return the batch."""
+    per_lane = per_lane or {}
+    first = next(iter(coords.values()), None)
+    if first is None:
+        first = next(iter(digits.values()))[0]
     batch = first.shape[-1] if first.dim() == 2 else -1
     for label, t in coords.items():
         if t.dtype != torch.float32:
@@ -210,7 +225,12 @@ def _check_inputs(
             raise ValueError(
                 f"{name}: {label} must be ({windows}, {batch}), got {tuple(d.shape)}"
             )
-    for t in (*coords.values(), *(d for d, _ in digits.values())):
+    for label, v in per_lane.items():
+        if v.dtype != torch.int32:
+            raise TypeError(f"{name}: {label} must be int32, got {v.dtype}")
+        if v.shape != (batch,):
+            raise ValueError(f"{name}: {label} must be ({batch},), got {tuple(v.shape)}")
+    for t in (*coords.values(), *(d for d, _ in digits.values()), *per_lane.values()):
         if t.device != first.device:
             raise ValueError(f"{name}: all inputs must be on one device")
         if not t.is_contiguous():
@@ -384,11 +404,90 @@ def straus_msm_reference(
     )
 
 
+# --- kernels D1 and D2: decompression and the fixed-base comb ---------------------
+
+#: The plain torch versions of D1 and D2: the port's ops, unchanged (held
+#: limb for limb to the JAX package's plain XLA).
+decompress_reference = ed.decompress
+fixed_base_mul_comb_reference = ed.fixed_base_mul_comb
+
+_COMB_WINDOWS = 32
+_RADIX51 = (1 << 51) - 1
+
+
+def decompress(y_limbs: torch.Tensor, sign: torch.Tensor) -> tuple[ed.Point, torch.Tensor]:
+    """RFC 8032 section 5.1.3 decompression per lane: (point with Z = 1 and
+    T = xy, valid mask).
+
+    ``y_limbs`` is (32, m) float32 in the field module's weak contract (the
+    engines pass bytes, y >= p included), ``sign`` (m,) int32.  On CUDA the
+    point is the plain version's as canonical limbs (Y is y mod p) and the
+    mask a bool tensor; on the CPU it is the plain version's output."""
+    m = _check_inputs("decompress25519", {"y_limbs": y_limbs}, {}, {"sign": sign})
+    device = y_limbs.device
+    if device.type == "cpu":
+        return ed.decompress(y_limbs, sign)
+    outs = [torch.empty_like(y_limbs) for _ in range(4)]
+    valid = torch.empty(m, dtype=torch.bool, device=device)
+    _launch("decompress25519", (y_limbs, sign), (*outs, valid), m, device)
+    LEDGER.record_launch("decompress25519")
+    return ed.Point(*outs), valid
+
+
+def fixed_base_mul_comb(s_digits8: torch.Tensor) -> ed.Point:
+    """[S]B per lane from (32, n) int32 8-bit window digits (bytes 0-255),
+    LSB window first.  On CUDA the result is the plain version's projective
+    point as canonical limbs; on the CPU it is the plain version's output."""
+    n = _check_inputs("comb25519", {}, {"s_digits8": (s_digits8, _COMB_WINDOWS)})
+    device = s_digits8.device
+    if device.type == "cpu":
+        return ed.fixed_base_mul_comb(s_digits8)
+    outs = [
+        torch.empty((fe.LIMBS, n), dtype=torch.float32, device=device) for _ in range(4)
+    ]
+    _launch("comb25519", (comb_niels_table(device), s_digits8), outs, n, device)
+    LEDGER.record_launch("comb25519")
+    return ed.Point(*outs)
+
+
+@functools.lru_cache(maxsize=1)
+def comb_niels_np() -> np.ndarray:
+    """Kernel D2's table: entry [j][d] of the plain version's comb table
+    (``d * 2^(8j) * B``, affine) in the Niels form (y - x, y + x, 2d x y),
+    each coordinate 5 radix-2^51 limbs, as a (32, 256, 3, 5) uint64 array."""
+
+    def ints(arr: np.ndarray) -> list[int]:
+        rows = arr.astype(np.uint8).reshape(-1, fe.LIMBS)
+        return [int.from_bytes(row.tobytes(), "little") for row in rows]
+
+    xs, ys, ts = (ints(a) for a in ed._comb_table_np())
+    words = [
+        (v >> (51 * i)) & _RADIX51
+        for x, y, t in zip(xs, ys, ts)
+        for v in ((y - x) % fe.P, (y + x) % fe.P, fe.D2 * t % fe.P)
+        for i in range(5)
+    ]
+    return np.array(words, dtype=np.uint64).reshape(_COMB_WINDOWS, 256, 3, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def comb_niels_table(device) -> torch.Tensor:
+    """:func:`comb_niels_np` on ``device`` as int64 (the same bits), built
+    once per device."""
+    return torch.from_numpy(comb_niels_np().view(np.int64)).to(torch.device(device))
+
+
 __all__ = [
     "BUILD_DIR",
     "BuildInfo",
     "KERNELS",
     "build",
+    "comb_niels_np",
+    "comb_niels_table",
+    "decompress",
+    "decompress_reference",
+    "fixed_base_mul_comb",
+    "fixed_base_mul_comb_reference",
     "horner_scan",
     "horner_scan_p256",
     "horner_scan_p256_reference",

@@ -450,6 +450,7 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
     assert card.device_calls >= 2 * 4  # each replica's wave, each block
     assert launches == {
         "horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 0,
+        "decompress25519": card.device_calls, "comb25519": card.device_calls,
     }
     host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
     assert _signed_request_cluster(host) == on_card
@@ -509,9 +510,10 @@ def _signed(n, seed):
 
 @pytest.mark.cuda
 def test_fused_waves_launch_as_counted_on_card(cuda_device):
-    """A fused strict wave is one S1 and one B1 launch; a fused randomized
-    wave with one forged signature launches B3 once per aggregate check it
-    books and S1 four times a check, plus one S1 and one B1 per strict-floor
+    """A fused strict wave is one S1, one D1, one B1 and one D2 launch; a
+    fused randomized wave with one forged signature launches B3 once per
+    aggregate check it books and S1 four times a check, plus one S1 and one
+    B1 per strict-floor call, and D1 and D2 once per check and per floor
     call; both equal the host-prep engine's verdicts."""
     msgs, sigs, keys = _signed(40, seed=5)
     sigs[7] = sigs[7][:40] + bytes([sigs[7][40] ^ 1]) + sigs[7][41:]  # S off by one bit
@@ -521,7 +523,10 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     strict = FusedEd25519BatchVerifier(device=cuda_device)
     before = _launches()
     assert np.array_equal(strict.verify_batch(msgs, sigs, keys), want)
-    assert _delta(before) == {"horner_scan": 1, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 1}
+    assert _delta(before) == {
+        "horner_scan": 1, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 1,
+        "decompress25519": 1, "comb25519": 1,
+    }
 
     randomized = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_randomized=4)
     before = _launches()
@@ -533,16 +538,17 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     assert checks >= 3 and floors >= 1  # the aggregate fails, then bisection
     assert _delta(before) == {
         "horner_scan": floors, "horner_scan_p256": 0, "straus_msm": checks,
-        "sha512": 4 * checks + floors,
+        "sha512": 4 * checks + floors, "decompress25519": checks + floors,
+        "comb25519": checks + floors,
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("device_prep", [False, True])
 def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
-    """A half-aggregated cert verify on the card is one B3 launch (and four
-    S1 launches on the fused path), accepting the honest cert and
-    rejecting a tampered one as the host twin does."""
+    """A half-aggregated cert verify on the card is one B3, one D1 and one
+    D2 launch (and four S1 launches on the fused path), accepting the
+    honest cert and rejecting a tampered one as the host twin does."""
     msgs, sigs, keys = _signed(5, seed=6)
     host = HalfAggregator(min_device_batch=10**9, device=cuda_device)
     agg, bad = host.aggregate(msgs, sigs, keys)
@@ -555,5 +561,103 @@ def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
         assert host.verify(msgs, list(rs), s_value, keys) is verdict
         assert _delta(before) == {
             "horner_scan": 0, "horner_scan_p256": 0, "straus_msm": 1,
-            "sha512": 4 if device_prep else 0,
+            "sha512": 4 if device_prep else 0, "decompress25519": 1, "comb25519": 1,
         }
+
+
+# --- kernels D1 (decompression) and D2 (the fixed-base comb) -------------------
+
+
+def _decompress_case(m: int, device):
+    """(32, m) y limbs and (m,) signs: encodings of j*B (both sign bits),
+    y = +-1 with both signs, y >= p, and random y's (about half of them off
+    the curve) with random signs."""
+    rng = np.random.default_rng(m)
+    special = [(1, 0), (1, 1), (P - 1, 0), (P - 1, 1), (P, 0), (P + 1, 1), ((1 << 255) - 1, 0)]
+    pts, cur = [], (ed._BX, ed._BY)
+    for _ in range(min(m // 4, 512)):
+        pts.append(cur)
+        cur = ed._edwards_add_int(cur, (ed._BX, ed._BY))
+    lanes = special + [(y, (x & 1) ^ int(rng.integers(0, 2))) for x, y in pts]
+    while len(lanes) < m:
+        lanes.append((int.from_bytes(rng.bytes(32), "little") >> 1, int(rng.integers(0, 2))))
+    lanes = lanes[:m] if m > 1 else [(ed._BY, 1)]
+    y = np.stack([fe.int_to_limbs(v) for v, _ in lanes], axis=1)
+    sign = np.array([s for _, s in lanes], dtype=np.int32)
+    return torch.from_numpy(y).to(device), torch.from_numpy(sign).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 255, 8192, 16384])
+def test_decompress_kernel_matches_reference_on_card(cuda_device, m):
+    """D1's frozen X, Y, Z, T and valid mask equal the plain version's on
+    every lane (tolerance 0), valid or not; canonical limbs; one launch."""
+    y, sign = _decompress_case(m, cuda_device)
+    before = KERNELS.stats("decompress25519").launches
+    got, ok = scan_kernels.decompress(y, sign)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("decompress25519").launches == before + 1
+    want, want_ok = scan_kernels.decompress_reference(y, sign)
+    assert ok.dtype == torch.bool and torch.equal(ok, want_ok)
+    if m > 255:
+        assert 0 < int(ok.sum()) < m
+    for g, w in zip(got, want):
+        assert torch.equal(fe.freeze(g), fe.freeze(w))
+        assert torch.equal(g, fe.freeze(g).to(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 8192])
+def test_comb_kernel_matches_reference_on_card(cuda_device, n):
+    """D2's frozen X, Y, Z, T equal the plain version's on every lane
+    (tolerance 0): digit 0 and 255 in every window, S = 0, random bytes;
+    canonical limbs; one launch."""
+    rng = np.random.default_rng(n)
+    digits = rng.integers(0, 256, size=(32, n)).astype(np.int32)
+    if n > 2:
+        digits[:, 0] = 0
+        digits[:, 1] = 255
+    d = torch.from_numpy(digits).to(cuda_device)
+    before = KERNELS.stats("comb25519").launches
+    got = scan_kernels.fixed_base_mul_comb(d)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("comb25519").launches == before + 1
+    want = scan_kernels.fixed_base_mul_comb_reference(d)
+    for g, w in zip(got, want):
+        assert torch.equal(fe.freeze(g), fe.freeze(w))
+        assert torch.equal(g, fe.freeze(g).to(torch.float32))
+
+
+@pytest.mark.cuda
+def test_decompress_and_comb_kernels_reject_mixed_devices(cuda_device):
+    y, sign = _decompress_case(8, cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        scan_kernels.decompress(y, sign.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        scan_kernels.decompress(y.cpu(), sign)
+
+
+@pytest.mark.cuda
+def test_ed25519_waves_launch_d1_d2_and_never_the_plain_versions(cuda_device, monkeypatch):
+    """With ops/ed25519.py's decompress and fixed_base_mul_comb patched to
+    raise: a strict wave launches D1, B1 and D2 once each, and a randomized
+    wave with an undecodable key (the aggregate, then the survivors'
+    re-check) D1, D2 and B3 twice each; both answer as the host path."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    msgs, sigs, keys = _signed(64, seed=13)
+    keys[5] = (2).to_bytes(32, "little")  # off the curve: fails decompression
+    host = med.Ed25519BatchVerifier(device="cpu").verify_host(msgs, sigs, keys)
+    strict = engine_for_config(Configuration(crypto_tpu_min_batch=1), device=cuda_device)
+    randomized = engine_for_config(Configuration(batch_verify_mode=True), device=cuda_device)
+    monkeypatch.setattr(ed, "decompress", refuse)
+    monkeypatch.setattr(ed, "fixed_base_mul_comb", refuse)
+    zero = {name: 0 for name in scan_kernels.KERNELS}
+    before = _launches()
+    assert np.array_equal(strict.verify_batch(msgs, sigs, keys), host)
+    assert _delta(before) == {**zero, "decompress25519": 1, "horner_scan": 1, "comb25519": 1}
+    before = _launches()
+    assert np.array_equal(randomized.verify_batch(msgs, sigs, keys), host)
+    assert _delta(before) == {**zero, "decompress25519": 2, "straus_msm": 2, "comb25519": 2}

@@ -85,6 +85,7 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     # The plain version runs on the CPU: no kernel launch, and the 5-vote
     # quorum takes the host path.
     assert w["wave_launches"] == 0 and w["quorum_launches"] == 0
+    assert w["d_launches"] == (0, 0)
     assert w["quorum_size"] == 5 < w["min_device_batch"]
     # The stages are read off the engine's own ranges; on the CPU the
     # profiler sees no device, so no device time is claimed.
@@ -196,6 +197,7 @@ def _rehearse_randomized_phases(monkeypatch):
     assert w["signatures"] == 32 and w["padded"] == 32
     assert w["rejected"] == 6 and w["host_rejected"] == 4 and w["reference_checked"] == 32
     assert (w["msm_launches"], w["horner_launches"], w["horner_p256_launches"]) == (0, 0, 0)
+    assert w["d_launches"] == (0, 0)
     p = w["profiled"]
     assert list(p["ranges"]) == list(chip_smoke.BATCH_RANGES)
     assert all(r["host_ms"] > 0 and r["device_ms"] is None for r in p["ranges"].values())
@@ -207,7 +209,7 @@ def _rehearse_randomized_phases(monkeypatch):
     assert c["votes"] == 20 and c["padded"] == 32 and c["rejected"] == 3
     assert len(c["forged"]) == 3 and c["min_device_batch"] == 16
     assert len(calls) == c["device_checks"] == 1 and c["host_checks"] >= 2
-    assert (c["msm_launches"], c["horner_launches"]) == (0, 0)
+    assert (c["msm_launches"], c["horner_launches"]) == (0, 0) and c["d_launches"] == (0, 0)
 
 
 def test_ptxas_summary_reads_each_function():
@@ -346,9 +348,14 @@ def test_chip_smoke_cluster_phase_rehearses_on_cpu(monkeypatch):
     # 20 requests, then 20 + the previous decision's 3-vote certificate.
     assert c["wave_sizes"] == [20, 23] and c["padded"] == [32]
     assert c["launches"] == (0, 0, 0) and c["host_calls"] > 0 and c["host_sigs"] < 16 * c["host_calls"]
+    assert c["d_launches"] == (0, 0)
     assert [b["device_calls"] for b in c["block_log"]] == [4, 4]
     for b in c["block_log"]:
         assert b["wall_ms"] >= b["device_ms"] + b["host_ms"] > 0
+        # The rest split: the file WALs fsync on every block, and the parts
+        # add up to the rest.
+        assert b["fsyncs"] > 0 and b["fsync_ms"] > 0 and b["gc_ms"] >= 0
+        assert b["rest_ms"] == pytest.approx(b["fsync_ms"] + b["gc_ms"] + b["left_ms"])
     assert c["votes_checked"] >= 2 * 4 * 3 and c["reference_checked"] == 8
     assert c["tx_per_s"] > 0 and c["peak_bytes"] is None and c["wal_bytes"] > 0
     # B1 held against its plain version on the last follower wave's inputs.
@@ -381,3 +388,37 @@ def test_wave_scan_inputs_are_the_engines_own(monkeypatch):
     assert k_digits.shape == (64, 32)
     for g, w in zip(got, (*neg_a, k_digits)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_chip_smoke_d1_d2_phase_rehearses_on_cpu():
+    """Phase 18 at 16 requests: D1 on the wave's R || A stack (32 points,
+    the host-rejected y >= p and off-curve keys among them) and on the first
+    4 lanes' (8), D2 on the 16 lanes' S digits and on one lane, each held to
+    its plain version at tolerance 0 (the plain versions run on the CPU)."""
+    corpus = chip_smoke.make_corpus(16, per_class=1)
+    k = chip_smoke.phase_decompress_comb("cpu", corpus, replicas=1, reps=1, plain_reps=1,
+                                         sub_lanes=4)
+    assert (k["lanes"], k["sub_lanes"]) == (16, 4)
+    assert [k[key]["width"] for key in ("d1", "d1_sub", "d2", "d2_one")] == [32, 8, 16, 1]
+    assert all(k[key]["max_abs_err"] == 0 for key in ("d1", "d1_sub", "d2", "d2_one"))
+    assert all(k[key]["ms"] > 0 and k[key]["plain_ms"] > 0 for key in ("d1", "d2"))
+    # The y >= p key and the off-curve key fail decompression; R with y >= p
+    # decodes as y - p, which may or may not be on the curve.
+    assert k["invalid_points"] >= 2
+
+
+def test_decompress_and_comb_bounds_count_the_work():
+    b = chip_smoke.decompress_bound(16384, sm_count=132, sm_clock_hz=1.98e9)
+    # 275 field products a point, 255 of them squarings.
+    assert (chip_smoke.DECOMPRESS_MULS, chip_smoke.DECOMPRESS_SQUARES) == (20, 255)
+    assert b["products"] == (20 * 72 + 255 * 44) * 16384
+    assert b["bytes"] == 16384 * (32 * 4 + 4 + 4 * 32 * 4 + 1)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
+    digits = torch.zeros((32, 3), dtype=torch.int32)
+    digits[5, 1] = 7
+    digits[5, 2] = 7
+    c = chip_smoke.comb_bound(digits, sm_count=132, sm_clock_hz=1.98e9)
+    # 32 entries of digit 0 and one more: the entries these digits pick.
+    assert c["entries"] == 33 and chip_smoke.COMB_MULS == 224
+    assert c["products"] == 224 * 72 * 3
+    assert c["bytes"] == 3 * 32 * 4 + 33 * 120 + 3 * 4 * 32 * 4
