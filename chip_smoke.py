@@ -125,12 +125,13 @@ Phases:
 18. kernels D1 (decompression, ``csrc/decompress25519.cu``) and D2 (the
    fixed-base comb, ``csrc/comb25519.cu``) against their plain torch
    versions on phase 3's own inputs, tolerance 0: D1 on the wave's R || A
-   stack (16,384 points) and on its first 256 lanes' (512), with the valid
-   masks equal; D2 on the wave's S digits (8,192 lanes) and on one lane;
-   each with its time, the plain version's and its bound, and the
-   registers, stack frame and spills ptxas reports.  D1 and D2 launch once
-   per device call on every Ed25519 path (phases 3, 7, 8, 12 and 14-17
-   count them).
+   stack (16,384 points), on its first 1,024 lanes' (2,048, phase 12's
+   width) and on its first 256 lanes' (512), with the valid masks equal;
+   D2 on the wave's S digits (8,192 lanes), on its first 1,024 lanes and on
+   one lane; each with its time alone and through its wrapper, the plain
+   version's and its bound, and the registers, shared memory, stack frame
+   and spills ptxas reports.  D1 and D2 launch once per device call on
+   every Ed25519 path (phases 3, 7, 8, 12 and 14-17 count them).
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -290,6 +291,9 @@ DOUBLE_T_MULS, DOUBLE_T_SQUARES = 4, 4
 CATCH_UP_DECISIONS = 51
 #: Its 255 votes padded: the width phase 6 also checks and times B3 at.
 CATCH_UP_LANES = 256
+#: A phase-12 wave: a block's 1,000 signatures on 1,024 lanes, the width
+#: phase 18 also checks and times D1 (on 2,048 points) and D2 at.
+CLUSTER_LANES = 1024
 #: The coalescer of phases 9-10 as benchmarks/chain_crypto_tps.py wires it:
 #: submissions below this skip the window on the caller's thread.
 BYPASS_BELOW = 64
@@ -1942,14 +1946,35 @@ def _check_comb(digits: torch.Tensor) -> float:
     )
 
 
+def _launch_ms(kind: str, args, reps: int, device) -> float:
+    """Mean milliseconds of one D1 (``kind`` "decompress") or D2 ("comb")
+    launch alone: ``reps`` launches back to back on preallocated outputs,
+    timed with CUDA events.  A wrapper's own host work (its checks, the
+    output allocation) takes about as long as these kernels run, so a loop
+    of wrapper calls leaves the card idle between launches."""
+    width = args[0].shape[-1]
+    if kind == "decompress":
+        name, inputs = "decompress25519", args
+        outs = [torch.empty_like(args[0]) for _ in range(4)]
+        outs.append(torch.empty(width, dtype=torch.bool, device=device))
+    else:
+        name, inputs = "comb25519", (scan_kernels.comb_niels_table(device), args[0])
+        outs = [torch.empty((fe.LIMBS, width), dtype=torch.float32, device=device)
+                for _ in range(4)]
+    return _time_ms(lambda: scan_kernels._launch(name, inputs, outs, width, device), reps, device)
+
+
 def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: int,
-                          sub_lanes: int = CATCH_UP_LANES) -> dict:
+                          sub_lanes: int = CATCH_UP_LANES,
+                          cluster_lanes: int = CLUSTER_LANES) -> dict:
     """D1 and D2 against their plain versions on the strict wave's own
     inputs as the engine packs them (``replicas`` copies of ``corpus``):
-    D1 on the R || A stack of every lane (phase 3's wave: 16,384 points) and
-    of the first ``sub_lanes`` lanes, D2 on every lane's S digits and on one
-    lane; each kernel timed over ``reps`` launches after its check, the
-    plain version over ``plain_reps`` calls."""
+    D1 on the R || A stack of every lane (phase 3's wave: 16,384 points), of
+    the first ``cluster_lanes`` lanes and of the first ``sub_lanes``, D2 on
+    every lane's S digits, on the first ``cluster_lanes`` lanes' and on one
+    lane; each kernel timed over ``reps`` launches after its check, alone
+    (``ms``; on the CPU the wrapper's plain version) and through its
+    wrapper (``call_ms``), the plain version over ``plain_reps`` calls."""
     device = torch.device(device)
     engine = med.Ed25519BatchVerifier(device=device)
     y_r, sign_r, y_a, sign_a, s_digits8, _, _ = engine.prepare_device_inputs(
@@ -1957,6 +1982,7 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
     )
     lanes = y_r.shape[1]
     cols = min(sub_lanes, lanes)
+    wide = min(cluster_lanes, lanes)
 
     def stack(c: int):
         return (torch.cat([y_r[:, :c], y_a[:, :c]], dim=-1).to(torch.float32).contiguous(),
@@ -1964,8 +1990,10 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
 
     digits = s_digits8.to(torch.int32).contiguous()
     cases = {
-        "d1": ("decompress", stack(lanes)), "d1_sub": ("decompress", stack(cols)),
-        "d2": ("comb", (digits,)), "d2_one": ("comb", (digits[:, :1].contiguous(),)),
+        "d1": ("decompress", stack(lanes)), "d1_cluster": ("decompress", stack(wide)),
+        "d1_sub": ("decompress", stack(cols)),
+        "d2": ("comb", (digits,)), "d2_cluster": ("comb", (digits[:, :wide].contiguous(),)),
+        "d2_one": ("comb", (digits[:, :1].contiguous(),)),
     }
     kernels = {
         "decompress": (_check_decompress, scan_kernels.decompress,
@@ -1973,15 +2001,14 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
         "comb": (_check_comb, scan_kernels.fixed_base_mul_comb,
                  scan_kernels.fixed_base_mul_comb_reference),
     }
-    out = {"lanes": lanes, "sub_lanes": cols}
+    out = {"lanes": lanes, "sub_lanes": cols, "cluster_lanes": wide}
     for key, (kind, args) in cases.items():
         check, kernel, plain = kernels[kind]
-        out[key] = {
-            "width": args[0].shape[-1], "inputs": args,
-            "max_abs_err": check(*args),
-            "ms": _time_ms(lambda: kernel(*args), reps, device),
-            "plain_ms": _time_ms(lambda: plain(*args), plain_reps, device),
-        }
+        out[key] = {"width": args[0].shape[-1], "inputs": args, "max_abs_err": check(*args)}
+        out[key]["call_ms"] = _time_ms(lambda: kernel(*args), reps, device)
+        out[key]["ms"] = (_launch_ms(kind, args, reps, device) if device.type == "cuda"
+                          else out[key]["call_ms"])
+        out[key]["plain_ms"] = _time_ms(lambda: plain(*args), plain_reps, device)
     out["invalid_points"] = int((~scan_kernels.decompress_reference(*cases["d1"][1])[1]).sum())
     return out
 
@@ -2789,17 +2816,23 @@ def main() -> int:
     log("== phase 18: decompress25519 (D1) and comb25519 (D2) against their plain versions")
     k18 = phase_decompress_comb(device, corpus, REPLICAS, reps=20, plain_reps=3)
     bounds18 = {
-        "d1": decompress_bound(k18["d1"]["width"], sm_count, sm_clock_hz),
-        "d1_sub": decompress_bound(k18["d1_sub"]["width"], sm_count, sm_clock_hz),
-        "d2": comb_bound(k18["d2"]["inputs"][0], sm_count, sm_clock_hz),
-        "d2_one": comb_bound(k18["d2_one"]["inputs"][0], sm_count, sm_clock_hz),
+        key: decompress_bound(k18[key]["width"], sm_count, sm_clock_hz)
+        for key in ("d1", "d1_cluster", "d1_sub")
     }
+    bounds18.update({
+        key: comb_bound(k18[key]["inputs"][0], sm_count, sm_clock_hz)
+        for key in ("d2", "d2_cluster", "d2_one")
+    })
     labels = {
         "d1": f"decompress25519 on phase 3's R || A stack ({k18['lanes']} lanes, "
               f"{k18['invalid_points']} points invalid: off-curve keys, y >= p, padding)",
+        "d1_cluster": f"decompress25519 on the first {k18['cluster_lanes']} lanes' R || A "
+                      f"stack (phase 12's wave width)",
         "d1_sub": f"decompress25519 on the first {k18['sub_lanes']} lanes' R || A stack "
                   f"(the catch-up chunk's width)",
         "d2": f"comb25519 on phase 3's S digits ({k18['lanes']} lanes)",
+        "d2_cluster": f"comb25519 on the first {k18['cluster_lanes']} lanes' S digits "
+                      f"(phase 12's wave width)",
         "d2_one": "comb25519 on one lane (the randomized check's batch)",
     }
     for key, label in labels.items():
@@ -2807,7 +2840,9 @@ def main() -> int:
         log(f"{label}, {r['width']} {'points' if key.startswith('d1') else 'lanes'}: "
             + ("valid mask and " if key.startswith("d1") else "")
             + f"frozen X, Y, Z, T equal on every lane (max abs err {r['max_abs_err']})")
-        log(f"  kernel {r['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
+        log(f"  kernel {r['ms']:.6f} ms (CUDA events, mean of 20 launches back to back on "
+            f"preallocated outputs, after warm-up); {r['call_ms']:.6f} ms a call through the "
+            f"wrapper (mean of 20)")
         log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3)")
         if key.startswith("d1"):
             work = (f"{DECOMPRESS_MULS} multiplications x {MUL_PRODUCTS} + {DECOMPRESS_SQUARES} "

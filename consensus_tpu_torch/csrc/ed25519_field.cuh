@@ -1,5 +1,5 @@
 // GF(2^255 - 19) and edwards25519 arithmetic shared by the port's Ed25519
-// kernels (horner_scan.cu, straus_msm.cu).
+// kernels (horner_scan.cu, straus_msm.cu, decompress25519.cu, comb25519.cu).
 //
 // Radix 2^51 with 5 uint64 limbs, so every product is one native 64-bit
 // multiply pair (a*b and __umul64hi); fe_load/fe_store convert from and to
@@ -209,6 +209,96 @@ HD void fe_store(float* p, long long stride, const fe& h) {
   }
 }
 
+// --- radix 2^25.5 products (kernels D1 and D2) -----------------------------------
+// In radix 2^51 every term of a product is a 64x64->128-bit product, several
+// dependent 32-bit multiply-adds on this card.  fe25 holds the same value in
+// ten limbs of 26 and 25 bits (ref10's representation) in uint32, so that a
+// term is one 32x32->64 multiply-add (IMAD.WIDE.U32) into a 64-bit column:
+// a multiplication is 100 of them, a squaring 55.  Limb i sits at bit
+// ceil(25.5 i); the term f_i g_j lands in column (i + j) mod 10, doubled
+// when i and j are both odd (their half bits add up) and times 19 when i + j
+// >= 10 (2^255 = 19 mod p).  Limbs of an fe25 from fe25_from or a product
+// are below 2^26 (even) and 2^25 + 2^15 (odd): every scaled factor then fits
+// 32 bits (at most 38 * 2^26 or 76 (2^25 + 2^15), below 2^31.3) and every
+// column 64 (ten terms below 2^57.3).  The values mod p are fe_mul's, so a
+// kernel that computes its products here writes the same canonical limbs.
+
+struct fe25 {
+  uint32_t v[10];
+};
+
+constexpr u64 MASK26 = (1ULL << 26) - 1;
+constexpr u64 MASK25 = (1ULL << 25) - 1;
+
+// Reduced fe (limbs below 2^51 + 2^16) -> fe25: each limb's low 26 bits and
+// the rest (below 2^25 + 1).
+HD fe25 fe25_from(const fe& f) {
+  fe25 h;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    h.v[2 * k] = (uint32_t)(f.v[k] & MASK26);
+    h.v[2 * k + 1] = (uint32_t)(f.v[k] >> 26);
+  }
+  return h;
+}
+
+// fe25 -> reduced fe.
+HD fe fe25_to(const fe25& f) {
+  fe h;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) h.v[k] = (u64)f.v[2 * k] + ((u64)f.v[2 * k + 1] << 26);
+  fe_carry(h);
+  return h;
+}
+
+// Ten columns below 2^61 -> fe25: ref10's carry order, two chains
+// interleaved, the top carry folded back at 19.
+HD fe25 fe25_carry(u64* h) {
+  u64 c;
+  c = h[0] >> 26; h[1] += c; h[0] &= MASK26;
+  c = h[4] >> 26; h[5] += c; h[4] &= MASK26;
+  c = h[1] >> 25; h[2] += c; h[1] &= MASK25;
+  c = h[5] >> 25; h[6] += c; h[5] &= MASK25;
+  c = h[2] >> 26; h[3] += c; h[2] &= MASK26;
+  c = h[6] >> 26; h[7] += c; h[6] &= MASK26;
+  c = h[3] >> 25; h[4] += c; h[3] &= MASK25;
+  c = h[7] >> 25; h[8] += c; h[7] &= MASK25;
+  c = h[4] >> 26; h[5] += c; h[4] &= MASK26;
+  c = h[8] >> 26; h[9] += c; h[8] &= MASK26;
+  c = h[9] >> 25; h[0] += 19 * c; h[9] &= MASK25;
+  c = h[0] >> 26; h[1] += c; h[0] &= MASK26;
+  fe25 r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = (uint32_t)h[i];
+  return r;
+}
+
+HD fe25 fe25_mul(const fe25& f, const fe25& g) {
+  u64 h[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 10; ++i)
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      const uint32_t scale = ((i & j & 1) ? 2u : 1u) * (i + j >= 10 ? 19u : 1u);
+      h[(i + j) % 10] += (u64)f.v[i] * (uint32_t)(scale * g.v[j]);
+    }
+  return fe25_carry(h);
+}
+
+// f^2: each product f_i f_j with i < j once, doubled.
+HD fe25 fe25_sq(const fe25& f) {
+  u64 h[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 10; ++i)
+#pragma unroll
+    for (int j = i; j < 10; ++j) {
+      const uint32_t scale =
+          ((i & j & 1) ? 2u : 1u) * (i + j >= 10 ? 19u : 1u) * (i == j ? 1u : 2u);
+      h[(i + j) % 10] += (u64)f.v[i] * (uint32_t)(scale * f.v[j]);
+    }
+  return fe25_carry(h);
+}
+
 HD ge ge_identity() { return ge{fe_zero(), fe_one(), fe_one(), fe_zero()}; }
 
 // --- the point operations' multiplication ----------------------------------------
@@ -217,9 +307,10 @@ HD ge ge_identity() { return ge{fe_zero(), fe_one(), fe_one(), fe_zero()}; }
 // measured faster for B3's tables, window sums and join, which add with
 // ge_add.  MUL_INLINE: fe_mul inlined at every call; measured faster for
 // B3's one-warp chain and for B1's split stages.  On the host both are
-// fe_mul.
+// fe_mul.  MUL_R25: the product in radix 2^25.5 (fe25 above), inlined, on
+// the host too; measured faster for D2's split stages.
 
-enum { MUL_CALL = 0, MUL_INLINE = 1 };
+enum { MUL_CALL = 0, MUL_INLINE = 1, MUL_R25 = 2 };
 
 #ifdef __CUDA_ARCH__
 __device__ __noinline__ fe fe_mul_call(fe f, fe g) { return fe_mul(f, g); }
@@ -230,6 +321,7 @@ HD fe mul(const fe& f, const fe& g) {
 #ifdef __CUDA_ARCH__
   if (K == MUL_CALL) return fe_mul_call(f, g);
 #endif
+  if (K == MUL_R25) return fe25_to(fe25_mul(fe25_from(f), fe25_from(g)));
   return fe_mul(f, g);
 }
 
@@ -326,63 +418,6 @@ HD fe fe_d() {
 HD fe fe_sqrtm1() {
   return fe{{0x61b274a0ea0b0ULL, 0xd5a5fc8f189dULL, 0x7ef5e9cbd0c60ULL,
              0x78595a6804c9eULL, 0x2b8324804fc1dULL}};
-}
-
-// f^2: fe_mul's columns with the cross terms doubled, 15 products where the
-// multiplication takes 25.  Reduced input: each term < 2^51.01 * 2^56.3,
-// each column < 2^109.
-HD fe fe_sq(const fe& f) {
-  const u64 f0 = f.v[0], f1 = f.v[1], f2 = f.v[2], f3 = f.v[3], f4 = f.v[4];
-  const u64 f0_2 = 2 * f0, f1_2 = 2 * f1;
-  const u64 f1_38 = 38 * f1, f2_38 = 38 * f2, f3_38 = 38 * f3;
-  const u64 f3_19 = 19 * f3, f4_19 = 19 * f4;
-  u128 r0 = {0, 0}, r1 = {0, 0}, r2 = {0, 0}, r3 = {0, 0}, r4 = {0, 0};
-  mac(r0, f0, f0);   mac(r0, f1_38, f4); mac(r0, f2_38, f3);
-  mac(r1, f0_2, f1); mac(r1, f2_38, f4); mac(r1, f3_19, f3);
-  mac(r2, f0_2, f2); mac(r2, f1, f1);    mac(r2, f3_38, f4);
-  mac(r3, f0_2, f3); mac(r3, f1_2, f2);  mac(r3, f4_19, f4);
-  mac(r4, f0_2, f4); mac(r4, f1_2, f3);  mac(r4, f2, f2);
-  fe h;
-  u64 c;
-  c = shr51(r0); h.v[0] = r0.lo & MASK51; add_small(r1, c);
-  c = shr51(r1); h.v[1] = r1.lo & MASK51; add_small(r2, c);
-  c = shr51(r2); h.v[2] = r2.lo & MASK51; add_small(r3, c);
-  c = shr51(r3); h.v[3] = r3.lo & MASK51; add_small(r4, c);
-  c = shr51(r4); h.v[4] = r4.lo & MASK51;
-  h.v[0] += 19 * c;
-  c = h.v[0] >> 51; h.v[0] &= MASK51; h.v[1] += c;
-  return h;
-}
-
-// f^(2^n) by n squarings in a loop that is not unrolled: on the card one
-// out-of-line copy, so that the 251 squarings of fe_pow22523 stay a few
-// hundred instructions of code (see MUL_CALL above).
-#ifdef __CUDACC__
-__host__ __device__ __noinline__
-#else
-static
-#endif
-fe fe_sqn(fe f, int n) {
-#pragma unroll 1
-  for (int i = 0; i < n; ++i) f = fe_sq(f);
-  return f;
-}
-
-// z^((p-5)/8) = z^(2^252 - 3): the chain of ref10's fe_pow22523, 251
-// squarings and 11 multiplications.
-HD fe fe_pow22523(const fe& z) {
-  const fe z2 = fe_sq(z);
-  const fe z9 = mul<MUL_CALL>(z, fe_sqn(z2, 2));
-  const fe z11 = mul<MUL_CALL>(z2, z9);
-  const fe z_5_0 = mul<MUL_CALL>(z9, fe_sq(z11));                  // 2^5 - 1
-  const fe z_10_0 = mul<MUL_CALL>(fe_sqn(z_5_0, 5), z_5_0);       // 2^10 - 1
-  const fe z_20_0 = mul<MUL_CALL>(fe_sqn(z_10_0, 10), z_10_0);    // 2^20 - 1
-  const fe z_40_0 = mul<MUL_CALL>(fe_sqn(z_20_0, 20), z_20_0);    // 2^40 - 1
-  const fe z_50_0 = mul<MUL_CALL>(fe_sqn(z_40_0, 10), z_10_0);    // 2^50 - 1
-  const fe z_100_0 = mul<MUL_CALL>(fe_sqn(z_50_0, 50), z_50_0);   // 2^100 - 1
-  const fe z_200_0 = mul<MUL_CALL>(fe_sqn(z_100_0, 100), z_100_0);  // 2^200 - 1
-  const fe z_250_0 = mul<MUL_CALL>(fe_sqn(z_200_0, 50), z_50_0);  // 2^250 - 1
-  return mul<MUL_CALL>(fe_sqn(z_250_0, 2), z);                     // 2^252 - 3
 }
 
 // Reduced fe -> its canonical value in [0, p) as four little-endian 64-bit

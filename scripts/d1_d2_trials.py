@@ -1,23 +1,32 @@
-"""Block-size trials of kernels D1 (decompression) and D2 (the comb) on one
+"""Design trials of kernels D1 (decompression) and D2 (the comb) on one
 NVIDIA GPU.
 
     python3 scripts/d1_d2_trials.py
 
-Builds copies of ``consensus_tpu_torch/csrc/decompress25519.cu`` and
-``comb25519.cu`` with 32, 64 and 128 threads a block (the sources' own
-constant rewritten) into ``consensus_tpu_torch/csrc/build/trials/``, checks
-each copy against the plain version at tolerance 0, and times every copy
-with CUDA events, in turns within one process (32, 64, 128, 128, 64, 32):
-D1 at 16,384 points and at 512, D2 at 8,192 lanes and at one lane.  The
-inputs are random y encodings with random signs (about half off the curve)
-and random digit bytes, from numpy seed 0: both kernels do the same work on
-any data.  Prints one line per copy and width, then the card's name and
-power limit.
+Builds every design of each kernel side by side: the one in
+``consensus_tpu_torch/csrc/`` (``decompress25519.cu``, ``comb25519.cu``),
+every alternative in ``scripts/d1_d2_trials/`` (``<kernel>_<design>.cu``:
+the first versions, one thread a point or lane, and the candidates that were
+not chosen), and copies of the csrc comb with its products in radix 2^51
+(``COMB_MUL``) and at 8 and 32 lanes a block (``LANES``).  One nvcc per
+source, all started together, into ``consensus_tpu_torch/csrc/build/trials/``;
+a design that does not build is reported and left out.  Each design is then checked against the plain
+version at tolerance 0 (frozen X, Y, Z, T equal, and D1's valid mask) at
+every width, and timed with CUDA events in turns within one process
+(designs in order, reversed, in order): D1 at 16,384, 2,048, 512 and 16
+points, D2 at 8,192, 1,024, 8 and 1 lanes (the strict wave's R || A stack
+and S digits, phase 12's cluster wave, the half-agg verify's and the
+randomized check's widths).  The inputs are random y encodings with random
+signs (about half off the curve) and random digit bytes from numpy seed 0:
+both kernels do the same work on any data.  Prints each design's ptxas
+figures, one line per design and width, a JSON summary, and the card's name
+and power limit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import re
 import subprocess
 import sys
@@ -32,41 +41,82 @@ from consensus_tpu_torch.ops import ed25519 as ed  # noqa: E402
 from consensus_tpu_torch.ops import field25519 as fe  # noqa: E402
 from consensus_tpu_torch.ops import scan_kernels  # noqa: E402
 
+ALTERNATIVES = Path(__file__).resolve().parent / "d1_d2_trials"
 TRIALS = scan_kernels.BUILD_DIR / "trials"
-#: kernel -> (source, the block-size constant's name, pointer arguments).
+#: kernel -> (pointer arguments of its C launch function, widths).
 KERNELS = {
-    "decompress25519": ("decompress25519.cu", "POINTS", 7),
-    "comb25519": ("comb25519.cu", "LANES", 6),
+    "decompress25519": (7, (16384, 2048, 512, 16)),
+    "comb25519": (6, (8192, 1024, 8, 1)),
 }
-THREADS = (32, 64, 128)
+#: Copies of the csrc comb with one constant rewritten: design name ->
+#: (pattern, replacement).
+COMB_COPIES = {
+    "radix51": (r"constexpr int COMB_MUL = MUL_R25;", "constexpr int COMB_MUL = MUL_INLINE;"),
+    "lanes8": (r"constexpr int LANES = \d+;", "constexpr int LANES = 8;"),
+    "lanes32": (r"constexpr int LANES = \d+;", "constexpr int LANES = 32;"),
+}
 REPS = 50
+ROUNDS = 3
 
 
-def build(name: str, threads: int) -> ctypes.CDLL:
-    source, constant, n_pointers = KERNELS[name]
-    text = (scan_kernels._CSRC / source).read_text()
-    text, count = re.subn(rf"constexpr int {constant} = \d+;",
-                          f"constexpr int {constant} = {threads};", text)
-    assert count == 1, f"{source}: no {constant} constant"
+def designs() -> dict:
+    """(kernel, design) -> source text."""
+    out = {}
+    for name in KERNELS:
+        out[name, "csrc"] = (scan_kernels._CSRC / f"{name}.cu").read_text()
+        for path in sorted(ALTERNATIVES.glob(f"{name}_*.cu")):
+            out[name, path.stem[len(name) + 1:]] = path.read_text()
+    for design, (pattern, replacement) in COMB_COPIES.items():
+        text, count = re.subn(pattern, replacement, out["comb25519", "csrc"])
+        assert count == 1, f"comb25519.cu: no {pattern}"
+        out["comb25519", design] = text
+    return out
+
+
+def ptxas_figures(report: str) -> dict:
+    """Registers, shared memory, stack frame and spills of the __global__
+    kernel in an ``-Xptxas -v`` report."""
+    figures = {}
+    for block in report.split("Compiling entry function")[1:]:
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem"),
+                             ("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+            found = re.search(pattern, block)
+            figures[key] = int(found.group(1)) if found else 0
+    return figures
+
+
+def build_all(sources: dict) -> dict:
+    """Start one nvcc per design together; (kernel, design) -> (launch
+    function, ptxas figures) for each that built."""
     TRIALS.mkdir(parents=True, exist_ok=True)
-    cu = TRIALS / f"{name}_{threads}.cu"
-    cu.write_text(text)
-    lib = TRIALS / f"{name}_{threads}.so"
-    proc = subprocess.run(
-        [scan_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{scan_kernels._CSRC}",
-         "-o", str(lib), str(cu)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode:
-        raise RuntimeError(proc.stdout + proc.stderr)
-    regs = re.findall(r"Used (\d+) registers", proc.stdout + proc.stderr)
-    print(f"{name} at {threads} threads a block: built, {regs[0]} registers", flush=True)
-    handle = ctypes.CDLL(str(lib))
-    launch = getattr(handle, f"{name}_launch")
-    launch.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    return launch
+    procs = {}
+    for (name, design), text in sources.items():
+        cu = TRIALS / f"{name}_{design}.cu"
+        cu.write_text(text)
+        lib = TRIALS / f"{name}_{design}.so"
+        procs[name, design] = (lib, subprocess.Popen(
+            [scan_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             f"-I{scan_kernels._CSRC}", f"-I{ALTERNATIVES}", "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    built = {}
+    for (name, design), (lib, proc) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode:
+            print(f"{name} {design}: nvcc failed\n{report}", flush=True)
+            continue
+        figures = ptxas_figures(report)
+        print(f"{name} {design}: built; ptxas {figures}", flush=True)
+        launch = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+        launch.argtypes = [ctypes.c_void_p] * KERNELS[name][0] + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        built[name, design] = (launch, figures)
+    return built
 
 
 def run(launch, inputs, outputs, batch: int, device) -> None:
@@ -81,18 +131,18 @@ def main() -> int:
         print("d1_d2_trials: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    built = build_all(designs())
     rng = np.random.default_rng(0)
     cases = {}
-    for m in (16384, 512):
+    for m in KERNELS["decompress25519"][1]:
         ys = [int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(m)]
         y = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in ys], axis=1)).to(device)
         sign = torch.from_numpy(rng.integers(0, 2, m).astype(np.int32)).to(device)
-        cases[("decompress25519", m)] = (y, sign)
+        cases["decompress25519", m] = (y, sign)
     table = scan_kernels.comb_niels_table(device)
-    for n in (8192, 1):
+    for n in KERNELS["comb25519"][1]:
         digits = torch.from_numpy(rng.integers(0, 256, (32, n)).astype(np.int32)).to(device)
-        cases[("comb25519", n)] = (table, digits)
-    launches = {(name, t): build(name, t) for name in KERNELS for t in THREADS}
+        cases["comb25519", n] = (table, digits)
 
     def outputs(name, width):
         outs = [torch.empty((fe.LIMBS, width), dtype=torch.float32, device=device)
@@ -101,40 +151,56 @@ def main() -> int:
             outs.append(torch.empty(width, dtype=torch.bool, device=device))
         return outs
 
+    equal: dict = {}
     times: dict = {}
     for (name, width), inputs in cases.items():
         if name == "decompress25519":
             want, want_ok = ed.decompress(*inputs)
         else:
             want, want_ok = ed.fixed_base_mul_comb(inputs[1]), None
-        for threads in THREADS:
+        frozen = [fe.freeze(w) for w in want]
+        order = [d for n, d in built if n == name]
+        for design in order:
             outs = outputs(name, width)
-            run(launches[name, threads], inputs, outs, width, device)
+            run(built[name, design][0], inputs, outs, width, device)
             torch.cuda.synchronize()
-            for g, w in zip(outs[:4], want):
-                assert torch.equal(fe.freeze(g), fe.freeze(w)), (name, threads, width)
+            same = all(torch.equal(fe.freeze(g), w) for g, w in zip(outs[:4], frozen))
             if want_ok is not None:
-                assert torch.equal(outs[4], want_ok), (name, threads, width)
-        for threads in THREADS + THREADS[::-1]:
-            outs = outputs(name, width)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(REPS):
-                run(launches[name, threads], inputs, outs, width, device)
-            end.record()
-            torch.cuda.synchronize()
-            times.setdefault((name, width, threads), []).append(start.elapsed_time(end) / REPS)
-    for (name, width, threads), ms in times.items():
-        print(f"{name} width {width} threads {threads}: "
-              + ", ".join(f"{t:.6f}" for t in ms)
-              + f" ms (CUDA events, mean of {REPS} launches; equal to the plain version)")
+                same = same and torch.equal(outs[4], want_ok)
+            equal[name, design, width] = same
+            if not same:
+                print(f"{name} {design} width {width}: DIFFERS from the plain version", flush=True)
+        for turn in range(ROUNDS):
+            for design in order if turn % 2 == 0 else order[::-1]:
+                outs = outputs(name, width)
+                launch = built[name, design][0]
+                run(launch, inputs, outs, width, device)  # warm-up
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(REPS):
+                    run(launch, inputs, outs, width, device)
+                end.record()
+                torch.cuda.synchronize()
+                times.setdefault((name, design, width), []).append(
+                    start.elapsed_time(end) / REPS)
+    for (name, design, width), ms in times.items():
+        verdict = "equal to" if equal[name, design, width] else "DIFFERENT from"
+        print(f"{name} {design} width {width}: " + ", ".join(f"{t:.6f}" for t in ms)
+              + f" ms (CUDA events, mean of {REPS} launches a turn; {verdict} the plain "
+              "version at tolerance 0)")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    print(json.dumps({
+        "card": card,
+        "ptxas": {f"{n} {d}": f for (n, d), (_, f) in built.items()},
+        "ms": {f"{n} {d} {w}": t for (n, d, w), t in times.items()},
+        "equal": {f"{n} {d} {w}": e for (n, d, w), e in equal.items()},
+    }))
     print(card)
-    return 0
+    return 0 if all(equal.values()) and len(built) == len(designs()) else 1
 
 
 if __name__ == "__main__":

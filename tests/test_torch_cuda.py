@@ -588,10 +588,12 @@ def _decompress_case(m: int, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 255, 8192, 16384])
+@pytest.mark.parametrize("m", [1, 255, 8192, 16384, 3, 17, 65, 2048])
 def test_decompress_kernel_matches_reference_on_card(cuda_device, m):
     """D1's frozen X, Y, Z, T and valid mask equal the plain version's on
-    every lane (tolerance 0), valid or not; canonical limbs; one launch."""
+    every lane (tolerance 0), valid or not; canonical limbs; one launch.
+    The widths include ragged ones (a 64-point block straddling the end)
+    and phase 12's R || A stack (2,048 points)."""
     y, sign = _decompress_case(m, cuda_device)
     before = KERNELS.stats("decompress25519").launches
     got, ok = scan_kernels.decompress(y, sign)
@@ -607,11 +609,13 @@ def test_decompress_kernel_matches_reference_on_card(cuda_device, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 255, 8192])
+@pytest.mark.parametrize("n", [1, 255, 8192, 3, 17, 65, 1024])
 def test_comb_kernel_matches_reference_on_card(cuda_device, n):
     """D2's frozen X, Y, Z, T equal the plain version's on every lane
     (tolerance 0): digit 0 and 255 in every window, S = 0, random bytes;
-    canonical limbs; one launch."""
+    canonical limbs; one launch.  The widths include ragged ones (a block
+    of 16 lanes, each a group of 4 threads, straddling the end) and phase
+    12's wave (1,024 lanes)."""
     rng = np.random.default_rng(n)
     digits = rng.integers(0, 256, size=(32, n)).astype(np.int32)
     if n > 2:

@@ -33,6 +33,10 @@ from consensus_tpu_torch.ops import field25519 as tfe
 from consensus_tpu_torch.ops import scan_kernels
 
 P = tfe.P
+#: The kernels' geometry: D1's points a block, D2's lanes (groups of 4
+#: threads) a block.
+POINTS_A_BLOCK = 64
+COMB_LANES_A_BLOCK = 16
 
 _HARNESS = r"""
 #include <cstdio>
@@ -41,8 +45,12 @@ _HARNESS = r"""
 #include <vector>
 #include "decompress25519.cu"
 #include "comb25519.cu"
-// The kernels' per-lane functions on the host: every lane in turn, over
-// outputs poisoned before the run.
+// The kernels' per-lane code on the host, over outputs poisoned before the
+// run.  D1: every point in turn.  D2: the kernel's block schedule -- blocks
+// of LANES groups, the lane of each group at comb_group_lane(block,
+// thread), a group past the batch skipped, each group running its G roles
+// in turn (serial_group) over its block's slots and digit stage, as the
+// card's shared memory holds them, both poisoned before every block.
 //   harness decompress <m> <in: y limbs, signs> <out: X, Y, Z, T, valid>
 //   harness comb <n> <in: table, digits> <out: X, Y, Z, T>
 static bool read_parts(FILE* f, void* p, size_t bytes) { return fread(p, 1, bytes, f) == bytes; }
@@ -54,6 +62,7 @@ int main(int argc, char** argv) {
   std::vector<float> out(4 * 32 * n, -7.0f);
   float* o[4] = {&out[0], &out[32 * n], &out[64 * n], &out[96 * n]};
   std::vector<uint8_t> valid;
+  long long blocks = 0;
   if (strcmp(argv[1], "decompress") == 0) {
     std::vector<float> y(32 * n);
     std::vector<int32_t> sign(n);
@@ -61,20 +70,33 @@ int main(int argc, char** argv) {
     valid.assign(n, 0xa5);
     for (long long lane = 0; lane < n; ++lane)
       decompress_point(y.data(), sign.data(), o[0], o[1], o[2], o[3], valid.data(), n, lane);
+    blocks = (n + POINTS - 1) / POINTS;
   } else {
     std::vector<u64> table(COMB_WINDOWS * COMB_ENTRIES * ENTRY_WORDS);
     std::vector<int32_t> digits(32 * n);
     if (!read_parts(in, table.data(), 8 * table.size()) ||
         !read_parts(in, digits.data(), 4 * digits.size())) return 3;
-    for (long long lane = 0; lane < n; ++lane)
-      comb_lane(table.data(), digits.data(), o[0], o[1], o[2], o[3], n, lane);
+    blocks = (n + LANES - 1) / LANES;
+    for (long long b = 0; b < blocks; ++b) {
+      static fe slots[LANES][2][G];
+      static int32_t stages[LANES][COMB_WINDOWS];
+      memset(slots, 0x5a, sizeof slots);
+      memset(stages, 0xa5, sizeof stages);
+      for (int t = 0; t < THREADS; t += G) {
+        const long long lane = comb_group_lane(b, t);
+        if (lane >= n) continue;
+        const serial_group g = {0, G, slots[t / G]};
+        comb_lane(g, stages[t / G], table.data(), digits.data(), o[0], o[1], o[2], o[3], n, lane);
+      }
+    }
   }
   fclose(in);
   FILE* f = fopen(argv[4], "wb");
   fwrite(out.data(), 4, out.size(), f);
   fwrite(valid.data(), 1, valid.size(), f);
   fclose(f);
-  printf("blocks of %d points, %d lanes\n", POINTS, LANES);
+  printf("%lld blocks; %d points a block; %d lanes of %d roles a block\n", blocks, POINTS,
+         LANES, G);
   return 0;
 }
 """
@@ -105,7 +127,11 @@ def _run(harness, mode: str, n: int, payload: bytes):
         [str(exe), mode, str(n), str(tmp / f"{mode}-{n}.in"), str(tmp / f"{mode}-{n}.out")],
         check=True, capture_output=True, text=True, timeout=300,
     )
-    assert proc.stdout.split() == ["blocks", "of", "64", "points,", "64", "lanes"]
+    per_block = {"decompress": POINTS_A_BLOCK, "comb": COMB_LANES_A_BLOCK}[mode]
+    assert proc.stdout.split() == [
+        str(-(-n // per_block)), "blocks;", str(POINTS_A_BLOCK), "points", "a", "block;",
+        str(COMB_LANES_A_BLOCK), "lanes", "of", "4", "roles", "a", "block",
+    ]
     raw = (tmp / f"{mode}-{n}.out").read_bytes()
     coords = np.frombuffer(raw[: 4 * 4 * 32 * n], dtype=np.float32).reshape(4, 32, n)
     return coords.copy(), np.frombuffer(raw[4 * 4 * 32 * n:], dtype=np.uint8)
@@ -170,8 +196,17 @@ def decompress_case():
     return _decompress_case()
 
 
+@pytest.fixture(scope="module")
+def jax_decompressed(decompress_case):
+    """JAX's ``decompress`` of the whole corpus: frozen (4, 32, m) and the
+    valid mask."""
+    y, sign, _ = decompress_case
+    pt, ok = jed.decompress(jnp.asarray(y), jnp.asarray(sign))
+    return _frozen(pt), np.asarray(ok)
+
+
 def test_decompress_kernel_code_compiled_for_the_host_matches_plain_and_jax(
-    harness, decompress_case
+    harness, decompress_case, jax_decompressed
 ):
     """D1's per-lane code on 288 lanes of every input class: frozen X, Y, Z,
     T and the valid mask equal to the plain version's and to JAX's
@@ -182,12 +217,12 @@ def test_decompress_kernel_code_compiled_for_the_host_matches_plain_and_jax(
     assert got.min() >= 0 and got.max() <= 255
     assert np.array_equal(got, _frozen(torch.from_numpy(got)))  # canonical limbs
     plain, plain_ok = scan_kernels.decompress_reference(torch.from_numpy(y), torch.from_numpy(sign))
-    jax_pt, jax_ok = jed.decompress(jnp.asarray(y), jnp.asarray(sign))
+    jax_frozen, jax_ok = jax_decompressed
     assert valid.dtype == np.uint8 and set(valid.tolist()) <= {0, 1}
     assert np.array_equal(valid.astype(bool), plain_ok.numpy())
-    assert np.array_equal(valid.astype(bool), np.asarray(jax_ok))
+    assert np.array_equal(valid.astype(bool), jax_ok)
     want = _frozen(plain)
-    for name, g, w, j in zip("XYZT", got, want, _frozen(jax_pt)):
+    for name, g, w, j in zip("XYZT", got, want, jax_frozen):
         assert np.array_equal(g, w), (name, np.flatnonzero((g != w).any(axis=0))[:8])
         assert np.array_equal(g, j), name
     # Every class reached the kernel, and the mask is the one RFC 8032 gives.
@@ -241,6 +276,12 @@ def _comb_case():
     return digits
 
 
+@pytest.fixture(scope="module")
+def jax_combed():
+    """JAX's ``fixed_base_mul_comb`` of the whole comb corpus, frozen."""
+    return _frozen(jed.fixed_base_mul_comb(jnp.asarray(_comb_case())))
+
+
 def _table_bytes() -> bytes:
     table = scan_kernels.comb_niels_np()
     assert table.shape == (32, 256, 3, 5) and table.dtype == np.uint64
@@ -267,6 +308,34 @@ def test_comb_kernel_code_compiled_for_the_host_matches_plain_and_jax(harness, w
         x, y, z, _ = (tfe.limbs_to_int(c[:, lane]) for c in got)
         wx, wy, wz, _ = tmed._ref_mul(s, tmed._BASE_POINT)
         assert (x * wz - wx * z) % P == 0 and (y * wz - wy * z) % P == 0
+
+
+@pytest.mark.parametrize("width", [1, 3, 17, 65])
+def test_kernel_code_at_ragged_widths_matches_plain_and_jax(
+    harness, decompress_case, jax_decompressed, jax_combed, width
+):
+    """Widths where a block (D1's 64 points, D2's 16 lanes of 4 roles) or a
+    group straddles the batch's end, over lanes drawn from both corpora: D1's
+    valid mask and frozen X, Y, Z, T and D2's frozen X, Y, Z, T equal to the
+    plain versions' and to JAX's on every lane (JAX's outputs of the whole
+    corpora, at the drawn lanes), none left poisoned."""
+    y, sign, _ = decompress_case
+    pick = np.random.default_rng(width).permutation(y.shape[1])[:width]
+    y_w, sign_w = np.ascontiguousarray(y[:, pick]), np.ascontiguousarray(sign[pick])
+    got, valid = _run(harness, "decompress", width, y_w.tobytes() + sign_w.tobytes())
+    plain, plain_ok = scan_kernels.decompress_reference(torch.from_numpy(y_w),
+                                                        torch.from_numpy(sign_w))
+    assert np.array_equal(valid.astype(bool), plain_ok.numpy())
+    assert np.array_equal(valid.astype(bool), jax_decompressed[1][pick])
+    for g, w, j in zip(got, _frozen(plain), jax_decompressed[0][:, :, pick]):
+        assert np.array_equal(g, w) and np.array_equal(g, j)
+
+    digits = np.ascontiguousarray(_comb_case()[:, pick % 260])
+    got, _ = _run(harness, "comb", width, _table_bytes() + digits.tobytes())
+    assert got.min() >= 0
+    plain = scan_kernels.fixed_base_mul_comb_reference(torch.from_numpy(digits))
+    for g, w, j in zip(got, _frozen(plain), jax_combed[:, :, pick % 260]):
+        assert np.array_equal(g, w) and np.array_equal(g, j)
 
 
 def test_comb_table_is_the_plain_tables_niels_form():

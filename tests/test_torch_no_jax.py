@@ -392,16 +392,21 @@ def test_wave_scan_inputs_are_the_engines_own(monkeypatch):
 
 def test_chip_smoke_d1_d2_phase_rehearses_on_cpu():
     """Phase 18 at 16 requests: D1 on the wave's R || A stack (32 points,
-    the host-rejected y >= p and off-curve keys among them) and on the first
-    4 lanes' (8), D2 on the 16 lanes' S digits and on one lane, each held to
-    its plain version at tolerance 0 (the plain versions run on the CPU)."""
+    the host-rejected y >= p and off-curve keys among them), on the first 8
+    lanes' (16, the cut phase 12's width takes) and on the first 4 lanes'
+    (8), D2 on the 16 lanes' S digits, on the first 8 lanes' and on one
+    lane, each held to its plain version at tolerance 0 (the plain versions
+    run on the CPU)."""
     corpus = chip_smoke.make_corpus(16, per_class=1)
     k = chip_smoke.phase_decompress_comb("cpu", corpus, replicas=1, reps=1, plain_reps=1,
-                                         sub_lanes=4)
-    assert (k["lanes"], k["sub_lanes"]) == (16, 4)
-    assert [k[key]["width"] for key in ("d1", "d1_sub", "d2", "d2_one")] == [32, 8, 16, 1]
-    assert all(k[key]["max_abs_err"] == 0 for key in ("d1", "d1_sub", "d2", "d2_one"))
+                                         sub_lanes=4, cluster_lanes=8)
+    assert (k["lanes"], k["sub_lanes"], k["cluster_lanes"]) == (16, 4, 8)
+    keys = ("d1", "d1_cluster", "d1_sub", "d2", "d2_cluster", "d2_one")
+    assert [k[key]["width"] for key in keys] == [32, 16, 8, 16, 8, 1]
+    assert all(k[key]["max_abs_err"] == 0 for key in keys)
+    assert chip_smoke.CLUSTER_LANES == 1024
     assert all(k[key]["ms"] > 0 and k[key]["plain_ms"] > 0 for key in ("d1", "d2"))
+    assert all(k[key]["call_ms"] == k[key]["ms"] for key in keys)  # no kernel on the CPU
     # The y >= p key and the off-curve key fail decompression; R with y >= p
     # decodes as y - p, which may or may not be on the curve.
     assert k["invalid_points"] >= 2
