@@ -32,16 +32,19 @@
 // - A group of G = 4 threads per lane, in one warp.  The mixed add is two
 //   levels of products.  Level 1 is A = (Y1 - X1)(y - x), B = (Y1 + X1)(y + x)
 //   and C = T1 (2d x y), which is add_stage1 with t1 = T1 and the entry's
-//   coordinate as the factor, and D = 2 Z1, which needs no product; level 2
-//   is add_stage2 as it is (X3 = EF, Y3 = GH, Z3 = FG, T3 = EH).  Role r
-//   computes the product r of each level, writes it to the group's slots in
+//   coordinate as the factor, and D = 2 Z1, an addition; level 2 is
+//   add_stage2 as it is (X3 = EF, Y3 = GH, Z3 = FG, T3 = EH).  Role r
+//   computes the value r of each level, writes it to the group's slots in
 //   shared memory, and the group meets at __syncwarp on its own lanes.  A
 //   window costs 2 multiplication latencies where one thread ran 7, and each
-//   role's value is the one-thread formula's, mod p.
-// - Each role reads only its own 5 words of the Niels entry (role 3, which
-//   needs none, reads role 2's), one window ahead: the lane's 32 digits are
-//   staged in shared memory first, so window j + 1's read from L2 is in
-//   flight during window j's products.
+//   role's value is the one-thread formula's, mod p.  Role 3 runs level 1's
+//   product too (add_stage1's 2 Z1 times role 2's factor) and drops it for
+//   D: the group's four threads run in lockstep, so the product costs role
+//   3 no time the other roles do not take, and the code has no branch.
+// - Each role reads only its own 5 words of the Niels entry (role 3 reads
+//   role 2's, for the dropped product), one window ahead: the lane's 32
+//   digits are staged in shared memory first, so window j + 1's read from
+//   L2 is in flight during window j's products.
 // - 16 lanes a 64-thread block (512 blocks at 8,192 lanes).  A group past the
 //   batch leaves as a whole; the barriers name only the group's own lanes.
 // - Each product in radix 2^25.5 (MUL_R25 of ed25519_field.cuh: the
@@ -52,7 +55,7 @@
 // (scripts/d1_d2_trials.py) this took 0.075 ms at 8,192 lanes and 0.049 at
 // one lane, where one thread per lane took 0.162 and 0.143; the same groups
 // with radix-2^51 products (fe_mul inlined) took 0.076 and 0.048, and 8 or
-// 32 lanes a block time within 1 % (scripts/d1_d2_trials/).
+// 32 lanes a block timed within 1 %.
 // The comb is a template over the group (comb_lane, group_factors,
 // group_madd): serial_group runs every role in turn on one thread, which is
 // what the host check compiled with g++ replays
@@ -76,7 +79,6 @@ constexpr int ENTRY_WORDS = 15;  // y - x, y + x, 2d x y; 5 limbs each
 constexpr int G = 4;  // threads per lane: one per product of a level
 constexpr int LANES = 16;  // lanes (groups) a block
 constexpr int THREADS = G * LANES;
-constexpr int COMB_MUL = MUL_R25;  // each product in radix 2^25.5 (ed25519_field.cuh)
 
 // The lane that thread t of block b works on.
 HD long long comb_group_lane(long long b, int t) { return b * LANES + t / G; }
@@ -95,7 +97,7 @@ HD fe load_fe(const u64* p) {
 }
 
 // Role r's factor of the add's level 1 from the entry at e: y - x, y + x,
-// 2d x y for roles 0-2.  Role 3 (D = 2 Z1) has none and reads role 2's.
+// 2d x y for roles 0-2.  Role 3 (D = 2 Z1) needs none and reads role 2's.
 HD fe entry_factor(const u64* e, int role) { return load_fe(e + 5 * (role < 2 ? role : 2)); }
 
 HD const u64* comb_entry(const u64* table, int window, int digit) {
@@ -103,9 +105,10 @@ HD const u64* comb_entry(const u64* table, int window, int digit) {
 }
 
 // Level 1 of p + entry: role r's A, B or C (add_stage1 with t1 = T1 against
-// an entry that holds 2d x y), or D = 2 Z1 for role 3, without a product.
+// an entry that holds 2d x y), or D = 2 Z1 for role 3, which computes
+// add_stage1's product as well and drops it.
 HD fe madd_stage1(const ge& p, const fe& qf, int role) {
-  const fe m = add_stage1<COMB_MUL>(p, p.T, qf, role);
+  const fe m = add_stage1<MUL_R25>(p, p.T, qf, role);
   return role == 3 ? fe_add(p.Z, p.Z) : m;
 }
 
@@ -137,7 +140,7 @@ HD ge group_madd(const serial_group& g, const ge& p, const serial_factors& f) {
   fe* const s1 = g.slots[0];
   fe* const s2 = g.slots[1];
   for (int r = 0; r < G; ++r) s1[r] = madd_stage1(p, f.q[r], r);
-  for (int r = 0; r < G; ++r) s2[r] = add_stage2<COMB_MUL>(s1, r);
+  for (int r = 0; r < G; ++r) s2[r] = add_stage2<MUL_R25>(s1, r);
   return ge{s2[0], s2[1], s2[2], s2[3]};
 }
 
@@ -215,7 +218,7 @@ HDW ge group_madd(const warp_group& g, const ge& p, const warp_factors& f) {
   const int r = g.role_lo;
   fe m[G], o[G];
   share(g, madd_stage1(p, f.q, r), m, 0);
-  share(g, add_stage2<COMB_MUL>(m, r), o, 1);
+  share(g, add_stage2<MUL_R25>(m, r), o, 1);
   return ge{o[0], o[1], o[2], o[3]};
 }
 

@@ -308,20 +308,34 @@ HD ge ge_identity() { return ge{fe_zero(), fe_one(), fe_one(), fe_zero()}; }
 // ge_add.  MUL_INLINE: fe_mul inlined at every call; measured faster for
 // B3's one-warp chain and for B1's split stages.  On the host both are
 // fe_mul.  MUL_R25: the product in radix 2^25.5 (fe25 above), inlined, on
-// the host too; measured faster for D2's split stages.
+// the host too; measured faster for D2's split stages.  MUL_R25_CALL: the
+// same through fe25_mul_call, one out-of-line copy of fe25_mul on the card;
+// D1's, whose (p-5)/8 power calls that copy too.
 
-enum { MUL_CALL = 0, MUL_INLINE = 1, MUL_R25 = 2 };
+enum { MUL_CALL = 0, MUL_INLINE = 1, MUL_R25 = 2, MUL_R25_CALL = 3 };
 
 #ifdef __CUDA_ARCH__
 __device__ __noinline__ fe fe_mul_call(fe f, fe g) { return fe_mul(f, g); }
 #endif
+
+#ifdef __CUDACC__
+__host__ __device__ __noinline__
+#else
+static
+#endif
+fe25 fe25_mul_call(fe25 f, fe25 g) {
+  return fe25_mul(f, g);
+}
 
 template <int K>
 HD fe mul(const fe& f, const fe& g) {
 #ifdef __CUDA_ARCH__
   if (K == MUL_CALL) return fe_mul_call(f, g);
 #endif
-  if (K == MUL_R25) return fe25_to(fe25_mul(fe25_from(f), fe25_from(g)));
+  if (K == MUL_R25 || K == MUL_R25_CALL) {
+    const fe25 a = fe25_from(f), b = fe25_from(g);
+    return fe25_to(K == MUL_R25 ? fe25_mul(a, b) : fe25_mul_call(a, b));
+  }
   return fe_mul(f, g);
 }
 

@@ -1,16 +1,15 @@
 """Design trials of kernels D1 (decompression) and D2 (the comb) on one
 NVIDIA GPU.
 
-    python3 scripts/d1_d2_trials.py
+    python3 scripts/d1_d2_trials.py [ALTERNATIVE.cu ...]
 
-Builds every design of each kernel side by side: the one in
-``consensus_tpu_torch/csrc/`` (``decompress25519.cu``, ``comb25519.cu``),
-every alternative in ``scripts/d1_d2_trials/`` (``<kernel>_<design>.cu``:
-the first versions, one thread a point or lane, and the candidates that were
-not chosen), and copies of the csrc comb with its products in radix 2^51
-(``COMB_MUL``) and at 8 and 32 lanes a block (``LANES``).  One nvcc per
-source, all started together, into ``consensus_tpu_torch/csrc/build/trials/``;
-a design that does not build is reported and left out.  Each design is then checked against the plain
+Builds the designs in ``consensus_tpu_torch/csrc/`` (``decompress25519.cu``,
+``comb25519.cu``) and every alternative named on the command line side by
+side.  An alternative is a copy of one of them with the same C entry point,
+named ``<kernel>_<design>.cu``; it is built against csrc's headers and those
+beside it.  One nvcc per source, all started together, into
+``consensus_tpu_torch/csrc/build/trials/``; a design that does not build is
+reported and left out.  Each design is then checked against the plain
 version at tolerance 0 (frozen X, Y, Z, T equal, and D1's valid mask) at
 every width, and timed with CUDA events in turns within one process
 (designs in order, reversed, in order): D1 at 16,384, 2,048, 512 and 16
@@ -21,6 +20,12 @@ signs (about half off the curve) and random digit bytes from numpy seed 0:
 both kernels do the same work on any data.  Prints each design's ptxas
 figures, one line per design and width, a JSON summary, and the card's name
 and power limit.
+
+The first versions of both kernels (one thread a point or lane, radix
+2^51) and the candidates that lost to csrc's designs are kept in git
+history, at the commit that redesigned both kernels for Hopper
+(``git show c03d5ad:scripts/d1_d2_trials/``); to time them again, unpack
+that directory and name its files here.
 """
 
 from __future__ import annotations
@@ -41,35 +46,25 @@ from consensus_tpu_torch.ops import ed25519 as ed  # noqa: E402
 from consensus_tpu_torch.ops import field25519 as fe  # noqa: E402
 from consensus_tpu_torch.ops import scan_kernels  # noqa: E402
 
-ALTERNATIVES = Path(__file__).resolve().parent / "d1_d2_trials"
 TRIALS = scan_kernels.BUILD_DIR / "trials"
 #: kernel -> (pointer arguments of its C launch function, widths).
 KERNELS = {
     "decompress25519": (7, (16384, 2048, 512, 16)),
     "comb25519": (6, (8192, 1024, 8, 1)),
 }
-#: Copies of the csrc comb with one constant rewritten: design name ->
-#: (pattern, replacement).
-COMB_COPIES = {
-    "radix51": (r"constexpr int COMB_MUL = MUL_R25;", "constexpr int COMB_MUL = MUL_INLINE;"),
-    "lanes8": (r"constexpr int LANES = \d+;", "constexpr int LANES = 8;"),
-    "lanes32": (r"constexpr int LANES = \d+;", "constexpr int LANES = 32;"),
-}
 REPS = 50
 ROUNDS = 3
 
 
-def designs() -> dict:
-    """(kernel, design) -> source text."""
-    out = {}
-    for name in KERNELS:
-        out[name, "csrc"] = (scan_kernels._CSRC / f"{name}.cu").read_text()
-        for path in sorted(ALTERNATIVES.glob(f"{name}_*.cu")):
-            out[name, path.stem[len(name) + 1:]] = path.read_text()
-    for design, (pattern, replacement) in COMB_COPIES.items():
-        text, count = re.subn(pattern, replacement, out["comb25519", "csrc"])
-        assert count == 1, f"comb25519.cu: no {pattern}"
-        out["comb25519", design] = text
+def designs(alternatives) -> dict:
+    """(kernel, design) -> source path: csrc's designs and the alternatives."""
+    out = {(name, "csrc"): scan_kernels._CSRC / f"{name}.cu" for name in KERNELS}
+    for path in map(Path, alternatives):
+        name = next((n for n in KERNELS if path.stem.startswith(f"{n}_")), None)
+        if name is None:
+            raise SystemExit(f"d1_d2_trials: {path.name} is not <kernel>_<design>.cu "
+                             f"with a kernel of {sorted(KERNELS)}")
+        out[name, path.stem[len(name) + 1:]] = path.resolve()
     return out
 
 
@@ -93,14 +88,12 @@ def build_all(sources: dict) -> dict:
     function, ptxas figures) for each that built."""
     TRIALS.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for (name, design), text in sources.items():
-        cu = TRIALS / f"{name}_{design}.cu"
-        cu.write_text(text)
+    for (name, design), cu in sources.items():
         lib = TRIALS / f"{name}_{design}.so"
         procs[name, design] = (lib, subprocess.Popen(
             [scan_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             f"-I{scan_kernels._CSRC}", f"-I{ALTERNATIVES}", "-o", str(lib), str(cu)],
+             f"-I{scan_kernels._CSRC}", "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     built = {}
@@ -126,12 +119,13 @@ def run(launch, inputs, outputs, batch: int, device) -> None:
         raise RuntimeError(f"launch failed: {code}")
 
 
-def main() -> int:
+def main(alternatives) -> int:
     if not torch.cuda.is_available():
         print("d1_d2_trials: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    built = build_all(designs())
+    sources = designs(alternatives)
+    built = build_all(sources)
     rng = np.random.default_rng(0)
     cases = {}
     for m in KERNELS["decompress25519"][1]:
@@ -200,8 +194,8 @@ def main() -> int:
         "equal": {f"{n} {d} {w}": e for (n, d, w), e in equal.items()},
     }))
     print(card)
-    return 0 if all(equal.values()) and len(built) == len(designs()) else 1
+    return 0 if all(equal.values()) and len(built) == len(sources) else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -406,7 +406,7 @@ def test_chip_smoke_d1_d2_phase_rehearses_on_cpu():
     assert all(k[key]["max_abs_err"] == 0 for key in keys)
     assert chip_smoke.CLUSTER_LANES == 1024
     assert all(k[key]["ms"] > 0 and k[key]["plain_ms"] > 0 for key in ("d1", "d2"))
-    assert all(k[key]["call_ms"] == k[key]["ms"] for key in keys)  # no kernel on the CPU
+    assert all(k[key]["launch_ms"] == k[key]["ms"] for key in keys)  # no kernel on the CPU
     # The y >= p key and the off-curve key fail decompression; R with y >= p
     # decodes as y - p, which may or may not be on the curve.
     assert k["invalid_points"] >= 2
