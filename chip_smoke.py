@@ -95,11 +95,15 @@ Phases:
 13. kernel S1 (SHA-512, ``csrc/sha512.cu``) against its plain version on
    the strict wave's challenge blocks ``R || A || M`` (7,000 signatures on
    8,192 lanes, as the fused engine packs them), tolerance 0, and every live
-   lane's digest against ``hashlib.sha512``; then on one lane holding the
-   randomized wave's transcript root message (``tag || n || n leaf
-   digests`` over its 6,860 live lanes) against hashlib only; CUDA-event
-   times, and bounds from the block loop's instructions as ``cuobjdump
-   -sass`` lists them;
+   lane's digest against ``hashlib.sha512``; on the same lanes' first blocks
+   alone, on their first 8 lanes and on 16 lanes of up to 40 blocks, each
+   at tolerance 0; then on one lane holding the randomized wave's
+   transcript root message (``tag || n || n leaf digests`` over its 6,860
+   live lanes) against hashlib only; at each width the time through the
+   wrapper and of launches alone (CUDA events), and a bound from SHA-512's
+   own work: its integer instructions over every SM, the longest lane's
+   chain of dependent instructions at the card's dependent-issue latency
+   (measured by a clock64() probe), and its bytes;
 14. the fused strict wave (``device_prep``): phase 3's corpus through
    ``engine_for_config(Configuration(device_prep=True))``, verdicts equal to
    phase 3's lane for lane, S1 and B1 launched once, B2 and B3 never; both
@@ -141,6 +145,7 @@ raises and exits non-zero.  It runs on CUDA only; the phases take a
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import hashlib
 import json
@@ -326,9 +331,66 @@ FUSED_BATCH_RANGES = (
 S1_PER_CHECK = 4
 #: 32-bit integer add, logical and shift results per clock per SM on compute
 #: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-#: throughput table); S1's bound counts every instruction of its block loop
-#: at this rate, so it stays a lower bound.
+#: throughput table); S1's bound counts SHA-512's instructions at this rate.
 INT_PER_CLOCK_PER_SM = 64
+#: SHA-512's 32-bit integer instructions a block (FIPS 180-4 6.4.2), whatever
+#: kernel runs them, on a card with a funnel shift (SHF), a three-input logic
+#: op (LOP3) and a three-input add (IADD3 with its carries out, IADD3.X with
+#: them in): a 64-bit rotate is two funnel shifts and a 64-bit shift two (one
+#: per half); a xor of three words, Ch and Maj are one LOP3 per half; a 64-bit
+#: sum of up to three terms is two instructions, of four or five terms four.
+#: - a schedule word W_t (t = 16..79): sigma0 (two rotates, a shift and the
+#:   xor: 4 + 2 + 2) 8, sigma1 8, and the four-term sum 4: 20, 64 times;
+#: - a round: Sigma0 (three rotates and the xor: 6 + 2) 8, Sigma1 8, Ch 2,
+#:   Maj 2, T1 = h + Sigma1 + Ch + K + W (five terms) 4, e' = d + T1 2 and
+#:   a' = T1 + Sigma0 + Maj 2: 28, 80 times;
+#: - the feed-forward, eight sums of two: 16.
+#: Loads, stores and the K words' fetches are not integer operations.
+SHA512_WORD_OPS = 8 + 8 + 4
+SHA512_ROUND_OPS = 8 + 8 + 2 + 2 + 4 + 2 + 2
+SHA512_BLOCK_OPS = 64 * SHA512_WORD_OPS + 80 * SHA512_ROUND_OPS + 8 * 2
+#: The fewest dependent 32-bit instructions from one round's e to the next's,
+#: the chain a lane's blocks cannot spread: Sigma1(e)'s funnel shifts (each
+#: reads both halves of e), the LOP3 that xors the three rotations, then the
+#: low and the high half of e' = (d + h + K + W) + Sigma1 + Ch, the high half
+#: taking the low half's carries.  The first term is off the chain (h and d
+#: are e and a of three rounds back), and Ch(e, f, g) is one LOP3 beside
+#: Sigma1.  From a to a' = T1 + Sigma0(a) + Maj(a, b, c) is four as well.
+SHA512_CHAIN_DEPTH = 4
+#: A clock64() probe of the card's dependent-issue latency over the
+#: instructions of that chain: one thread runs steps of a funnel shift of
+#: (lo, hi), the LOP3 xoring it with two more words, the low half's add with
+#: its carry out and the high half's add with it in; each step's four
+#: instructions depend in turn on the last's, so a step takes four
+#: latencies.  Built by nvcc like the kernels (``build_latency_probe``).
+LATENCY_PROBE_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void chain_probe_kernel(const uint32_t* in, long long* out, int steps) {
+  uint32_t lo = in[0], hi = in[1];
+  const uint32_t k0 = in[2], k1 = in[3], k2 = in[4], k3 = in[5];
+  const long long start = clock64();
+#pragma unroll 16
+  for (int i = 0; i < steps; ++i) {
+    uint32_t x = __funnelshift_r(lo, hi, 14);
+    x = x ^ k0 ^ k1;
+    asm volatile("add.cc.u32 %0, %0, %2;\n\taddc.u32 %1, %1, %3;"
+                 : "+r"(x), "+r"(hi) : "r"(k2), "r"(k3));
+    lo = x;
+  }
+  const long long stop = clock64();
+  out[0] = stop - start;
+  out[1] = lo;
+  out[2] = hi;
+}
+
+extern "C" int chain_probe_launch(const void* in, void* out, int steps, void* stream) {
+  chain_probe_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const uint32_t*)in, (long long*)out,
+                                                        steps);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def log(*parts) -> None:
@@ -1947,21 +2009,25 @@ def _check_comb(digits: torch.Tensor) -> float:
 
 
 def _launch_ms(kind: str, args, reps: int, device) -> float:
-    """Mean milliseconds of one D1 (``kind`` "decompress") or D2 ("comb")
-    launch alone: ``reps`` launches back to back on preallocated outputs,
-    timed with CUDA events.  A wrapper's own host work (its checks, the
-    output allocation) takes about as long as these kernels run, so a loop
-    of wrapper calls leaves the card idle between launches."""
-    width = args[0].shape[-1]
+    """Mean milliseconds of one D1 (``kind`` "decompress"), D2 ("comb") or
+    S1 ("sha512") launch alone: ``reps`` launches back to back on
+    preallocated outputs, timed with CUDA events.  A wrapper's own host work
+    (its checks, the output allocation) takes about as long as these kernels
+    run, so a loop of wrapper calls leaves the card idle between launches."""
+    width, int_args = args[0].shape[-1], ()
     if kind == "decompress":
         name, inputs = "decompress25519", args
         outs = [torch.empty_like(args[0]) for _ in range(4)]
         outs.append(torch.empty(width, dtype=torch.bool, device=device))
-    else:
+    elif kind == "comb":
         name, inputs = "comb25519", (scan_kernels.comb_niels_table(device), args[0])
         outs = [torch.empty((fe.LIMBS, width), dtype=torch.float32, device=device)
                 for _ in range(4)]
-    return _time_ms(lambda: scan_kernels._launch(name, inputs, outs, width, device), reps, device)
+    else:
+        name, inputs, int_args = "sha512", args, (args[0].shape[0],)
+        outs = [torch.empty((8, 2, width), dtype=torch.int32, device=device)]
+    return _time_ms(lambda: scan_kernels._launch(name, inputs, outs, width, device, int_args),
+                    reps, device)
 
 
 def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: int,
@@ -2080,39 +2146,135 @@ def sass_block_loop(library: str, kernel: str = "sha512_kernel") -> dict:
     return {"per_block": per_block, "kernel": len(real), "loop": (hex(start), hex(end))}
 
 
-def sha512_bound(n_blocks: np.ndarray, per_block: int, sm_count: int,
-                 sm_clock_hz: float) -> dict:
-    """Least time for S1's work on lanes with ``n_blocks`` blocks each: the
-    larger of the block loop's instructions (``per_block`` from the SASS,
-    times the blocks this data needs) at 64 integer results per clock per SM
-    over every SM, and the bytes (the blocks read, the counts read, the
-    state written) over the memory rate.  One lane cannot spread over the
-    SMs: its instructions issue in order, at most one a clock, so a lane's
-    chain of blocks takes at least its instructions' count in clocks; the
-    bound takes the longest lane's chain where that is larger."""
+def sha512_bound(n_blocks: np.ndarray, sm_count: int, sm_clock_hz: float,
+                 latency_cycles: float) -> dict:
+    """Least time for SHA-512's work on lanes with ``n_blocks`` blocks each,
+    whatever kernel does it: the larger of
+    - its integer instructions (SHA512_BLOCK_OPS a block, times the blocks
+      this data needs) at 64 results per clock per SM over every SM;
+    - the longest lane's chain: its blocks x 80 rounds x SHA512_CHAIN_DEPTH
+      dependent instructions, each ``latency_cycles`` (measured by
+      ``dependent_issue_cycles``), since a lane's blocks and rounds run in
+      order;
+    - its bytes (the blocks read, the counts read, the state written) over
+      the memory rate."""
     blocks = int(n_blocks.sum())
     lanes = int(n_blocks.shape[0])
-    instructions = per_block * blocks
+    instructions = SHA512_BLOCK_OPS * blocks
     ops_ms = instructions / (sm_count * INT_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
-    chain_ms = per_block * int(n_blocks.max(initial=0)) / sm_clock_hz * 1e3
+    chain = int(n_blocks.max(initial=0)) * 80 * SHA512_CHAIN_DEPTH
+    chain_ms = chain * latency_cycles / sm_clock_hz * 1e3
     n_bytes = blocks * sh.BLOCK_BYTES + 4 * lanes + 64 * lanes
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, chain_ms, bytes_ms)
     bound_by = "bytes" if bound_ms == bytes_ms else "operations"
     return {"bound_ms": bound_ms, "bound_by": bound_by, "blocks": blocks,
-            "instructions": instructions, "ops_ms": ops_ms, "chain_ms": chain_ms,
-            "bytes": n_bytes, "bytes_ms": bytes_ms}
+            "instructions": instructions, "ops_ms": ops_ms, "chain": chain,
+            "chain_ms": chain_ms, "bytes": n_bytes, "bytes_ms": bytes_ms}
 
 
-def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_reps: int) -> dict:
-    """S1 against its plain version and hashlib: (1) on the strict wave's
-    challenge blocks (``R || A || M`` of every lane of ``corpus``'s wave,
-    packed by the fused engine, padded lanes included), tolerance 0, every
-    live lane's digest equal to ``hashlib.sha512``; (2) on one lane holding
-    the randomized wave's transcript root message, against hashlib only
-    (the plain version runs its thousands of blocks one after another, each
-    some 8,000 eager torch calls).  Each timed with CUDA events."""
+def sass_issue_ms(n_blocks: np.ndarray, per_block: int, sm_clock_hz: float) -> float:
+    """S1's former yardstick, printed beside the bound and no longer the
+    bound: the longest lane's blocks x the kernel's block loop
+    (``per_block`` SASS instructions) issued in order at one a clock.  It
+    moves with the kernel's design: a kernel that moves work off the loop
+    lowers it."""
+    return per_block * int(n_blocks.max(initial=0)) / sm_clock_hz * 1e3
+
+
+def build_latency_probe() -> scan_kernels.BuildInfo:
+    """Build LATENCY_PROBE_SOURCE with nvcc for ``sm_90a`` into the kernels'
+    build directory (keyed by the source's hash, as the kernels are)."""
+    tag = hashlib.sha256(LATENCY_PROBE_SOURCE.encode()).hexdigest()[:16]
+    library = scan_kernels.BUILD_DIR / f"chain_probe-{tag}.so"
+    if library.is_file():
+        return scan_kernels.BuildInfo(str(library), "", 0.0, "", True)
+    scan_kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = scan_kernels.BUILD_DIR / f"chain_probe-{tag}-{os.getpid()}.cu"
+    source.write_text(LATENCY_PROBE_SOURCE)
+    tmp = library.with_name(f".{library.name}-{os.getpid()}")
+    cmd = [scan_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    source.unlink()
+    report = (proc.stdout + proc.stderr).strip()
+    if proc.returncode:
+        raise RuntimeError(f"chain probe: nvcc failed:\n{report}")
+    os.replace(tmp, library)
+    return scan_kernels.BuildInfo(str(library), " ".join(cmd), seconds, report, False)
+
+
+def dependent_issue_cycles(library: str, device, steps: int = 1 << 16) -> dict:
+    """The card's dependent-issue latency, in SM clocks per instruction, over
+    SHA512_CHAIN_DEPTH-instruction steps of S1's chain: the probe's clock64()
+    cycles for 2 ``steps`` less those for ``steps`` (the least of three runs
+    each, so the launch and the clock reads cancel), over ``steps`` x 4."""
+    probe = ctypes.CDLL(library).chain_probe_launch
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    words = np.random.default_rng(SEED).integers(0, 2**31, 6).astype(np.int32)
+    inputs = torch.from_numpy(words).to(device)
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+
+    def cycles(n: int) -> int:
+        code = probe(inputs.data_ptr(), out.data_ptr(), n,
+                     torch.cuda.current_stream(device).cuda_stream)
+        if code:
+            raise RuntimeError(f"chain probe: launch failed ({code})")
+        torch.cuda.synchronize(device)
+        return int(out[0])
+
+    cycles(steps)
+    short = min(cycles(steps) for _ in range(3))
+    long = min(cycles(2 * steps) for _ in range(3))
+    return {"cycles": (long - short) / (steps * SHA512_CHAIN_DEPTH), "steps": steps,
+            "short": short, "long": long}
+
+
+#: S1's widths in phase 13 besides the strict wave's (8,192 lanes, 2
+#: blocks) and the transcript root (one lane, 3,431 blocks): the same lanes'
+#: first blocks alone (the randomized transcript's leaves and coefficients
+#: take 1-2 blocks a lane), a certificate's 8 lanes, and a long-lane set the
+#: plain version can finish (16 lanes of up to 40 blocks).
+S1_CERT_LANES = 8
+S1_LONG_LANES = 16
+S1_LONG_BLOCKS = 40
+
+
+def long_lane_messages(lanes: int, blocks: int, seed: int = SEED) -> list[bytes]:
+    """``lanes`` random messages of 1 to ``blocks`` padded blocks (the first
+    exactly ``blocks``), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    top = blocks * sh.BLOCK_BYTES - 17
+    lengths = [top] + rng.integers(0, top + 1, lanes - 1).tolist()
+    return [rng.bytes(int(n)) for n in lengths]
+
+
+def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_reps: int,
+                 long_lanes: int = S1_LONG_LANES, long_blocks: int = S1_LONG_BLOCKS) -> dict:
+    """S1 against its plain version and hashlib at every width it runs:
+    (1) on the strict wave's challenge blocks (``R || A || M`` of every lane
+    of ``corpus``'s wave, packed by the fused engine, padded lanes included),
+    tolerance 0, every live lane's digest equal to ``hashlib.sha512``; (2)
+    the same lanes' first blocks alone, the first S1_CERT_LANES lanes, and
+    ``long_lanes`` messages of up to ``long_blocks`` blocks, each at
+    tolerance 0 (the long ones against hashlib too); (3) one lane holding the
+    randomized wave's transcript root message, against hashlib only (the
+    plain version runs its thousands of blocks one after another, each some
+    8,000 eager torch calls).  Each width timed with CUDA events through the
+    wrapper (``ms``, as every kernel is timed) and as launches alone
+    (``launch_ms``; on the CPU the wrapper's plain version again)."""
     device = torch.device(device)
+
+    def timed(blocks, n_blocks, calls: int) -> dict:
+        ms = _time_ms(lambda: sh.sha512_blocks(blocks, n_blocks), calls, device)
+        launch_ms = (_launch_ms("sha512", (blocks, n_blocks), calls, device)
+                     if device.type == "cuda" else ms)
+        return {"lanes": n_blocks.shape[0], "block_axis": blocks.shape[0],
+                "n_blocks": n_blocks.cpu().numpy(), "ms": ms, "launch_ms": launch_ms}
+
     msgs, sigs, keys, _ = replica_wave(corpus, replicas)
     engine = FusedEd25519BatchVerifier(device=device)
     _, _, blocks, n_blocks, _ = engine._device_args(msgs, sigs, keys)
@@ -2121,8 +2283,26 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
     for i, (m, s, k) in enumerate(zip(msgs, sigs, keys)):
         if bytes(digest[:, i]) != hashlib.sha512(_prehash(m, s, k)).digest():
             raise AssertionError(f"sha512: lane {i}'s digest differs from hashlib's")
-    ms = _time_ms(lambda: sh.sha512_blocks(blocks, n_blocks), reps, device)
+    wave = timed(blocks, n_blocks, reps)
     plain_ms = _time_ms(lambda: sh.sha512_blocks_reference(blocks, n_blocks), plain_reps, device)
+
+    lmsgs = long_lane_messages(long_lanes, long_blocks)
+    lblocks, ln = sh.pad_messages(lmsgs)
+    lblocks, ln = sh.blocks_tensor(lblocks).to(device), torch.from_numpy(ln).to(device)
+    cases = {
+        "one_block": (blocks[:1].contiguous(), n_blocks),
+        "certs": (blocks[..., :S1_CERT_LANES].contiguous(),
+                  n_blocks[:S1_CERT_LANES].contiguous()),
+        "long": (lblocks, ln),
+    }
+    widths = {}
+    for key, (b, n) in cases.items():
+        err = _check_sha512(b, n)
+        widths[key] = {**timed(b, n, reps), "max_abs_err": err}
+    got = sh.digest_bytes(sh.sha512_blocks(lblocks, ln)).cpu().numpy().astype(np.uint8)
+    for i, m in enumerate(lmsgs):
+        if bytes(got[:, i]) != hashlib.sha512(m).digest():
+            raise AssertionError(f"sha512: long lane {i}'s digest differs from hashlib's")
 
     rmsgs, rsigs, rkeys, _ = replica_wave(rand_corpus, replicas)
     root = root_message(rmsgs, rsigs, rkeys)
@@ -2132,12 +2312,14 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
     got = sh.digest_bytes(sh.sha512_blocks(rblocks, rn_t)).cpu().numpy().astype(np.uint8)
     if bytes(got[:, 0]) != hashlib.sha512(root).digest():
         raise AssertionError("sha512: the transcript root differs from hashlib's")
-    root_ms = _time_ms(lambda: sh.sha512_blocks(rblocks, rn_t), 5, device)
+    widths["root"] = timed(rblocks, rn_t, 5)
     return {
         "lanes": n_blocks.shape[0], "live": len(msgs), "block_axis": blocks.shape[0],
-        "n_blocks": n_blocks.cpu().numpy(), "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "root_live": (len(root) - len(med._Z_TAG) - 8) // 64,
-        "root_bytes": len(root), "root_blocks": int(rn[0]), "root_ms": root_ms,
+        "n_blocks": wave["n_blocks"], "max_abs_err": max_err, "ms": wave["ms"],
+        "launch_ms": wave["launch_ms"], "plain_ms": plain_ms,
+        "root_live": (len(root) - len(med._Z_TAG) - 8) // 64, "root_bytes": len(root),
+        "root_blocks": int(rn[0]), "root_ms": widths["root"]["ms"],
+        "root_launch_ms": widths["root"]["launch_ms"], "widths": widths,
     }
 
 
@@ -2448,9 +2630,13 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     # One nvcc for each source, all started together.
+    # S1's bound reads the card's dependent-issue latency from a clock64()
+    # probe (phase 13), built beside the kernels.
     names = list(scan_kernels.KERNELS)
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        probe_build = pool.submit(build_latency_probe)
         infos = dict(zip(names, pool.map(scan_kernels.build, names)))
+        infos["chain_probe"] = probe_build.result()
     for name, info in infos.items():
         log(f"{name}: nvcc build {info.seconds:.3f} s "
             f"({'existing build loaded' if info.cached else info.command})")
@@ -2692,35 +2878,61 @@ def main() -> int:
     sm_count = props.multi_processor_count
     # Phase 13: kernel S1 against its plain version and hashlib.
     log("== phase 13: sha512 (S1) against sha512_blocks_reference and hashlib")
+    latency = dependent_issue_cycles(infos["chain_probe"].library, device)
+    probe_sass = sass_block_loop(infos["chain_probe"].library, "chain_probe_kernel")
+    log(f"dependent-issue latency {latency['cycles']:.4f} SM clocks an instruction: a clock64() "
+        f"probe of one thread, {2 * latency['steps']} and {latency['steps']} steps of S1's "
+        f"chain (funnel shift, LOP3, add with carry out, add with carry in) took "
+        f"{latency['long']} and {latency['short']} clocks (least of 3 each); the probe's loop is "
+        f"{probe_sass['per_block']} SASS instructions for 16 steps")
     k13 = phase_sha512(device, corpus, rand_corpus, REPLICAS, reps=20, plain_reps=2)
     sass = sass_block_loop(infos["sha512"].library)
-    bound13 = sha512_bound(k13["n_blocks"], sass["per_block"], sm_count, sm_clock_hz)
-    root_bound = sha512_bound(np.array([k13["root_blocks"]]), sass["per_block"], sm_count,
-                              sm_clock_hz)
-    log(f"the strict wave's challenge blocks R || A || M: {k13['live']} signatures on "
-        f"{k13['lanes']} lanes, {bound13['blocks']} blocks in all (a block axis of "
-        f"{k13['block_axis']}, padded lanes 0 blocks): the state equal to the plain version on "
-        f"every lane (max abs err {k13['max_abs_err']}), every live lane's digest equal to "
-        f"hashlib.sha512's")
-    log(f"  kernel {k13['ms']:.6f} ms (CUDA events, mean of 20 launches after warm-up)")
-    log(f"  plain torch version {k13['plain_ms']:.6f} ms (mean of 2)")
-    log(f"  bound {bound13['bound_ms']:.6f} ms, by {bound13['bound_by']}: {sass['per_block']} "
-        f"instructions in the block loop (cuobjdump -sass, {sass['loop'][0]}-{sass['loop'][1]}; "
-        f"{sass['kernel']} in the kernel) x {bound13['blocks']} blocks = "
-        f"{bound13['instructions']} over {sm_count} SMs x {INT_PER_CLOCK_PER_SM}/clock x "
-        f"{sm_clock_hz / 1e6:.0f} MHz = {bound13['ops_ms']:.6f} ms; the longest lane's chain "
-        f"{bound13['chain_ms']:.6f} ms; {bound13['bytes']} bytes over 3.35 TB/s = "
-        f"{bound13['bytes_ms']:.6f} ms; kernel at {100 * bound13['bound_ms'] / k13['ms']:.3f} % "
-        f"of it")
-    log(f"the randomized wave's transcript root: tag || n || {k13['root_live']} leaf digests = "
-        f"{k13['root_bytes']} bytes, {k13['root_blocks']} blocks on one lane: digest equal to "
-        f"hashlib.sha512's (the plain version is not run there: {k13['root_blocks']} blocks of "
-        f"thousands of eager calls each)")
-    log(f"  kernel {k13['root_ms']:.6f} ms (CUDA events, mean of 5 launches after warm-up)")
-    log(f"  bound {root_bound['bound_ms']:.6f} ms, by {root_bound['bound_by']}: one lane's chain of "
-        f"{root_bound['instructions']} instructions issues in order, at most one a clock, at "
-        f"{sm_clock_hz / 1e6:.0f} MHz; kernel at "
-        f"{100 * root_bound['bound_ms'] / k13['root_ms']:.3f} % of it")
+    log(f"S1's SASS (cuobjdump -sass): {sass['kernel']} instructions in the kernel; its widest "
+        f"loop, the consumer's rounds of one block, {sass['per_block']} "
+        f"({sass['loop'][0]}-{sass['loop'][1]})")
+    widths13 = {
+        "wave": (f"the strict wave's challenge blocks R || A || M: {k13['live']} signatures on "
+                 f"{k13['lanes']} lanes (a block axis of {k13['block_axis']}, padded lanes 0 "
+                 f"blocks): every live lane's digest equal to hashlib.sha512's",
+                 {"n_blocks": k13["n_blocks"], "ms": k13["ms"], "launch_ms": k13["launch_ms"],
+                  "max_abs_err": k13["max_abs_err"]}),
+        "one_block": ("the same lanes' first blocks alone (block axis 1)",
+                      k13["widths"]["one_block"]),
+        "certs": (f"the first {S1_CERT_LANES} lanes (a half-agg certificate's width)",
+                  k13["widths"]["certs"]),
+        "long": (f"{S1_LONG_LANES} lanes of up to {S1_LONG_BLOCKS} blocks: every digest equal "
+                 f"to hashlib.sha512's", k13["widths"]["long"]),
+        "root": (f"the randomized wave's transcript root: tag || n || {k13['root_live']} leaf "
+                 f"digests = {k13['root_bytes']} bytes on one lane: digest equal to "
+                 f"hashlib.sha512's (the plain version is not run there: thousands of eager "
+                 f"calls a block)", k13["widths"]["root"]),
+    }
+    bounds13 = {}
+    for key, (label, r) in widths13.items():
+        b = bounds13[key] = sha512_bound(r["n_blocks"], sm_count, sm_clock_hz,
+                                         latency["cycles"])
+        calls = 5 if key == "root" else 20
+        check = ("" if key == "root" else
+                 f"; the state equal to the plain version on every lane (max abs err "
+                 f"{r['max_abs_err']})")
+        log(f"{label}; {int(r['n_blocks'].shape[0])} lanes, {b['blocks']} blocks{check}")
+        log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of "
+            f"{calls} after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of {calls} "
+            f"back to back on a preallocated output)")
+        if key == "wave":
+            log(f"  plain torch version {k13['plain_ms']:.6f} ms (mean of 2)")
+        log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: {SHA512_BLOCK_OPS} integer "
+            f"instructions a block x {b['blocks']} = {b['instructions']} over {sm_count} SMs x "
+            f"{INT_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = {b['ops_ms']:.6f} ms; "
+            f"the longest lane's chain, {int(r['n_blocks'].max(initial=0))} blocks x 80 rounds "
+            f"x {SHA512_CHAIN_DEPTH} dependent instructions x {latency['cycles']:.4f} clocks = "
+            f"{b['chain_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} "
+            f"ms; kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
+            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone")
+        log(f"  the former yardstick, not the bound: the longest lane's blocks x the block "
+            f"loop's {sass['per_block']} SASS instructions at one a clock = "
+            f"{sass_issue_ms(r['n_blocks'], sass['per_block'], sm_clock_hz):.6f} ms")
+    bound13 = bounds13["wave"]
     log_ptxas(infos["sha512"])
     log("  library: none (no PyTorch call computes SHA-512)")
 
@@ -2910,6 +3122,7 @@ def main() -> int:
             "launches": f14["s1"],
             "max_abs_err": k13["max_abs_err"],
             "ms": k13["ms"],
+            "launch_ms": k13["launch_ms"],
             "plain_ms": k13["plain_ms"],
             "bound_ms": bound13["bound_ms"],
             "bound_by": bound13["bound_by"],

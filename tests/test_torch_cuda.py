@@ -492,6 +492,49 @@ def test_sha512_kernel_matches_hashlib_and_plain_version_on_card(cuda_device, n)
     assert torch.equal(sh.sha512_blocks(b, forced), sh.sha512_blocks_reference(b, forced))
 
 
+def _s1_case(case: str) -> list[bytes]:
+    """Messages for S1's producer/consumer CTAs: 16 lanes of up to 40 blocks
+    (the long-lane regime, one CTA), one lane of the transcript root's 3,431
+    blocks, and 70 lanes over three CTAs whose step counts differ (1-block
+    messages in the first, up to 12 blocks in the second, 2 lanes of 3 in
+    the third)."""
+    rng = np.random.default_rng(len(case))
+    if case == "long":
+        return [rng.bytes(int(k)) for k in [40 * 128 - 17, *rng.integers(0, 40 * 128, 15)]]
+    if case == "root":
+        return [rng.bytes(439062)]
+    lengths = [*rng.integers(0, 111, 32), *rng.integers(0, 12 * 128 - 17, 32), 300, 5, 0, 1, 2, 3]
+    return [rng.bytes(int(k)) for k in lengths]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long", "root", "ragged_ctas"])
+def test_sha512_kernel_ring_on_long_and_ragged_lanes(cuda_device, case):
+    """S1's ring of schedules across many blocks a lane and across CTAs that
+    take different step counts: every digest equal to hashlib's, the state
+    equal to the plain version's where it can finish (not on the root's
+    3,431 blocks), with counts forced to 0, negative and past the block
+    axis inside one CTA."""
+    msgs = _s1_case(case)
+    blocks, n_blocks = sh.pad_messages(msgs)
+    b = sh.blocks_tensor(blocks).to(cuda_device)
+    c = torch.from_numpy(n_blocks).to(cuda_device)
+    before = KERNELS.stats("sha512").launches
+    got = sh.sha512_blocks(b, c)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("sha512").launches == before + 1
+    digests = sh.digest_bytes(got).cpu().numpy().astype(np.uint8)
+    assert [bytes(digests[:, i]) for i in range(len(msgs))] == [
+        hashlib.sha512(m).digest() for m in msgs
+    ]
+    if case == "root":
+        return
+    assert torch.equal(got, sh.sha512_blocks_reference(b, c))
+    forced = c.clone()
+    forced[0], forced[1], forced[2] = 0, -4, blocks.shape[0] + 9
+    assert torch.equal(sh.sha512_blocks(b, forced), sh.sha512_blocks_reference(b, forced))
+
+
 @pytest.mark.cuda
 def test_sha512_kernel_rejects_mixed_devices(cuda_device):
     blocks, n_blocks = sh.pad_messages([b"abc"])

@@ -138,8 +138,10 @@ _HOST_HARNESS = r"""
 #include <cstdlib>
 #include <vector>
 #include "sha512.cu"
-// The kernel's per-lane function on the host: every lane of the batch in
-// turn, over a state poisoned before the run.
+// The kernel's CTAs on the host: each CTA's producer and consumer replayed
+// in the kernel's order (serial_cta), over a ring and a state poisoned
+// before the run; serial_cta poisons each ring half again after its
+// consumer has read it.
 int main(int argc, char** argv) {
   if (argc != 5) return 2;
   long long batch = atoll(argv[1]);
@@ -151,44 +153,61 @@ int main(int argc, char** argv) {
       fread(n_blocks.data(), 4, n_blocks.size(), f) != n_blocks.size()) return 3;
   fclose(f);
   std::vector<uint32_t> state(16 * batch, 0xa5a5a5a5u);
-  for (long long lane = 0; lane < batch; ++lane)
-    hash_lane(blocks.data(), n_blocks.data(), state.data(), batch, block_count, lane);
+  std::vector<uint64_t> ring(2 * HALF_WORDS, 0xa5a5a5a5a5a5a5a5ULL);
+  for (long long cta = 0; cta * LANES < batch; ++cta)
+    serial_cta(blocks.data(), n_blocks.data(), state.data(), batch, block_count, cta,
+               ring.data());
   f = fopen(argv[4], "wb");
   fwrite(state.data(), 4, state.size(), f);
   fclose(f);
-  printf("threads %d\n", THREADS);
+  printf("threads %d lanes %d\n", THREADS, LANES);
   return 0;
 }
 """
 
 
-def test_kernel_source_compiled_for_the_host_matches_plain_version(tmp_path):
-    """S1's per-lane code, compiled as plain C++ with g++ (no nvcc here),
-    against the plain version on 41 lanes of 0-700 bytes (1-6 blocks), with
-    lanes whose counts are 0 and past the block axis, and hashlib."""
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """S1's source compiled as plain C++ with g++ (no nvcc here) into the
+    harness above; returns a function running it on (blocks, n_blocks)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source")
-    (tmp_path / "harness.cpp").write_text(_HOST_HARNESS)
-    exe = tmp_path / "harness"
+    tmp = tmp_path_factory.mktemp("s1_host")
+    (tmp / "harness.cpp").write_text(_HOST_HARNESS)
+    exe = tmp / "harness"
     subprocess.run(
         [cxx, "-O1", "-std=c++17", "-x", "c++", f"-I{scan_kernels._CSRC}", "-o", str(exe),
-         str(tmp_path / "harness.cpp")],
+         str(tmp / "harness.cpp")],
         check=True, capture_output=True, timeout=300,
     )
+
+    def run(blocks: np.ndarray, n_blocks: np.ndarray) -> tuple[np.ndarray, str]:
+        (tmp / "in.bin").write_bytes(blocks.tobytes() + n_blocks.astype(np.int32).tobytes())
+        proc = subprocess.run(
+            [str(exe), str(blocks.shape[-1]), str(blocks.shape[0]), str(tmp / "in.bin"),
+             str(tmp / "out.bin")],
+            check=True, capture_output=True, text=True, timeout=120,
+        )
+        out = np.fromfile(tmp / "out.bin", dtype=np.uint32).reshape(8, 2, blocks.shape[-1])
+        return out, proc.stdout
+
+    return run
+
+
+def test_kernel_source_compiled_for_the_host_matches_plain_version(host_kernel):
+    """S1's CTAs, compiled as plain C++ with g++ (no nvcc here), against the
+    plain version on 41 lanes of 0-700 bytes (1-6 blocks; two CTAs, the
+    second ragged), with lanes whose counts are 0 and past the block axis,
+    and hashlib."""
     rng = np.random.default_rng(17)
     msgs = _messages(rng.integers(0, 700, size=41).tolist(), seed=18)
     blocks, n_blocks = sh.pad_messages(msgs)
     forced = n_blocks.copy()
     forced[5], forced[6] = 0, 77
-    (tmp_path / "in.bin").write_bytes(blocks.tobytes() + forced.tobytes())
-    proc = subprocess.run(
-        [str(exe), str(len(msgs)), str(blocks.shape[0]), str(tmp_path / "in.bin"),
-         str(tmp_path / "out.bin")],
-        check=True, capture_output=True, text=True, timeout=120,
-    )
-    assert proc.stdout.split() == ["threads", "128"]
-    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint32).reshape(8, 2, len(msgs))
+    out, stdout = host_kernel(blocks, forced)
+    # Two warps a CTA: the consumer's 32 lanes and the producer's.
+    assert stdout.split() == ["threads", "64", "lanes", "32"]
     assert np.array_equal(out, _port_state(blocks, forced))
     assert np.array_equal(out[:, :, 5], np.asarray(jsh._IV))
     want = [hashlib.sha512(m).digest() for m in msgs]
@@ -196,6 +215,43 @@ def test_kernel_source_compiled_for_the_host_matches_plain_version(tmp_path):
     assert [g for i, g in enumerate(got) if i not in (5, 6)] == [
         w for i, w in enumerate(want) if i not in (5, 6)
     ]
+
+
+@pytest.mark.parametrize("width", [1, 3, 17, 65])
+def test_kernel_ring_replay_at_ragged_widths(host_kernel, width):
+    """The producer/consumer replay at widths that leave a CTA's slots idle
+    (1, 3, 17) or spill into a third CTA (65), on messages of 1-9 blocks
+    whose counts differ within a CTA (so a lane's steps end before its
+    CTA's), with a count of 0, a negative one and one past the block axis:
+    equal to the plain version and to JAX, and every other lane to
+    hashlib."""
+    rng = np.random.default_rng(width)
+    msgs = _messages(rng.integers(0, 1100, size=width).tolist(), seed=100 + width)
+    blocks, n_blocks = sh.pad_messages(msgs)
+    forced = n_blocks.copy()
+    special = {0: blocks.shape[0] + 5, 1: 0, 2: -3}
+    for lane, count in special.items():
+        if lane < width:
+            forced[lane] = count
+    out, _ = host_kernel(blocks, forced)
+    assert np.array_equal(out, _port_state(blocks, forced))
+    assert np.array_equal(out, _jax_state(blocks, forced))
+    want = [hashlib.sha512(m).digest() for m in msgs]
+    got = _digests(out)
+    assert [g for i, g in enumerate(got) if i not in special] == [
+        w for i, w in enumerate(want) if i not in special
+    ]
+
+
+def test_kernel_ring_replay_on_one_lane_of_the_transcript_roots_length(host_kernel):
+    """One lane of 439,062 bytes (3,431 blocks: the randomized config-3
+    wave's transcript root) through the replay, held to hashlib (the plain
+    version makes ~8,000 eager calls a block and is not run there)."""
+    msg = np.random.default_rng(3431).bytes(439062)
+    blocks, n_blocks = sh.pad_messages([msg])
+    assert blocks.shape[0] == 3431
+    out, _ = host_kernel(blocks, n_blocks)
+    assert _digests(out) == [hashlib.sha512(msg).digest()]
 
 
 @pytest.mark.parametrize(

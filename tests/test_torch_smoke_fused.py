@@ -93,15 +93,27 @@ def test_bigint_msm_stand_in_is_the_plain_msms_group_element(monkeypatch):
 
 
 def test_sha512_bound_counts_the_work():
+    """The bound counts SHA-512's own instructions (FIPS 180-4: 64 schedule
+    words and 80 rounds a block), not the kernel's SASS: at a wave's width
+    the instructions over every SM bound it, on one long lane the chain of
+    4 dependent instructions a round at the measured latency."""
+    assert (chip_smoke.SHA512_WORD_OPS, chip_smoke.SHA512_ROUND_OPS) == (20, 28)
+    assert chip_smoke.SHA512_BLOCK_OPS == 64 * 20 + 80 * 28 + 16 == 3536
+    assert chip_smoke.SHA512_CHAIN_DEPTH == 4
     n_blocks = np.array([2] * 7000 + [0] * 1192, dtype=np.int32)
-    b = chip_smoke.sha512_bound(n_blocks, per_block=3637, sm_count=132, sm_clock_hz=1.98e9)
-    assert b["blocks"] == 14000 and b["instructions"] == 3637 * 14000
+    b = chip_smoke.sha512_bound(n_blocks, sm_count=132, sm_clock_hz=1.98e9, latency_cycles=4.5)
+    assert b["blocks"] == 14000 and b["instructions"] == 3536 * 14000
     assert b["bytes"] == 14000 * 128 + 8192 * (4 + 64)
-    assert b["ops_ms"] == pytest.approx(3637 * 14000 / (132 * 64 * 1.98e9) * 1e3)
-    assert b["chain_ms"] == pytest.approx(3637 * 2 / 1.98e9 * 1e3)
-    assert b["bound_by"] == "operations" and b["bound_ms"] == max(b["ops_ms"], b["chain_ms"])
-    root = chip_smoke.sha512_bound(np.array([3430]), 3637, 132, 1.98e9)
-    assert root["bound_ms"] == root["chain_ms"] == pytest.approx(3637 * 3430 / 1.98e9 * 1e3)
+    assert b["ops_ms"] == pytest.approx(3536 * 14000 / (132 * 64 * 1.98e9) * 1e3)
+    assert b["chain"] == 2 * 80 * 4
+    assert b["chain_ms"] == pytest.approx(2 * 80 * 4 * 4.5 / 1.98e9 * 1e3)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["chain_ms"]
+    root = chip_smoke.sha512_bound(np.array([3431]), 132, 1.98e9, 4.5)
+    assert root["bound_ms"] == root["chain_ms"] == pytest.approx(3431 * 320 * 4.5 / 1.98e9 * 1e3)
+    # The former yardstick, printed beside the bound: the block loop's SASS
+    # instructions at one a clock.
+    assert chip_smoke.sass_issue_ms(np.array([3430]), 3637, 1.98e9) == pytest.approx(
+        3637 * 3430 / 1.98e9 * 1e3)
 
 
 _SASS = """
@@ -139,9 +151,19 @@ def test_sass_block_loop_reads_the_widest_backward_branch(monkeypatch):
 def test_chip_smoke_sha512_phase_rehearses_on_cpu():
     corpus = chip_smoke.make_corpus(16, per_class=1)
     rand = chip_smoke.make_corpus(16, per_class=1, classes=chip_smoke.RANDOMIZED_CLASSES)
-    k = chip_smoke.phase_sha512("cpu", corpus, rand, replicas=2, reps=1, plain_reps=1)
+    k = chip_smoke.phase_sha512("cpu", corpus, rand, replicas=2, reps=1, plain_reps=1,
+                                long_lanes=3, long_blocks=3)
     assert (k["lanes"], k["live"], k["block_axis"], k["max_abs_err"]) == (32, 32, 2, 0)
     assert k["n_blocks"].tolist() == [2] * 32  # 160-byte R || A || M
+    w = k["widths"]
+    assert list(w) == ["one_block", "certs", "long", "root"]
+    assert (w["one_block"]["lanes"], w["one_block"]["block_axis"]) == (32, 1)
+    assert (w["certs"]["lanes"], w["certs"]["block_axis"]) == (chip_smoke.S1_CERT_LANES, 2)
+    assert (w["long"]["lanes"], w["long"]["block_axis"]) == (3, 3)
+    assert all(w[key]["max_abs_err"] == 0 for key in ("one_block", "certs", "long"))
+    # No kernel on the CPU: the launches-alone time is the wrapper's again.
+    assert all(r["launch_ms"] == r["ms"] for r in w.values())
+    assert k["launch_ms"] == k["ms"] and k["root_launch_ms"] == k["root_ms"]
     # 12 of the 16 randomized requests pass the host pre-checks, twice.
     assert k["root_live"] == 24 and k["root_bytes"] == 14 + 8 + 64 * 24
     assert k["root_blocks"] == sh.padded_blocks_for(k["root_bytes"])
