@@ -2193,8 +2193,7 @@ def build_latency_probe() -> scan_kernels.BuildInfo:
     source = scan_kernels.BUILD_DIR / f"chain_probe-{tag}-{os.getpid()}.cu"
     source.write_text(LATENCY_PROBE_SOURCE)
     tmp = library.with_name(f".{library.name}-{os.getpid()}")
-    cmd = [scan_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(source)]
+    cmd = scan_kernels.nvcc_command(source, tmp)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -2272,8 +2271,10 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
         ms = _time_ms(lambda: sh.sha512_blocks(blocks, n_blocks), calls, device)
         launch_ms = (_launch_ms("sha512", (blocks, n_blocks), calls, device)
                      if device.type == "cuda" else ms)
+        # The blocks each lane absorbs: its count, cut to the block axis.
+        absorbed = np.clip(n_blocks.cpu().numpy(), 0, blocks.shape[0])
         return {"lanes": n_blocks.shape[0], "block_axis": blocks.shape[0],
-                "n_blocks": n_blocks.cpu().numpy(), "ms": ms, "launch_ms": launch_ms}
+                "n_blocks": absorbed, "ms": ms, "launch_ms": launch_ms}
 
     msgs, sigs, keys, _ = replica_wave(corpus, replicas)
     engine = FusedEd25519BatchVerifier(device=device)
@@ -2283,7 +2284,7 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
     for i, (m, s, k) in enumerate(zip(msgs, sigs, keys)):
         if bytes(digest[:, i]) != hashlib.sha512(_prehash(m, s, k)).digest():
             raise AssertionError(f"sha512: lane {i}'s digest differs from hashlib's")
-    wave = timed(blocks, n_blocks, reps)
+    widths = {"wave": {**timed(blocks, n_blocks, reps), "max_abs_err": max_err}}
     plain_ms = _time_ms(lambda: sh.sha512_blocks_reference(blocks, n_blocks), plain_reps, device)
 
     lmsgs = long_lane_messages(long_lanes, long_blocks)
@@ -2295,7 +2296,6 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
                   n_blocks[:S1_CERT_LANES].contiguous()),
         "long": (lblocks, ln),
     }
-    widths = {}
     for key, (b, n) in cases.items():
         err = _check_sha512(b, n)
         widths[key] = {**timed(b, n, reps), "max_abs_err": err}
@@ -2315,11 +2315,10 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
     widths["root"] = timed(rblocks, rn_t, 5)
     return {
         "lanes": n_blocks.shape[0], "live": len(msgs), "block_axis": blocks.shape[0],
-        "n_blocks": wave["n_blocks"], "max_abs_err": max_err, "ms": wave["ms"],
-        "launch_ms": wave["launch_ms"], "plain_ms": plain_ms,
-        "root_live": (len(root) - len(med._Z_TAG) - 8) // 64, "root_bytes": len(root),
-        "root_blocks": int(rn[0]), "root_ms": widths["root"]["ms"],
-        "root_launch_ms": widths["root"]["launch_ms"], "widths": widths,
+        "n_blocks": widths["wave"]["n_blocks"], "max_abs_err": max_err,
+        "ms": widths["wave"]["ms"], "launch_ms": widths["wave"]["launch_ms"],
+        "plain_ms": plain_ms, "root_live": (len(root) - len(med._Z_TAG) - 8) // 64,
+        "root_bytes": len(root), "root_blocks": int(rn[0]), "widths": widths,
     }
 
 
@@ -2890,25 +2889,22 @@ def main() -> int:
     log(f"S1's SASS (cuobjdump -sass): {sass['kernel']} instructions in the kernel; its widest "
         f"loop, the consumer's rounds of one block, {sass['per_block']} "
         f"({sass['loop'][0]}-{sass['loop'][1]})")
-    widths13 = {
+    labels13 = {
         "wave": (f"the strict wave's challenge blocks R || A || M: {k13['live']} signatures on "
                  f"{k13['lanes']} lanes (a block axis of {k13['block_axis']}, padded lanes 0 "
-                 f"blocks): every live lane's digest equal to hashlib.sha512's",
-                 {"n_blocks": k13["n_blocks"], "ms": k13["ms"], "launch_ms": k13["launch_ms"],
-                  "max_abs_err": k13["max_abs_err"]}),
-        "one_block": ("the same lanes' first blocks alone (block axis 1)",
-                      k13["widths"]["one_block"]),
-        "certs": (f"the first {S1_CERT_LANES} lanes (a half-agg certificate's width)",
-                  k13["widths"]["certs"]),
+                 f"blocks): every live lane's digest equal to hashlib.sha512's"),
+        "one_block": "the same lanes' first blocks alone (block axis 1)",
+        "certs": f"the first {S1_CERT_LANES} lanes (a half-agg certificate's width)",
         "long": (f"{S1_LONG_LANES} lanes of up to {S1_LONG_BLOCKS} blocks: every digest equal "
-                 f"to hashlib.sha512's", k13["widths"]["long"]),
+                 f"to hashlib.sha512's"),
         "root": (f"the randomized wave's transcript root: tag || n || {k13['root_live']} leaf "
                  f"digests = {k13['root_bytes']} bytes on one lane: digest equal to "
                  f"hashlib.sha512's (the plain version is not run there: thousands of eager "
-                 f"calls a block)", k13["widths"]["root"]),
+                 f"calls a block)"),
     }
     bounds13 = {}
-    for key, (label, r) in widths13.items():
+    for key, label in labels13.items():
+        r = k13["widths"][key]
         b = bounds13[key] = sha512_bound(r["n_blocks"], sm_count, sm_clock_hz,
                                          latency["cycles"])
         calls = 5 if key == "root" else 20

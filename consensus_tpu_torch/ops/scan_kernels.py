@@ -108,6 +108,18 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_command(source, output, *extra: str) -> list[str]:
+    """The nvcc command every kernel library is built with: ``source`` for
+    ``sm_90a`` into the shared library ``output``, with ptxas's report of
+    registers, shared memory and spills; ``extra`` flags before the output
+    (an include path, say)."""
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *extra,
+        "-o", str(output), str(source),
+    ]
+
+
 def _library(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """The loaded library of kernel ``name``: built and loaded on the first
     call in this process, under the kernel's lock, so concurrent first
@@ -140,11 +152,7 @@ def _build_and_load(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{name}-{tag}-{os.getpid()}.so"
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(source_path),
-        ]
+        cmd = nvcc_command(source_path, tmp)
         command = " ".join(cmd)
         start = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -12,7 +12,9 @@ that does not build is reported and left out.  Each design is then checked
 at every width S1 runs, at tolerance 0 against the plain version (the
 transcript root, whose thousands of blocks the plain version cannot finish,
 against ``hashlib``), and its launches are timed with CUDA events in turns
-within one process (designs in order, reversed, in order): 8,192 lanes of 2
+within one process (designs in order, reversed, in order), as launches and
+as calls through the wrapper ``sha512_blocks`` with the design's library in
+the wrapper's registry: 8,192 lanes of 2
 blocks (a strict wave's challenges: 7,000 live lanes, the rest padding) and
 the same lanes' first blocks alone, one lane of 3,431 blocks (the randomized
 wave's transcript root), 8 lanes of 2 blocks (a half-agg certificate) and 16
@@ -20,9 +22,17 @@ lanes of up to 40 blocks.  The messages are random bytes from numpy seed 0.
 Prints each design's ptxas figures and SASS (instructions of each kernel, of
 its widest loop and that loop's mix of opcodes), the card's dependent-issue
 latency from ``chip_smoke.py``'s probe, one line per design and width (its
-launches' times, and each launch's device time from ``torch.profiler``: at a
-wave's width a launch from Python takes about as long as the kernel runs),
-a JSON summary, and the card's name and power limit.
+launches' and wrapper calls' times, and a launch's time when launches
+captured in a CUDA graph are replayed: at a wave's width a launch from
+Python takes about as long as the kernel runs), a JSON summary, and the
+card's name and power limit.
+
+The designs csrc's design was timed against (the first version, one thread
+per lane; two passes through device memory; rotations as products; four
+warps a CTA; each lane's rounds split over two warps) are kept in git
+history, at the commit that redesigned the kernel
+(``git show c74061d:scripts/s1_trials/``); to time them again, unpack that
+directory and name its files here.
 """
 
 from __future__ import annotations
@@ -125,9 +135,7 @@ def build_all(sources: dict) -> dict:
     for design, cu in sources.items():
         lib = TRIALS / f"sha512_{design}.so"
         procs[design] = (lib, subprocess.Popen(
-            [scan_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             f"-I{scan_kernels._CSRC}", "-o", str(lib), str(cu)],
+            scan_kernels.nvcc_command(cu, lib, f"-I{scan_kernels._CSRC}"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     built = {}
@@ -140,10 +148,14 @@ def build_all(sources: dict) -> dict:
         print(f"sha512 {design}: built; ptxas {ptxas}", flush=True)
         for kernel, figures in sass.items():
             print(f"  sass {kernel}: {figures}", flush=True)
-        launch = ctypes.CDLL(str(lib)).sha512_launch
+        cdll = ctypes.CDLL(str(lib))
+        launch = cdll.sha512_launch
         launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        built[design] = (launch, ptxas, sass)
+        cdll.sha512_error_string.argtypes = [ctypes.c_int]
+        cdll.sha512_error_string.restype = ctypes.c_char_p
+        library = (cdll, scan_kernels.BuildInfo(str(lib), "", 0.0, report, True))
+        built[design] = (launch, ptxas, sass, library)
     return built
 
 
@@ -155,26 +167,21 @@ def run(launch, blocks, n_blocks, state, device) -> None:
         raise RuntimeError(f"launch failed: {code}")
 
 
-def graph_time(launch, blocks, n_blocks, state, device, reps: int):
+def graph_time(launch, blocks, n_blocks, state, device, reps: int) -> float:
     """Mean milliseconds of a launch when ``reps`` launches captured in one
-    CUDA graph are replayed (no host work between them), or the reason the
-    capture failed."""
-    try:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            for _ in range(reps):
-                run(launch, blocks, n_blocks, state, device)
-        graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return round(start.elapsed_time(end) / reps, 6)
-    except Exception as exc:  # noqa: BLE001 - reported, not raised: a trial figure
-        torch.cuda.synchronize()
-        return f"not measured ({exc})"
+    CUDA graph are replayed (no host work between them)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            run(launch, blocks, n_blocks, state, device)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cases(device) -> dict:
@@ -219,8 +226,8 @@ def main(alternatives) -> int:
 
     equal: dict = {}
     times: dict = {}
-    device_ms: dict = {}
     graph_ms: dict = {}
+    wrapper_ms: dict = {}
     for width, (blocks, n_blocks, msgs) in cases(device).items():
         want = None if width == "root" else sh.sha512_blocks_reference(blocks, n_blocks)
         order = list(built)
@@ -250,20 +257,27 @@ def main(alternatives) -> int:
                 torch.cuda.synchronize()
                 times.setdefault((design, width), []).append(
                     start.elapsed_time(end) / REPS[width])
+                # The same design through the wrapper, as chip_smoke.py times S1:
+                # its library stands in for csrc's in the wrapper's registry.
+                scan_kernels._LIBRARIES["sha512"] = built[design][3]
+                sh.sha512_blocks(blocks, n_blocks)
+                start.record()
+                for _ in range(REPS[width]):
+                    sh.sha512_blocks(blocks, n_blocks)
+                end.record()
+                torch.cuda.synchronize()
+                wrapper_ms.setdefault((design, width), []).append(
+                    start.elapsed_time(end) / REPS[width])
         for design in order:
             state = torch.empty((8, 2, blocks.shape[-1]), dtype=torch.int32, device=device)
-            launch = built[design][0]
-            split = chip_smoke.kernel_split_ms(
-                lambda: run(launch, blocks, n_blocks, state, device), REPS[width], device)
-            device_ms[design, width] = sum(split.values())
-            graph_ms[design, width] = graph_time(launch, blocks, n_blocks, state, device,
-                                                 REPS[width])
+            graph_ms[design, width] = graph_time(built[design][0], blocks, n_blocks, state,
+                                                 device, REPS[width])
     for (design, width), ms in times.items():
         verdict = "equal to" if equal[design, width] else "DIFFERENT from"
         print(f"sha512 {design} {width}: " + ", ".join(f"{t:.6f}" for t in ms)
-              + f" ms (CUDA events, mean of {REPS[width]} launches a turn); "
-              f"{device_ms[design, width]:.6f} ms on the device a launch (torch.profiler); "
-              f"{graph_ms[design, width]} ms a launch replayed from a CUDA graph; "
+              + f" ms (CUDA events, mean of {REPS[width]} launches a turn); through the "
+              "wrapper " + ", ".join(f"{t:.6f}" for t in wrapper_ms[design, width]) + " ms; "
+              f"{graph_ms[design, width]:.6f} ms a launch replayed from a CUDA graph; "
               f"{verdict} the plain version / hashlib", flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -272,11 +286,11 @@ def main(alternatives) -> int:
     print(json.dumps({
         "card": card,
         "latency_cycles": latency["cycles"],
-        "ptxas": {d: p for d, (_, p, _) in built.items()},
-        "sass": {d: s for d, (_, _, s) in built.items()},
+        "ptxas": {d: b[1] for d, b in built.items()},
+        "sass": {d: b[2] for d, b in built.items()},
         "ms": {f"{d} {w}": t for (d, w), t in times.items()},
-        "device_ms": {f"{d} {w}": t for (d, w), t in device_ms.items()},
         "graph_ms": {f"{d} {w}": t for (d, w), t in graph_ms.items()},
+        "wrapper_ms": {f"{d} {w}": t for (d, w), t in wrapper_ms.items()},
         "equal": {f"{d} {w}": e for (d, w), e in equal.items()},
     }))
     print(card)

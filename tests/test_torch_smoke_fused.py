@@ -156,14 +156,15 @@ def test_chip_smoke_sha512_phase_rehearses_on_cpu():
     assert (k["lanes"], k["live"], k["block_axis"], k["max_abs_err"]) == (32, 32, 2, 0)
     assert k["n_blocks"].tolist() == [2] * 32  # 160-byte R || A || M
     w = k["widths"]
-    assert list(w) == ["one_block", "certs", "long", "root"]
+    assert list(w) == ["wave", "one_block", "certs", "long", "root"]
+    assert w["wave"]["ms"] == k["ms"] and w["wave"]["max_abs_err"] == 0
     assert (w["one_block"]["lanes"], w["one_block"]["block_axis"]) == (32, 1)
+    assert w["one_block"]["n_blocks"].tolist() == [1] * 32  # counts cut to the axis
     assert (w["certs"]["lanes"], w["certs"]["block_axis"]) == (chip_smoke.S1_CERT_LANES, 2)
     assert (w["long"]["lanes"], w["long"]["block_axis"]) == (3, 3)
     assert all(w[key]["max_abs_err"] == 0 for key in ("one_block", "certs", "long"))
     # No kernel on the CPU: the launches-alone time is the wrapper's again.
     assert all(r["launch_ms"] == r["ms"] for r in w.values())
-    assert k["launch_ms"] == k["ms"] and k["root_launch_ms"] == k["root_ms"]
     # 12 of the 16 randomized requests pass the host pre-checks, twice.
     assert k["root_live"] == 24 and k["root_bytes"] == 14 + 8 + 64 * 24
     assert k["root_blocks"] == sh.padded_blocks_for(k["root_bytes"])
