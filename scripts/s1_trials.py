@@ -31,8 +31,9 @@ The designs csrc's design was timed against (the first version, one thread
 per lane; two passes through device memory; rotations as products; four
 warps a CTA; each lane's rounds split over two warps) are kept in git
 history, at the commit that redesigned the kernel
-(``git show c74061d:scripts/s1_trials/``); to time them again, unpack that
-directory and name its files here.
+(``git show c74061d:scripts/s1_trials/``), and the split with tagged
+hand-offs at ``d08f3b5``; to time them again, unpack those files and name
+them here.
 """
 
 from __future__ import annotations
