@@ -136,6 +136,19 @@ Phases:
    kernel's) and of its launches alone, the plain version's and its bound,
    and the registers, shared memory, stack frame and spills ptxas reports.  D1 and D2 launch once per device call on
    every Ed25519 path (phases 3, 7, 8, 12 and 14-17 count them).
+19. the device-fault chaos matrix (the JAX package's, tests/test_supervisor.py:
+   425-497) through the port's chaos harness (``testing/chaos.py``): seed
+   31's 4-replica schedule of 6 actions with one hang, one raise and one
+   silent verdict flip armed on the engine's launches, in the strict,
+   randomized, half-agg and fused engine modes, each engine on the card at
+   ``min_device_batch=1`` (every quorum check a launch of its kernels) under
+   an ``EngineSupervisor`` that cross-checks every launch on the host twin.
+   Per mode the fault-free card run, the faulted card run and the port's
+   host-path run (``device="cpu"``) give byte-identical event logs and
+   ledgers; every fault fires, degrades once and recovers; the mode's
+   kernels launch in both card runs and the others do not.  The strict
+   faulted run once more with the observability plane on: the same
+   ledgers, an ``engine_degraded`` anomaly and no ``verify_collapse``.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -164,7 +177,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from consensus_tpu_torch.config import Configuration
+from consensus_tpu_torch.config import Configuration, ObsConfig
 from consensus_tpu_torch.metrics import (
     ENGINE_CROSSCHECK_KEY,
     ENGINE_CROSSCHECK_MISMATCH_KEY,
@@ -184,7 +197,7 @@ from consensus_tpu_torch.models.fused import (
     canonical_ok_fast,
 )
 from consensus_tpu_torch.models.fused import _frame as frame
-from consensus_tpu_torch.models.supervisor import EngineSupervisor, HostTwin
+from consensus_tpu_torch.models.supervisor import FAULT_CLASSES, EngineSupervisor, HostTwin
 from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
     EcdsaP256VerifierMixin,
@@ -192,6 +205,7 @@ from consensus_tpu_torch.models.verifier import (
     commit_message,
     engine_for_config,
 )
+from consensus_tpu_torch.obs import series_to_jsonl
 from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
@@ -200,6 +214,7 @@ from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.ops import sha512 as sh
 from consensus_tpu_torch.testing import Cluster
+from consensus_tpu_torch.testing.chaos import ChaosEngine, ChaosSchedule
 from consensus_tpu_torch.testing.crypto_app import ClientKeyring, SigOnlyVerifier, SignedRequestApp
 from consensus_tpu_torch.types import Proposal, QuorumCert
 from consensus_tpu_torch.wal import DEFAULT_SEGMENT_MAX_BYTES
@@ -2509,6 +2524,172 @@ def phase_halfagg_certs(device, decisions: int) -> dict:
             "localized": localized}
 
 
+# --- the chaos harness: phase 19 (the device-fault chaos matrix) --------------
+
+#: The JAX package's device-fault matrix (tests/test_supervisor.py:425-426):
+#: a seeded 4-replica schedule of 6 adversary actions, and one hang, one raise
+#: and one silent verdict flip, armed on the engine's 2nd, 5th and 8th launch.
+CHAOS_SEED = 31
+CHAOS_STEPS = 6
+CHAOS_FAULTS = ((2, "hang"), (5, "raise"), (8, "flip"))
+#: The kernels (by ledger name) each engine mode must launch in its card runs
+#: and the ones it must not.  The randomized engine checks batches below
+#: ``min_randomized`` strictly, so B1 may launch there too; half-agg runs the
+#: strict engine and checks each certificate with one B3 launch.
+CHAOS_KERNELS = {
+    "strict": (("horner_scan", "decompress25519", "comb25519"),
+               ("horner_scan_p256", "straus_msm", "sha512")),
+    "randomized": (("straus_msm", "decompress25519", "comb25519"),
+                   ("horner_scan_p256", "sha512")),
+    "halfagg": (("horner_scan", "straus_msm", "decompress25519", "comb25519"),
+                ("horner_scan_p256", "sha512")),
+    "fused": (("sha512", "horner_scan", "decompress25519", "comb25519"),
+              ("horner_scan_p256", "straus_msm")),
+}
+
+
+def chaos_mode(mode: str, device, min_device_batch: int):
+    """(the chaos engine's crypto mode, an engine factory) for ``mode``, its
+    engine on ``device`` at ``min_device_batch``."""
+    crypto, engine, kw = {
+        "strict": ("ed25519", med.Ed25519BatchVerifier, {}),
+        "randomized": ("ed25519-batch", med.Ed25519RandomizedBatchVerifier,
+                       {"min_randomized": 2}),
+        "halfagg": ("ed25519-halfagg", med.Ed25519BatchVerifier, {}),
+        "fused": ("ed25519", FusedEd25519BatchVerifier, {}),
+    }[mode]
+    return crypto, lambda: engine(min_device_batch=min_device_batch, device=device, **kw)
+
+
+def _kernel_launches() -> dict:
+    return {name: KERNELS.stats(name).launches for name in scan_kernels.KERNELS}
+
+
+def _chaos_run(schedule, card: bool, **kw) -> tuple:
+    """One chaos run, its kernel launches and its wall time (host clock,
+    ending in torch.cuda.synchronize() when its engines are on the card)."""
+    engine = ChaosEngine(schedule, **kw)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    result = engine.run()
+    if card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not result.ok:
+        raise AssertionError(f"chaos run {kw.get('crypto')} failed: {result.violation}")
+    return engine, result, _kernel_launches(), seconds
+
+
+def _check_supervised(engine, label: str) -> dict:
+    """Every armed fault fired, each class degraded once and recovered, and
+    the supervisor ended at rung 0 with every breaker closed."""
+    if engine.fault_injector.fired != list(CHAOS_FAULTS) or engine.fault_injector.pending:
+        raise AssertionError(f"{label}: faults fired {engine.fault_injector.fired}, "
+                             f"{engine.fault_injector.pending} pending")
+    dump = _engine_dump(engine.engine_metrics.provider)
+    for reason in FAULT_CLASSES:
+        if dump.get(f"{ENGINE_DEGRADE_KEY}{{{reason}}}") != 1:
+            raise AssertionError(f"{label}: not one degrade of class {reason}: {dump}")
+    if (dump[ENGINE_RECOVERED_KEY], dump[ENGINE_CROSSCHECK_MISMATCH_KEY], dump[ENGINE_RUNG_KEY]) \
+            != (len(CHAOS_FAULTS), 1, 0):
+        raise AssertionError(f"{label}: recoveries, mismatches or rung wrong: {dump}")
+    sup = engine.supervisor
+    if sup.degraded or any(b.state != "closed" for b in sup.breakers.values()):
+        raise AssertionError(f"{label}: the supervisor ended degraded")
+    return dump
+
+
+def phase_chaos_matrix(device, modes=tuple(CHAOS_KERNELS), min_device_batch: int = 1) -> dict:
+    """The JAX package's device-fault chaos matrix through the port's chaos
+    engine, its supervisor and its engines on ``device`` at
+    ``min_device_batch`` (1 on the card: every quorum check a launch).  Per
+    mode: a fault-free run, the faulted run (``CHAOS_FAULTS`` under an
+    ``EngineSupervisor`` cross-checking every launch on the host twin) and
+    the port's own fault-free host-path run (``device="cpu"``,
+    ``min_device_batch=10**9``); ledgers and event logs of all three
+    byte-identical, each fault fired, degraded once and recovered, the
+    mode's kernels launched in both device runs and the others not.  Then
+    the strict faulted run once more with the sampler on: its
+    ledgers equal the obs-off run's, its anomalies include
+    ``engine_degraded`` and not ``verify_collapse``, and every line of its
+    series parses as JSON."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    schedule = ChaosSchedule.generate(CHAOS_SEED, n=4, steps=CHAOS_STEPS)
+    out: dict = {"modes": {}}
+    faulted_strict = None
+    for mode in modes:
+        crypto, factory = chaos_mode(mode, device, min_device_batch)
+        _, clean, clean_launches, clean_s = _chaos_run(
+            schedule, on_card, crypto=crypto, engine_factory=factory)
+        engine, faulted, fault_launches, fault_s = _chaos_run(
+            schedule, on_card, crypto=crypto, engine_factory=factory,
+            device_faults=CHAOS_FAULTS)
+        host_factory = (chaos_mode(mode, "cpu", 10**9)[1] if mode == "fused" else None)
+        _, host, host_launches, host_s = _chaos_run(
+            schedule, False, crypto=crypto, engine_factory=host_factory,
+            device="cpu")
+        for label, run in (("faulted", faulted), ("host-path", host)):
+            if run.event_log != clean.event_log or run.ledgers != clean.ledgers:
+                raise AssertionError(f"{mode}: the {label} run's event log or ledgers differ "
+                                     f"from the fault-free run's")
+        dump = _check_supervised(engine, mode)
+        on_path, off_path = CHAOS_KERNELS[mode]
+        for label, launches in (("fault-free", clean_launches), ("faulted", fault_launches)):
+            if any(bool(launches[k]) != on_card for k in on_path) \
+                    or any(launches[k] for k in off_path):
+                raise AssertionError(f"{mode}: the {label} run launched {launches}")
+        if any(host_launches.values()):
+            raise AssertionError(f"{mode}: the host-path run launched {host_launches}")
+        out["modes"][mode] = {
+            "crypto": crypto, "clean_s": clean_s, "faulted_s": fault_s, "host_s": host_s,
+            "clean_launches": clean_launches, "fault_launches": fault_launches,
+            "engine_launches": engine.fault_injector.launches, "engine": dump,
+            "event_lines": clean.event_log.count(b"\n"), "deliveries": clean.deliveries,
+            "heights": sorted({len(v) for v in clean.ledgers.values()}),
+        }
+        if mode == "strict":
+            faulted_strict = faulted
+    crypto, factory = chaos_mode("strict", device, min_device_batch)
+    engine, seen, launches, seconds = _chaos_run(
+        schedule, on_card, crypto=crypto, engine_factory=factory,
+        device_faults=CHAOS_FAULTS, obs=ObsConfig(enabled=True, sample_interval=2.0))
+    if faulted_strict is not None and seen.ledgers != faulted_strict.ledgers:
+        raise AssertionError("the observed run's ledgers differ from the obs-off run's")
+    _check_supervised(engine, "observed strict")
+    sampler = engine.cluster.sampler
+    counts = sampler.anomaly_counts()
+    if "engine_degraded" not in counts or "verify_collapse" in counts:
+        raise AssertionError(f"observed run: anomalies {counts}")
+    lines = series_to_jsonl(sampler.samples()).splitlines()
+    for line in lines:
+        json.loads(line)
+    out["observed"] = {"seconds": seconds, "anomalies": counts, "samples": len(lines),
+                       "launches": launches,
+                       "anomaly_lines": seen.event_log.count(b" ANOMALY ")}
+    return out
+
+
+def log_chaos_matrix(m: dict) -> None:
+    """Print phase 19's runs, their launches and the supervisor's series."""
+    for mode, r in m["modes"].items():
+        log(f"{mode} (crypto {r['crypto']!r}): fault-free, faulted and host-path runs give "
+            f"byte-identical event logs ({r['event_lines']} lines) and ledgers (heights "
+            f"{r['heights']}, {r['deliveries']} deliveries); the faulted run's engine saw "
+            f"{r['engine_launches']} verify_batch calls, faults {list(CHAOS_FAULTS)} fired")
+        log(f"  wall time (host clock): fault-free {r['clean_s']:.3f} s, faulted "
+            f"{r['faulted_s']:.3f} s, host path (device=cpu, min_device_batch=10**9) "
+            f"{r['host_s']:.3f} s")
+        log(f"  launches, fault-free run: {r['clean_launches']}")
+        log(f"  launches, faulted run:    {r['fault_launches']}")
+        log(f"  engine series: {r['engine']}")
+    o = m["observed"]
+    log(f"observed strict faulted run (ObsConfig(enabled=True, sample_interval=2.0)): ledgers "
+        f"equal to the obs-off run's; anomalies {o['anomalies']} ({o['anomaly_lines']} "
+        f"ANOMALY lines in the event log); {o['samples']} series lines, each parsed as JSON; "
+        f"launches {o['launches']}; {o['seconds']:.3f} s (host clock)")
+
+
 def log_cluster(c: dict, direct_ms: float) -> None:
     """Print phase 12's blocks, their time split, the waves and the checks."""
     signed = (f"signed with ref_sign in {c['sign_s']:.3f} s, set-up" if c["signed_now"]
@@ -3068,6 +3249,11 @@ def main() -> int:
     log_ptxas(infos["decompress25519"])
     log_ptxas(infos["comb25519"])
     log("  library: none (no PyTorch call decompresses an Edwards point or computes [S]B)")
+
+    # Phase 19: the device-fault chaos matrix through the chaos harness.
+    log(f"== phase 19: device-fault chaos matrix (seed {CHAOS_SEED}, n=4, {CHAOS_STEPS} steps, "
+        f"faults {list(CHAOS_FAULTS)}, engines on the card at min_device_batch=1)")
+    log_chaos_matrix(phase_chaos_matrix(device))
 
     log(card)
     log(json.dumps({"kernels": [

@@ -6,9 +6,7 @@ and ``restart`` realism: tearing a replica down and rebuilding the whole
 Consensus over the same WAL content.
 
 The PyTorch port's copy of ``consensus_tpu/testing/app.py``, its imports
-renamed.  One divergence: ``Cluster(obs=ObsConfig(enabled=True))`` raises
-``NotImplementedError`` (the observability plane is ROADMAP.md queue A
-item 7b) instead of building a sampler.
+renamed.
 """
 
 from __future__ import annotations
@@ -585,13 +583,13 @@ class Cluster:
         self.sampler = None
         if obs is not None and obs.enabled:
             obs.validate()
-            # The JAX package builds its ClusterSampler here; the port has
-            # no observability plane yet, and a cluster asked to sample must
-            # not run without it.
-            raise NotImplementedError(
-                "Cluster(obs=...): the observability plane (obs/sampler.py, "
-                "detectors.py, flightrec.py, export.py) is not ported yet "
-                "(ROADMAP.md queue A, item 7b)"
+            from consensus_tpu_torch.obs.sampler import ClusterSampler
+
+            self.sampler = ClusterSampler(
+                self,
+                interval=obs.sample_interval,
+                capacity=obs.ring_capacity,
+                thresholds=obs.detector_thresholds,
             )
 
     def _node_config(self, node_id: int) -> Configuration:

@@ -38,13 +38,26 @@ VERBATIM = [
     "membership/bootstrap.py",
     "membership/epoch.py",
     "net/framing.py",
+    "obs/detectors.py",
+    "obs/export.py",
+    "obs/flightrec.py",
+    "obs/sampler.py",
     "sync/__init__.py",
     "sync/client.py",
     "sync/server.py",
     "sync/store.py",
     "sync/transport.py",
+    "testing/adversary.py",
     "testing/app.py",
+    "testing/chaos.py",
+    "testing/faults.py",
+    "testing/fuzz.py",
+    "testing/invariants.py",
+    "testing/membership.py",
     "testing/network.py",
+    "testing/storage.py",
+    "trace/export.py",
+    "trace/report.py",
     "trace/tracer.py",
     "types.py",
     "utils/__init__.py",
@@ -61,43 +74,65 @@ VERBATIM = [
 ]
 REWORDED = ["api/deps.py", "config.py", "metrics.py", "testing/crypto_app.py"]
 
-#: The divergences the port keeps on purpose, each as (the JAX text, the
-#: port's text in its place).
+#: The divergences the port keeps on purpose, each as pairs of (the JAX
+#: text, the port's text in its place).
 DIVERGENCES = {
-    # ROADMAP.md queue C, divergence 13: a cluster asked to sample refuses
-    # to run without the observability plane.
-    "testing/app.py": (
-        """            from consensus_tpu.obs.sampler import ClusterSampler
+    # ROADMAP.md queue C, divergence 20: the chaos engine builds its crypto
+    # engines on a device the caller names (``cuda`` when it names none).
+    "testing/chaos.py": [
+        (
+            """        device_faults: tuple = (),
+    ) -> None:""",
+            """        device_faults: tuple = (),
+        device=None,
+    ) -> None:""",
+        ),
+        (
+            """        ``"ed25519"`` when unset.\"\"\"
+""",
+            """        ``"ed25519"`` when unset.
 
-            self.sampler = ClusterSampler(
-                self,
-                interval=obs.sample_interval,
-                capacity=obs.ring_capacity,
-                thresholds=obs.detector_thresholds,
+        ``device`` is where the engines this constructor builds for a crypto
+        run live (``cuda`` unless the caller names one); an
+        ``engine_factory`` places its own engine.\"\"\"
+""",
+        ),
+        (
+            """        self.engine_factory = engine_factory
+""",
+            """        self.engine_factory = engine_factory
+        self.device = device
+""",
+        ),
+        (
+            """                min_device_batch=10**9, min_randomized=2
+            )
+        else:
+            engine = Ed25519BatchVerifier(min_device_batch=10**9)
+""",
+            """                min_device_batch=10**9, min_randomized=2, device=self.device
+            )
+        else:
+            engine = Ed25519BatchVerifier(
+                min_device_batch=10**9, device=self.device
             )
 """,
-        """            # The JAX package builds its ClusterSampler here; the port has
-            # no observability plane yet, and a cluster asked to sample must
-            # not run without it.
-            raise NotImplementedError(
-                "Cluster(obs=...): the observability plane (obs/sampler.py, "
-                "detectors.py, flightrec.py, export.py) is not ported yet "
-                "(ROADMAP.md queue A, item 7b)"
-            )
-""",
-    ),
+        ),
+    ],
     # The engine bundle's compile-cache keys are exported as well (the
     # port's engine layer books them, models/verifier.py).
-    "metrics.py": (
-        """    "ENGINE_RUNG_KEY",
+    "metrics.py": [
+        (
+            """    "ENGINE_RUNG_KEY",
     "ENGINE_KEYS",
 """,
-        """    "ENGINE_RUNG_KEY",
+            """    "ENGINE_RUNG_KEY",
     "ENGINE_COMPILE_CACHE_HITS_KEY",
     "ENGINE_COMPILE_CACHE_MISSES_KEY",
     "ENGINE_KEYS",
 """,
-    ),
+        ),
+    ],
 }
 # Divergence 14 (``compile_cache`` inert in the port) is a comment and a
 # warning in models/verifier.py, not a code difference in config.py.
@@ -108,8 +143,7 @@ def _sources(module: str) -> tuple[str, str]:
     listed divergence applied)."""
     port = (PORT / module).read_text().replace("consensus_tpu_torch", "consensus_tpu")
     jax_src = (JAX / module).read_text()
-    if module in DIVERGENCES:
-        old, new = DIVERGENCES[module]
+    for old, new in DIVERGENCES.get(module, ()):
         assert jax_src.count(old) == 1, f"{module}: the JAX text of the divergence moved"
         assert port.count(new) == 1, f"{module}: the port's text of the divergence moved"
         jax_src = jax_src.replace(old, new)

@@ -708,3 +708,37 @@ def test_ed25519_waves_launch_d1_d2_and_never_the_plain_versions(cuda_device, mo
     before = _launches()
     assert np.array_equal(randomized.verify_batch(msgs, sigs, keys), host)
     assert _delta(before) == {**zero, "decompress25519": 2, "straus_msm": 2, "comb25519": 2}
+
+
+# --- the chaos harness on the card: device faults under the supervisor --------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kernel", [("strict", "horner_scan"), ("fused", "sha512")])
+def test_faulted_chaos_run_on_card_is_byte_identical_to_the_fault_free_run(
+    cuda_device, mode, kernel
+):
+    """The device-fault matrix's schedule with its engine on the card at
+    ``min_device_batch=1``: one hang, one raise and one verdict flip, each
+    masked by the supervisor, leave the event log and the ledgers exactly
+    as the fault-free card run's, and the mode's kernel launches in both."""
+    from chip_smoke import CHAOS_FAULTS, CHAOS_SEED, CHAOS_STEPS, chaos_mode
+    from consensus_tpu_torch.testing.chaos import ChaosEngine, ChaosSchedule
+
+    crypto, factory = chaos_mode(mode, cuda_device, 1)
+    schedule = ChaosSchedule.generate(CHAOS_SEED, n=4, steps=CHAOS_STEPS)
+    runs = []
+    for faults in ((), CHAOS_FAULTS):
+        before = KERNELS.stats(kernel).launches
+        engine = ChaosEngine(schedule, crypto=crypto, engine_factory=factory,
+                             device_faults=faults)
+        result = engine.run()
+        assert result.ok, result.violation
+        assert KERNELS.stats(kernel).launches > before
+        runs.append((engine, result))
+    (_, clean), (engine, faulted) = runs
+    assert faulted.event_log == clean.event_log
+    assert faulted.ledgers == clean.ledgers
+    assert engine.fault_injector.fired == list(CHAOS_FAULTS)
+    assert engine.fault_injector.pending == 0
+    assert engine.supervisor.rung == 0 and not engine.supervisor.degraded
