@@ -140,15 +140,32 @@ Phases:
    425-497) through the port's chaos harness (``testing/chaos.py``): seed
    31's 4-replica schedule of 6 actions with one hang, one raise and one
    silent verdict flip armed on the engine's launches, in the strict,
-   randomized, half-agg and fused engine modes, each engine on the card at
-   ``min_device_batch=1`` (every quorum check a launch of its kernels) under
-   an ``EngineSupervisor`` that cross-checks every launch on the host twin.
+   randomized, half-agg, fused and ``mesh2`` (the strict engine sharded over
+   2 virtual shards of the card, ``[cuda:0] * 2``) engine modes, each engine
+   on the card at ``min_device_batch=1`` (every quorum check a launch of its
+   kernels, once per shard in ``mesh2``) under an ``EngineSupervisor`` that
+   cross-checks every launch on the host twin.
    Per mode the fault-free card run, the faulted card run and the port's
    host-path run (``device="cpu"``) give byte-identical event logs and
    ledgers; every fault fires, degrades once and recovers; the mode's
    kernels launch in both card runs and the others do not.  The strict
    faulted run once more with the observability plane on: the same
    ledgers, an ``engine_degraded`` anomaly and no ``verify_collapse``.
+20. the mesh (``consensus_tpu_torch/parallel/sharding.py``): phase 3's strict
+   and phase 14's fused waves (7,000 signatures on 8,192 lanes), phases 7
+   and 15's randomized waves and phase 5's P-256 wave (2,000 on 2,048),
+   each through its single engine, the sharded engine over a 1-shard mesh
+   and over 2 virtual shards of the card (``[cuda:0] * 2``), with the
+   launch counts read around each call: verdicts equal to the single
+   engine's lane for lane, the 1-shard mesh launching every kernel as often
+   as the single engine, 2 shards twice as often (each kernel once per
+   shard, at half the width: B1 at 4,096 lanes, B2 at 1,024), each call's
+   wave ms beside the single engine's; the strict wave also over 8 virtual
+   shards and the (2, 4) topology (eight times); 3 signatures on 8 shards
+   (5 padding-only shards) through both randomized sharded engines, their
+   verdicts the strict engine's; and a 2-shard mesh with no device list
+   raises on a one-card machine.  Virtual shards measure the split and its
+   launches, not scaling over cards.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -213,6 +230,15 @@ from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.ops import sha512 as sh
+from consensus_tpu_torch.parallel import (
+    MeshTopology,
+    ShardedEcdsaP256Verifier,
+    ShardedEd25519RandomizedVerifier,
+    ShardedEd25519Verifier,
+    ShardedFusedEd25519RandomizedVerifier,
+    ShardedFusedEd25519Verifier,
+    mesh_for_shards,
+)
 from consensus_tpu_torch.testing import Cluster
 from consensus_tpu_torch.testing.chaos import ChaosEngine, ChaosSchedule
 from consensus_tpu_torch.testing.crypto_app import ClientKeyring, SigOnlyVerifier, SignedRequestApp
@@ -240,12 +266,16 @@ MUL_PRODUCTS = 8 * 8 + 8
 #: The same for a squaring: 8 x 9 / 2 distinct partial products (the cross
 #: terms are doubled by shifts, not multiplies) and the same fold.
 SQUARE_PRODUCTS = 8 * 9 // 2 + 8
-#: Field multiplications and squarings per lane in the Horner scan.  The table
-#: takes 7 adds of 9 multiplications each; each of the 64 windows takes 3
-#: doubles without T (4 squarings, 3 multiplications), 1 double with T (4
-#: squarings, 4 multiplications) and 1 add (9 multiplications, one by 2d).
-HORNER_MULS = 7 * 9 + 64 * (3 * 3 + 4 + 9)
-HORNER_SQUARES = 64 * 4 * 4
+#: Field multiplications and squarings per lane in the Horner scan, as the
+#: field-operation counting shim counts its plain version
+#: (tests/test_torch_limbs_counting.py holds them to it).  The table takes 7
+#: adds of 9 multiplications each (one by 2d); each of the 64 windows takes
+#: 3 doubles without T, 1 double with T and 1 add.  A double squares X, Y
+#: and Z and multiplies (X + Y)(X + Y), whose one-raw-level operand is past
+#: the squaring's exactness bound, so it is a multiplication: 3 squarings
+#: and 4 multiplications, 5 with T.
+HORNER_MULS = 7 * 9 + 64 * (3 * 4 + 5 + 9)
+HORNER_SQUARES = 64 * 4 * 3
 #: Field multiplications and squarings per point in decompression (kernel
 #: D1, csrc/decompress25519.cu): y^2, v^2, v3^2, x^2 and the 251 squarings of
 #: the (p-5)/8 power; d y^2, v^3, v^7, u v^3, u v^7, the power's 11
@@ -303,10 +333,15 @@ BATCH_RANGES = (
     "ed25519.batch.straus_msm", "ed25519.batch.comb", "ed25519.batch.check",
 )
 #: Field multiplications and squarings of one point add (8 + 1 by 2d), one
-#: double without T (3 + 4) and one with T (4 + 4).
+#: double without T (4 multiplications, (X + Y)^2 among them, + 3
+#: squarings) and one with T (5 + 3), as the counting shim counts them.
 ADD_MULS = 9
-DOUBLE_MULS, DOUBLE_SQUARES = 3, 4
-DOUBLE_T_MULS, DOUBLE_T_SQUARES = 4, 4
+DOUBLE_MULS, DOUBLE_SQUARES = 4, 3
+DOUBLE_T_MULS, DOUBLE_T_SQUARES = 5, 3
+#: The 9-entry table of one point, built as the plain version builds it
+#: (``ops/ed25519.py::multiples_table9``): 3 adds (3p, 5p, 7p) and 4
+#: doubles with T (2p; 4p and 6p as one double of two lanes; 8p).
+TABLE9_ADDS, TABLE9_DOUBLES = 3, 4
 #: The sync catch-up chunk of phase 8: 51 decisions, a 2f+1 quorum each.
 CATCH_UP_DECISIONS = 51
 #: Its 255 votes padded: the width phase 6 also checks and times B3 at.
@@ -1064,14 +1099,16 @@ def msm_bound(lanes: int, live_lanes: int, n_low: int, sm_count: int,
     lanes) int32 digits in, four (32, 1) f32 coordinates out) over the
     memory rate.
 
-    The work the function needs on this data: per live lane 14 table adds (7
-    per point), ``n_low`` adds combining the A and R entries and 64 adds
-    summing its window contributions (per window, the live lanes' sum and
-    its add into the accumulator); one doubling chain of 64 windows, each 3
-    doubles without T and 1 with T.  A lane whose digits are all 8 adds the
+    The work the function needs on this data, as the counting shim counts
+    the plain version at ``live_lanes == lanes``: per live lane two 9-entry
+    tables (``TABLE9_ADDS`` adds and ``TABLE9_DOUBLES`` doubles with T
+    each), ``n_low`` adds combining the A and R entries and 64 adds summing
+    its window contributions (per window, the live lanes' sum and its add
+    into the accumulator); one doubling chain of 64 windows, each 3 doubles
+    without T and 1 with T.  A lane whose digits are all 8 adds the
     identity and needs no work."""
-    adds = live_lanes * (2 * 7 + n_low + 64)
-    doubles, doubles_t = 64 * 3, 64
+    adds = live_lanes * (2 * TABLE9_ADDS + n_low + 64)
+    doubles, doubles_t = 64 * 3, 64 + live_lanes * 2 * TABLE9_DOUBLES
     muls = adds * ADD_MULS + doubles * DOUBLE_MULS + doubles_t * DOUBLE_T_MULS
     squares = doubles * DOUBLE_SQUARES + doubles_t * DOUBLE_T_SQUARES
     products = muls * MUL_PRODUCTS + squares * SQUARE_PRODUCTS
@@ -1080,8 +1117,8 @@ def msm_bound(lanes: int, live_lanes: int, n_low: int, sm_count: int,
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": bound_by, "adds": adds,
-            "doubles": doubles + doubles_t, "products": products, "bytes": n_bytes,
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+            "doubles": doubles + doubles_t, "muls": muls, "squares": squares,
+            "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
 def msm_wave_inputs(corpus, replicas: int, device):
@@ -2545,12 +2582,19 @@ CHAOS_KERNELS = {
                 ("horner_scan_p256", "sha512")),
     "fused": (("sha512", "horner_scan", "decompress25519", "comb25519"),
               ("horner_scan_p256", "straus_msm")),
+    # The JAX package's mesh2 mode: the strict engine sharded over 2 virtual
+    # shards of one device; each quorum check launches its kernels per shard.
+    "mesh2": (("horner_scan", "decompress25519", "comb25519"),
+              ("horner_scan_p256", "straus_msm", "sha512")),
 }
 
 
 def chaos_mode(mode: str, device, min_device_batch: int):
     """(the chaos engine's crypto mode, an engine factory) for ``mode``, its
     engine on ``device`` at ``min_device_batch``."""
+    if mode == "mesh2":
+        return "ed25519", lambda: ShardedEd25519Verifier(
+            [device] * 2, min_device_batch=min_device_batch)
     crypto, engine, kw = {
         "strict": ("ed25519", med.Ed25519BatchVerifier, {}),
         "randomized": ("ed25519-batch", med.Ed25519RandomizedBatchVerifier,
@@ -2625,7 +2669,8 @@ def phase_chaos_matrix(device, modes=tuple(CHAOS_KERNELS), min_device_batch: int
         engine, faulted, fault_launches, fault_s = _chaos_run(
             schedule, on_card, crypto=crypto, engine_factory=factory,
             device_faults=CHAOS_FAULTS)
-        host_factory = (chaos_mode(mode, "cpu", 10**9)[1] if mode == "fused" else None)
+        host_factory = (chaos_mode(mode, "cpu", 10**9)[1] if mode in ("fused", "mesh2")
+                        else None)
         _, host, host_launches, host_s = _chaos_run(
             schedule, False, crypto=crypto, engine_factory=host_factory,
             device="cpu")
@@ -2668,6 +2713,137 @@ def phase_chaos_matrix(device, modes=tuple(CHAOS_KERNELS), min_device_batch: int
                        "launches": launches,
                        "anomaly_lines": seen.event_log.count(b" ANOMALY ")}
     return out
+
+
+# --- phase 20: the mesh --------------------------------------------------------
+
+#: Phase 20's waves: (the single engine, its sharded twin, the corpus key,
+#: the replicas whose requests make the wave).
+MESH_WAVES = {
+    "strict": (med.Ed25519BatchVerifier, ShardedEd25519Verifier, "strict", REPLICAS),
+    "fused": (FusedEd25519BatchVerifier, ShardedFusedEd25519Verifier, "strict", REPLICAS),
+    "randomized": (med.Ed25519RandomizedBatchVerifier, ShardedEd25519RandomizedVerifier,
+                   "randomized", REPLICAS),
+    "fused_randomized": (FusedEd25519RandomizedBatchVerifier,
+                         ShardedFusedEd25519RandomizedVerifier, "randomized", REPLICAS),
+    "p256": (mp.EcdsaP256BatchVerifier, ShardedEcdsaP256Verifier, "p256", P256_REPLICAS),
+}
+#: The wider meshes phase 20 runs on the strict wave only (to keep the
+#: script within its time): 8 virtual shards, 1-D and as a (2, 4) topology.
+MESH_WIDE = ((8,), (2, 4))
+
+
+def _mesh_run(engine, wave, device) -> tuple:
+    """One wave through ``engine`` after an uncounted warm-up call: its
+    verdicts, wall ms (host clock, ending in torch.cuda.synchronize() on the
+    card) and every kernel's launches, the counts set to 0 just before the
+    call and read just after."""
+    engine.verify_batch(*wave)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    got = engine.verify_batch(*wave)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return got, ms, _kernel_launches()
+
+
+def phase_mesh(device, corpora: dict, waves=tuple(MESH_WAVES), wide=MESH_WIDE,
+               replicas: dict | None = None) -> dict:
+    """The sharded engines on ``device``: each wave of ``waves`` (its corpus
+    from ``corpora``, by ``MESH_WAVES``' key) through its single engine,
+    through the sharded engine over a 1-shard mesh and over 2 virtual
+    shards (``[device] * 2``), all at ``Configuration()``'s knobs.  Verdicts
+    equal the single engine's lane for lane; the 1-shard mesh launches
+    every kernel as often as the single engine, the 2-shard mesh twice as
+    often (each on-path kernel once per shard, at half the width).  The
+    strict wave also over the ``wide`` topologies (8 virtual shards: eight
+    times).  Then padding-only shards (3 signatures on 8 shards) vote ok in
+    both randomized lanes, and a 2-shard mesh with no device list raises
+    where fewer cards are visible."""
+    device = torch.device(device)
+    cfg = Configuration()
+    kw = dict(pad_pow2=cfg.crypto_pad_pow2, min_device_batch=cfg.crypto_tpu_min_batch)
+    out: dict = {"waves": {}}
+    for name in waves:
+        single_cls, mesh_cls, corpus_key, default_replicas = MESH_WAVES[name]
+        n_rep = (replicas or {}).get(name, default_replicas)
+        wave = replica_wave(corpora[corpus_key], n_rep)[:3]
+        single = single_cls(device=device, **kw)
+        want, single_ms, single_launches = _mesh_run(single, wave, device)
+        if not any(single_launches.values()) and device.type == "cuda":
+            raise AssertionError(f"{name}: the single engine launched no kernel")
+        meshes = [("1", (1,), mesh_for_shards(1, device=device)),
+                  ("2 virtual", (2,), mesh_for_shards(2, [device] * 2))]
+        if name == "strict":
+            meshes += [(MeshTopology(axes).label + " virtual", axes,
+                        MeshTopology(axes).build_mesh([device] * MeshTopology(axes).shard_count))
+                       for axes in wide]
+        runs = {}
+        for label, axes, mesh in meshes:
+            engine = mesh_cls(mesh, **kw)
+            got, ms, launches = _mesh_run(engine, wave, device)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                wrong = np.flatnonzero(got != want)
+                raise AssertionError(f"{name} on the {label} mesh: verdicts differ from the "
+                                     f"single engine's at {wrong[:16]}")
+            shards = engine.shard_count
+            expect = {k: shards * v for k, v in single_launches.items()}
+            if launches != expect:
+                raise AssertionError(f"{name} on the {label} mesh launched {launches}, not "
+                                     f"{shards} x the single engine's {single_launches}")
+            runs[label] = {"axes": axes, "shards": shards, "ms": ms, "launches": launches,
+                           "shard_lanes": engine.padded_size(len(wave[0])) // shards}
+        out["waves"][name] = {
+            "signatures": len(wave[0]), "padded": single.padded_size(len(wave[0])),
+            "rejected": int((~want).sum()), "single_ms": single_ms,
+            "single_launches": single_launches, "meshes": runs,
+        }
+
+    # Padding-only shards: 3 valid signatures padded to 8 lanes on 8 shards.
+    c_msgs, c_sigs, c_keys, expected, _ = corpora["strict"]
+    idx = np.flatnonzero(expected)[:3].tolist()
+    msgs, sigs, keys = ([x[i] for i in idx] for x in (c_msgs, c_sigs, c_keys))
+    want = med.Ed25519BatchVerifier(device=device, min_device_batch=1).verify_batch(msgs, sigs, keys)
+    padding = {}
+    for cls in (ShardedEd25519RandomizedVerifier, ShardedFusedEd25519RandomizedVerifier):
+        engine = cls(mesh_for_shards(8, [device] * 8), min_device_batch=1)
+        _reset_launch_counts()
+        got = engine.verify_batch(msgs, sigs, keys)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{cls.__name__}: padding-only shards changed the verdicts")
+        padding[cls.__name__] = _kernel_launches()
+    out["padding"] = {"signatures": len(msgs), "verdicts": want.tolist(), "launches": padding}
+
+    # The loud failure: two cards asked for, fewer visible.
+    visible = torch.cuda.device_count() if device.type == "cuda" else 8
+    try:
+        mesh_for_shards(visible + 1, device=device)
+    except ValueError as exc:
+        out["refused"] = str(exc)
+    else:
+        raise AssertionError(f"a {visible + 1}-shard mesh over {visible} visible device(s) "
+                             f"did not raise")
+    return out
+
+
+def log_mesh(m: dict) -> None:
+    """Print phase 20's waves, times and launches."""
+    for name, r in m["waves"].items():
+        log(f"{name}: {r['signatures']} signatures padded to {r['padded']}, {r['rejected']} "
+            f"rejected; the single engine {r['single_ms']:.3f} ms (host clock, ending in "
+            f"torch.cuda.synchronize(); after one warm-up call), launches "
+            f"{r['single_launches']}")
+        for label, run in r["meshes"].items():
+            log(f"  {label} mesh ({run['shards']} shards, {run['shard_lanes']} lanes a shard): "
+                f"verdicts equal, {run['ms']:.3f} ms, launches {run['launches']} "
+                f"({run['shards']} x the single engine's)")
+    p = m["padding"]
+    log(f"padding-only shards ({p['signatures']} signatures on 8 shards, 5 of them padding "
+        f"only): verdicts {p['verdicts']} equal to the strict engine's; launches {p['launches']}")
+    log(f"a mesh wider than the visible devices raises: {m['refused']}")
 
 
 def log_chaos_matrix(m: dict) -> None:
@@ -2962,8 +3138,10 @@ def main() -> int:
     log_split(k3["split"])
     log(f"  plain torch version {k3['plain_ms']:.6f} ms (one run, host clock to synchronize)")
     log(f"  bound {bound3['bound_ms']:.6f} ms, by {bound3['bound_by']}: {bound3['adds']} adds "
-        f"(14 + {k3['n_low']} + 64 for each of the {k3['live_lanes']} lanes with a nonzero "
-        f"digit) x {ADD_MULS} multiplications and {bound3['doubles']} doubles (one chain), "
+        f"({2 * TABLE9_ADDS} + {k3['n_low']} + 64 for each of the {k3['live_lanes']} lanes "
+        f"with a nonzero digit) x {ADD_MULS} multiplications and {bound3['doubles']} doubles "
+        f"(one chain, and {2 * TABLE9_DOUBLES} for each such lane's tables): "
+        f"{bound3['muls']} multiplications and {bound3['squares']} squarings, "
         f"{bound3['products']} IMAD.WIDE over {props.multi_processor_count} SMs x "
         f"{IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
         f"{bound3['ops_ms']:.6f} ms; {bound3['bytes']} bytes over 3.35 TB/s = "
@@ -3252,8 +3430,15 @@ def main() -> int:
 
     # Phase 19: the device-fault chaos matrix through the chaos harness.
     log(f"== phase 19: device-fault chaos matrix (seed {CHAOS_SEED}, n=4, {CHAOS_STEPS} steps, "
-        f"faults {list(CHAOS_FAULTS)}, engines on the card at min_device_batch=1)")
+        f"faults {list(CHAOS_FAULTS)}, engines on the card at min_device_batch=1; mesh2 on "
+        f"2 virtual shards of the card)")
     log_chaos_matrix(phase_chaos_matrix(device))
+
+    # Phase 20: the sharded engines over 1-shard and virtual-shard meshes.
+    log("== phase 20: the mesh (sharded engines over 1 shard and over virtual shards "
+        "of one card)")
+    log_mesh(phase_mesh(device, {"strict": corpus, "randomized": rand_corpus,
+                                 "p256": p256_corpus}))
 
     log(card)
     log(json.dumps({"kernels": [

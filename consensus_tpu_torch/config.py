@@ -167,7 +167,8 @@ class Configuration:
     # engines, so it changes only where work runs.  Ed25519-only.
     device_prep: bool = False
     # Device-mesh width and layout for the batch engine.  1 and () keep the
-    # single-device engine; wider meshes are not ported yet (item 12).
+    # single-device engine; wider meshes select the sharded engines
+    # (parallel/sharding.py) over the visible devices.
     mesh_shards: int = 1
     mesh_topology: tuple = ()
     # Kept for parity with the JAX Configuration and inert in the port: the

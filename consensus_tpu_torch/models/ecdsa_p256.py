@@ -286,6 +286,18 @@ class EcdsaP256BatchVerifier:
         Ed25519 twin) -- coalescers read it to size waves."""
         return self.padded_size(max(1, self._min_device_batch))
 
+    def host_layout(
+        self,
+        messages: Sequence[bytes],
+        signatures: Sequence[bytes],
+        public_keys: Sequence[bytes],
+    ) -> tuple[np.ndarray, ...]:
+        """Host prep and padding to :meth:`padded_size`: the
+        :func:`verify_impl` inputs for one wave as numpy arrays in the
+        device layout."""
+        prepped = self._prepare(messages, signatures, public_keys)
+        return to_kernel_layout(*pad_prepared(prepped, self.padded_size(len(messages))))
+
     def prepare_device_inputs(
         self,
         messages: Sequence[bytes],
@@ -294,9 +306,9 @@ class EcdsaP256BatchVerifier:
     ) -> tuple[torch.Tensor, ...]:
         """Host prep, padding and the copy to the device: the
         :func:`verify_impl` inputs for one wave."""
-        prepped = self._prepare(messages, signatures, public_keys)
-        padded = pad_prepared(prepped, self.padded_size(len(messages)))
-        return kernel_inputs_from_numpy(to_kernel_layout(*padded), self.device)
+        return kernel_inputs_from_numpy(
+            self.host_layout(messages, signatures, public_keys), self.device
+        )
 
     def verify_batch(
         self,

@@ -266,14 +266,15 @@ class Ed25519BatchVerifier:
         (models/engine.py) read it to size waves."""
         return self.padded_size(max(1, self._min_device_batch))
 
-    def prepare_device_inputs(
+    def host_layout(
         self,
         messages: Sequence[bytes],
         signatures: Sequence[bytes],
         public_keys: Sequence[bytes],
-    ) -> tuple[torch.Tensor, ...]:
-        """Host prep, padding and the copy to the device: the
-        :func:`verify_impl` inputs for one wave."""
+    ) -> tuple[np.ndarray, ...]:
+        """Host prep and padding to :meth:`padded_size`: the
+        :func:`verify_impl` inputs for one wave as numpy arrays in the
+        device layout."""
         n = len(messages)
         y_r, sign_r, y_a, sign_a, s_bits, k_bits, host_ok = self._prepare(
             messages, signatures, public_keys
@@ -287,9 +288,18 @@ class Ed25519BatchVerifier:
             s_bits = np.pad(s_bits, ((0, pad), (0, 0)))
             k_bits = np.pad(k_bits, ((0, pad), (0, 0)))
             host_ok = np.pad(host_ok, (0, pad))
+        return to_kernel_layout(y_r, sign_r, y_a, sign_a, s_bits, k_bits, host_ok)
+
+    def prepare_device_inputs(
+        self,
+        messages: Sequence[bytes],
+        signatures: Sequence[bytes],
+        public_keys: Sequence[bytes],
+    ) -> tuple[torch.Tensor, ...]:
+        """Host prep, padding and the copy to the device: the
+        :func:`verify_impl` inputs for one wave."""
         return kernel_inputs_from_numpy(
-            to_kernel_layout(y_r, sign_r, y_a, sign_a, s_bits, k_bits, host_ok),
-            self.device,
+            self.host_layout(messages, signatures, public_keys), self.device
         )
 
     def verify_batch(
@@ -606,32 +616,44 @@ class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
             u += z * scalars[i][0]
         return zk, u % L
 
+    def _aggregate_layout(self, idx, signatures, public_keys, scalars, zs):
+        """:func:`batch_verify_impl`'s inputs for the subset ``idx`` as host
+        arrays, padded to :meth:`padded_size` (padding lanes have
+        ``host_ok`` False, so their digits are masked to the identity)."""
+        m = len(idx)
+        zk = [(z * scalars[i][1]) % L for z, i in zip(zs, idx)]
+        y_r, sign_r, _ = _prep_compressed([bytes(signatures[i])[:32] for i in idx])
+        y_a, sign_a, _ = _prep_compressed([bytes(public_keys[i]) for i in idx])
+        zk_digits = _signed_digits_rows(zk, _WINDOWS)
+        z_digits = _signed_digits_rows(zs, _Z_WINDOWS)
+        host_ok = np.ones(m, dtype=bool)
+        padded = self.padded_size(m)
+        pad = padded - m
+        if pad:
+            y_r = np.pad(y_r, ((0, pad), (0, 0)))
+            y_a = np.pad(y_a, ((0, pad), (0, 0)))
+            sign_r = np.pad(sign_r, (0, pad))
+            sign_a = np.pad(sign_a, (0, pad))
+            zk_digits = np.pad(zk_digits, ((0, 0), (0, pad)), constant_values=8)
+            z_digits = np.pad(z_digits, ((0, 0), (0, pad)), constant_values=8)
+            host_ok = np.pad(host_ok, (0, pad))
+        zs_digits8 = self._base_scalar_digits(idx, scalars, zs, padded)
+        return (y_r.T, sign_r, y_a.T, sign_a, zs_digits8, zk_digits, z_digits, host_ok)
+
+    def _base_scalar_digits(self, idx, scalars, zs, padded) -> np.ndarray:
+        """The comb digits of the aggregate's base-point scalar sum z_i s_i
+        mod L: one (32, 1) column."""
+        u = sum(z * scalars[i][0] for z, i in zip(zs, idx)) % L
+        u_row = np.frombuffer(u.to_bytes(32, "little"), dtype=np.uint8).reshape(1, 32)
+        return _bits_to_comb_digits8(_bytes_rows_to_bits(u_row))
+
     def _aggregate_device_inputs(self, idx, signatures, public_keys, scalars, zs):
         """:func:`batch_verify_impl`'s inputs for the subset ``idx`` on the
-        device, padded like the strict engine's waves (padding lanes have
-        ``host_ok`` False, so their digits are masked to the identity)."""
+        device (:meth:`_aggregate_layout`, copied)."""
         with record_function("ed25519.batch.host_prep"):
-            m = len(idx)
-            zk, u = self._aggregate_inputs(idx, signatures, scalars, zs)
-            y_r, sign_r, _ = _prep_compressed([bytes(signatures[i])[:32] for i in idx])
-            y_a, sign_a, _ = _prep_compressed([bytes(public_keys[i]) for i in idx])
-            zk_digits = _signed_digits_rows(zk, _WINDOWS)
-            z_digits = _signed_digits_rows(zs, _Z_WINDOWS)
-            u_row = np.frombuffer(u.to_bytes(32, "little"), dtype=np.uint8).reshape(1, 32)
-            zs_digits8 = _bits_to_comb_digits8(_bytes_rows_to_bits(u_row))
-            host_ok = np.ones(m, dtype=bool)
-            pad = self.padded_size(m) - m
-            if pad:
-                y_r = np.pad(y_r, ((0, pad), (0, 0)))
-                y_a = np.pad(y_a, ((0, pad), (0, 0)))
-                sign_r = np.pad(sign_r, (0, pad))
-                sign_a = np.pad(sign_a, (0, pad))
-                zk_digits = np.pad(zk_digits, ((0, 0), (0, pad)), constant_values=8)
-                z_digits = np.pad(z_digits, ((0, 0), (0, pad)), constant_values=8)
-                host_ok = np.pad(host_ok, (0, pad))
-            arrays = (y_r.T, sign_r, y_a.T, sign_a, zs_digits8, zk_digits, z_digits, host_ok)
             return tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in self._aggregate_layout(idx, signatures, public_keys, scalars, zs)
             )
 
     def _aggregate_device(self, idx, signatures, public_keys, scalars, zs):

@@ -1,6 +1,6 @@
 """Fused bytes-in -> verdict-out Ed25519 engines (``Configuration.device_prep``):
-the torch port of ``consensus_tpu/models/fused.py``, less its mesh classes
-(ROADMAP.md queue A, item 12).
+the torch port of ``consensus_tpu/models/fused.py``.  Its mesh classes are
+in :mod:`consensus_tpu_torch.parallel.sharding`, as in the JAX package.
 
 The host-prep engines (:mod:`consensus_tpu_torch.models.ed25519`) hash the
 challenge ``k = SHA-512(R || A || M) mod L``, range-check and recode on the
@@ -228,9 +228,9 @@ class FusedEd25519BatchVerifier(Ed25519BatchVerifier):
         blocks, n_blocks = _pack_blocks(prehash)
         return sig_rows, key_rows, blocks, n_blocks, host_ok
 
-    def _device_args(self, messages, signatures, public_keys, *, pin: bool = False):
-        """Pack one wave into padded device tensors: :func:`fused_verify_impl`'s
-        arguments."""
+    def host_layout(self, messages, signatures, public_keys) -> list[np.ndarray]:
+        """Pack one wave, padded to :meth:`padded_size`:
+        :func:`fused_verify_impl`'s arguments as host arrays."""
         n = len(messages)
         sig_rows, key_rows, blocks, n_blocks, host_ok = self._prepare_fused(
             messages, signatures, public_keys
@@ -241,8 +241,12 @@ class FusedEd25519BatchVerifier(Ed25519BatchVerifier):
         )
         if padded != n:
             blocks = np.pad(blocks, ((0, 0),) * 3 + ((0, padded - n),))
+        return [sig_rows.T, key_rows.T, blocks, n_blocks, host_ok]
+
+    def _device_args(self, messages, signatures, public_keys, *, pin: bool = False):
+        """:meth:`host_layout` as device tensors."""
         return _to_device(
-            [sig_rows.T, key_rows.T, blocks, n_blocks, host_ok], self.device, pin=pin
+            self.host_layout(messages, signatures, public_keys), self.device, pin=pin
         )
 
     def verify_batch(self, messages, signatures, public_keys) -> np.ndarray:
@@ -313,42 +317,68 @@ def _lane_constants(padded: int, device: torch.device) -> tuple[torch.Tensor, to
     )
 
 
-def device_transcript(
-    tag: bytes, n: int, leaf_blocks: torch.Tensor, leaf_nblocks: torch.Tensor, *,
-    fixed_z1: bool = False,
-) -> torch.Tensor:
-    """The Fiat-Shamir coefficients on the device: the leaf digests of every
-    lane, the root ``H(tag || n || leaf_0 .. leaf_{n-1})`` over the live
-    ``n`` leaves, then ``z_i = H(root || i)[:16]`` on every lane (a zero
-    ``z`` re-mapped to 1, as the host derivation does; lane 0 pinned to 1
-    with ``fixed_z1``).  Returns ``(16, padded)`` int32 little-endian bytes;
-    on the card it launches S1 three times (leaves, root, coefficients)."""
-    device = leaf_blocks.device
-    padded = leaf_blocks.shape[-1]
-    root_prefix, root_trailer, root_blocks, _, _ = _aggregate_constants(bytes(tag), n, 0)
-    idx_rows, z_trailer = _lane_constants(padded, device)
-    leaves = sh.digest_bytes(sh.sha512_blocks(leaf_blocks, leaf_nblocks))
-    root_rows = torch.cat([
+@functools.lru_cache(maxsize=64)
+def _root_rows(tag: bytes, n: int, device: torch.device):
+    """The transcript root's constant rows on ``device`` -- the prefix
+    ``tag || n`` and the padding trailer -- and its block count, copied once
+    per subset size (a copy from pageable memory would wait for the
+    device's queued work)."""
+    root_prefix, root_trailer, root_blocks, _, _ = _aggregate_constants(tag, n, 0)
+    return (
         torch.from_numpy(root_prefix.astype(np.int32)).to(device),
-        leaves[:, :n].T.reshape(64 * n, 1),
         torch.from_numpy(root_trailer.astype(np.int32)).to(device),
-    ])
+        root_blocks,
+    )
+
+
+def transcript_coefficients(
+    tag: bytes, n: int, leaves: torch.Tensor, padded: int, start: int = 0,
+    width: Optional[int] = None, *, fixed_z1: bool = False,
+) -> torch.Tensor:
+    """The coefficients of lanes ``start .. start + width`` from the leaf
+    digest table ``leaves`` ((64, >= n) int32, on the device the
+    coefficients come out on): the root ``H(tag || n || leaf_0 ..
+    leaf_{n-1})`` over the live ``n`` leaves, then ``z_i = H(root ||
+    i)[:16]`` (a zero ``z`` re-mapped to 1, as the host derivation does;
+    lane 0 pinned to 1 with ``fixed_z1``).  ``padded`` is the whole wave's
+    width, so a shard of a sharded engine derives its own lanes'
+    coefficients.  Returns ``(16, width)`` int32 little-endian bytes; on the
+    card it launches S1 twice (the root, the coefficients)."""
+    device = leaves.device
+    width = padded - start if width is None else width
+    prefix, trailer, root_blocks = _root_rows(bytes(tag), n, device)
+    idx_rows, z_trailer = _lane_constants(padded, device)
+    root_rows = torch.cat([prefix, leaves[:, :n].T.reshape(64 * n, 1), trailer])
     root = sh.digest_bytes(sh.sha512_blocks(
         sh.pack_bytes_device(root_rows),
         torch.full((1,), root_blocks, dtype=torch.int32, device=device),
     ))  # (64, 1)
-    z_rows = torch.cat([root.expand(64, padded), idx_rows, z_trailer.expand(56, padded)])
+    z_rows = torch.cat([
+        root.expand(64, width), idx_rows[:, start:start + width], z_trailer.expand(56, width),
+    ])
     z_digest = sh.digest_bytes(sh.sha512_blocks(
-        sh.pack_bytes_device(z_rows), torch.ones((padded,), dtype=torch.int32, device=device),
+        sh.pack_bytes_device(z_rows), torch.ones((width,), dtype=torch.int32, device=device),
     ))
     one_z = torch.zeros((16, 1), dtype=torch.int32, device=device)
     one_z[0, 0] = 1
     z = z_digest[:16]
     z = torch.where((z == 0).all(dim=0)[None], one_z, z)
     if fixed_z1:
-        lane0 = (torch.arange(padded, device=device) == 0)[None]
+        lane0 = (torch.arange(start, start + width, device=device) == 0)[None]
         z = torch.where(lane0, one_z, z)
     return z
+
+
+def device_transcript(
+    tag: bytes, n: int, leaf_blocks: torch.Tensor, leaf_nblocks: torch.Tensor, *,
+    fixed_z1: bool = False,
+) -> torch.Tensor:
+    """The Fiat-Shamir coefficients on the device: the leaf digests of every
+    lane, then :func:`transcript_coefficients` over them for every lane.
+    Returns ``(16, padded)`` int32 little-endian bytes; on the card it
+    launches S1 three times (leaves, root, coefficients)."""
+    leaves = sh.digest_bytes(sh.sha512_blocks(leaf_blocks, leaf_nblocks))
+    return transcript_coefficients(tag, n, leaves, leaf_blocks.shape[-1], fixed_z1=fixed_z1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,8 +402,8 @@ def _fused_aggregate_kernel(
         k_nblocks,     # (padded,)
         leaf_blocks,   # (Bl, 16, 2, padded) transcript leaf blocks
         leaf_nblocks,  # (padded,)
-        u_bytes,       # (32, 1) aggregate base scalar (ignored unless u_input)
         host_ok,       # (padded,)
+        u_bytes,       # (32, 1) aggregate base scalar (ignored unless u_input)
     ):
         r = r_rows.to(torch.int32)
         key = key_rows.to(torch.int32)
@@ -409,6 +439,45 @@ def _frame(raw: bytes) -> bytes:
     return len(raw).to_bytes(8, "little") + bytes(raw)
 
 
+def aggregate_layout(
+    messages: Sequence[bytes],
+    rs: Sequence[bytes],
+    keys: Sequence[bytes],
+    leaf_mids: Sequence[bytes],
+    padded: int,
+    s_rows: Optional[np.ndarray] = None,
+) -> list[np.ndarray]:
+    """One aggregate check's host arrays, padded to ``padded`` lanes: the
+    R, S and A rows (32, padded), the challenge blocks ``R || A || M`` and
+    the transcript leaf blocks with their counts, and ``host_ok``.
+
+    ``leaf_mids`` is the middle frame of each transcript leaf -- the full
+    signature for the randomized batch (``ctpu/batchz/v1``), R alone for
+    half-agg (``ctpu/halfagg/v1``); ``s_rows`` (n, 32) defaults to zeros
+    (half-agg verifiers never see S)."""
+    n = len(messages)
+    r_rows = _byte_rows([bytes(r) for r in rs], 32)
+    key_rows = _byte_rows([bytes(a) for a in keys], 32)
+    k_blocks, k_nblocks = _pack_blocks(
+        [bytes(r) + bytes(a) + bytes(m) for r, a, m in zip(rs, keys, messages)]
+    )
+    leaf_blocks, leaf_nblocks = _pack_blocks(
+        [_frame(m) + _frame(mid) + _frame(a) for m, mid, a in zip(messages, leaf_mids, keys)]
+    )
+    if s_rows is None:
+        s_rows = np.zeros((n, 32), dtype=np.uint8)
+    host_ok = np.ones(n, dtype=bool)
+    r_rows, s_rows, key_rows, k_nblocks, leaf_nblocks, host_ok = _pad_wave(
+        [r_rows, s_rows, key_rows, k_nblocks, leaf_nblocks, host_ok], n, padded
+    )
+    if padded != n:
+        batch_pad = ((0, 0),) * 3 + ((0, padded - n),)
+        k_blocks = np.pad(k_blocks, batch_pad)
+        leaf_blocks = np.pad(leaf_blocks, batch_pad)
+    return [r_rows.T, s_rows.T, key_rows.T, k_blocks, k_nblocks, leaf_blocks, leaf_nblocks,
+            host_ok]
+
+
 def fused_aggregate_check(
     *,
     name: str,
@@ -425,45 +494,20 @@ def fused_aggregate_check(
     fixed_z1: bool = False,
 ) -> tuple[bool, list[bool]]:
     """Run one fused aggregate check on ``device``: returns ``(eq_ok,
-    valid)``.
+    valid)``, its host arrays from :func:`aggregate_layout`.
 
-    ``leaf_mids`` is the middle frame of each transcript leaf -- the full
-    signature for the randomized batch (``ctpu/batchz/v1``), R alone for
-    half-agg (``ctpu/halfagg/v1``).  Callers guarantee every lane already
-    passed the canonical host pre-checks (transcript membership must match
-    the host twin exactly).  On the card this launches S1 four times
-    (challenge, leaves, root, coefficients) and B3 once."""
+    Callers guarantee every lane already passed the canonical host
+    pre-checks (transcript membership must match the host twin exactly).
+    On the card this launches S1 four times (challenge, leaves, root,
+    coefficients) and B3 once."""
     n = len(messages)
     with record_function("ed25519.fused.host_prep"):
-        r_rows = _byte_rows([bytes(r) for r in rs], 32)
-        key_rows = _byte_rows([bytes(a) for a in keys], 32)
-        k_blocks, k_nblocks = _pack_blocks(
-            [bytes(r) + bytes(a) + bytes(m) for r, a, m in zip(rs, keys, messages)]
-        )
-        leaf_blocks, leaf_nblocks = _pack_blocks(
-            [
-                _frame(m) + _frame(mid) + _frame(a)
-                for m, mid, a in zip(messages, leaf_mids, keys)
-            ]
-        )
-        if s_rows is None:
-            s_rows = np.zeros((n, 32), dtype=np.uint8)
-        host_ok = np.ones(n, dtype=bool)
-
         padded = _padded(n, pad_to, pad_pow2)
-        r_rows, s_rows, key_rows, k_nblocks, leaf_nblocks, host_ok = _pad_wave(
-            [r_rows, s_rows, key_rows, k_nblocks, leaf_nblocks, host_ok], n, padded
-        )
-        if padded != n:
-            batch_pad = ((0, 0),) * 3 + ((0, padded - n),)
-            k_blocks = np.pad(k_blocks, batch_pad)
-            leaf_blocks = np.pad(leaf_blocks, batch_pad)
         u_row = np.frombuffer(
             u_bytes if u_bytes is not None else b"\x00" * 32, dtype=np.uint8
         ).reshape(32, 1)
         args = _to_device(
-            [r_rows.T, s_rows.T, key_rows.T, k_blocks, k_nblocks, leaf_blocks,
-             leaf_nblocks, u_row, host_ok],
+            aggregate_layout(messages, rs, keys, leaf_mids, padded, s_rows) + [u_row],
             torch.device(device),
         )
 
@@ -588,8 +632,10 @@ class FusedEd25519RandomizedBatchVerifier(
 __all__ = [
     "FusedEd25519BatchVerifier",
     "FusedEd25519RandomizedBatchVerifier",
+    "aggregate_layout",
     "canonical_ok_fast",
     "device_transcript",
     "fused_aggregate_check",
     "fused_verify_impl",
+    "transcript_coefficients",
 ]

@@ -12,10 +12,12 @@ The supervisor's degrade ladder is derived by walking registered keys
 
 The port registers Ed25519 strict and randomized, each with host prep and
 with the fused device prep (``device_prep``), and P-256 strict with host
-prep, on a single device and the CUDA-core field lane.  Whether an
-engine runs on the card or the CPU is the ``device`` argument, not a key
-axis: the plain torch versions serve the CPU and the tests, never a card's
-fallback.
+prep, on a single device and on a device mesh (the sharded engines of
+:mod:`consensus_tpu_torch.parallel.sharding`), on the CUDA-core field lane.
+Whether an engine runs on the card or the CPU is the ``device`` argument,
+not a key axis: the plain torch versions serve the CPU and the tests, never
+a card's fallback.  A mesh builder takes the config's ``topology`` as well
+and builds it over the visible devices of ``device``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from consensus_tpu_torch.models.fused import (
     FusedEd25519RandomizedBatchVerifier,
 )
 from consensus_tpu_torch.ops import scan_kernels
+from consensus_tpu_torch.parallel.topology import topology_for_config
 
 #: The two verification modes an engine key can select.
 MODES = ("strict", "randomized")
@@ -43,7 +46,6 @@ TOPOLOGIES = ("single", "mesh")
 #: The lanes of the JAX registry the port does not have yet, by key axis:
 #: (what, ROADMAP.md queue A item).
 _NOT_PORTED = {
-    "mesh": ("a mesh topology (the sharded engines)", "item 12: multi-GPU"),
     "mxu": ("the MXU field lane (CTPU_MXU_LIMBS=1)", "item 13: tensor-core field lane"),
 }
 
@@ -83,7 +85,9 @@ class EngineRegistry:
     """Pluggable ``EngineKey`` -> builder map with loud lookup failures.
 
     A builder is ``fn(**kw) -> engine``; ``kw`` carries the padding knobs
-    (``pad_pow2``, ``min_device_batch``) and the ``device``.
+    (``pad_pow2``, ``min_device_batch``) and the ``device``, and for a mesh
+    key the ``topology`` (a ``MeshTopology``, a ``DeviceMesh`` or a device
+    list; ``None`` builds a 1-D mesh over the visible devices).
     """
 
     def __init__(self) -> None:
@@ -130,14 +134,7 @@ class EngineRegistry:
         if key.curve == "p256" and key.device_prep:
             return "device_prep is Ed25519-only (no fused P-256 front-end)"
         # Lanes the JAX package has and the port does not yet.
-        missing = [
-            _NOT_PORTED[axis]
-            for axis, on in (
-                ("mesh", key.topology == "mesh"),
-                ("mxu", key.mxu),
-            )
-            if on
-        ]
+        missing = [_NOT_PORTED[axis] for axis, on in (("mxu", key.mxu),) if on]
         if missing:
             return "; ".join(
                 f"consensus_tpu_torch: {what} is not ported yet "
@@ -209,44 +206,57 @@ def _p256_single(**kw):
     return _with_kernels(EcdsaP256BatchVerifier(**kw), "horner_scan_p256")
 
 
+#: The kernels each Ed25519 mesh engine launches in its shards (and, for
+#: the randomized ones, on its strict floor), by (randomized, fused).
+_MESH_KERNELS = {
+    (False, False): ("horner_scan", "decompress25519", "comb25519"),
+    (True, False): ("straus_msm", "horner_scan", "decompress25519", "comb25519"),
+    (False, True): ("sha512", "horner_scan", "decompress25519", "comb25519"),
+    (True, True): ("sha512", "straus_msm", "horner_scan", "decompress25519", "comb25519"),
+}
+
+
+def _ed25519_mesh(*, randomized: bool, fused: bool, topology=None, **kw):
+    from consensus_tpu_torch.parallel import sharding
+
+    cls = {
+        (False, False): sharding.ShardedEd25519Verifier,
+        (True, False): sharding.ShardedEd25519RandomizedVerifier,
+        (False, True): sharding.ShardedFusedEd25519Verifier,
+        (True, True): sharding.ShardedFusedEd25519RandomizedVerifier,
+    }[(randomized, fused)]
+    return _with_kernels(cls(topology, **kw), *_MESH_KERNELS[(randomized, fused)])
+
+
+def _p256_mesh(*, topology=None, **kw):
+    from consensus_tpu_torch.parallel.sharding import ShardedEcdsaP256Verifier
+
+    return _with_kernels(ShardedEcdsaP256Verifier(topology, **kw), "horner_scan_p256")
+
+
 def _default_registry() -> EngineRegistry:
     from functools import partial
 
     reg = EngineRegistry()
     for mode in MODES:
         for fused in (False, True):
+            randomized = mode == "randomized"
             reg.register(
                 EngineKey("ed25519", mode, "single", fused, False),
-                partial(_ed25519_single, randomized=mode == "randomized", fused=fused),
+                partial(_ed25519_single, randomized=randomized, fused=fused),
+            )
+            reg.register(
+                EngineKey("ed25519", mode, "mesh", fused, False),
+                partial(_ed25519_mesh, randomized=randomized, fused=fused),
             )
     reg.register(EngineKey("p256", "strict", "single", False, False), _p256_single)
+    reg.register(EngineKey("p256", "strict", "mesh", False, False), _p256_mesh)
     return reg
 
 
 #: The process-wide registry ``engine_for_config`` routes through.
 #: Embedders may ``register`` additional curves/lanes at startup.
 ENGINE_REGISTRY = _default_registry()
-
-
-def _shard_count(config) -> int:
-    """Devices the config's topology spans: the product of
-    ``mesh_topology`` when set, else ``mesh_shards`` (the JAX package's
-    ``topology_for_config(config).shard_count``)."""
-    axes = tuple(int(a) for a in (getattr(config, "mesh_topology", ()) or ()))
-    if axes:
-        if any(a < 1 for a in axes):
-            raise ValueError(
-                f"topology axes must be a non-empty tuple of positive device "
-                f"counts, got {axes!r}"
-            )
-        count = 1
-        for a in axes:
-            count *= a
-        return count
-    shards = int(getattr(config, "mesh_shards", 1) or 1)
-    if shards < 1:
-        raise ValueError(f"mesh_shards must be >= 1, got {shards}")
-    return shards
 
 
 def engine_key_for(config, curve: str = "ed25519") -> EngineKey:
@@ -258,7 +268,7 @@ def engine_key_for(config, curve: str = "ed25519") -> EngineKey:
             if bool(getattr(config, "batch_verify_mode", False))
             else "strict"
         ),
-        topology="mesh" if _shard_count(config) > 1 else "single",
+        topology="mesh" if topology_for_config(config).shard_count > 1 else "single",
         device_prep=bool(getattr(config, "device_prep", False)),
         # Env-derived on purpose (no config attr), as in the JAX package.
         mxu=os.environ.get("CTPU_MXU_LIMBS", "") == "1",

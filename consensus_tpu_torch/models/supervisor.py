@@ -16,8 +16,8 @@ Acceleration is an optimization, never a liveness or soundness dependency:
   replayable under SimScheduler; without a clock the supervisor counts
   launches, which is equally deterministic.
 * An open breaker degrades the supervisor down the ladder: the configured
-  engine, then (once those lanes are ported) mesh -> single device and
-  fused -> unfused, then the host twin.  It re-promotes when the breaker
+  engine, then mesh -> single device and fused -> unfused, then the host
+  twin.  It re-promotes when the breaker
   closes after a successful half-open probe.  While ANY host twin exists,
   no launch ever raises out of :meth:`EngineSupervisor.verify_batch`.
   There is no plain-torch rung: the plain versions serve the CPU and the

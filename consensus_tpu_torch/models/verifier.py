@@ -24,7 +24,9 @@ registry (:mod:`consensus_tpu_torch.models.registry`), as the JAX package
 does: the strict single-device engine of the curve for the default
 configuration, the randomized Ed25519 engine for ``batch_verify_mode``,
 the fused engines of :mod:`consensus_tpu_torch.models.fused` for
-``device_prep``, and, with ``engine_supervision``, an
+``device_prep``, the sharded engines of
+:mod:`consensus_tpu_torch.parallel.sharding` for ``mesh_shards > 1`` or a
+``mesh_topology``, and, with ``engine_supervision``, an
 :class:`~consensus_tpu_torch.models.supervisor.EngineSupervisor` over the
 ladder of :func:`degrade_ladder_configs` with the host twin as its floor.
 Every other lane raises :class:`~consensus_tpu_torch.models.registry
@@ -58,6 +60,7 @@ from consensus_tpu_torch.models.ed25519 import (
 from consensus_tpu_torch.models.registry import ENGINE_REGISTRY, engine_key_for
 from consensus_tpu_torch.models.supervisor import EngineSupervisor
 from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
+from consensus_tpu_torch.parallel.topology import topology_for_config
 from consensus_tpu_torch.types import Proposal, QuorumCert, Signature
 
 _COMMIT_TAG = b"ctpu/commit"
@@ -157,12 +160,19 @@ def degrade_ladder_configs(config) -> list:
 
 def _engine_for_config(config, curve: str, device: DeviceLike):
     """The unsupervised engine routing (see :func:`engine_for_config`):
-    config -> ``EngineKey`` -> registered builder."""
+    config -> ``EngineKey`` -> registered builder; a mesh key's builder
+    also gets the config's topology (``mesh_topology``, else the
+    ``mesh_shards`` sugar), built over the visible devices of ``device``."""
+    key = engine_key_for(config, curve)
+    kw = {}
+    if key.topology == "mesh":
+        kw["topology"] = topology_for_config(config)
     return ENGINE_REGISTRY.build(
-        engine_key_for(config, curve),
+        key,
         pad_pow2=config.crypto_pad_pow2,
         min_device_batch=config.crypto_tpu_min_batch,
         device=device,
+        **kw,
     )
 
 

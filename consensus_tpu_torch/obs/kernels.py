@@ -11,11 +11,16 @@ registry, is
   (``sha512``; the plain versions, run for CPU tensors, are not launches),
   with ``compiles`` counting the kernel library's nvcc builds;
 * each device call of an engine, under the JAX package's names
-  (``ed25519.verify``, ``ed25519.batch_verify``, ``ecdsa_p256.verify``).
+  (``ed25519.verify``, ``ed25519.batch_verify``, ``ecdsa_p256.verify``, the
+  sharded engines' ``ed25519.sharded_verify`` and the like: one a wave,
+  whose shards each launch the kernels).
 
-:data:`COMPILE_CACHE` counts how each kernel library was obtained: a miss
+:data:`COMPILE_CACHE` counts how each kernel library was obtained (a miss
 where nvcc ran, a hit where an existing build in ``csrc/build/`` was
-loaded.  ``flops`` and ``bytes_accessed`` stay None: there is no XLA cost
+loaded) and how each sharded engine's body was obtained from the
+compiled-kernel memo (``parallel/sharding.py::compiled_kernel``: a miss
+where it was built, which also books a compile under the body's name, a
+hit where a rebuilt engine reused it).  ``flops`` and ``bytes_accessed`` stay None: there is no XLA cost
 analysis to read.
 """
 
@@ -142,11 +147,14 @@ TENANT_KERNELS = TenantAccounting()
 
 
 class CompileCacheStats:
-    """Hit/miss ledger of the kernel-library builds.
+    """Hit/miss ledger of the kernel-library builds and of the sharded
+    engines' body memo.
 
     A *miss* is a build: nvcc ran for a source whose library was not in
-    ``csrc/build/`` yet.  A *hit* is a load of an existing build of the
-    same source.  Surfaced through the metrics bundle as
+    ``csrc/build/`` yet, or a sharded body was built for a new ``(kernel,
+    mesh[, shape])`` key.  A *hit* is a load of an existing build of the
+    same source, or a rebuilt sharded engine reusing the memoized body.
+    Surfaced through the metrics bundle as
     ``engine_compile_cache_{hits,misses}_total``."""
 
     def __init__(self) -> None:
@@ -169,7 +177,8 @@ class CompileCacheStats:
         self.misses = 0
 
 
-#: Process-wide kernel-library build ledger (fed by ops/scan_kernels.py).
+#: Process-wide build ledger (fed by ops/scan_kernels.py and
+#: parallel/sharding.py).
 COMPILE_CACHE = CompileCacheStats()
 
 

@@ -16,6 +16,10 @@ int32 representative in [0, p).
 
 Every constant is float32 (or int32 on the freeze path) and lives on the
 operand's device; a float64 constant would silently promote the limbs.
+
+``add``/``sub``, ``mul`` and ``square`` note themselves in the
+field-operation counting shim (:mod:`consensus_tpu_torch.ops.limbs`) at the
+JAX module's sites, so a counted run reports the JAX module's counts.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from consensus_tpu_torch.ops import limbs
 from consensus_tpu_torch.ops.limbs import carry_i32, lt_bytes
 
 LIMBS = 32
@@ -130,6 +135,8 @@ def _weak_reduce(x: torch.Tensor) -> torch.Tensor:
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if limbs.counting():
+        limbs.note_add(limbs.lanes_of(a, b))
     return _weak_reduce(a + b)
 
 
@@ -154,6 +161,8 @@ def sub_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # a + 2p - b stays positive for any weakly reduced a, b (< 2p each).
+    if limbs.counting():
+        limbs.note_add(limbs.lanes_of(a, b))
     return _weak_reduce(a + _two_p(a) - b)
 
 
@@ -175,6 +184,13 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sum is an integer below 2^24 (the exactness budget above), so the
     column sums are exact in any order and equal the JAX module's
     shifted-add columns bit for bit."""
+    if limbs.counting():
+        limbs.note_mul(limbs.lanes_of(a, b))
+    return _mul(a, b)
+
+
+def _mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`mul` without its note in the counting shim."""
     a, b = torch.broadcast_tensors(a, b)
     batch_shape = a.shape[1:]
     a2 = a.reshape(LIMBS, -1)
@@ -193,8 +209,11 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def square(a: torch.Tensor) -> torch.Tensor:
     """Squaring.  The JAX module sums the doubled upper triangle; the full
     product's columns are the same integers, so ``mul(a, a)`` returns the
-    same limbs.  Callers keep the JAX bound (|limb| <= 500)."""
-    return mul(a, a)
+    same limbs.  Callers keep the JAX bound (|limb| <= 500).  It notes one
+    squaring in the counting shim, as the JAX module does, and no mul."""
+    if limbs.counting():
+        limbs.note_square(limbs.lanes_of(a))
+    return _mul(a, a)
 
 
 def freeze(a: torch.Tensor) -> torch.Tensor:
@@ -235,14 +254,17 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def pow_const(x: torch.Tensor, exponent: int) -> torch.Tensor:
     """x ** exponent for a fixed public exponent, MSB-first square and
-    multiply.  The exponent is public, so the branch on each bit is taken
-    in Python: the same values as the JAX ladder's select."""
+    multiply.  The exponent is public, so the choice on each bit is taken
+    in Python; the multiply runs on every bit, as in the JAX ladder's
+    select, so the work (and the counting shim's count) is the JAX
+    module's."""
     bits = [(exponent >> i) & 1 for i in range(exponent.bit_length())][::-1]
     acc = x  # first bit is always 1
     for bit in bits[1:]:
         acc = square(acc)
+        product = mul(acc, x)
         if bit:
-            acc = mul(acc, x)
+            acc = product
     return acc
 
 

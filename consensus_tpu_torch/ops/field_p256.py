@@ -16,6 +16,10 @@ return *weakly reduced* elements -- |limb| <= 600, value exact mod p and
 |value| < 2^262 -- multiplication-safe (600^2 * 32 < 2^24).  ``freeze``
 produces the canonical int32 representative in [0, p).
 
+``add``/``sub``, ``mul``, ``square`` and the reduction's Solinas product
+note themselves in the field-operation counting shim
+(:mod:`consensus_tpu_torch.ops.limbs`) at the JAX module's sites.
+
 The Solinas product is taken in float64, where its integer sums cannot
 round whatever ``torch.backends.cuda.matmul.allow_tf32`` or
 ``torch.set_float32_matmul_precision`` say (the JAX module forces
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from consensus_tpu_torch.ops import limbs
 from consensus_tpu_torch.ops.limbs import carry_i32
 
 LIMBS = 32
@@ -148,6 +153,8 @@ def _reduce_wide(x: torch.Tensor) -> torch.Tensor:
     lo, hi = _split(x.reshape(width, -1))
     split = _const(f"split{width}", x.device, torch.float64)
     r = torch.matmul(split, torch.cat([lo, hi]).to(torch.float64)).to(torch.float32)
+    if limbs.counting():
+        limbs.note_dot(LIMBS, 1, 2 * LIMBS, limbs.lanes_of(x))
     fold = _const("fold", x.device, torch.float32)
     for _ in range(2):
         lo, hi = _split(r)
@@ -158,6 +165,8 @@ def _reduce_wide(x: torch.Tensor) -> torch.Tensor:
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if limbs.counting():
+        limbs.note_add(limbs.lanes_of(a, b))
     return _reduce_wide(a + b)
 
 
@@ -207,6 +216,8 @@ def _const(name: str, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b, biased by 128 p so the value stays positive for any weakly
     reduced operands."""
+    if limbs.counting():
+        limbs.note_add(limbs.lanes_of(a, b))
     return _reduce_wide(a + _cexpand(_const("bias", a.device, torch.float32), a) - b)
 
 
@@ -233,14 +244,19 @@ def _columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook product, then the Solinas fold."""
+    if limbs.counting():
+        limbs.note_mul(limbs.lanes_of(a, b))
     return _reduce_wide(_columns(a, b))
 
 
 def square(a: torch.Tensor) -> torch.Tensor:
     """Squaring.  The JAX module sums the doubled upper triangle; the full
     product's columns are the same integers, so ``mul(a, a)`` returns the
-    same limbs."""
-    return mul(a, a)
+    same limbs.  It notes one squaring in the counting shim, as the JAX
+    module does, and no mul."""
+    if limbs.counting():
+        limbs.note_square(limbs.lanes_of(a))
+    return _reduce_wide(_columns(a, a))
 
 
 def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:

@@ -21,10 +21,9 @@ Reduction exploits L's sparse form ``L = 2^252 + delta`` (delta < 2^125):
 3. **Sparse fold** at bit 252: ``x = hi 2^252 + lo == lo - hi delta``,
    signed, then one borrow-driven ``+L``.
 
-The JAX module also books its byte products into the field-operation
-counting shim (``limbs.note_byte_muls``, ``limbs.counted_scan``); the port
-has no such shim (ROADMAP.md queue A, item 15), and the window recoding's
-scan is a Python loop.
+Both modules book their byte products into the field-operation counting
+shim (``limbs.note_byte_muls``) at the same sites, and the window recoding
+runs as a ``limbs.counted_scan``.
 """
 
 from __future__ import annotations
@@ -90,6 +89,7 @@ def reduce_bytes_mod_l(x_bytes: torch.Tensor) -> torch.Tensor:
         raise ValueError("byte fold table covers 64 input bytes")
     device = x_bytes.device
     table = _constant("pow_table", device)[:n_bytes]
+    limbs.note_byte_muls(n_bytes * 32, batch)
     folded = _fold(table, x_bytes.to(torch.int32))  # columns < 64*255*255 < 2^23
     # Two spare limbs hold the fold's overflow (< 2^267 < 2^272).
     ext = torch.cat([folded, torch.zeros((2, batch), dtype=torch.int32, device=device)])
@@ -99,6 +99,7 @@ def reduce_bytes_mod_l(x_bytes: torch.Tensor) -> torch.Tensor:
     hi = (canon[31] >> 4) + (canon[32] << 4) + (canon[33] << 12) + (top << 20)
     lo = torch.cat([canon[:31], (canon[31] & 0xF)[None]])
     h_bytes = torch.stack([hi & 0xFF, hi >> 8])  # (2, batch)
+    limbs.note_byte_muls(2 * 32, batch)
     sub = _fold(_constant("delta_shift", device), h_bytes)
     signed, borrow = limbs.carry_i32(lo - sub)
     # Value in (-2^142, 2^252): negative iff borrow < 0; one +L lands
@@ -119,6 +120,7 @@ def mul_mod_l(a_bytes: torch.Tensor, b_bytes: torch.Tensor) -> torch.Tensor:
         raise ValueError("schoolbook columns would overflow the 2^23 column bound")
     a = a_bytes.to(torch.int32)
     b = b_bytes.to(torch.int32)
+    limbs.note_byte_muls(na * nb, batch)
     cols = torch.zeros((64, batch), dtype=torch.int32, device=a.device)
     for i in range(na):  # na broadcast multiplies, as the JAX module unrolls them
         cols[i : i + nb] += a[i][None] * b
@@ -156,12 +158,13 @@ def signed_window_digits(k_bytes: torch.Tensor, windows: int = 64) -> torch.Tens
         pad = torch.zeros((windows - nibbles.shape[0], k.shape[-1]), dtype=torch.int32,
                           device=k.device)
         nibbles = torch.cat([nibbles, pad])
-    digits = torch.empty_like(nibbles)
-    carry = torch.zeros_like(nibbles[0])
-    for j in range(windows):  # LSB window first, as the JAX scan runs
-        t = nibbles[j] + carry
-        carry = (t >= 8).to(torch.int32)
-        digits[j] = t - 16 * carry
+
+    def step(carry, u):  # LSB window first, as the JAX scan runs
+        t = u + carry
+        over = (t >= 8).to(torch.int32)
+        return over, t - 16 * over
+
+    _, digits = limbs.counted_scan(step, torch.zeros_like(nibbles[0]), nibbles)
     return digits.flip(0) + 8
 
 

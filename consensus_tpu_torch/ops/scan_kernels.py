@@ -49,6 +49,7 @@ from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
 from consensus_tpu_torch.obs.kernels import KERNELS as LEDGER
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import limbs
 from consensus_tpu_torch.ops import p256
 
 _TABLE = 9  # |signed digit| <= 8 -> multiples 0..8 of the variable point
@@ -190,7 +191,16 @@ def _launch(
 
     The range is the kind inductor puts around its Triton launches: a
     profiler links device work only to op-scope ranges, so without it the
-    kernel would belong to no range of a trace."""
+    kernel would belong to no range of a trace.
+
+    Inside a field-operation count (``limbs.counting()``) it raises: a
+    hand-written kernel cannot note its operations, and a count that
+    silently left them out would be wrong."""
+    if limbs.counting():
+        raise RuntimeError(
+            f"{name}: a CUDA kernel cannot be counted by the field-operation "
+            "shim; measure the plain version on CPU tensors"
+        )
     lib, _ = _library(name)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch._C._profiler._RecordFunctionFast(f"{name}_kernel"):

@@ -72,7 +72,10 @@ VERBATIM = [
     "wire/codec.py",
     "wire/messages.py",
 ]
-REWORDED = ["api/deps.py", "config.py", "metrics.py", "testing/crypto_app.py"]
+REWORDED = [
+    "api/deps.py", "config.py", "metrics.py", "parallel/__init__.py", "parallel/topology.py",
+    "testing/crypto_app.py",
+]
 
 #: The divergences the port keeps on purpose, each as pairs of (the JAX
 #: text, the port's text in its place).
@@ -116,6 +119,97 @@ DIVERGENCES = {
             engine = Ed25519BatchVerifier(
                 min_device_batch=10**9, device=self.device
             )
+""",
+        ),
+    ],
+    # ROADMAP.md divergence 21: the port's mesh is its own DeviceMesh of
+    # torch devices (virtual shards by an explicit device list, 8 virtual
+    # CPU shards), and the compile cache is inert (divergence 14).
+    "parallel/topology.py": [
+        (
+            """    def build_mesh(self, devices: Optional[Sequence] = None):
+        \"\"\"A ``jax.sharding.Mesh`` laying the first ``shard_count`` visible
+        devices out as ``axes``.  1-D topologies build byte-identical meshes
+        to the historical ``mesh_for_shards`` (same device order, same
+        ``("batch",)`` axis name).  Fails loudly when the host exposes fewer
+        devices than the spec demands — silently shrinking the mesh would
+        make the compiled kernel shape depend on deploy-time topology — and
+        when a multi-host slice would be partially covered (every process
+        must participate in the same global mesh).\"\"\"
+        import jax
+        import numpy as np
+        from jax.sharding import Mesh
+
+        devices = list(devices if devices is not None else jax.devices())
+        count = self.shard_count
+        if len(devices) < count:
+            raise ValueError(
+                f"topology {self.label} needs {count} devices but only "
+                f"{len(devices)} device(s) visible (set XLA_FLAGS="
+                "--xla_force_host_platform_device_count for a host mesh, "
+                "or shrink the topology)"
+            )
+        if jax.process_count() > 1 and count != len(devices):
+            raise ValueError(
+                f"topology {self.label} covers {count} of "
+                f"{len(devices)} global devices on a "
+                f"{jax.process_count()}-process slice; multi-host meshes "
+                "must span the whole slice (every process participates)"
+            )
+        arr = np.array(devices[:count])
+        if self.ndim > 1:
+            arr = arr.reshape(self.axes)
+        return Mesh(arr, self.axis_names)
+""",
+            """    def build_mesh(self, devices: Optional[Sequence] = None, *, device=None):
+        \"\"\"A :class:`~consensus_tpu.parallel.mesh.DeviceMesh` laying
+        the first ``shard_count`` devices out as ``axes``.
+
+        ``devices`` is an explicit list of torch devices and may repeat one
+        (``[cuda:0] * 2`` is two virtual shards on one card); without it the
+        mesh takes the visible devices of ``device``'s type (every visible
+        card for ``cuda``, the default; 8 virtual shards for ``cpu``).  Fails
+        loudly when fewer devices are visible than the spec demands: the
+        mesh never shrinks, and never moves to the CPU on its own.\"\"\"
+        from consensus_tpu.parallel.mesh import DeviceMesh, mesh_devices
+
+        devices = mesh_devices(devices, device)
+        count = self.shard_count
+        if len(devices) < count:
+            raise ValueError(
+                f"topology {self.label} needs {count} devices but only "
+                f"{len(devices)} device(s) visible (name the shards' devices "
+                "in an explicit list, one card repeated for virtual shards, "
+                "or shrink the topology)"
+            )
+        return DeviceMesh(devices[:count], self.axes, self.axis_names)
+""",
+        ),
+        (
+            """def apply_compile_cache(cache) -> None:
+    \"\"\"Wire a ``CompileCacheConfig``'s persistent-cache knobs into
+    ``jax.config`` (idempotent; repeated calls with the same values are
+    no-ops inside jax).  ``persistent_dir=""`` leaves the runtime default
+    untouched — the in-process memo works either way.\"\"\"
+    if cache is None or not getattr(cache, "persistent_dir", ""):
+        return
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", cache.persistent_dir)
+    jax.config.update(
+        "jax_persistent_cache_min_compile_time_secs",
+        float(getattr(cache, "min_compile_time_secs", 1.0)),
+    )
+    # Cache every entry regardless of serialized size: correctness work like
+    # this repo's is dominated by many small-but-slow-to-trace kernels.
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+""",
+            """def apply_compile_cache(cache) -> None:
+    \"\"\"Inert in the port, as ``Configuration.compile_cache`` is (ROADMAP.md,
+    divergence 14): there is no jit cache to configure, and the kernel
+    libraries are cached on disk by their source's hash whatever ``cache``
+    says.  Kept so the JAX package's callers find it.\"\"\"
+    return None
 """,
         ),
     ],
@@ -187,7 +281,7 @@ def test_every_copy_is_listed():
     ``__init__`` files that export less) is its own code."""
     own = {
         "__init__.py", "device.py", "net/__init__.py", "trace/__init__.py",
-        "testing/__init__.py",
+        "testing/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
     }
     own_dirs = {"models", "ops", "obs", "runtime", "csrc"}
     listed = set(VERBATIM) | set(REWORDED)

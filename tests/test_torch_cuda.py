@@ -742,3 +742,60 @@ def test_faulted_chaos_run_on_card_is_byte_identical_to_the_fault_free_run(
     assert engine.fault_injector.fired == list(CHAOS_FAULTS)
     assert engine.fault_injector.pending == 0
     assert engine.supervisor.rung == 0 and not engine.supervisor.degraded
+
+
+@pytest.mark.cuda
+def test_counting_refuses_a_kernel_launch_on_card(cuda_device):
+    """A hand-written kernel cannot note its field operations: inside a
+    count its wrapper raises on a CUDA tensor, launches nothing, and the
+    same wrapper on the CPU copy is counted as its plain version."""
+    from consensus_tpu_torch.ops import limbs
+
+    neg, digits = _scan_case(4, cuda_device)
+    before = KERNELS.stats("horner_scan").launches
+    with limbs.count_field_ops() as count:
+        with pytest.raises(RuntimeError, match="cannot be counted"):
+            scan_kernels.horner_scan(*neg, digits)
+    assert KERNELS.stats("horner_scan").launches == before and count.muls == 0
+    cpu = limbs.measure_field_ops(
+        scan_kernels.horner_scan, *(c.cpu() for c in neg), digits.cpu()
+    )
+    assert cpu.muls > 0 and cpu.squares > 0
+    assert scan_kernels.horner_scan(*neg, digits).x.is_cuda  # no count: it launches
+
+
+@pytest.mark.cuda
+def test_virtual_shards_on_card_equal_the_single_engine(cuda_device):
+    """Two virtual shards on the card: the strict and randomized sharded
+    engines give the single engines' verdicts and launch each kernel once
+    per shard; 3 signatures on 8 shards leave 5 padding-only shards, whose
+    aggregates (u_s = 0, every digit masked) vote ok."""
+    from consensus_tpu_torch.parallel import (
+        ShardedEd25519RandomizedVerifier,
+        ShardedEd25519Verifier,
+        mesh_for_shards,
+    )
+
+    signers = [Ed25519Signer(i, bytes([i + 1]) * 32) for i in range(4)]
+    msgs = [b"mesh-%d" % i for i in range(13)]
+    sigs = [signers[i % 4].sign_raw(m) for i, m in enumerate(msgs)]
+    keys = [signers[i % 4].public_bytes for i in range(13)]
+    sigs[3] = bytes(64)
+    sigs[9] = sigs[9][:32] + bytes(32)
+    want = med.Ed25519BatchVerifier(device=cuda_device, min_device_batch=1).verify_batch(
+        msgs, sigs, keys)
+    assert list(np.flatnonzero(~want)) == [3, 9]
+    two = mesh_for_shards(2, [cuda_device] * 2)
+    before = {k: KERNELS.stats(k).launches for k in ("horner_scan", "decompress25519")}
+    got = ShardedEd25519Verifier(two, min_device_batch=1).verify_batch(msgs, sigs, keys)
+    assert (got == want).all()
+    assert {k: KERNELS.stats(k).launches - v for k, v in before.items()} == {
+        "horner_scan": 2, "decompress25519": 2,
+    }
+    rand = ShardedEd25519RandomizedVerifier(two, min_device_batch=1).verify_batch(msgs, sigs, keys)
+    assert (rand == want).all()
+    eight = ShardedEd25519RandomizedVerifier(mesh_for_shards(8, [cuda_device] * 8),
+                                             min_device_batch=1)
+    before = KERNELS.stats("straus_msm").launches
+    assert eight.verify_batch(msgs[:3], sigs[:3], keys[:3]).all()
+    assert KERNELS.stats("straus_msm").launches - before == 8

@@ -4,16 +4,17 @@
 The injector's launch faults (hang, raise, silent verdict flip) under an
 ``EngineSupervisor`` that cross-checks every launch on the host twin: the
 faulted run of the matrix schedule is byte-identical to the fault-free run
-in the strict, randomized and fused engine modes, each fault degrades once
-and recovers.  The strict and randomized faulted runs are also the JAX
+in the strict, randomized, fused and ``mesh2`` (a sharded engine over 2
+virtual CPU shards) engine modes, each fault degrades once and recovers.
+The strict, randomized and ``mesh2`` faulted runs are also the JAX
 package's faulted runs, event log for event log and ledger for ledger.  The
-half-agg mode is ``test_torch_halfagg_fault_matrix.py``; the ``mesh2`` mode
-waits for the port's multi-device engines (ROADMAP.md queue A item 12).
+half-agg mode is ``test_torch_halfagg_fault_matrix.py``.
 """
 
 import numpy as np
 import pytest
 
+import consensus_tpu.parallel as jparallel
 import consensus_tpu.testing.chaos as jchaos
 from consensus_tpu_torch.config import ObsConfig
 from consensus_tpu_torch.metrics import (
@@ -25,6 +26,7 @@ from consensus_tpu_torch.metrics import (
 from consensus_tpu_torch.models import FAULT_CLASSES, LaunchTimeout
 from consensus_tpu_torch.models.ed25519 import Ed25519BatchVerifier
 from consensus_tpu_torch.models.fused import FusedEd25519BatchVerifier
+from consensus_tpu_torch.parallel import ShardedEd25519Verifier, mesh_for_shards
 from consensus_tpu_torch.testing.chaos import (
     DEVICE_FAULT_CLASSES,
     ChaosEngine,
@@ -42,6 +44,14 @@ MODES = {
     "strict": ("ed25519", None),
     "randomized": ("ed25519-batch", None),
     "fused": ("ed25519", lambda: FusedEd25519BatchVerifier(min_device_batch=10**9, device="cpu")),
+    "mesh2": ("ed25519", lambda: ShardedEd25519Verifier(
+        mesh_for_shards(2, device="cpu"), min_device_batch=10**9)),
+}
+#: The JAX package's engines of the modes it builds through a factory
+#: (tests/test_supervisor.py:431-447).
+JAX_FACTORIES = {
+    "mesh2": lambda: jparallel.ShardedEd25519Verifier(
+        jparallel.mesh_for_shards(2), min_device_batch=10**9),
 }
 
 
@@ -151,11 +161,12 @@ def test_device_fault_matrix_is_byte_identical_to_clean_run(mode):
     assert engine.fault_injector.launches == 64
 
 
-@pytest.mark.parametrize("mode", ["strict", "randomized"])
+@pytest.mark.parametrize("mode", ["strict", "randomized", "mesh2"])
 def test_faulted_run_equals_the_jax_packages(mode):
     crypto, _ = MODES[mode]
     _, ours = _run(mode, MATRIX_FAULTS)
-    jengine = jchaos.ChaosEngine(_schedule(jchaos), crypto=crypto, device_faults=MATRIX_FAULTS)
+    jengine = jchaos.ChaosEngine(_schedule(jchaos), crypto=crypto, device_faults=MATRIX_FAULTS,
+                                 engine_factory=JAX_FACTORIES.get(mode))
     theirs = jengine.run()
     assert ours.event_log == theirs.event_log
     assert ours.ledgers == theirs.ledgers

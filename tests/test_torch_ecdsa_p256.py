@@ -24,7 +24,6 @@ from consensus_tpu.types import Signature as JaxSignature
 from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models import ecdsa_p256 as tmodel
 from consensus_tpu_torch.models import verifier as tver
-from consensus_tpu_torch.models.registry import UnknownEngineError
 from consensus_tpu_torch.models.supervisor import EngineSupervisor
 from consensus_tpu_torch.types import Proposal, Signature
 
@@ -298,8 +297,8 @@ def test_engine_for_config_routes_p256_and_raises_like_jax():
             jver.engine_for_config(JaxConfiguration(self_id=1, **knobs), curve="p256")
         assert str(port_err.value) in str(jax_err.value)
         assert "Ed25519-only" in str(port_err.value)
-    with pytest.raises(UnknownEngineError, match="ROADMAP.md queue A, item 12"):
-        tver.engine_for_config(Configuration(mesh_shards=2), curve="p256", device="cpu")
+    sharded = tver.engine_for_config(Configuration(mesh_shards=2), curve="p256", device="cpu")
+    assert type(sharded).__name__ == "ShardedEcdsaP256Verifier" and sharded.shard_count == 2
     supervised = tver.engine_for_config(
         Configuration(engine_supervision=True), curve="p256", device="cpu"
     )

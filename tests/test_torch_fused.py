@@ -2,8 +2,8 @@
 ``consensus_tpu_torch/models/fused.py``) held against the host-prep engines
 and the JAX package's fused module, on the CPU.
 
-``tests/test_fused.py`` mirrored, less its sharded case (the mesh is ROADMAP
-queue A item 12): the vectorized pre-checks equal the loop twin; the
+``tests/test_fused.py`` mirrored, less its sharded case (in
+``tests/test_torch_mesh.py``): the vectorized pre-checks equal the loop twin; the
 device transcript equals the host coefficients byte for byte (batch and
 half-agg tags); the fused front end's stages (challenge digests, reduced
 scalars, window digits, canonical checks) equal the JAX module's on the
@@ -211,9 +211,13 @@ def test_engine_for_config_device_prep_routing():
     with pytest.raises(jreg.UnknownEngineError) as jax_err:
         jver.engine_for_config(JaxConfiguration(self_id=1, device_prep=True), curve="p256")
     assert str(port_err.value) == str(jax_err.value)
-    # The fused mesh keys still name their queue A item.
-    with pytest.raises(UnknownEngineError, match="ROADMAP.md queue A, item 12"):
-        engine_for_config(cfg.with_(mesh_shards=2), device="cpu")
+    # The fused mesh keys route to the sharded fused engines, as in JAX.
+    assert type(engine_for_config(cfg.with_(mesh_shards=2), device="cpu")).__name__ == (
+        "ShardedFusedEd25519Verifier"
+    )
+    assert type(
+        engine_for_config(cfg.with_(mesh_shards=2, batch_verify_mode=True), device="cpu")
+    ).__name__ == "ShardedFusedEd25519RandomizedVerifier"
     # device_prep off: the previous engine classes, exactly.
     assert type(engine_for_config(Configuration(), device="cpu")) is Ed25519BatchVerifier
     assert type(

@@ -42,9 +42,16 @@ from consensus_tpu_torch.models.registry import (
     engine_key_for,
 )
 from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
+from consensus_tpu_torch.parallel import (
+    ShardedEcdsaP256Verifier,
+    ShardedEd25519RandomizedVerifier,
+    ShardedEd25519Verifier,
+    ShardedFusedEd25519RandomizedVerifier,
+    ShardedFusedEd25519Verifier,
+)
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "obs_prometheus_3node.txt"
-_ITEMS = {"mesh": "item 12", "mxu": "item 13"}
+_ITEMS = {"mxu": "item 13"}
 
 
 def _matrix():
@@ -63,9 +70,13 @@ def test_registry_completeness_and_loud_failures():
     for key in ENGINE_REGISTRY.keys():
         assert key in ENGINE_REGISTRY and callable(ENGINE_REGISTRY.builder(key))
     assert set(ENGINE_REGISTRY.keys()) == {
-        EngineKey("ed25519", "strict"), EngineKey("ed25519", "randomized"), EngineKey("p256"),
-        EngineKey("ed25519", "strict", device_prep=True),
-        EngineKey("ed25519", "randomized", device_prep=True),
+        EngineKey(curve, mode, topo, prep)
+        for topo in TOPOLOGIES
+        for curve, mode, prep in (
+            ("ed25519", "strict", False), ("ed25519", "randomized", False),
+            ("ed25519", "strict", True), ("ed25519", "randomized", True),
+            ("p256", "strict", False),
+        )
     }
     for cell in _matrix():
         key = EngineKey(*cell)
@@ -102,11 +113,22 @@ def test_every_jax_key_builds_or_names_its_queue_item(cell):
             ("ed25519", "randomized", True): FusedEd25519RandomizedBatchVerifier,
             ("p256", "strict", False): EcdsaP256BatchVerifier,
         }[(tkey.curve, tkey.mode, tkey.device_prep)]
+        if tkey.topology == "mesh":
+            # The sharded class of the JAX package's name, over a 1-D mesh
+            # of the CPU's 8 virtual shards.
+            want = {
+                Ed25519BatchVerifier: ShardedEd25519Verifier,
+                Ed25519RandomizedBatchVerifier: ShardedEd25519RandomizedVerifier,
+                FusedEd25519BatchVerifier: ShardedFusedEd25519Verifier,
+                FusedEd25519RandomizedBatchVerifier: ShardedFusedEd25519RandomizedVerifier,
+                EcdsaP256BatchVerifier: ShardedEcdsaP256Verifier,
+            }[want]
+            assert engine.shard_count == 8
         assert type(engine) is want and engine.device.type == "cpu"
         return
     with pytest.raises(UnknownEngineError) as exc:
         ENGINE_REGISTRY.builder(tkey)
-    lanes = [axis for axis, on in (("mesh", tkey.topology == "mesh"), ("mxu", tkey.mxu)) if on]
+    lanes = [axis for axis, on in (("mxu", tkey.mxu),) if on]
     assert lanes
     for axis in lanes:
         assert f"ROADMAP.md queue A, {_ITEMS[axis]}" in str(exc.value)
@@ -147,27 +169,23 @@ def test_engine_key_for_matches_jax_over_a_grid(monkeypatch, mxu):
 
 
 def test_degrade_ladder_configs_match_jax_where_the_port_builds():
-    """Equal ladders for every config whose engine the port builds (their
-    ladder is the config alone); a config naming a lane not ported is
-    refused with the lane's item, whatever the JAX ladder below it."""
+    """Equal ladders for every config of the grid (every one builds in the
+    port since the mesh lanes are ported), and each builds its engine."""
     built = 0
     for knobs in _grid():
         port_ladder = tver.degrade_ladder_configs(Configuration(**knobs))
         jax_ladder = jver.degrade_ladder_configs(JaxConfiguration(self_id=1, **knobs))
         assert port_ladder[0] == Configuration(**knobs)
-        if engine_key_for(Configuration(**knobs)) in ENGINE_REGISTRY:
-            assert [tuple(getattr(c, f) for f in _LADDER_FIELDS) for c in port_ladder] == [
-                tuple(getattr(c, f) for f in _LADDER_FIELDS) for c in jax_ladder
-            ]
-            engine = tver.engine_for_config(Configuration(**knobs), device="cpu")
-            assert engine is not None
-            built += 1
-        else:
-            with pytest.raises(UnknownEngineError, match="ROADMAP.md queue A, item 12"):
-                tver.engine_for_config(Configuration(**knobs), device="cpu")
-    # Strict and randomized, host prep and fused, supervised or not, at
-    # mesh_shards 1 with mesh_topology () and (1,).
-    assert built == 16
+        assert engine_key_for(Configuration(**knobs)) in ENGINE_REGISTRY
+        assert [tuple(getattr(c, f) for f in _LADDER_FIELDS) for c in port_ladder] == [
+            tuple(getattr(c, f) for f in _LADDER_FIELDS) for c in jax_ladder
+        ]
+        engine = tver.engine_for_config(Configuration(**knobs), device="cpu")
+        assert engine is not None
+        built += 1
+    # Strict and randomized, host prep and fused, supervised or not, over
+    # the grid's six topologies (1, 2, 4, (1,), (2, 4) and 8 as (2, 4)).
+    assert built == 48
 
 
 def test_mxu_keys_are_refused_from_the_environment(monkeypatch):

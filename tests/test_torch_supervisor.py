@@ -37,7 +37,6 @@ from consensus_tpu_torch.models import (
     LaunchTimeout,
 )
 from consensus_tpu_torch.models import supervisor as tsup
-from consensus_tpu_torch.models.registry import UnknownEngineError
 from consensus_tpu_torch.models.verifier import degrade_ladder_configs, engine_for_config
 
 
@@ -335,12 +334,18 @@ def test_degrade_ladder_configs_of_the_ported_lanes():
     assert degrade_ladder_configs(Configuration()) == [Configuration()]
     randomized = Configuration(batch_verify_mode=True)
     assert degrade_ladder_configs(randomized) == [randomized]
-    # A config naming a lane not ported keeps its own rung first; its
-    # engine is refused with the lane's queue A item.
+    # The mesh lane is ported: its ladder walks mesh -> single device ->
+    # host prep, as JAX's (tests/test_supervisor.py:337-347), and each mesh
+    # rung is labelled with its shard count.
     fused_mesh = Configuration(mesh_shards=2, device_prep=True)
-    assert degrade_ladder_configs(fused_mesh)[0] == fused_mesh
-    with pytest.raises(UnknownEngineError, match="item 12"):
-        engine_for_config(fused_mesh.with_(engine_supervision=True), device="cpu")
+    assert [(c.mesh_shards, c.device_prep) for c in degrade_ladder_configs(fused_mesh)] == [
+        (2, True), (1, True), (1, False),
+    ]
+    sup = engine_for_config(fused_mesh.with_(engine_supervision=True), device="cpu")
+    assert [sup.rung_label(i) for i in range(sup.rung_count)] == [
+        "ShardedFusedEd25519Verifier[2]", "FusedEd25519BatchVerifier",
+        "Ed25519BatchVerifier", "HostTwin",
+    ]
     # The fused lane is ported: its ladder keeps JAX's fused -> host-prep rung.
     fused = Configuration(device_prep=True)
     assert degrade_ladder_configs(fused) == [fused, fused.with_(device_prep=False)]

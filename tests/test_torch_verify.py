@@ -22,7 +22,6 @@ from consensus_tpu_torch.config import Configuration
 from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
 from consensus_tpu_torch.models import ed25519 as tmed
 from consensus_tpu_torch.models import verifier as tver
-from consensus_tpu_torch.models.registry import UnknownEngineError
 from consensus_tpu_torch.models.supervisor import EngineSupervisor
 from consensus_tpu_torch.testing.crypto_app import SigOnlyVerifier
 from consensus_tpu_torch.types import Proposal, QuorumCert, Signature
@@ -218,17 +217,19 @@ def test_engine_for_config_default_and_unported_lanes():
     ]
     assert dataclasses.asdict(Configuration()) == dataclasses.asdict(JaxConfiguration())
     # device_prep is ported: it routes to the fused engine (its lane is
-    # pinned in tests/test_torch_fused.py); the mesh lanes are not.
+    # pinned in tests/test_torch_fused.py), and so are the mesh lanes (pinned
+    # in tests/test_torch_mesh.py).
     fused = tver.engine_for_config(Configuration(device_prep=True), device="cpu")
     assert type(fused).__name__ == "FusedEd25519BatchVerifier"
     assert isinstance(fused, tmed.Ed25519BatchVerifier) and fused._min_device_batch == 16
-    for knobs, item in (
-        (dict(mesh_shards=2), "item 12"),
-        (dict(mesh_topology=(2, 4)), "item 12"),
-        (dict(mesh_shards=2, device_prep=True), "item 12"),
+    for knobs, name, shards in (
+        (dict(mesh_shards=2), "ShardedEd25519Verifier", 2),
+        (dict(mesh_topology=(2, 4)), "ShardedEd25519Verifier", 8),
+        (dict(mesh_shards=2, device_prep=True), "ShardedFusedEd25519Verifier", 2),
     ):
-        with pytest.raises(UnknownEngineError, match=f"ROADMAP.md queue A, {item}"):
-            tver.engine_for_config(Configuration(**knobs), device="cpu")
+        sharded = tver.engine_for_config(Configuration(**knobs), device="cpu")
+        assert type(sharded).__name__ == name and sharded.shard_count == shards
+        assert sharded._min_device_batch == 16 and sharded.device.type == "cpu"
     # Supervision is ported: the configured engine over the host twin.
     supervised = tver.engine_for_config(Configuration(engine_supervision=True), device="cpu")
     assert isinstance(supervised, EngineSupervisor)
