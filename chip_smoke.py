@@ -266,16 +266,16 @@ MUL_PRODUCTS = 8 * 8 + 8
 #: The same for a squaring: 8 x 9 / 2 distinct partial products (the cross
 #: terms are doubled by shifts, not multiplies) and the same fold.
 SQUARE_PRODUCTS = 8 * 9 // 2 + 8
-#: Field multiplications and squarings per lane in the Horner scan, as the
-#: field-operation counting shim counts its plain version
-#: (tests/test_torch_limbs_counting.py holds them to it).  The table takes 7
-#: adds of 9 multiplications each (one by 2d); each of the 64 windows takes
-#: 3 doubles without T, 1 double with T and 1 add.  A double squares X, Y
-#: and Z and multiplies (X + Y)(X + Y), whose one-raw-level operand is past
-#: the squaring's exactness bound, so it is a multiplication: 3 squarings
-#: and 4 multiplications, 5 with T.
-HORNER_MULS = 7 * 9 + 64 * (3 * 4 + 5 + 9)
-HORNER_SQUARES = 64 * 4 * 3
+#: Field multiplications and squarings per lane in the Horner scan.  The table
+#: takes 7 adds of 9 multiplications each (one by 2d); each of the 64 windows
+#: takes 3 doubles without T (4 squarings, 3 multiplications), 1 double with
+#: T (4 squarings, 4 multiplications) and 1 add.  A double squares X, Y, Z
+#: and X + Y.  tests/test_torch_limbs_counting.py holds these to the counting
+#: shim's count of the plain version, which routes (X + Y)^2 through a
+#: multiplication: an artifact of its f32 8-bit limbs, whose one-raw-level
+#: operand is past their squaring's exactness bound.
+HORNER_MULS = 7 * 9 + 64 * (3 * 3 + 4 + 9)
+HORNER_SQUARES = 64 * 4 * 4
 #: Field multiplications and squarings per point in decompression (kernel
 #: D1, csrc/decompress25519.cu): y^2, v^2, v3^2, x^2 and the 251 squarings of
 #: the (p-5)/8 power; d y^2, v^3, v^7, u v^3, u v^7, the power's 11
@@ -333,11 +333,10 @@ BATCH_RANGES = (
     "ed25519.batch.straus_msm", "ed25519.batch.comb", "ed25519.batch.check",
 )
 #: Field multiplications and squarings of one point add (8 + 1 by 2d), one
-#: double without T (4 multiplications, (X + Y)^2 among them, + 3
-#: squarings) and one with T (5 + 3), as the counting shim counts them.
+#: double without T (3 + 4: X, Y, Z and X + Y squared) and one with T (4 + 4).
 ADD_MULS = 9
-DOUBLE_MULS, DOUBLE_SQUARES = 4, 3
-DOUBLE_T_MULS, DOUBLE_T_SQUARES = 5, 3
+DOUBLE_MULS, DOUBLE_SQUARES = 3, 4
+DOUBLE_T_MULS, DOUBLE_T_SQUARES = 4, 4
 #: The 9-entry table of one point, built as the plain version builds it
 #: (``ops/ed25519.py::multiples_table9``): 3 adds (3p, 5p, 7p) and 4
 #: doubles with T (2p; 4p and 6p as one double of two lanes; 8p).
@@ -1099,8 +1098,7 @@ def msm_bound(lanes: int, live_lanes: int, n_low: int, sm_count: int,
     lanes) int32 digits in, four (32, 1) f32 coordinates out) over the
     memory rate.
 
-    The work the function needs on this data, as the counting shim counts
-    the plain version at ``live_lanes == lanes``: per live lane two 9-entry
+    The work the function needs on this data: per live lane two 9-entry
     tables (``TABLE9_ADDS`` adds and ``TABLE9_DOUBLES`` doubles with T
     each), ``n_low`` adds combining the A and R entries and 64 adds summing
     its window contributions (per window, the live lanes' sum and its add

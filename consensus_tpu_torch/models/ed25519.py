@@ -621,7 +621,7 @@ class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
         arrays, padded to :meth:`padded_size` (padding lanes have
         ``host_ok`` False, so their digits are masked to the identity)."""
         m = len(idx)
-        zk = [(z * scalars[i][1]) % L for z, i in zip(zs, idx)]
+        zk, u = self._aggregate_inputs(idx, signatures, scalars, zs)
         y_r, sign_r, _ = _prep_compressed([bytes(signatures[i])[:32] for i in idx])
         y_a, sign_a, _ = _prep_compressed([bytes(public_keys[i]) for i in idx])
         zk_digits = _signed_digits_rows(zk, _WINDOWS)
@@ -637,15 +637,17 @@ class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
             zk_digits = np.pad(zk_digits, ((0, 0), (0, pad)), constant_values=8)
             z_digits = np.pad(z_digits, ((0, 0), (0, pad)), constant_values=8)
             host_ok = np.pad(host_ok, (0, pad))
-        zs_digits8 = self._base_scalar_digits(idx, scalars, zs, padded)
+        u_rows = np.stack([
+            np.frombuffer(v.to_bytes(32, "little"), dtype=np.uint8)
+            for v in self._base_scalars(idx, scalars, zs, padded, u)
+        ])
+        zs_digits8 = _bits_to_comb_digits8(_bytes_rows_to_bits(u_rows))
         return (y_r.T, sign_r, y_a.T, sign_a, zs_digits8, zk_digits, z_digits, host_ok)
 
-    def _base_scalar_digits(self, idx, scalars, zs, padded) -> np.ndarray:
-        """The comb digits of the aggregate's base-point scalar sum z_i s_i
-        mod L: one (32, 1) column."""
-        u = sum(z * scalars[i][0] for z, i in zip(zs, idx)) % L
-        u_row = np.frombuffer(u.to_bytes(32, "little"), dtype=np.uint8).reshape(1, 32)
-        return _bits_to_comb_digits8(_bytes_rows_to_bits(u_row))
+    def _base_scalars(self, idx, scalars, zs, padded, u) -> list[int]:
+        """The aggregate's base-point scalars, one comb column each: here the
+        one sum ``u = sum z_i s_i mod L`` from :meth:`_aggregate_inputs`."""
+        return [u]
 
     def _aggregate_device_inputs(self, idx, signatures, public_keys, scalars, zs):
         """:func:`batch_verify_impl`'s inputs for the subset ``idx`` on the

@@ -381,20 +381,64 @@ def device_transcript(
     return transcript_coefficients(tag, n, leaves, leaf_blocks.shape[-1], fixed_z1=fixed_z1)
 
 
+def aggregate_leaves(
+    k_blocks: torch.Tensor,
+    k_nblocks: torch.Tensor,
+    leaf_blocks: torch.Tensor,
+    leaf_nblocks: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The aggregate body's first stage, lane by lane: the challenge scalars
+    ``k_i = H(R_i || A_i || m_i) mod L`` ((32, lanes) bytes) and the
+    transcript leaf digests ((64, lanes)).  On the card it launches S1
+    twice."""
+    with record_function("ed25519.fused.challenge"):
+        k_bytes = sc.reduce_bytes_mod_l(sh.digest_bytes(sh.sha512_blocks(k_blocks, k_nblocks)))
+    with record_function("ed25519.fused.transcript"):
+        leaves = sh.digest_bytes(sh.sha512_blocks(leaf_blocks, leaf_nblocks))
+    return k_bytes, leaves
+
+
+def aggregate_verdict(
+    z: torch.Tensor,
+    k_bytes: torch.Tensor,
+    r_rows: torch.Tensor,
+    s_rows: torch.Tensor,
+    key_rows: torch.Tensor,
+    host_ok: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The aggregate body's second stage, from the coefficients ``z`` to the
+    check: the digits of ``z_i k_i`` and ``z_i``, the base scalar ``u =
+    sum z_i s_i mod L`` (unless ``u`` is given: half-agg's certificate
+    scalar), then :func:`batch_verify_impl` (D1, B3, D2).  Returns its
+    ``(eq_ok, valid)``."""
+    with record_function("ed25519.fused.scalars"):
+        zk_digits = sc.signed_window_digits(sc.mul_mod_l(z, k_bytes), _WINDOWS)
+        z_digits = sc.signed_window_digits(z, _Z_WINDOWS)
+        if u is None:
+            u = sc.sum_mod_l(sc.mul_mod_l(z, s_rows.to(torch.int32)))
+    r = r_rows.to(torch.int32)
+    key = key_rows.to(torch.int32)
+    y_r = torch.cat([r[:31], (r[31] & 0x7F)[None]])
+    y_a = torch.cat([key[:31], (key[31] & 0x7F)[None]])
+    return batch_verify_impl(y_r, r[31] >> 7, y_a, key[31] >> 7, u, zk_digits, z_digits, host_ok)
+
+
 @functools.lru_cache(maxsize=None)
 def _fused_aggregate_kernel(
     name: str, tag: bytes, n: int, padded: int, fixed_z1: bool, u_input: bool
 ):
     """One aggregate body, booked under ``name`` in the kernel ledger: the
-    device Fiat-Shamir transcript (:func:`device_transcript`) feeding the
-    shared-doubling MSM.  Cached by the JAX module's graph key.
+    device Fiat-Shamir transcript (:func:`aggregate_leaves`, then
+    :func:`transcript_coefficients`) feeding the shared-doubling MSM
+    (:func:`aggregate_verdict`).  Cached by the JAX module's graph key.
 
     ``fixed_z1`` pins lane 0's coefficient to 1 (half-aggregation);
     ``u_input`` takes the aggregate base scalar from the certificate instead
     of computing ``sum z_i s_i mod L`` from per-lane S (which half-agg
     verifiers never see)."""
 
-    def impl(
+    def kernel(
         r_rows,        # (32, padded) R bytes
         s_rows,        # (32, padded) S bytes (zeros when u_input)
         key_rows,      # (32, padded) A bytes
@@ -405,32 +449,12 @@ def _fused_aggregate_kernel(
         host_ok,       # (padded,)
         u_bytes,       # (32, 1) aggregate base scalar (ignored unless u_input)
     ):
-        r = r_rows.to(torch.int32)
-        key = key_rows.to(torch.int32)
-        with record_function("ed25519.fused.challenge"):
-            # Challenge scalars k_i = H(R_i || A_i || m_i) mod L.
-            k_digest = sh.digest_bytes(sh.sha512_blocks(k_blocks, k_nblocks))
-            k_bytes = sc.reduce_bytes_mod_l(k_digest)
-        with record_function("ed25519.fused.transcript"):
-            z = device_transcript(tag, n, leaf_blocks, leaf_nblocks, fixed_z1=fixed_z1)
-        with record_function("ed25519.fused.scalars"):
-            zk = sc.mul_mod_l(z, k_bytes)
-            zk_digits = sc.signed_window_digits(zk, _WINDOWS)
-            z_digits = sc.signed_window_digits(z, _Z_WINDOWS)
-            if u_input:
-                u = u_bytes.to(torch.int32)
-            else:
-                u = sc.sum_mod_l(sc.mul_mod_l(z, s_rows.to(torch.int32)))
-
-        y_r = torch.cat([r[:31], (r[31] & 0x7F)[None]])
-        y_a = torch.cat([key[:31], (key[31] & 0x7F)[None]])
-        return batch_verify_impl(
-            y_r, r[31] >> 7, y_a, key[31] >> 7, u, zk_digits, z_digits, host_ok
-        )
-
-    def kernel(*args):
         KERNELS.record_launch(name)
-        return impl(*args)
+        k_bytes, leaves = aggregate_leaves(k_blocks, k_nblocks, leaf_blocks, leaf_nblocks)
+        with record_function("ed25519.fused.transcript"):
+            z = transcript_coefficients(tag, n, leaves, padded, fixed_z1=fixed_z1)
+        u = u_bytes.to(torch.int32) if u_input else None
+        return aggregate_verdict(z, k_bytes, r_rows, s_rows, key_rows, host_ok, u)
 
     return kernel
 
@@ -633,6 +657,8 @@ __all__ = [
     "FusedEd25519BatchVerifier",
     "FusedEd25519RandomizedBatchVerifier",
     "aggregate_layout",
+    "aggregate_leaves",
+    "aggregate_verdict",
     "canonical_ok_fast",
     "device_transcript",
     "fused_aggregate_check",

@@ -19,9 +19,9 @@ registry, is
 where nvcc ran, a hit where an existing build in ``csrc/build/`` was
 loaded) and how each sharded engine's body was obtained from the
 compiled-kernel memo (``parallel/sharding.py::compiled_kernel``: a miss
-where it was built, which also books a compile under the body's name, a
-hit where a rebuilt engine reused it).  ``flops`` and ``bytes_accessed`` stay None: there is no XLA cost
-analysis to read.
+where it was built, a hit where a rebuilt engine reused it; a body is no
+build, so it books no compile).  ``flops`` and ``bytes_accessed`` stay
+None: there is no XLA cost analysis to read.
 """
 
 from __future__ import annotations

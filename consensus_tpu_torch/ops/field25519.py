@@ -254,17 +254,18 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def pow_const(x: torch.Tensor, exponent: int) -> torch.Tensor:
     """x ** exponent for a fixed public exponent, MSB-first square and
-    multiply.  The exponent is public, so the choice on each bit is taken
-    in Python; the multiply runs on every bit, as in the JAX ladder's
-    select, so the work (and the counting shim's count) is the JAX
-    module's."""
+    multiply.  The exponent is public, so the branch on each bit is taken
+    in Python: the same values as the JAX ladder's select.  The JAX ladder
+    multiplies on every bit, so under the counting shim a 0 bit notes the
+    multiply it skips."""
     bits = [(exponent >> i) & 1 for i in range(exponent.bit_length())][::-1]
     acc = x  # first bit is always 1
     for bit in bits[1:]:
         acc = square(acc)
-        product = mul(acc, x)
         if bit:
-            acc = product
+            acc = mul(acc, x)
+        elif limbs.counting():
+            limbs.note_mul(limbs.lanes_of(acc, x))
     return acc
 
 

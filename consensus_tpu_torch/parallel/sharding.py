@@ -19,7 +19,7 @@ process and no such runtime, so each engine here
 3. reduces once: ``psum`` becomes one sum of the per-shard counts on the
    first shard's device, ``all_gather`` (the fused randomized transcript's
    leaf table) a ``torch.cat`` of the shards' leaf digests in global lane
-   order, copied to each shard's device; the verdicts and the sum come
+   order, copied to each shard's device; the verdicts (and the sum) come
    back in one read.
 
 A mesh may repeat a device: ``[cuda:0] * 2`` is two virtual shards on one
@@ -31,9 +31,8 @@ kernels in every shard, since on a CUDA tensor a kernel always runs
 Body construction rides an in-process ``(kernel, mesh[, shape])`` -> body
 memo (:func:`compiled_kernel`), booked in
 :data:`~consensus_tpu_torch.obs.kernels.COMPILE_CACHE`: rebuilding an engine
-over the same mesh reuses the body, builds no kernel library again (the
-libraries are loaded once per process) and books no new compile in the
-kernel ledger.
+over the same mesh reuses the body and builds no kernel library again (the
+libraries are loaded once per process).
 """
 
 from __future__ import annotations
@@ -42,19 +41,16 @@ from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from consensus_tpu_torch.device import DeviceLike
 from consensus_tpu_torch.models.ecdsa_p256 import EcdsaP256BatchVerifier
 from consensus_tpu_torch.models.ecdsa_p256 import verify_impl as p256_verify_impl
 from consensus_tpu_torch.models.ed25519 import (
-    _WINDOWS,
     _Z_TAG,
-    _Z_WINDOWS,
     L,
     Ed25519BatchVerifier,
     Ed25519RandomizedBatchVerifier,
-    _bits_to_comb_digits8,
-    _bytes_rows_to_bits,
     batch_verify_impl,
     verify_impl,
 )
@@ -64,12 +60,12 @@ from consensus_tpu_torch.models.fused import (
     _byte_rows,
     _to_device,
     aggregate_layout,
+    aggregate_leaves,
+    aggregate_verdict,
     fused_verify_impl,
     transcript_coefficients,
 )
 from consensus_tpu_torch.obs.kernels import COMPILE_CACHE, KERNELS
-from consensus_tpu_torch.ops import scalar25519 as sc
-from consensus_tpu_torch.ops import sha512 as sh
 from consensus_tpu_torch.parallel.mesh import DeviceMesh
 from consensus_tpu_torch.parallel.topology import (
     BATCH_AXIS,
@@ -90,32 +86,21 @@ _COMPILED_KERNELS: dict = {}
 
 
 def compiled_kernel(
-    name: str,
-    mesh: DeviceMesh,
-    builder: Callable[[], Callable],
-    *,
-    memo: bool = True,
-    extra: tuple = (),
+    name: str, mesh: DeviceMesh, builder: Callable[[], Callable], *, extra: tuple = ()
 ) -> Callable:
     """The in-process ``(kernel, mesh[, shape])`` -> sharded-body memo.
 
     Two engines over the same mesh run the same body, so it is shared: a
-    rebuilt engine books a hit in
-    :data:`~consensus_tpu_torch.obs.kernels.COMPILE_CACHE` and no new
-    compile under ``name`` in the kernel ledger.  A miss (a first build, or
-    ``memo=False``) books a miss and one compile.  ``extra`` extends the key
-    for shape-specialized bodies (the fused aggregate's ``(tag, n,
-    padded)``)."""
+    first build books a miss in
+    :data:`~consensus_tpu_torch.obs.kernels.COMPILE_CACHE`, a rebuilt engine
+    a hit.  The kernel ledger's ``compiles`` count nvcc builds only, so a
+    body books none.  ``extra`` extends the key for shape-specialized bodies
+    (the fused aggregate's ``(tag, n, padded)``)."""
     key = (name, mesh.key(), extra)
-    fn = _COMPILED_KERNELS.get(key) if memo else None
+    fn = _COMPILED_KERNELS.get(key)
+    COMPILE_CACHE.record(hit=fn is not None)
     if fn is None:
-        COMPILE_CACHE.record(hit=False)
-        KERNELS.record_compile(name)
-        fn = builder()
-        if memo:
-            _COMPILED_KERNELS[key] = fn
-    else:
-        COMPILE_CACHE.record(hit=True)
+        fn = _COMPILED_KERNELS[key] = builder()
     return fn
 
 
@@ -183,15 +168,13 @@ def _read_back(lanes: torch.Tensor, scalar: torch.Tensor) -> tuple[np.ndarray, i
 def _verdict_body(mesh: DeviceMesh, name: str, impl: Callable) -> Callable:
     """A strict body over ``mesh``: ``run(*layout)`` books one call of
     ``name``, runs ``impl`` on every shard's slice of the padded host arrays
-    and returns ``(ok, total)``: the verdicts in global lane order and their
-    psum-style valid count, read back once."""
+    and returns the verdicts in global lane order, read back once."""
     dev0 = mesh.shard_devices()[0]
 
     def run(*arrays):
         KERNELS.record_launch(name)
         oks = [impl(*shard) for shard in _shards(mesh, arrays)]
-        ok, total = _read_back(_gather(oks, dev0), _psum([o.sum() for o in oks], dev0))
-        return ok.astype(bool), total
+        return _gather(oks, dev0).cpu().numpy()
 
     return run
 
@@ -203,8 +186,7 @@ class _MeshEngine:
     ``mesh`` is a :data:`MeshLike` (a topology or ``None`` is built over the
     visible devices of ``device``); the engine's own ``device`` (the
     reduction's, and the randomized engines' strict floor's) is the first
-    shard's.  ``compile_cache=False`` opts this
-    engine out of the process-wide body memo."""
+    shard's."""
 
     @staticmethod
     def _mesh_and_device(mesh: MeshLike, device: DeviceLike) -> tuple[DeviceMesh, torch.device]:
@@ -217,12 +199,9 @@ class _MeshEngine:
         return mesh, mesh.shard_devices()[0]
 
     def _init_mesh(self, mesh: DeviceMesh, kernel_name: str,
-                   builder: Callable[[DeviceMesh], Callable], compile_cache: bool = True) -> None:
+                   builder: Callable[[DeviceMesh], Callable]) -> None:
         self.mesh = mesh
-        self._compile_cache = bool(compile_cache)
-        self._fn = compiled_kernel(
-            kernel_name, mesh, lambda: builder(mesh), memo=self._compile_cache
-        )
+        self._fn = compiled_kernel(kernel_name, mesh, lambda: builder(mesh))
         self._n_shards = mesh.size
 
     @property
@@ -265,8 +244,7 @@ class _ShardedWave(_MeshEngine):
             return np.zeros(0, dtype=bool)
         if n < self._min_device_batch:
             return self._verify_host(messages, signatures, public_keys)
-        ok, _total = self._fn(*self.host_layout(messages, signatures, public_keys))
-        return ok[:n]
+        return self._fn(*self.host_layout(messages, signatures, public_keys))[:n]
 
 
 # --- strict Ed25519 -----------------------------------------------------------
@@ -281,11 +259,10 @@ def sharded_verify_fn(mesh: DeviceMesh) -> Callable:
 class ShardedEd25519Verifier(_ShardedWave, Ed25519BatchVerifier):
     """Batch verifier that spreads the batch across a device mesh."""
 
-    def __init__(self, mesh: MeshLike = None, *, compile_cache: bool = True,
-                 device: DeviceLike = None, **kw) -> None:
+    def __init__(self, mesh: MeshLike = None, *, device: DeviceLike = None, **kw) -> None:
         mesh, device = self._mesh_and_device(mesh, device)
         super().__init__(device=device, **kw)
-        self._init_mesh(mesh, "ed25519.sharded_verify", sharded_verify_fn, compile_cache)
+        self._init_mesh(mesh, "ed25519.sharded_verify", sharded_verify_fn)
 
 
 # --- ECDSA-P256 -----------------------------------------------------------------
@@ -301,11 +278,10 @@ class ShardedEcdsaP256Verifier(_ShardedWave, EcdsaP256BatchVerifier):
     """ECDSA-P256 batch verifier spread across a device mesh (the base
     class's preparation and validation; only the launch differs)."""
 
-    def __init__(self, mesh: MeshLike = None, *, compile_cache: bool = True,
-                 device: DeviceLike = None, **kw) -> None:
+    def __init__(self, mesh: MeshLike = None, *, device: DeviceLike = None, **kw) -> None:
         mesh, device = self._mesh_and_device(mesh, device)
         super().__init__(device=device, **kw)
-        self._init_mesh(mesh, "ecdsa_p256.sharded_verify", sharded_p256_verify_fn, compile_cache)
+        self._init_mesh(mesh, "ecdsa_p256.sharded_verify", sharded_p256_verify_fn)
 
 
 # --- randomized Ed25519 -------------------------------------------------------
@@ -340,23 +316,21 @@ class ShardedEd25519RandomizedVerifier(_MeshEngine, Ed25519RandomizedBatchVerifi
     coefficients, the host fallback and the strict floor are inherited, so
     verdicts are exactly the single-device engine's."""
 
-    def __init__(self, mesh: MeshLike = None, *, compile_cache: bool = True,
-                 device: DeviceLike = None, **kw) -> None:
+    def __init__(self, mesh: MeshLike = None, *, device: DeviceLike = None, **kw) -> None:
         mesh, device = self._mesh_and_device(mesh, device)
         super().__init__(device=device, **kw)
-        self._init_mesh(mesh, "ed25519.sharded_batch_verify", sharded_batch_verify_fn,
-                        compile_cache)
+        self._init_mesh(mesh, "ed25519.sharded_batch_verify", sharded_batch_verify_fn)
 
-    def _base_scalar_digits(self, idx, scalars, zs, padded) -> np.ndarray:
-        """One comb column per shard: lane j lives on shard j // per, so u_s
-        sums z s over exactly that shard's live lanes; a padding-only shard
-        gets u_s = 0 (the comb's identity)."""
+    def _base_scalars(self, idx, scalars, zs, padded, u) -> list[int]:
+        """One base scalar per shard (one comb column each): lane j lives on
+        shard j // per, so u_s sums z s over exactly that shard's live lanes;
+        a padding-only shard gets u_s = 0 (the comb's identity)."""
         per = padded // self._n_shards
-        u_rows = np.zeros((self._n_shards, 32), dtype=np.uint8)
-        for s in range(self._n_shards):
-            u_s = sum(zs[j] * scalars[idx[j]][0] for j in range(s * per, min((s + 1) * per, len(idx))))
-            u_rows[s] = np.frombuffer((u_s % L).to_bytes(32, "little"), dtype=np.uint8)
-        return _bits_to_comb_digits8(_bytes_rows_to_bits(u_rows))
+        return [
+            sum(z * scalars[i][0] for z, i in zip(zs[s * per:(s + 1) * per],
+                                                  idx[s * per:(s + 1) * per])) % L
+            for s in range(self._n_shards)
+        ]
 
     def _aggregate_device(self, idx, signatures, public_keys, scalars, zs):
         eq_ok, valid = self._fn(*self._aggregate_layout(idx, signatures, public_keys, scalars, zs))
@@ -379,12 +353,10 @@ class ShardedFusedEd25519Verifier(_ShardedWave, FusedEd25519BatchVerifier):
     (``Configuration.device_prep`` with a multi-device topology); verdicts
     are those of every other strict engine."""
 
-    def __init__(self, mesh: MeshLike = None, *, compile_cache: bool = True,
-                 device: DeviceLike = None, **kw) -> None:
+    def __init__(self, mesh: MeshLike = None, *, device: DeviceLike = None, **kw) -> None:
         mesh, device = self._mesh_and_device(mesh, device)
         super().__init__(device=device, **kw)
-        self._init_mesh(mesh, "ed25519.sharded_fused_verify", sharded_fused_verify_fn,
-                        compile_cache)
+        self._init_mesh(mesh, "ed25519.sharded_fused_verify", sharded_fused_verify_fn)
 
 
 def sharded_transcript(
@@ -409,11 +381,13 @@ def sharded_fused_aggregate_fn(mesh: DeviceMesh, tag: bytes, n: int, padded: int
     """The fused randomized-aggregate check over ``mesh``.
 
     Device Fiat-Shamir with one gather: each shard hashes its own lanes'
-    challenges and transcript leaves (S1), the leaf table is gathered
-    (:func:`sharded_transcript`), each shard hashes the one-lane root and
-    its lanes' coefficients, then checks an independent aggregate over its
-    lanes with its own base scalar ``u_s = sum z_i s_i`` (B3, D1, D2); pad
-    lanes carry s = 0 and masked digits, so a padding-only shard votes ok.
+    challenges and transcript leaves (S1, :func:`aggregate_leaves`), the
+    leaf table is gathered (:func:`sharded_transcript`), each shard hashes
+    the one-lane root and its lanes' coefficients, then checks an
+    independent aggregate over its lanes with its own base scalar ``u_s =
+    sum z_i s_i`` (B3, D1, D2; :func:`aggregate_verdict`); pad lanes carry
+    s = 0 and masked digits, so a padding-only shard votes ok.  The stages
+    keep the single engine's ``ed25519.fused.*`` ranges.
     Every shard hashes the root, so N shards on one card pay N root hashes.
     Specialized per ``(tag, n, padded)`` like the single engine's bodies."""
     n_shards = mesh.size
@@ -421,32 +395,16 @@ def sharded_fused_aggregate_fn(mesh: DeviceMesh, tag: bytes, n: int, padded: int
         raise ValueError("padded batch must be a multiple of the mesh size")
     dev0 = mesh.shard_devices()[0]
 
-    def run(r_rows, s_rows, key_rows, k_blocks, k_nblocks, leaf_blocks, leaf_nblocks, host_ok):
+    def run(*arrays):
         KERNELS.record_launch("ed25519.sharded_fused_batch_verify")
-        shards = _shards(
-            mesh,
-            [r_rows, s_rows, key_rows, k_blocks, k_nblocks, leaf_blocks, leaf_nblocks, host_ok],
-        )
-        k_bytes = [
-            sc.reduce_bytes_mod_l(sh.digest_bytes(sh.sha512_blocks(kb, kn)))
-            for _, _, _, kb, kn, _, _, _ in shards
+        shards = _shards(mesh, arrays)
+        fronts = [aggregate_leaves(kb, kn, lb, ln) for _, _, _, kb, kn, lb, ln, _ in shards]
+        with record_function("ed25519.fused.transcript"):
+            zs = sharded_transcript(mesh, tag, n, padded, [leaves for _, leaves in fronts])
+        results = [
+            aggregate_verdict(z, k_bytes, r, s, key, ok)
+            for (r, s, key, _, _, _, _, ok), (k_bytes, _), z in zip(shards, fronts, zs)
         ]
-        leaves = [
-            sh.digest_bytes(sh.sha512_blocks(lb, ln)) for _, _, _, _, _, lb, ln, _ in shards
-        ]
-        zs = sharded_transcript(mesh, tag, n, padded, leaves)
-        results = []
-        for (r, s, key, _, _, _, _, ok), kb, z in zip(shards, k_bytes, zs):
-            r = r.to(torch.int32)
-            key = key.to(torch.int32)
-            zk_digits = sc.signed_window_digits(sc.mul_mod_l(z, kb), _WINDOWS)
-            z_digits = sc.signed_window_digits(z, _Z_WINDOWS)
-            u = sc.sum_mod_l(sc.mul_mod_l(z, s.to(torch.int32)))
-            y_r = torch.cat([r[:31], (r[31] & 0x7F)[None]])
-            y_a = torch.cat([key[:31], (key[31] & 0x7F)[None]])
-            results.append(batch_verify_impl(
-                y_r, r[31] >> 7, y_a, key[31] >> 7, u, zk_digits, z_digits, ok
-            ))
         bad = _psum([~eq for eq, _ in results], dev0)
         valid, bad = _read_back(_gather([v for _, v in results], dev0), bad)
         return bad == 0, valid.astype(bool)
@@ -462,17 +420,13 @@ class ShardedFusedEd25519RandomizedVerifier(
     canonical pre-filter are the single-device fused engine's; only the two
     launch seams are re-routed."""
 
-    def __init__(self, mesh: MeshLike = None, *, compile_cache: bool = True,
-                 device: DeviceLike = None, **kw) -> None:
+    def __init__(self, mesh: MeshLike = None, *, device: DeviceLike = None, **kw) -> None:
         # The randomized base consumes min_randomized before the strict
         # chain; with the diamond MRO here the strict chain skips it, so it
         # is popped and set explicitly (the base's clamp).
         min_randomized = kw.pop("min_randomized", 2)
-        ShardedFusedEd25519Verifier.__init__(
-            self, mesh, compile_cache=compile_cache, device=device, **kw
-        )
+        ShardedFusedEd25519Verifier.__init__(self, mesh, device=device, **kw)
         self._min_randomized = max(2, int(min_randomized))
-        self._agg_fns: dict = {}
 
     def _strict_floor(self, messages, signatures, public_keys) -> np.ndarray:
         return ShardedFusedEd25519Verifier.verify_batch(self, messages, signatures, public_keys)
@@ -485,17 +439,12 @@ class ShardedFusedEd25519RandomizedVerifier(
             [public_keys[i] for i in idx], [signatures[i] for i in idx], padded,
             _byte_rows([bytes(signatures[i])[32:] for i in idx], 32),
         )
-        # The instance memo first, then the process-wide one, so a rebuilt
-        # engine reuses the body.
-        fn = self._agg_fns.get((m, padded))
-        if fn is None:
-            fn = self._agg_fns[(m, padded)] = compiled_kernel(
-                "ed25519.sharded_fused_batch_verify",
-                self.mesh,
-                lambda: sharded_fused_aggregate_fn(self.mesh, _Z_TAG, m, padded),
-                memo=self._compile_cache,
-                extra=(_Z_TAG, m, padded),
-            )
+        fn = compiled_kernel(
+            "ed25519.sharded_fused_batch_verify",
+            self.mesh,
+            lambda: sharded_fused_aggregate_fn(self.mesh, _Z_TAG, m, padded),
+            extra=(_Z_TAG, m, padded),
+        )
         eq_ok, valid = fn(*layout)
         return bool(eq_ok), valid[:m].tolist()
 

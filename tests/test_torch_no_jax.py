@@ -97,13 +97,11 @@ def test_chip_smoke_phases_rehearse_on_cpu():
 
 def test_horner_bound_counts_the_work():
     b = chip_smoke.horner_bound(8192, sm_count=132, sm_clock_hz=1.98e9)
-    # 2,495 field products per lane, of which 768 are squarings (the
-    # counting shim's count of the plain version, held to it in
-    # tests/test_torch_limbs_counting.py).
-    assert (chip_smoke.HORNER_MULS, chip_smoke.HORNER_SQUARES) == (1727, 768)
+    # 2,495 field products per lane, of which 1,024 are squarings.
+    assert (chip_smoke.HORNER_MULS, chip_smoke.HORNER_SQUARES) == (1471, 1024)
     assert (chip_smoke.MUL_PRODUCTS, chip_smoke.SQUARE_PRODUCTS) == (72, 44)
     assert b["bytes"] == 8 * 32 * 8192 * 4 + 64 * 8192 * 4
-    assert b["products"] == (1727 * 72 + 768 * 44) * 8192
+    assert b["products"] == (1471 * 72 + 1024 * 44) * 8192
     assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
 
 

@@ -216,19 +216,19 @@ def test_msm_bound_counts_the_work():
     b = chip_smoke.msm_bound(8192, 6790, 33, sm_count=132, sm_clock_hz=1.98e9)
     # Per live lane two 9-entry tables (3 adds and 4 doubles with T each),
     # 33 combining adds and 64 summing adds; one chain of 64 windows of 3
-    # doubles without T and 1 with T (the counting shim's counts of the
-    # plain version, held to it in tests/test_torch_limbs_counting.py).
+    # doubles without T and 1 with T (held to the counting shim's count of
+    # the plain version in tests/test_torch_limbs_counting.py).
     assert b["adds"] == 6790 * (6 + 33 + 64) == 699_370
     assert b["doubles"] == 64 * 4 + 6790 * 8
     assert b["products"] == (
-        699_370 * 9 * 72 + 192 * (4 * 72 + 3 * 44) + (64 + 6790 * 8) * (5 * 72 + 3 * 44)
+        699_370 * 9 * 72 + 192 * (3 * 72 + 4 * 44) + (64 + 6790 * 8) * (4 * 72 + 4 * 44)
     )
-    assert b["products"] == 480029328
+    assert b["products"] == 478_501_200
     assert b["bytes"] == (8 * 32 + 64 + 33) * 8192 * 4 + 4 * 32 * 4
     assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"] > b["bytes_ms"]
-    assert abs(b["ops_ms"] - 0.028698) < 1e-6
+    assert abs(b["ops_ms"] - 0.028606) < 1e-6
     # Masked lanes cost nothing; the chain is paid once whatever the width.
-    assert chip_smoke.msm_bound(8192, 0, 33, 132, 1.98e9)["products"] == 80_640 + 31_488
+    assert chip_smoke.msm_bound(8192, 0, 33, 132, 1.98e9)["products"] == 75_264 + 29_696
 
 
 # The split-role point operations of the chain, run role after role: what
