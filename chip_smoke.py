@@ -166,6 +166,18 @@ Phases:
    verdicts the strict engine's; and a 2-shard mesh with no device list
    raises on a one-card machine.  Virtual shards measure the split and its
    launches, not scaling over cards.
+21. the tensor-core field lane (``CTPU_MXU_LIMBS=1``, kernel M1 of
+   ``csrc/mxu_limbs.cu``): M1's IMMA instructions counted in its SASS (none
+   fails the phase); M1 through its wrapper at 8,192, 2,048, 1,024 and 1
+   lanes and a (32, 1) constant against 8,192, over the three Ed25519 and
+   two P-256 operand ranges, bit-identical (raw limbs) to the plain version
+   on CPU copies and to the VPU lane's eager torch on the card; its time
+   through the wrapper and alone beside the eager product's, the plain
+   version's, ``torch._int_mm``'s one byte plane and the bound; then the
+   strict, randomized and P-256 waves with the lane off and on (Ed25519
+   through ``engine_for_config`` under ``CTPU_MXU_LIMBS=1``, booked as
+   ``ed25519.verify_mxu`` and the like; P-256 under ``force_mxu_limbs``):
+   verdicts equal, M1's launches, wall ms, busy share and peak memory.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -175,6 +187,7 @@ raises and exits non-zero.  It runs on CUDA only; the phases take a
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import hashlib
@@ -227,6 +240,7 @@ from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
+from consensus_tpu_torch.ops import mxu_limbs
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.ops import sha512 as sh
@@ -2827,6 +2841,313 @@ def phase_mesh(device, corpora: dict, waves=tuple(MESH_WAVES), wide=MESH_WIDE,
     return out
 
 
+# --- phase 21: the tensor-core field lane (kernel M1) -----------------------------
+
+#: Dense MACs the counting shim books for one product a lane: the outer
+#: product (32 x 1 x 32) and the column assembly (63 x 1 x 1024), and for
+#: P-256 the Solinas contraction (32 x 1 x 64) (tests/test_mxu_limbs.py:452-473).
+MXU_MACS = {"ed25519": 32 * 32 + 63 * 1024, "p256": 32 * 32 + 63 * 1024 + 32 * 64}
+#: Dense int8 tensor-core operations a second of an H100 SXM (NVIDIA data
+#: sheet; a MAC is two operations).
+INT8_OPS_PER_S = 1979e12
+#: M1's widths on the main path: the strict wave's add_and_equal (8,192),
+#: the P-256 comb and check (2,048), phase 12's waves (1,024), a certificate
+#: (1); and the broadcast case, a (32, 1) constant against 8,192 lanes.
+MXU_WIDTHS = (8192, 2048, 1024, 1)
+MXU_BROADCAST_LANES = 8192
+#: The operand ranges of tests/test_mxu_limbs.py: canonical bytes, one raw
+#: add/sub level and the subtraction bias's range; P-256's bytes and its
+#: weak bound.  The last of each is timed.
+MXU_RANGES = {"ed25519": ((0, 256), (-340, 341), (-345, 681)), "p256": ((0, 256), (-600, 601))}
+#: (the lane's product, the VPU lane's) by curve.
+MXU_PRODUCTS = {"ed25519": (mxu_limbs.mul25519, fe.mul), "p256": (mxu_limbs.mul_p256, fp.mul)}
+#: Phase 21's waves: (corpus key, replicas, engine config, curve, profiled
+#: ranges, the ranges' kernel).
+MXU_WAVES = {
+    "strict": ("strict", REPLICAS, {}, "ed25519", WAVE_RANGES, "horner_scan"),
+    "randomized": ("randomized", REPLICAS, {"batch_verify_mode": True}, "ed25519",
+                   BATCH_RANGES, "straus_msm"),
+    "p256": ("p256", P256_REPLICAS, {}, "p256", P256_WAVE_RANGES, "horner_scan_p256"),
+}
+
+
+def mxu_bound(lanes: int, curve: str, n_bytes: int) -> dict:
+    """The least time of ``lanes`` products: the counting shim's dense MACs
+    at the card's int8 tensor-core rate, or the bytes (each operand row read
+    once, the output written once) over 3.35 TB/s, whichever is larger."""
+    ops_ms = 2 * MXU_MACS[curve] * lanes / INT8_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "macs": MXU_MACS[curve] * lanes, "ops_ms": ops_ms, "bytes": n_bytes,
+        "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def sass_imma_count(library: str) -> dict:
+    """The IMMA (integer tensor-core MMA) instructions of each function in
+    ``cuobjdump -sass`` of ``library``."""
+    cuobjdump = Path(scan_kernels._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bIMMA\b", line):
+            counts[name] += 1
+    return counts
+
+
+@contextlib.contextmanager
+def lane_from_environment():
+    """``CTPU_MXU_LIMBS=1`` inside the block, as a deployment sets it; the
+    environment as it was after."""
+    prev = os.environ.get("CTPU_MXU_LIMBS")
+    os.environ["CTPU_MXU_LIMBS"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["CTPU_MXU_LIMBS"]
+        else:
+            os.environ["CTPU_MXU_LIMBS"] = prev
+
+
+def _check_mxu(curve: str, a: torch.Tensor, b: torch.Tensor, device) -> float:
+    """M1 through the wrapper on ``device`` against the plain version on CPU
+    copies of the inputs and the VPU lane's eager torch on ``device``:
+    raises unless all three are bit-identical (raw limbs, no freeze);
+    returns the largest absolute difference."""
+    product, vpu = MXU_PRODUCTS[curve]
+    got = product(a.to(device), b.to(device)).cpu()
+    plain = product(a.cpu(), b.cpu())
+    with mxu_limbs.suppress_mxu_limbs():
+        want = vpu(a.to(device), b.to(device)).cpu()
+    for label, other in (("the plain version", plain), ("the VPU lane", want)):
+        if got.shape != other.shape or not torch.equal(got, other):
+            raise AssertionError(f"M1 ({curve}, {tuple(a.shape)} x {tuple(b.shape)}) differs "
+                                 f"from {label}")
+    return float((got - plain).abs().max())
+
+
+def _int_mm_ms(lanes: int, reps: int, device) -> float | None:
+    """``torch._int_mm`` on one byte plane's (64 x 1024) x (1024 x lanes)
+    int8 product: the one library call that computes part of M1's work.
+    None where it refuses (on the CPU, say)."""
+    if device.type != "cuda":
+        return None
+    c = torch.zeros((64, 1024), dtype=torch.int8)
+    for i in range(32):
+        for j in range(32):
+            c[i + j, 32 * i + j] = 1
+    c = c.to(device)
+    plane = torch.randint(0, 128, (lanes, 1024), dtype=torch.int8, device=device).t()
+    try:
+        torch._int_mm(c, plane)
+    except RuntimeError as exc:
+        log(f"  torch._int_mm refused the plane's product: {exc}")
+        return None
+    return _time_ms(lambda: torch._int_mm(c, plane), reps, device)
+
+
+def phase_mxu_kernel(device, reps: int, plain_reps: int, widths=MXU_WIDTHS,
+                     broadcast_lanes: int = MXU_BROADCAST_LANES) -> dict:
+    """Kernel M1 at every width of ``widths`` and in the broadcast case
+    (``broadcast_lanes`` against a (32, 1) constant, either side), over
+    every operand range of ``MXU_RANGES``: products and squares held at
+    tolerance 0 to the plain version and the VPU lane.  Then, per curve and
+    width on the widest range: M1 through the wrapper (``ms``), its launches
+    alone (``launch_ms``), the VPU lane's eager product (``vpu_ms``), the
+    plain version on the CPU (``plain_ms``, host clock) and the bound; and
+    ``torch._int_mm``'s one-plane product at the first width."""
+    device = torch.device(device)
+    out: dict = {"max_abs_err": 0.0, "checks": 0, "times": {}, "widths": widths,
+                 "broadcast_lanes": broadcast_lanes}
+    seed = SEED
+    for curve, ranges in MXU_RANGES.items():
+        for bounds in ranges:
+            shapes = [(n, n) for n in widths] + [(1, broadcast_lanes), (broadcast_lanes, 1)]
+            for a_lanes, b_lanes in shapes:
+                seed += 1
+                rng = np.random.default_rng(seed)
+                a, b = (torch.from_numpy(rng.integers(*bounds, (32, n)).astype(np.float32))
+                        for n in (a_lanes, b_lanes))
+                err = _check_mxu(curve, a, b, device)
+                if a_lanes == b_lanes:
+                    err = max(err, _check_mxu(curve, a, a, device))
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["checks"] += 2 if a_lanes == b_lanes else 1
+        product, vpu = MXU_PRODUCTS[curve]
+        rng = np.random.default_rng(SEED + 100)
+        for n in widths:
+            a_cpu, b_cpu = (torch.from_numpy(rng.integers(*ranges[-1], (32, n)).astype(np.float32))
+                            for _ in range(2))
+            a, b = a_cpu.to(device), b_cpu.to(device)
+            product(a, b)
+            row = {"ms": _time_ms(lambda: product(a, b), reps, device)}
+            if device.type == "cuda":
+                dst = torch.empty_like(a)
+                args = (mxu_limbs._CURVES[curve], 0, 0)
+                row["launch_ms"] = _time_ms(
+                    lambda: scan_kernels._launch("mxu_limbs", (a, b), (dst,), n, device, args),
+                    reps, device)
+            else:
+                row["launch_ms"] = None
+            with mxu_limbs.suppress_mxu_limbs():
+                vpu(a, b)
+                row["vpu_ms"] = _time_ms(lambda: vpu(a, b), reps, device)
+            row["plain_ms"] = _time_ms(lambda: product(a_cpu, b_cpu), plain_reps,
+                                       torch.device("cpu"))
+            row["bound"] = mxu_bound(n, curve, 3 * 32 * 4 * n)
+            out["times"][(curve, n)] = row
+    out["library_ms"] = _int_mm_ms(widths[0], reps, device)
+    return out
+
+
+#: The order phase 21 times a wave's two lanes in: in turns, so drift on
+#: the host's clock falls on both.
+MXU_TURNS = ("off", "on", "on", "off")
+
+
+def _lane(lane: str, curve: str):
+    """The lane's context: the VPU lane under ``suppress_mxu_limbs``; the
+    tensor-core lane from ``CTPU_MXU_LIMBS=1`` for Ed25519 (the registry's
+    ``mxu`` keys) and under ``force_mxu_limbs`` for P-256, whose ``mxu``
+    keys the registry refuses."""
+    if lane == "off":
+        return mxu_limbs.suppress_mxu_limbs()
+    return mxu_limbs.force_mxu_limbs() if curve == "p256" else lane_from_environment()
+
+
+def phase_mxu_waves(device, corpora: dict, waves=tuple(MXU_WAVES),
+                    replicas: dict | None = None, turns=MXU_TURNS) -> dict:
+    """Phase 3's strict, phase 7's randomized and phase 5's P-256 waves with
+    the lane off and on, each lane's engine from ``engine_for_config``
+    under its lane and warmed up by one uncounted call, then timed calls in
+    ``turns``, each with the launch counts set to 0 just before it and read
+    just after: verdicts equal across every call (and to the
+    construction), M1 launched only with the lane on and every other kernel
+    as often, wall ms (host clock, ending in synchronize), the device's
+    busy share over one profiled re-run a lane, peak device memory.  The
+    Ed25519 lane-on engines book their calls under the ``_mxu`` names."""
+    device = torch.device(device)
+    out = {}
+    for name in waves:
+        corpus_key, n_rep, knobs, curve, ranges, kernel = MXU_WAVES[name]
+        n_rep = (replicas or {}).get(name, n_rep)
+        msgs, sigs, keys, want = replica_wave(corpora[corpus_key], n_rep)
+        engines = {}
+        for lane in ("off", "on"):
+            with _lane(lane, curve):
+                engines[lane] = engine_for_config(Configuration(**knobs), curve=curve,
+                                                  device=device)
+                engines[lane].verify_batch(msgs, sigs, keys)
+        runs = {lane: {"ms": []} for lane in ("off", "on")}
+        for lane in turns:
+            run = runs[lane]
+            with _lane(lane, curve):
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                booked = KERNELS.snapshot()
+                _reset_launch_counts()
+                t0 = time.perf_counter()
+                got = engines[lane].verify_batch(msgs, sigs, keys)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                launches = _kernel_launches()
+                calls = {k: v["launches"] - booked.get(k, {}).get("launches", 0)
+                         for k, v in KERNELS.snapshot().items()
+                         if k not in scan_kernels.KERNELS
+                         and v["launches"] != booked.get(k, {}).get("launches", 0)}
+                peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+            if got.shape != want.shape or not np.array_equal(got, want):
+                wrong = np.flatnonzero(got != want)
+                raise AssertionError(f"{name} wave, lane {lane}: verdicts differ from the "
+                                     f"construction at {wrong[:16]}")
+            if run.setdefault("launches", launches) != launches or \
+                    run.setdefault("calls", calls) != calls:
+                raise AssertionError(f"{name} wave, lane {lane}: launches {launches} and calls "
+                                     f"{calls} differ from the lane's first call's")
+            run["peak_bytes"] = peak
+        for lane in ("off", "on"):
+            with _lane(lane, curve):
+                prof = profile_wave(engines[lane], msgs, sigs, keys, device, wave_ranges=ranges,
+                                    kernel=kernel)
+            if not np.array_equal(prof["verdicts"], want):
+                raise AssertionError(f"{name} wave, lane {lane}: the profiled re-run disagrees")
+            runs[lane]["busy_share"] = prof["busy_share"]
+        off, on = runs["off"], runs["on"]
+        on_card = device.type == "cuda"
+        if off["launches"]["mxu_limbs"] or (on_card and not on["launches"]["mxu_limbs"]):
+            raise AssertionError(f"{name} wave: M1 launched {off['launches']['mxu_limbs']} times "
+                                 f"with the lane off and {on['launches']['mxu_limbs']} with it on")
+        if {k: v for k, v in on["launches"].items() if k != "mxu_limbs"} != \
+                {k: v for k, v in off["launches"].items() if k != "mxu_limbs"}:
+            raise AssertionError(f"{name} wave: the lane changed the other kernels' launches: "
+                                 f"{off['launches']} against {on['launches']}")
+        if curve == "ed25519":
+            # The lane-on engine books its device calls under the _mxu names.
+            if any(k.endswith("_mxu") for k in off["calls"]) or not on["calls"] or \
+                    not all(k.endswith("_mxu") for k in on["calls"]):
+                raise AssertionError(f"{name} wave: device calls booked as {off['calls']} "
+                                     f"(lane off) and {on['calls']} (lane on)")
+        out[name] = {"signatures": len(msgs), "rejected": int((~want).sum()),
+                     "off": off, "on": on}
+    return out
+
+
+def _share(x) -> str:
+    return "not measured" if x is None else f"{100 * x:.3f} %"
+
+
+def _num(x) -> str:
+    return "not measured" if x is None else f"{x:.6f}"
+
+
+def log_mxu(k: dict, w: dict, sass: dict, info: scan_kernels.BuildInfo, card: str) -> None:
+    log(f"M1's IMMA instructions (cuobjdump -sass): {sass}")
+    log_ptxas(info)
+    log(f"M1 held at tolerance 0 (raw limbs, no freeze) to the plain version on CPU copies and "
+        f"the VPU lane on the card: {k['checks']} products and squares over "
+        f"{sum(len(r) for r in MXU_RANGES.values())} operand ranges at {list(k['widths'])} lanes "
+        f"and a (32, 1) constant against {k['broadcast_lanes']} lanes either side (max abs err "
+        f"{k['max_abs_err']})")
+    for (curve, n), r in k["times"].items():
+        b = r["bound"]
+        log(f"M1 {curve} product at {n} lanes: {r['ms']:.6f} ms a call through the wrapper, "
+            f"{_num(r['launch_ms'])} ms a launch alone (CUDA events, mean of 20 after warm-up); the "
+            f"VPU lane's eager product {r['vpu_ms']:.6f} ms; the plain version on the CPU "
+            f"{r['plain_ms']:.6f} ms (host clock)")
+        log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: {b['macs']} dense MACs at "
+            f"1,979 int8 TOPS = {b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = "
+            f"{b['bytes_ms']:.6f} ms; M1 at {100 * b['bound_ms'] / r['ms']:.3f} % of it through "
+            f"the wrapper, {_share(r['launch_ms'] and b['bound_ms'] / r['launch_ms'])} alone")
+    lib = k["library_ms"]
+    width = k["widths"][0]
+    log(f"  library: torch._int_mm on one byte plane's (64 x 1024) x (1024 x {width}) int8 "
+        f"product, {'not measured' if lib is None else f'{lib:.6f} ms'} (M1 runs three such planes, "
+        f"the outer product and the reduction); the VPU lane's eager product "
+        f"{k['times'][('ed25519', width)]['vpu_ms']:.6f} ms")
+    for name, r in w.items():
+        for lane in ("off", "on"):
+            x = r[lane]
+            log(f"{name} wave, lane {lane}: {r['signatures']} signatures, {r['rejected']} rejected "
+                f"as constructed; {', '.join(f'{ms:.3f}' for ms in x['ms'])} ms (host clock, calls "
+                f"in the turns {'/'.join(MXU_TURNS)} after one warm-up call a lane, each ending in "
+                f"torch.cuda.synchronize()); M1 launches {x['launches']['mxu_limbs']}; kernels "
+                f"{x['launches']}; device calls booked {x['calls']}; device busy "
+                f"{_share(x['busy_share'])} of a profiled re-run; peak memory "
+                f"{x['peak_bytes']} bytes")
+        log(f"  {name}: verdicts equal lane off and on; lane on / off (means) = "
+            f"{np.mean(r['on']['ms']) / np.mean(r['off']['ms']):.3f}")
+    log(f"  ({card})")
+
+
 def log_mesh(m: dict) -> None:
     """Print phase 20's waves, times and launches."""
     for name, r in m["waves"].items():
@@ -3438,6 +3759,19 @@ def main() -> int:
     log_mesh(phase_mesh(device, {"strict": corpus, "randomized": rand_corpus,
                                  "p256": p256_corpus}))
 
+    # Phase 21: the tensor-core field lane, kernel M1.
+    log("== phase 21: the tensor-core field lane (kernel M1, CTPU_MXU_LIMBS=1)")
+    t21 = time.perf_counter()
+    sass21 = sass_imma_count(infos["mxu_limbs"].library)
+    if not sass21 or not all(sass21.values()):
+        raise AssertionError(f"M1 has a function without IMMA instructions: {sass21}")
+    k21 = phase_mxu_kernel(device, reps=20, plain_reps=2)
+    w21 = phase_mxu_waves(device, {"strict": corpus, "randomized": rand_corpus,
+                                   "p256": p256_corpus})
+    log_mxu(k21, w21, sass21, infos["mxu_limbs"], card)
+    log(f"phase 21 took {time.perf_counter() - t21:.3f} s (host clock)")
+    m1 = k21["times"][("ed25519", MXU_WIDTHS[0])]
+
     log(card)
     log(json.dumps({"kernels": [
         {
@@ -3520,6 +3854,20 @@ def main() -> int:
             "bound_ms": bounds18["d2"]["bound_ms"],
             "bound_by": bounds18["d2"]["bound_by"],
             "library_ms": None,
+        },
+        {
+            "name": "mxu_limbs",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/mxu_limbs.cu",
+            "replaces": "consensus_tpu/ops/mxu_limbs.py:218",
+            "launches": w21["strict"]["on"]["launches"]["mxu_limbs"],
+            "max_abs_err": k21["max_abs_err"],
+            "ms": m1["ms"],
+            "launch_ms": m1["launch_ms"],
+            "plain_ms": m1["plain_ms"],
+            "bound_ms": m1["bound"]["bound_ms"],
+            "bound_by": m1["bound"]["bound_by"],
+            "library_ms": k21["library_ms"],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from consensus_tpu_torch.device import DeviceLike, resolve_device
-from consensus_tpu_torch.obs.kernels import KERNELS
+from consensus_tpu_torch.obs.kernels import KERNELS, kernel_lane_suffix
 from consensus_tpu_torch.ops import field25519 as fe
 
 from consensus_tpu_torch.models.ed25519 import (
@@ -335,7 +335,7 @@ class HalfAggregator:
 
         arrays = (y_r.T, sign_r, y_a.T, sign_a, zs_digits8, zk_digits, z_digits, host_ok)
         inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
-        KERNELS.record_launch("ed25519.halfagg_verify")
+        KERNELS.record_launch("ed25519.halfagg_verify" + kernel_lane_suffix())
         eq_ok, valid = batch_verify_impl(*inputs)
         # A non-decodable R or A is masked to the identity inside the MSM, so
         # eq_ok alone could still be True: the whole cert must reject.

@@ -38,7 +38,7 @@ from torch.profiler import record_function
 
 from consensus_tpu_torch.device import DeviceLike, resolve_device
 from consensus_tpu_torch.models.ed25519 import _next_pow2
-from consensus_tpu_torch.obs.kernels import KERNELS
+from consensus_tpu_torch.obs.kernels import KERNELS, kernel_lane_suffix
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
@@ -325,7 +325,7 @@ class EcdsaP256BatchVerifier:
             return self._verify_host(messages, signatures, public_keys)
         with record_function("p256.host_prep"):
             inputs = self.prepare_device_inputs(messages, signatures, public_keys)
-        KERNELS.record_launch("ecdsa_p256.verify")
+        KERNELS.record_launch("ecdsa_p256.verify" + kernel_lane_suffix())
         result = verify_impl(*inputs)
         return result.cpu().numpy()[:n]
 

@@ -38,7 +38,7 @@ import torch
 from torch.profiler import record_function
 
 from consensus_tpu_torch.device import DeviceLike, resolve_device
-from consensus_tpu_torch.obs.kernels import KERNELS
+from consensus_tpu_torch.obs.kernels import KERNELS, kernel_lane_suffix
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import scan_kernels
@@ -317,7 +317,7 @@ class Ed25519BatchVerifier:
             return self._verify_host(messages, signatures, public_keys)
         with record_function("ed25519.host_prep"):
             inputs = self.prepare_device_inputs(messages, signatures, public_keys)
-        KERNELS.record_launch("ed25519.verify")
+        KERNELS.record_launch("ed25519.verify" + kernel_lane_suffix())
         result = verify_impl(*inputs)
         return result.cpu().numpy()[:n]
 
@@ -663,7 +663,7 @@ class Ed25519RandomizedBatchVerifier(Ed25519BatchVerifier):
         the card, and one read of the verdict and the valid lanes."""
         m = len(idx)
         inputs = self._aggregate_device_inputs(idx, signatures, public_keys, scalars, zs)
-        KERNELS.record_launch("ed25519.batch_verify")
+        KERNELS.record_launch("ed25519.batch_verify" + kernel_lane_suffix())
         eq_ok, valid = batch_verify_impl(*inputs)
         out = torch.cat([eq_ok.reshape(1), valid[:m]]).cpu().numpy()
         return bool(out[0]), out[1:].tolist()

@@ -42,7 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from consensus_tpu_torch.device import DeviceLike
-from consensus_tpu_torch.obs.kernels import KERNELS
+from consensus_tpu_torch.obs.kernels import KERNELS, kernel_lane_suffix
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import scalar25519 as sc
 from consensus_tpu_torch.ops import sha512 as sh
@@ -259,7 +259,7 @@ class FusedEd25519BatchVerifier(Ed25519BatchVerifier):
             return self._verify_host(messages, signatures, public_keys)
         with record_function("ed25519.fused.host_prep"):
             args = self._device_args(messages, signatures, public_keys)
-        KERNELS.record_launch("ed25519.fused_verify")
+        KERNELS.record_launch("ed25519.fused_verify" + kernel_lane_suffix())
         return fused_verify_impl(*args).cpu().numpy()[:n]
 
     def verify_stream(
@@ -275,7 +275,7 @@ class FusedEd25519BatchVerifier(Ed25519BatchVerifier):
             n = len(messages)
             with record_function("ed25519.fused.host_prep"):
                 args = self._device_args(messages, signatures, public_keys, pin=True)
-            KERNELS.record_launch("ed25519.fused_verify")
+            KERNELS.record_launch("ed25519.fused_verify" + kernel_lane_suffix())
             out = fused_verify_impl(*args)
             if pending is not None:
                 prev_n, prev_out = pending
@@ -600,7 +600,7 @@ class FusedEd25519RandomizedBatchVerifier(
     def _fused_aggregate(self, idx, messages, signatures, public_keys):
         """One fused aggregate check over the subset ``idx``."""
         return fused_aggregate_check(
-            name="ed25519.fused_batch_verify",
+            name="ed25519.fused_batch_verify" + kernel_lane_suffix(),
             tag=_Z_TAG,
             messages=[messages[i] for i in idx],
             rs=[bytes(signatures[i])[:32] for i in idx],

@@ -3,21 +3,23 @@ batch-engine builder (the port's counterpart of
 ``consensus_tpu/models/registry.py``).
 
 Each engine the port can build is REGISTERED under an :class:`EngineKey`;
-a lookup of any other key fails loudly with :class:`UnknownEngineError`.
-For the cells the JAX registry refuses (the Ed25519-only lanes on P-256)
-the message is the JAX package's own; for a lane the JAX package has and
-the port does not have yet, it names the lane's ROADMAP.md queue A item.
-The supervisor's degrade ladder is derived by walking registered keys
-(:meth:`EngineRegistry.degrade_keys`), as in the JAX package.
+a lookup of any other key fails loudly with :class:`UnknownEngineError`,
+in the JAX package's words (the Ed25519-only lanes on P-256, the
+tensor-core lane on P-256).  The supervisor's degrade ladder is derived by
+walking registered keys (:meth:`EngineRegistry.degrade_keys`), as in the
+JAX package.
 
-The port registers Ed25519 strict and randomized, each with host prep and
-with the fused device prep (``device_prep``), and P-256 strict with host
-prep, on a single device and on a device mesh (the sharded engines of
-:mod:`consensus_tpu_torch.parallel.sharding`), on the CUDA-core field lane.
-Whether an engine runs on the card or the CPU is the ``device`` argument,
-not a key axis: the plain torch versions serve the CPU and the tests, never
-a card's fallback.  A mesh builder takes the config's ``topology`` as well
-and builds it over the visible devices of ``device``.
+The port registers what the JAX package registers: Ed25519 strict and
+randomized, each with host prep and with the fused device prep
+(``device_prep``), on the VPU lane and on the tensor-core lane (``mxu``,
+``CTPU_MXU_LIMBS=1``), and P-256 strict with host prep on the VPU lane, on
+a single device and on a device mesh (the sharded engines of
+:mod:`consensus_tpu_torch.parallel.sharding`).  An ``mxu`` builder refuses
+to build unless the environment selects the lane, as the JAX package's
+does.  Whether an engine runs on the card or the CPU is the ``device``
+argument, not a key axis: the plain torch versions serve the CPU and the
+tests, never a card's fallback.  A mesh builder takes the config's
+``topology`` as well and builds it over the visible devices of ``device``.
 """
 
 from __future__ import annotations
@@ -43,17 +45,10 @@ MODES = ("strict", "randomized")
 #: The two launch topologies: one device, or a device mesh (any shape).
 TOPOLOGIES = ("single", "mesh")
 
-#: The lanes of the JAX registry the port does not have yet, by key axis:
-#: (what, ROADMAP.md queue A item).
-_NOT_PORTED = {
-    "mxu": ("the MXU field lane (CTPU_MXU_LIMBS=1)", "item 13: tensor-core field lane"),
-}
-
-
 class UnknownEngineError(ValueError):
     """No engine is registered under the requested key (the message names
-    the reason: unknown curve, Ed25519-only lane, a lane not ported yet, or
-    plain unregistered)."""
+    the reason: unknown curve, an Ed25519-only lane, or plain
+    unregistered)."""
 
 
 @dataclass(frozen=True)
@@ -133,14 +128,6 @@ class EngineRegistry:
             return "batch_verify_mode is Ed25519-only (no randomized P-256 lane)"
         if key.curve == "p256" and key.device_prep:
             return "device_prep is Ed25519-only (no fused P-256 front-end)"
-        # Lanes the JAX package has and the port does not yet.
-        missing = [_NOT_PORTED[axis] for axis, on in (("mxu", key.mxu),) if on]
-        if missing:
-            return "; ".join(
-                f"consensus_tpu_torch: {what} is not ported yet "
-                f"(ROADMAP.md queue A, {item})"
-                for what, item in missing
-            )
         return (
             f"no engine registered under {key} "
             f"(registered: {', '.join(str(k) for k in self.keys())})"
@@ -182,9 +169,27 @@ def _with_kernels(engine, *names: str):
     return engine
 
 
-def _ed25519_single(*, randomized: bool, fused: bool, **kw):
-    # Every Ed25519 path decompresses (D1) and runs the comb (D2).
-    ed_kernels = ("decompress25519", "comb25519")
+def _require_mxu_lane() -> None:
+    """A builder registered under an ``mxu=True`` key promises an engine
+    whose field products take the tensor-core lane, which the process takes
+    only when the environment selects it: building it without
+    ``CTPU_MXU_LIMBS=1`` would hand back a VPU engine under an MXU label.
+    The JAX package's refusal, in its words."""
+    if os.environ.get("CTPU_MXU_LIMBS", "") != "1":
+        raise RuntimeError(
+            "EngineKey.mxu=True but CTPU_MXU_LIMBS is not '1': the MXU "
+            "lane is selected by the environment at trace time, so this "
+            "build would trace the VPU lane under an MXU key — set "
+            "CTPU_MXU_LIMBS=1 in the process environment first"
+        )
+
+
+def _ed25519_single(*, randomized: bool, fused: bool, mxu: bool = False, **kw):
+    if mxu:
+        _require_mxu_lane()
+    # Every Ed25519 path decompresses (D1) and runs the comb (D2); the
+    # tensor-core lane's products are M1.
+    ed_kernels = ("decompress25519", "comb25519") + (("mxu_limbs",) if mxu else ())
     if fused:
         # The fused engines hash on the card (S1); the randomized one's
         # subsets below the randomized floor take the fused strict path.
@@ -216,7 +221,9 @@ _MESH_KERNELS = {
 }
 
 
-def _ed25519_mesh(*, randomized: bool, fused: bool, topology=None, **kw):
+def _ed25519_mesh(*, randomized: bool, fused: bool, mxu: bool = False, topology=None, **kw):
+    if mxu:
+        _require_mxu_lane()
     from consensus_tpu_torch.parallel import sharding
 
     cls = {
@@ -225,7 +232,8 @@ def _ed25519_mesh(*, randomized: bool, fused: bool, topology=None, **kw):
         (False, True): sharding.ShardedFusedEd25519Verifier,
         (True, True): sharding.ShardedFusedEd25519RandomizedVerifier,
     }[(randomized, fused)]
-    return _with_kernels(cls(topology, **kw), *_MESH_KERNELS[(randomized, fused)])
+    lane = ("mxu_limbs",) if mxu else ()
+    return _with_kernels(cls(topology, **kw), *_MESH_KERNELS[(randomized, fused)], *lane)
 
 
 def _p256_mesh(*, topology=None, **kw):
@@ -240,15 +248,18 @@ def _default_registry() -> EngineRegistry:
     reg = EngineRegistry()
     for mode in MODES:
         for fused in (False, True):
-            randomized = mode == "randomized"
-            reg.register(
-                EngineKey("ed25519", mode, "single", fused, False),
-                partial(_ed25519_single, randomized=randomized, fused=fused),
-            )
-            reg.register(
-                EngineKey("ed25519", mode, "mesh", fused, False),
-                partial(_ed25519_mesh, randomized=randomized, fused=fused),
-            )
+            for mxu in (False, True):
+                randomized = mode == "randomized"
+                reg.register(
+                    EngineKey("ed25519", mode, "single", fused, mxu),
+                    partial(_ed25519_single, randomized=randomized, fused=fused, mxu=mxu),
+                )
+                reg.register(
+                    EngineKey("ed25519", mode, "mesh", fused, mxu),
+                    partial(_ed25519_mesh, randomized=randomized, fused=fused, mxu=mxu),
+                )
+    # p256 x mxu stays unregistered, as in the JAX package;
+    # _missing_reason names the refusal.
     reg.register(EngineKey("p256", "strict", "single", False, False), _p256_single)
     reg.register(EngineKey("p256", "strict", "mesh", False, False), _p256_mesh)
     return reg

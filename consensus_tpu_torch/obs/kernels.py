@@ -186,9 +186,10 @@ def kernel_lane_suffix() -> str:
     """``"_mxu"`` when the process selects the tensor-core field lane
     (``CTPU_MXU_LIMBS=1``, as in the JAX package), else ``""``.
 
-    The port has no such lane yet (ROADMAP.md queue A, item 13), so its
-    engines book under the plain names and the registry refuses MXU keys;
-    the lane's kernels will book under ``<name>`` + this suffix."""
+    The engines book each device call under ``<name>`` + this suffix, read
+    at the call, so a lane-on run's calls land under ``ed25519.verify_mxu``
+    and the like beside the VPU lane's; the JAX package appends it to its
+    ``instrumented_jit`` names at import."""
     return "_mxu" if os.environ.get("CTPU_MXU_LIMBS", "") == "1" else ""
 
 

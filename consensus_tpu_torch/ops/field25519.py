@@ -20,6 +20,11 @@ operand's device; a float64 constant would silently promote the limbs.
 ``add``/``sub``, ``mul`` and ``square`` note themselves in the
 field-operation counting shim (:mod:`consensus_tpu_torch.ops.limbs`) at the
 JAX module's sites, so a counted run reports the JAX module's counts.
+
+``mul`` and ``square`` take the tensor-core lane
+(:mod:`consensus_tpu_torch.ops.mxu_limbs`, ``CTPU_MXU_LIMBS=1``) when it is
+active, before their note, as the JAX module does: a counted call notes
+dots or muls, never both.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from consensus_tpu_torch.ops import limbs
+from consensus_tpu_torch.ops import limbs, mxu_limbs
 from consensus_tpu_torch.ops.limbs import carry_i32, lt_bytes
 
 LIMBS = 32
@@ -183,7 +188,11 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (i, j) lands in row i, column i + j.  Every product and every partial
     sum is an integer below 2^24 (the exactness budget above), so the
     column sums are exact in any order and equal the JAX module's
-    shifted-add columns bit for bit."""
+    shifted-add columns bit for bit.
+
+    Under the tensor-core lane it is ``mxu_limbs.mul25519``, bit-identical."""
+    if mxu_limbs.lane_active():
+        return mxu_limbs.mul25519(a, b)
     if limbs.counting():
         limbs.note_mul(limbs.lanes_of(a, b))
     return _mul(a, b)
@@ -210,7 +219,10 @@ def square(a: torch.Tensor) -> torch.Tensor:
     """Squaring.  The JAX module sums the doubled upper triangle; the full
     product's columns are the same integers, so ``mul(a, a)`` returns the
     same limbs.  Callers keep the JAX bound (|limb| <= 500).  It notes one
-    squaring in the counting shim, as the JAX module does, and no mul."""
+    squaring in the counting shim, as the JAX module does, and no mul.
+    Under the tensor-core lane it is ``mxu_limbs.square25519``."""
+    if mxu_limbs.lane_active():
+        return mxu_limbs.square25519(a)
     if limbs.counting():
         limbs.note_square(limbs.lanes_of(a))
     return _mul(a, a)
@@ -257,7 +269,7 @@ def pow_const(x: torch.Tensor, exponent: int) -> torch.Tensor:
     multiply.  The exponent is public, so the branch on each bit is taken
     in Python: the same values as the JAX ladder's select.  The JAX ladder
     multiplies on every bit, so under the counting shim a 0 bit notes the
-    multiply it skips."""
+    multiply it skips, as the active lane would note it."""
     bits = [(exponent >> i) & 1 for i in range(exponent.bit_length())][::-1]
     acc = x  # first bit is always 1
     for bit in bits[1:]:
@@ -265,7 +277,10 @@ def pow_const(x: torch.Tensor, exponent: int) -> torch.Tensor:
         if bit:
             acc = mul(acc, x)
         elif limbs.counting():
-            limbs.note_mul(limbs.lanes_of(acc, x))
+            if mxu_limbs.lane_active():
+                mxu_limbs.note_skipped_product(limbs.lanes_of(acc, x))
+            else:
+                limbs.note_mul(limbs.lanes_of(acc, x))
     return acc
 
 

@@ -18,7 +18,10 @@ produces the canonical int32 representative in [0, p).
 
 ``add``/``sub``, ``mul``, ``square`` and the reduction's Solinas product
 note themselves in the field-operation counting shim
-(:mod:`consensus_tpu_torch.ops.limbs`) at the JAX module's sites.
+(:mod:`consensus_tpu_torch.ops.limbs`) at the JAX module's sites.  ``mul``
+and ``square`` take the tensor-core lane
+(:mod:`consensus_tpu_torch.ops.mxu_limbs`) when it is active, before their
+note, as the JAX module does.
 
 The Solinas product is taken in float64, where its integer sums cannot
 round whatever ``torch.backends.cuda.matmul.allow_tf32`` or
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from consensus_tpu_torch.ops import limbs
+from consensus_tpu_torch.ops import limbs, mxu_limbs
 from consensus_tpu_torch.ops.limbs import carry_i32
 
 LIMBS = 32
@@ -243,7 +246,10 @@ def _columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Schoolbook product, then the Solinas fold."""
+    """Schoolbook product, then the Solinas fold (``mxu_limbs.mul_p256``,
+    bit-identical, under the tensor-core lane)."""
+    if mxu_limbs.lane_active():
+        return mxu_limbs.mul_p256(a, b)
     if limbs.counting():
         limbs.note_mul(limbs.lanes_of(a, b))
     return _reduce_wide(_columns(a, b))
@@ -253,7 +259,10 @@ def square(a: torch.Tensor) -> torch.Tensor:
     """Squaring.  The JAX module sums the doubled upper triangle; the full
     product's columns are the same integers, so ``mul(a, a)`` returns the
     same limbs.  It notes one squaring in the counting shim, as the JAX
-    module does, and no mul."""
+    module does, and no mul.  Under the tensor-core lane it is
+    ``mxu_limbs.square_p256``."""
+    if mxu_limbs.lane_active():
+        return mxu_limbs.square_p256(a)
     if limbs.counting():
         limbs.note_square(limbs.lanes_of(a))
     return _reduce_wide(_columns(a, a))

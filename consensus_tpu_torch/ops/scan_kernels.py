@@ -7,8 +7,9 @@ randomized verifier's shared-doubling Straus MSM (``straus_msm``, TPU body
 ``_msm_kernel``).  The build registry :data:`KERNELS` also holds the port's
 own kernels, which replace plain XLA of the JAX package: SHA-512 (S1, whose
 wrapper is ``ops/sha512.py::sha512_blocks``), Ed25519 point decompression
-(D1, :func:`decompress`) and the fixed-base comb [S]B (D2,
-:func:`fixed_base_mul_comb`).
+(D1, :func:`decompress`), the fixed-base comb [S]B (D2,
+:func:`fixed_base_mul_comb`) and the tensor-core field lane's products (M1,
+whose wrappers are in ``ops/mxu_limbs.py``).
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
@@ -74,6 +75,9 @@ KERNELS = {
     # Ed25519 path.
     "decompress25519": (_CSRC / "decompress25519.cu", 7, ()),
     "comb25519": (_CSRC / "comb25519.cu", 6, ()),
+    # Kernel M1, the tensor-core field lane's products; its wrapper is
+    # ops/mxu_limbs.py (mul25519, square25519, mul_p256, square_p256).
+    "mxu_limbs": (_CSRC / "mxu_limbs.cu", 3, ("curve", "a_bcast", "b_bcast")),
 }
 
 #: Loaded libraries, name -> (library, BuildInfo), and the lock that

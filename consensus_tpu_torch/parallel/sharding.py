@@ -65,7 +65,7 @@ from consensus_tpu_torch.models.fused import (
     fused_verify_impl,
     transcript_coefficients,
 )
-from consensus_tpu_torch.obs.kernels import COMPILE_CACHE, KERNELS
+from consensus_tpu_torch.obs.kernels import COMPILE_CACHE, KERNELS, kernel_lane_suffix
 from consensus_tpu_torch.parallel.mesh import DeviceMesh
 from consensus_tpu_torch.parallel.topology import (
     BATCH_AXIS,
@@ -167,12 +167,12 @@ def _read_back(lanes: torch.Tensor, scalar: torch.Tensor) -> tuple[np.ndarray, i
 
 def _verdict_body(mesh: DeviceMesh, name: str, impl: Callable) -> Callable:
     """A strict body over ``mesh``: ``run(*layout)`` books one call of
-    ``name``, runs ``impl`` on every shard's slice of the padded host arrays
+    ``name`` (+ the lane suffix), runs ``impl`` on every shard's slice of the padded host arrays
     and returns the verdicts in global lane order, read back once."""
     dev0 = mesh.shard_devices()[0]
 
     def run(*arrays):
-        KERNELS.record_launch(name)
+        KERNELS.record_launch(name + kernel_lane_suffix())
         oks = [impl(*shard) for shard in _shards(mesh, arrays)]
         return _gather(oks, dev0).cpu().numpy()
 
@@ -300,7 +300,7 @@ def sharded_batch_verify_fn(mesh: DeviceMesh) -> Callable:
     dev0 = mesh.shard_devices()[0]
 
     def run(*arrays):
-        KERNELS.record_launch("ed25519.sharded_batch_verify")
+        KERNELS.record_launch("ed25519.sharded_batch_verify" + kernel_lane_suffix())
         results = [batch_verify_impl(*shard) for shard in _shards(mesh, arrays)]
         bad = _psum([~eq for eq, _ in results], dev0)
         valid, bad = _read_back(_gather([v for _, v in results], dev0), bad)
@@ -396,7 +396,7 @@ def sharded_fused_aggregate_fn(mesh: DeviceMesh, tag: bytes, n: int, padded: int
     dev0 = mesh.shard_devices()[0]
 
     def run(*arrays):
-        KERNELS.record_launch("ed25519.sharded_fused_batch_verify")
+        KERNELS.record_launch("ed25519.sharded_fused_batch_verify" + kernel_lane_suffix())
         shards = _shards(mesh, arrays)
         fronts = [aggregate_leaves(kb, kn, lb, ln) for _, _, _, kb, kn, lb, ln, _ in shards]
         with record_function("ed25519.fused.transcript"):

@@ -28,6 +28,7 @@ from consensus_tpu_torch.obs.kernels import KERNELS
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
+from consensus_tpu_torch.ops import mxu_limbs
 from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.ops import sha512 as sh
@@ -450,7 +451,7 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
     assert card.device_calls >= 2 * 4  # each replica's wave, each block
     assert launches == {
         "horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 0,
-        "decompress25519": card.device_calls, "comb25519": card.device_calls,
+        "decompress25519": card.device_calls, "comb25519": card.device_calls, "mxu_limbs": 0,
     }
     host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
     assert _signed_request_cluster(host) == on_card
@@ -568,7 +569,7 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     assert np.array_equal(strict.verify_batch(msgs, sigs, keys), want)
     assert _delta(before) == {
         "horner_scan": 1, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 1,
-        "decompress25519": 1, "comb25519": 1,
+        "decompress25519": 1, "comb25519": 1, "mxu_limbs": 0,
     }
 
     randomized = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_randomized=4)
@@ -582,7 +583,7 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     assert _delta(before) == {
         "horner_scan": floors, "horner_scan_p256": 0, "straus_msm": checks,
         "sha512": 4 * checks + floors, "decompress25519": checks + floors,
-        "comb25519": checks + floors,
+        "comb25519": checks + floors, "mxu_limbs": 0,
     }
 
 
@@ -605,6 +606,7 @@ def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
         assert _delta(before) == {
             "horner_scan": 0, "horner_scan_p256": 0, "straus_msm": 1,
             "sha512": 4 if device_prep else 0, "decompress25519": 1, "comb25519": 1,
+            "mxu_limbs": 0,
         }
 
 
@@ -799,3 +801,120 @@ def test_virtual_shards_on_card_equal_the_single_engine(cuda_device):
     before = KERNELS.stats("straus_msm").launches
     assert eight.verify_batch(msgs[:3], sigs[:3], keys[:3]).all()
     assert KERNELS.stats("straus_msm").launches - before == 8
+
+
+# --- kernel M1: the tensor-core field lane --------------------------------------
+
+_MXU = {"ed25519": (mxu_limbs.mul25519, fe.mul), "p256": (mxu_limbs.mul_p256, fp.mul)}
+_MXU_RANGES = [("ed25519", (0, 256)), ("ed25519", (-345, 681)), ("ed25519", (-340, 341)),
+               ("p256", (0, 256)), ("p256", (-600, 601))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_lanes,b_lanes", [(1, 1), (37, 37), (8192 + 37, 8192 + 37),
+                                             (1, 2048), (2048, 1)])
+@pytest.mark.parametrize("curve,bounds", _MXU_RANGES)
+def test_mxu_kernel_matches_vpu_lane_and_plain_on_card(cuda_device, curve, bounds, a_lanes,
+                                                       b_lanes):
+    """M1's raw limbs (no freeze) equal the VPU lane's eager torch on the
+    card and the plain version on the CPU, bit for bit, on every operand
+    range, at ragged widths and with a (32, 1) constant either side; one
+    launch a product, a square included."""
+    rng = np.random.default_rng(a_lanes + b_lanes)
+    a, b = (torch.from_numpy(rng.integers(*bounds, (32, n)).astype(np.float32))
+            for n in (a_lanes, b_lanes))
+    product, vpu = _MXU[curve]
+    before = KERNELS.stats("mxu_limbs").launches
+    got = product(a.to(cuda_device), b.to(cuda_device))
+    assert KERNELS.stats("mxu_limbs").launches == before + 1
+    with mxu_limbs.suppress_mxu_limbs():
+        want = vpu(a.to(cuda_device), b.to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), product(a, b))
+    sq = mxu_limbs.square25519 if curve == "ed25519" else mxu_limbs.square_p256
+    with mxu_limbs.suppress_mxu_limbs():
+        want_sq = (fe if curve == "ed25519" else fp).square(a.to(cuda_device))
+    assert torch.equal(sq(a.to(cuda_device)), want_sq)
+    assert KERNELS.stats("mxu_limbs").launches == before + 2
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_takes_batched_and_strided_operands_on_card(cuda_device):
+    """A (32, 1, 1) constant against a (32, 4, 96) batch, a slice of a wider
+    tensor, and a (32, 4, 1) operand that broadcasts over part of the batch:
+    the field modules' shapes, each one launch, equal to the VPU lane."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(-340, 341, (32, 4, 200)).astype(np.float32)).to(cuda_device)
+    c = torch.from_numpy(rng.integers(0, 256, (32, 1, 1)).astype(np.float32)).to(cuda_device)
+    part = torch.from_numpy(rng.integers(0, 256, (32, 4, 1)).astype(np.float32)).to(cuda_device)
+    view = x[:, :, 7:103]
+    assert not view.is_contiguous()
+    for a, b in ((c, view), (view, part), (part, view), (view, view)):
+        before = KERNELS.stats("mxu_limbs").launches
+        got = mxu_limbs.mul25519(a, b)
+        assert KERNELS.stats("mxu_limbs").launches == before + 1
+        with mxu_limbs.suppress_mxu_limbs():
+            want = fe.mul(a, b)
+        assert got.shape == want.shape == (32, 4, 96) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_rejects_what_it_does_not_take(cuda_device):
+    a = torch.zeros((32, 8), dtype=torch.float32, device=cuda_device)
+    before = KERNELS.stats("mxu_limbs").launches
+    with pytest.raises(TypeError, match="float32"):
+        mxu_limbs.mul25519(a.double(), a.double())
+    with pytest.raises(ValueError, match=r"\(32, \*batch\)"):
+        mxu_limbs.mul_p256(a[:31], a[:31])
+    with pytest.raises(ValueError, match="one device"):
+        mxu_limbs.mul25519(a, a.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        mxu_limbs.mul_p256(a.cpu(), a)
+    assert KERNELS.stats("mxu_limbs").launches == before
+
+
+@pytest.mark.cuda
+def test_counting_refuses_an_m1_launch_on_card(cuda_device):
+    from consensus_tpu_torch.ops import limbs
+
+    a = torch.ones((32, 4), dtype=torch.float32, device=cuda_device)
+    before = KERNELS.stats("mxu_limbs").launches
+    with limbs.count_field_ops() as count:
+        with pytest.raises(RuntimeError, match="cannot be counted"):
+            mxu_limbs.mul25519(a, a)
+    assert KERNELS.stats("mxu_limbs").launches == before and count.dots == 0
+
+
+@pytest.mark.cuda
+def test_mxu_lane_strict_wave_on_card_gives_the_lane_off_verdicts(cuda_device, monkeypatch):
+    """The strict engine from ``engine_for_config`` with
+    ``CTPU_MXU_LIMBS=1`` (the registry's ``mxu`` key): its wave's verdicts
+    equal the lane-off engine's, its field products launch M1 (none with
+    the lane off), B1, D1 and D2 launch as often, and its device call is
+    booked as ``ed25519.verify_mxu``."""
+    signers = [Ed25519Signer(i, bytes([i + 1]) * 32) for i in range(4)]
+    msgs = [b"mxu-wave-%d" % i for i in range(64)]
+    sigs = [signers[i % 4].sign_raw(m) for i, m in enumerate(msgs)]
+    keys = [signers[i % 4].public_bytes for i in range(64)]
+    sigs[3] = bytes(64)
+    sigs[9] = sigs[9][:32] + med.L.to_bytes(32, "little")
+    keys[17] = (2).to_bytes(32, "little")
+    msgs[30] = b"x" + msgs[30]
+    monkeypatch.delenv("CTPU_MXU_LIMBS", raising=False)
+    off_engine = engine_for_config(Configuration(crypto_tpu_min_batch=1))
+    before = _launches()
+    off = off_engine.verify_batch(msgs, sigs, keys)
+    off_launches = _delta(before)
+    monkeypatch.setenv("CTPU_MXU_LIMBS", "1")
+    on_engine = engine_for_config(Configuration(crypto_tpu_min_batch=1))
+    booked = KERNELS.stats("ed25519.verify_mxu").launches
+    before = _launches()
+    on = on_engine.verify_batch(msgs, sigs, keys)
+    on_launches = _delta(before)
+    assert np.array_equal(on, off) and list(np.flatnonzero(~on)) == [3, 9, 17, 30]
+    assert off_launches["mxu_limbs"] == 0 and on_launches["mxu_limbs"] > 0
+    assert {k: v for k, v in on_launches.items() if k != "mxu_limbs"} == {
+        k: v for k, v in off_launches.items() if k != "mxu_limbs"}
+    assert KERNELS.stats("ed25519.verify_mxu").launches == booked + 1

@@ -34,6 +34,7 @@ from consensus_tpu_torch.models.registry import (
     TOPOLOGIES,
     EngineKey,
     UnknownEngineError,
+    engine_key_for,
 )
 from consensus_tpu_torch.models.verifier import engine_for_config
 from consensus_tpu_torch.obs.kernels import COMPILE_CACHE, KERNELS
@@ -319,8 +320,9 @@ def test_engine_registry_completeness_and_loud_failures():
     for key in ENGINE_REGISTRY.keys():
         assert key in ENGINE_REGISTRY
         assert callable(ENGINE_REGISTRY.builder(key))
-    # Every cell is registered, or refuses with the curve-specific reason,
-    # or (the mxu axis) names the tensor-core lane's queue A item.
+    # Every cell of the advertised matrix, the mxu axis included, is
+    # registered or refuses with the curve-specific reason (the Ed25519-only
+    # lanes; P-256 x mxu), as in the JAX package.
     for curve in ENGINE_REGISTRY.curves():
         for mode in MODES:
             for topo in TOPOLOGIES:
@@ -328,13 +330,11 @@ def test_engine_registry_completeness_and_loud_failures():
                     for mxu in (False, True):
                         key = EngineKey(curve, mode, topo, prep, mxu)
                         if key in ENGINE_REGISTRY:
-                            assert not mxu
+                            assert curve == "ed25519" or not mxu
                             continue
                         with pytest.raises(UnknownEngineError) as exc:
                             ENGINE_REGISTRY.builder(key)
-                        assert "Ed25519-only" in str(exc.value) or (
-                            mxu and "ROADMAP.md queue A, item 13" in str(exc.value)
-                        )
+                        assert "Ed25519-only" in str(exc.value)
     assert EngineKey("ed25519", "randomized", "mesh", True) in ENGINE_REGISTRY
     assert EngineKey("p256", "strict", "mesh") in ENGINE_REGISTRY
     with pytest.raises(UnknownEngineError, match="unknown curve"):
@@ -346,6 +346,29 @@ def test_engine_registry_completeness_and_loud_failures():
     assert [(k.topology, k.device_prep) for k in ladder] == [
         ("mesh", True), ("single", True), ("single", False),
     ]
+
+
+def test_engine_registry_mxu_axis(monkeypatch):
+    """``tests/test_mesh.py:299-331``: every Ed25519 cell exists under
+    ``mxu=True`` but refuses to build unless ``CTPU_MXU_LIMBS=1`` selects
+    the lane, ``engine_key_for`` derives the axis from the environment, and
+    the degrade ladder keeps it."""
+    mxu_key = EngineKey("ed25519", "strict", "single", False, True)
+    assert mxu_key in ENGINE_REGISTRY
+    monkeypatch.delenv("CTPU_MXU_LIMBS", raising=False)
+    with pytest.raises(RuntimeError, match="CTPU_MXU_LIMBS"):
+        ENGINE_REGISTRY.build(mxu_key, **CPU)
+    assert engine_key_for(Configuration()).mxu is False
+    monkeypatch.setenv("CTPU_MXU_LIMBS", "1")
+    assert engine_key_for(Configuration()).mxu is True
+    assert type(ENGINE_REGISTRY.build(mxu_key, **CPU)) is Ed25519BatchVerifier
+    mesh_key = EngineKey("ed25519", "strict", "mesh", False, True)
+    assert ENGINE_REGISTRY.build(mesh_key, **CPU).shard_count == 8
+    fused_mesh = EngineKey("ed25519", "randomized", "mesh", True, True)
+    ladder = ENGINE_REGISTRY.degrade_keys(fused_mesh)
+    assert len(ladder) == 3  # mesh -> single, fused -> host prep
+    assert all(k.mxu for k in ladder)
+    assert all(k in ENGINE_REGISTRY for k in ladder)
 
 
 # --- the compiled-kernel memo: rebuilds book zero new compiles ---------------

@@ -2,9 +2,10 @@
 the JAX package's.
 
 ``consensus_tpu_torch.models.registry`` against
-``consensus_tpu.models.registry``: every key of the JAX registry either
-builds in the port or is refused naming its ROADMAP.md queue A item; the
-P-256 refusals carry the JAX text exactly; ``engine_key_for`` and
+``consensus_tpu.models.registry``: the two register the same keys, every
+one builds in the port (an ``mxu`` key only under ``CTPU_MXU_LIMBS=1``,
+and refuses without it in the JAX package's words), and every refusal
+carries the JAX text exactly; ``engine_key_for`` and
 ``degrade_ladder_configs`` equal the JAX package's over a grid of
 configurations; the engine-layer metric names (``ENGINE_KEYS``,
 ``GROUPS_KEYS``) and the names a fresh ``Metrics`` creates equal the JAX
@@ -41,7 +42,7 @@ from consensus_tpu_torch.models.registry import (
     UnknownEngineError,
     engine_key_for,
 )
-from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
+from consensus_tpu_torch.obs.kernels import COMPILE_CACHE, KERNELS
 from consensus_tpu_torch.parallel import (
     ShardedEcdsaP256Verifier,
     ShardedEd25519RandomizedVerifier,
@@ -51,7 +52,6 @@ from consensus_tpu_torch.parallel import (
 )
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "obs_prometheus_3node.txt"
-_ITEMS = {"mxu": "item 13"}
 
 
 def _matrix():
@@ -65,26 +65,31 @@ def _matrix():
 
 def test_registry_completeness_and_loud_failures():
     """The JAX package's completeness case on the port's registry: every
-    cell is registered or refuses, Ed25519-only refusals keep the JAX
-    reason, and every other refusal names the lane's queue A item."""
+    cell is registered or refuses with the Ed25519-only reason, and the
+    registered keys are the JAX registry's, in its order."""
     for key in ENGINE_REGISTRY.keys():
         assert key in ENGINE_REGISTRY and callable(ENGINE_REGISTRY.builder(key))
     assert set(ENGINE_REGISTRY.keys()) == {
-        EngineKey(curve, mode, topo, prep)
+        EngineKey(curve, mode, topo, prep, mxu)
         for topo in TOPOLOGIES
-        for curve, mode, prep in (
-            ("ed25519", "strict", False), ("ed25519", "randomized", False),
-            ("ed25519", "strict", True), ("ed25519", "randomized", True),
-            ("p256", "strict", False),
+        for curve, mode, prep, mxu in (
+            ("ed25519", "strict", False, False), ("ed25519", "randomized", False, False),
+            ("ed25519", "strict", True, False), ("ed25519", "randomized", True, False),
+            ("ed25519", "strict", False, True), ("ed25519", "randomized", False, True),
+            ("ed25519", "strict", True, True), ("ed25519", "randomized", True, True),
+            ("p256", "strict", False, False),
         )
     }
+    assert [dataclasses.astuple(k) for k in ENGINE_REGISTRY.keys()] == [
+        dataclasses.astuple(k) for k in jreg.ENGINE_REGISTRY.keys()
+    ]
     for cell in _matrix():
         key = EngineKey(*cell)
         if key in ENGINE_REGISTRY:
             continue
         with pytest.raises(UnknownEngineError) as exc:
             ENGINE_REGISTRY.builder(key)
-        assert "Ed25519-only" in str(exc.value) or "ROADMAP.md queue A" in str(exc.value)
+        assert "Ed25519-only" in str(exc.value)
     with pytest.raises(UnknownEngineError, match="unknown curve"):
         ENGINE_REGISTRY.builder(EngineKey(curve="ed448"))
     with pytest.raises(ValueError, match="already registered"):
@@ -94,8 +99,12 @@ def test_registry_completeness_and_loud_failures():
 
 
 @pytest.mark.parametrize("cell", list(_matrix()), ids=lambda c: "-".join(map(str, c)))
-def test_every_jax_key_builds_or_names_its_queue_item(cell):
+def test_every_jax_key_builds_or_names_its_queue_item(cell, monkeypatch):
+    """Every cell the JAX registry has builds in the port (the tensor-core
+    lane's under ``CTPU_MXU_LIMBS=1``; without it both refuse in the same
+    words), and every cell it refuses, the port refuses with its text."""
     jkey, tkey = jreg.EngineKey(*cell), EngineKey(*cell)
+    monkeypatch.delenv("CTPU_MXU_LIMBS", raising=False)
     if jkey not in jreg.ENGINE_REGISTRY:
         # A cell JAX refuses: the port refuses it with the same words.
         with pytest.raises(jreg.UnknownEngineError) as jax_err:
@@ -104,34 +113,34 @@ def test_every_jax_key_builds_or_names_its_queue_item(cell):
             ENGINE_REGISTRY.builder(tkey)
         assert str(port_err.value) == str(jax_err.value)
         return
-    if tkey in ENGINE_REGISTRY:
-        engine = ENGINE_REGISTRY.build(tkey, pad_pow2=True, min_device_batch=16, device="cpu")
+    assert tkey in ENGINE_REGISTRY
+    if tkey.mxu:
+        with pytest.raises(RuntimeError) as jax_err:
+            jreg.ENGINE_REGISTRY.build(jkey, topology=None, compile_cache=False)
+        with pytest.raises(RuntimeError) as port_err:
+            ENGINE_REGISTRY.build(tkey, device="cpu")
+        assert str(port_err.value) == str(jax_err.value)
+        monkeypatch.setenv("CTPU_MXU_LIMBS", "1")
+    engine = ENGINE_REGISTRY.build(tkey, pad_pow2=True, min_device_batch=16, device="cpu")
+    want = {
+        ("ed25519", "strict", False): Ed25519BatchVerifier,
+        ("ed25519", "randomized", False): Ed25519RandomizedBatchVerifier,
+        ("ed25519", "strict", True): FusedEd25519BatchVerifier,
+        ("ed25519", "randomized", True): FusedEd25519RandomizedBatchVerifier,
+        ("p256", "strict", False): EcdsaP256BatchVerifier,
+    }[(tkey.curve, tkey.mode, tkey.device_prep)]
+    if tkey.topology == "mesh":
+        # The sharded class of the JAX package's name, over a 1-D mesh
+        # of the CPU's 8 virtual shards.
         want = {
-            ("ed25519", "strict", False): Ed25519BatchVerifier,
-            ("ed25519", "randomized", False): Ed25519RandomizedBatchVerifier,
-            ("ed25519", "strict", True): FusedEd25519BatchVerifier,
-            ("ed25519", "randomized", True): FusedEd25519RandomizedBatchVerifier,
-            ("p256", "strict", False): EcdsaP256BatchVerifier,
-        }[(tkey.curve, tkey.mode, tkey.device_prep)]
-        if tkey.topology == "mesh":
-            # The sharded class of the JAX package's name, over a 1-D mesh
-            # of the CPU's 8 virtual shards.
-            want = {
-                Ed25519BatchVerifier: ShardedEd25519Verifier,
-                Ed25519RandomizedBatchVerifier: ShardedEd25519RandomizedVerifier,
-                FusedEd25519BatchVerifier: ShardedFusedEd25519Verifier,
-                FusedEd25519RandomizedBatchVerifier: ShardedFusedEd25519RandomizedVerifier,
-                EcdsaP256BatchVerifier: ShardedEcdsaP256Verifier,
-            }[want]
-            assert engine.shard_count == 8
-        assert type(engine) is want and engine.device.type == "cpu"
-        return
-    with pytest.raises(UnknownEngineError) as exc:
-        ENGINE_REGISTRY.builder(tkey)
-    lanes = [axis for axis, on in (("mxu", tkey.mxu),) if on]
-    assert lanes
-    for axis in lanes:
-        assert f"ROADMAP.md queue A, {_ITEMS[axis]}" in str(exc.value)
+            Ed25519BatchVerifier: ShardedEd25519Verifier,
+            Ed25519RandomizedBatchVerifier: ShardedEd25519RandomizedVerifier,
+            FusedEd25519BatchVerifier: ShardedFusedEd25519Verifier,
+            FusedEd25519RandomizedBatchVerifier: ShardedFusedEd25519RandomizedVerifier,
+            EcdsaP256BatchVerifier: ShardedEcdsaP256Verifier,
+        }[want]
+        assert engine.shard_count == 8
+    assert type(engine) is want and engine.device.type == "cpu"
 
 
 def test_p256_refusals_through_engine_for_config_carry_the_jax_text():
@@ -189,9 +198,21 @@ def test_degrade_ladder_configs_match_jax_where_the_port_builds():
 
 
 def test_mxu_keys_are_refused_from_the_environment(monkeypatch):
+    """``CTPU_MXU_LIMBS=1`` selects the ``mxu`` key: ``engine_for_config``
+    builds the lane's engine, whose device calls book under the ``_mxu``
+    names, and refuses P-256 in the JAX package's words."""
     monkeypatch.setenv("CTPU_MXU_LIMBS", "1")
-    with pytest.raises(UnknownEngineError, match="item 13"):
-        tver.engine_for_config(Configuration(), device="cpu")
+    engine = tver.engine_for_config(Configuration(), device="cpu")
+    assert type(engine) is Ed25519BatchVerifier
+    assert engine_key_for(Configuration()).mxu
+    signer = tver.Ed25519Signer(1, bytes(range(32)))
+    before = KERNELS.stats("ed25519.verify_mxu").launches
+    plain = KERNELS.stats("ed25519.verify").launches
+    msgs = [b"m%d" % i for i in range(16)]
+    got = engine.verify_batch(msgs, [signer.sign_raw(m) for m in msgs], [signer.public_bytes] * 16)
+    assert got.tolist() == [True] * 16
+    assert KERNELS.stats("ed25519.verify_mxu").launches == before + 1
+    assert KERNELS.stats("ed25519.verify").launches == plain
     with pytest.raises(UnknownEngineError) as port_err:
         tver.engine_for_config(Configuration(), curve="p256", device="cpu")
     assert str(port_err.value) == jreg.ENGINE_REGISTRY._missing_reason(
