@@ -5,7 +5,9 @@
 Drives the port's three main paths through the engines a user would call,
 then through the engine layer the JAX package launches them through (the
 coalescer and the supervisor), then through the protocol core (a replica
-cluster ordering blocks):
+cluster ordering blocks), then through the process seams (a sidecar serving
+the card to tenants over sockets, and the cluster over TCP verifying
+through it):
 
 * strict Ed25519 batch verification at the size of one block of a
   7-replica (f=2) Ed25519 deployment with 1,000 requests per block
@@ -178,6 +180,26 @@ Phases:
    through ``engine_for_config`` under ``CTPU_MXU_LIMBS=1``, booked as
    ``ed25519.verify_mxu`` and the like; P-256 under ``force_mxu_limbs``):
    verdicts equal, M1's launches, wall ms, busy share and peak memory.
+22. the sidecar and the transport (``net/sidecar.py``, ``net/transport.py``):
+   (a) phase 3's wave in 4 tenants' sweeps of 1,750, sent at once over TCP
+   (per-tenant mutual handshake, a MAC on every frame) to one multi-tenant
+   ``VerifySidecarServer`` whose ``FairShareWaveFormer`` (``max_wave``
+   8,192) launches the strict engine at phase 3's ``min_device_batch``:
+   verdicts equal to phase 3's lane for lane, B1, D1 and D2 launched once
+   per wave the server counts, 7,000 signatures in the waves, no failover
+   and no client suspect, each tenant's round trip; (b) phase 12's 7
+   replicas over real sockets: each a ``Consensus`` on a
+   ``RealtimeScheduler`` with a ``TcpComm`` (``auth_secret``) and a file
+   WAL, its engine a ``SidecarVerifierClient`` on a unix socket to one
+   ``VerifySidecarServer`` over a ``ThreadCoalescingVerifier`` (8,192) over
+   the strict engine at phase 12's ``min_device_batch``, quorum checks
+   bypassed to a counting host engine (the JAX package's
+   deploy/replica_main.py wiring), ordering 3 of phase 12's blocks (cut
+   from 4 to keep the script near its time; the first is warm-up): all
+   ledgers identical, 2f+1 signatures a decision, every request ordered
+   exactly once, B1, D1 and D2 launched once per coalesced flush, 0
+   failovers; each block's wall ms, sweeps, flushes, launches, local calls,
+   collector pauses (the set-up heap frozen) and fsyncs beside phase 12's.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -194,6 +216,7 @@ import hashlib
 import json
 import os
 import re
+import socket
 import struct
 import subprocess
 import sys
@@ -208,12 +231,16 @@ import torch
 from torch.autograd import DeviceType
 
 from consensus_tpu_torch.config import Configuration, ObsConfig
+from consensus_tpu_torch.consensus import Consensus
 from consensus_tpu_torch.metrics import (
     ENGINE_CROSSCHECK_KEY,
     ENGINE_CROSSCHECK_MISMATCH_KEY,
     ENGINE_DEGRADE_KEY,
     ENGINE_RECOVERED_KEY,
     ENGINE_RUNG_KEY,
+    SIDECAR_WAVE_LAUNCHES_KEY,
+    SIDECAR_WAVE_SIGNATURES_KEY,
+    SIDECAR_WAVE_TENANTS_KEY,
     InMemoryProvider,
     Metrics,
 )
@@ -236,7 +263,8 @@ from consensus_tpu_torch.models.verifier import (
     engine_for_config,
 )
 from consensus_tpu_torch.obs import series_to_jsonl
-from consensus_tpu_torch.obs.kernels import KERNELS
+from consensus_tpu_torch.net import SidecarVerifierClient, TcpComm, VerifySidecarServer
+from consensus_tpu_torch.obs.kernels import KERNELS, TenantAccounting
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
@@ -253,11 +281,13 @@ from consensus_tpu_torch.parallel import (
     ShardedFusedEd25519Verifier,
     mesh_for_shards,
 )
+from consensus_tpu_torch.runtime import RealtimeScheduler
 from consensus_tpu_torch.testing import Cluster
+from consensus_tpu_torch.testing.app import unpack_batch
 from consensus_tpu_torch.testing.chaos import ChaosEngine, ChaosSchedule
 from consensus_tpu_torch.testing.crypto_app import ClientKeyring, SigOnlyVerifier, SignedRequestApp
-from consensus_tpu_torch.types import Proposal, QuorumCert
-from consensus_tpu_torch.wal import DEFAULT_SEGMENT_MAX_BYTES
+from consensus_tpu_torch.types import Proposal, QuorumCert, Reconfig
+from consensus_tpu_torch.wal import DEFAULT_SEGMENT_MAX_BYTES, initialize_and_read_all
 
 #: BASELINE.json config 3: 7 replicas (f = 2), 1,000 requests per block.
 REPLICAS = 7
@@ -3101,6 +3131,446 @@ def phase_mxu_waves(device, corpora: dict, waves=tuple(MXU_WAVES),
     return out
 
 
+# --- the sidecar and the transport on the card: phase 22 -------------------------
+
+#: Phase 22a: the config-3 wave split into this many tenants' sweeps, served
+#: by one multi-tenant sidecar whose wave former launches up to max_wave.
+SIDECAR_TENANTS = 4
+SIDECAR_MAX_WAVE = 8192
+#: Phase 22b: blocks the TCP cluster orders (1 warm-up, 2 measured), cut from
+#: phase 12's 4 to keep the script near its time.
+SIDECAR_CLUSTER_BLOCKS = 3
+#: The cluster's leader cuts a batch at 1,000 requests or after this many
+#: seconds: on the wall clock, phase 12's 0.02 s would cut a block while its
+#: requests are still being submitted.
+SIDECAR_BATCH_INTERVAL = 5.0
+SIDECAR_SECRET = b"chip-smoke-sidecar"
+
+
+@contextlib.contextmanager
+def held_ports(n: int):
+    """``n`` localhost ports, each held by a bound socket that does not
+    listen (``SO_REUSEADDR``), so a ``TcpComm`` listener can bind it while
+    nothing else on the machine is handed it; released on exit."""
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        yield [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class _LocalHost:
+    """A sidecar client's ``local_engine``: the host path of ``engine``,
+    counting each call and its signatures.  A call of at least
+    ``bypass_below`` signatures is a failover (the client bypasses only
+    smaller ones)."""
+
+    def __init__(self, engine, bypass_below: int) -> None:
+        self.engine = engine
+        self.bypass_below = bypass_below
+        self.calls: list[int] = []
+        self._lock = threading.Lock()
+
+    def verify_host(self, messages, signatures, public_keys):
+        with self._lock:
+            self.calls.append(len(messages))
+        return self.engine.verify_host(messages, signatures, public_keys)
+
+    def read(self) -> tuple[int, int]:
+        """(calls so far, failovers so far)."""
+        with self._lock:
+            return len(self.calls), sum(n >= self.bypass_below for n in self.calls)
+
+
+class _Sweeps:
+    """A sidecar server's engine: counts the sweeps it is handed, then
+    passes them to ``inner`` (the coalescer), whose health it reports."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.sweeps: list[int] = []
+        self._lock = threading.Lock()
+
+    def verify_batch(self, messages, signatures, public_keys):
+        with self._lock:
+            self.sweeps.append(len(messages))
+        return self.inner.verify_batch(messages, signatures, public_keys)
+
+    @property
+    def device_suspect(self) -> bool:
+        return self.inner.device_suspect
+
+
+def _sidecar_launches() -> tuple[int, int, int]:
+    """B1's, D1's and D2's launches from the kernel ledger."""
+    return (KERNELS.stats("horner_scan").launches,) + _d_launches()
+
+
+def phase_sidecar_tenants(device, corpus, replicas: int, direct,
+                          tenants: int = SIDECAR_TENANTS, max_wave: int = SIDECAR_MAX_WAVE,
+                          min_device_batch: int | None = None, timeout: float = 60.0) -> dict:
+    """Phase 3's wave (``replicas`` copies of ``corpus``) split into
+    ``tenants`` sweeps, each sent by its own tenant's
+    ``SidecarVerifierClient`` (TCP, the per-tenant mutual handshake, a MAC
+    on every frame) to one multi-tenant ``VerifySidecarServer`` on
+    ``("127.0.0.1", 0)``, all at once from a barrier.  The server's engine
+    is ``Ed25519BatchVerifier`` on ``device`` at phase 3's
+    ``min_device_batch``, behind the server's ``FairShareWaveFormer``
+    (``max_wave``).  The reassembled verdicts must equal ``direct`` (phase
+    3's) lane for lane; B1, D1 and D2 launch once per wave the server
+    counts (none on the CPU, where the plain versions run); the waves carry
+    every signature; no client fails over to its local engine or marks the
+    server suspect.  ``timeout`` is each client's request timeout (a CPU
+    rehearsal's plain versions may need longer than the card's 60 s)."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    msgs, sigs, keys, want = replica_wave(corpus, replicas)
+    n = len(msgs)
+    if min_device_batch is None:
+        min_device_batch = Configuration().crypto_tpu_min_batch
+    names = [f"tenant-{t}" for t in range(tenants)]
+    secrets = {name: b"secret-" + name.encode() for name in names}
+    cuts = np.linspace(0, n, tenants + 1).astype(int)
+    engine = med.Ed25519BatchVerifier(device=device, min_device_batch=min_device_batch)
+    local = _LocalHost(med.Ed25519BatchVerifier(device=device, min_device_batch=10**9), 0)
+    provider = InMemoryProvider()
+    accounting = TenantAccounting()
+    server = VerifySidecarServer(
+        ("127.0.0.1", 0), engine, tenants=secrets, max_wave=max_wave,
+        metrics=Metrics(provider, label_names=("tenant",)).sidecar,
+        tenant_accounting=accounting,
+    )
+    server.start()
+    clients = [SidecarVerifierClient(server.address, auth_secret=secrets[name], tenant=name,
+                                     local_engine=local, request_timeout=timeout)
+               for name in names]
+    got, ms, errors = {}, {}, []
+    barrier = threading.Barrier(tenants)
+
+    def tenant(t: int) -> None:
+        try:
+            lo, hi = cuts[t], cuts[t + 1]
+            barrier.wait()
+            t0 = time.perf_counter()
+            got[t] = clients[t].verify_batch(msgs[lo:hi], sigs[lo:hi], keys[lo:hi])
+            ms[t] = (time.perf_counter() - t0) * 1e3
+        except Exception as exc:  # surfaced on the main thread below
+            errors.append(exc)
+            barrier.abort()
+
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = _sidecar_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tenant, args=(t,), name=f"tenant-{t}")
+                   for t in range(tenants)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = tuple(a - b for a, b in zip(_sidecar_launches(), before))
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        suspect = [names[t] for t, c in enumerate(clients) if c._suspect]
+    finally:
+        for c in clients:
+            c.close()
+        server.stop()
+    if errors:
+        raise AssertionError(f"a tenant's sweep failed: {errors[0]!r}") from errors[0]
+    dump = provider.dump()
+    waves, signatures, tenant_rides = (
+        int(dump.get(key, {}).get("value", 0)) for key in
+        (SIDECAR_WAVE_LAUNCHES_KEY, SIDECAR_WAVE_SIGNATURES_KEY, SIDECAR_WAVE_TENANTS_KEY))
+    verdicts = np.concatenate([got[t] for t in range(tenants)])
+    if verdicts.shape != direct.shape or not np.array_equal(verdicts, direct):
+        wrong = np.flatnonzero(verdicts != direct)
+        raise AssertionError(f"the tenants' verdicts differ from phase 3's at {wrong[:16]}")
+    if not np.array_equal(verdicts, want):
+        raise AssertionError("the tenants' verdicts differ from the construction")
+    if launches != ((waves,) * 3 if on_card else (0, 0, 0)) or waves < 1:
+        raise AssertionError(f"(horner_scan, decompress25519, comb25519) launched {launches} "
+                             f"for the server's {waves} waves")
+    if signatures != n:
+        raise AssertionError(f"the server's waves carried {signatures} signatures, not {n}")
+    if local.calls or suspect:
+        raise AssertionError(f"a client failed over: {len(local.calls)} local calls, "
+                             f"suspect {suspect}")
+    return {
+        "tenants": tenants, "signatures": n, "sweep": [int(c) for c in np.diff(cuts)],
+        "min_device_batch": min_device_batch, "max_wave": max_wave,
+        "waves": waves, "tenant_rides": tenant_rides, "launches": launches,
+        "roundtrip_ms": [ms[t] for t in range(tenants)], "wall_ms": wall_ms,
+        "rejected": int((~verdicts).sum()), "peak_bytes": peak,
+        "accounting": accounting.snapshot(),
+    }
+
+
+def phase_sidecar_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
+                          blocks: int = SIDECAR_CLUSTER_BLOCKS, clients: int = CLUSTER_CLIENTS,
+                          min_device_batch: int = CLUSTER_MIN_DEVICE_BATCH,
+                          max_batch: int = SIDECAR_MAX_WAVE, timeout: float = 60.0) -> dict:
+    """Phase 12's cluster over real sockets, verifying through one sidecar:
+    ``replicas`` ``SignedRequestApp`` replicas, each a ``Consensus`` on its
+    own ``RealtimeScheduler`` with a ``TcpComm`` on localhost (``auth_secret``)
+    and a file WAL at the default segment size, ordering ``blocks`` blocks of
+    ``requests`` signed requests (phase 12's, the first block warm-up).
+
+    Every replica's engine is a ``SidecarVerifierClient`` on a unix socket in
+    a temporary directory, with ``bypass_below`` = ``min_device_batch`` (a
+    quorum check stays on the replica's host, as in phase 12) and a counting
+    host engine as ``local_engine``: the wiring of the JAX package's
+    deploy/replica_main.py.  The one single-tenant ``VerifySidecarServer``
+    serves a ``ThreadCoalescingVerifier`` (``max_batch``) over
+    ``Ed25519BatchVerifier`` on ``device`` at ``min_device_batch``.
+
+    The set-up heap is frozen (``gc.freeze``) for the blocks, whose
+    collector pauses and WAL fsyncs are timed as in phase 12.  All ledgers
+    must be identical, every decision carry 2f+1 signatures and every
+    request be ordered exactly once; B1, D1 and D2 launch once per
+    coalesced flush (none on the CPU); the local engines serve only bypassed
+    calls and no client marks the sidecar suspect.  ``timeout`` is the
+    clients' request timeout and the coalescer's wait before its host
+    fallback (a CPU rehearsal's plain versions may need longer)."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    phase_t0 = time.perf_counter()
+    quorum = 2 * ((replicas - 1) // 3) + 1
+    engine = _instrumented(med.Ed25519BatchVerifier(device=device,
+                                                    min_device_batch=min_device_batch))
+    coalescer = ThreadCoalescingVerifier(
+        engine, window=Configuration().crypto_batch_window, max_batch=max_batch,
+        hard_cap=engine.padded_size(max_batch), bypass_below=min_device_batch,
+        wait_timeout=timeout, name=FLUSHER,
+    )
+    served = _Sweeps(coalescer)
+    local = _LocalHost(med.Ed25519BatchVerifier(device=device, min_device_batch=10**9),
+                       min_device_batch)
+    signers = {i: Ed25519Signer(i, bytes([i]) * 32) for i in range(1, replicas + 1)}
+    keys = {i: s.public_bytes for i, s in signers.items()}
+    keyring, raws, signed_now, sign_s = _signed_requests(blocks, requests, clients)
+    ed.comb_table(device)  # the constant table is set-up, not part of a block
+
+    class Ledgers:
+        """The replicas' sync registry (the toy sync reads the longest
+        ledger; no replica falls behind here)."""
+
+        nodes: dict = {}
+
+        def longest_ledger(self, *, exclude):
+            return []
+
+        def reconfig_of(self, proposal):
+            return Reconfig()
+
+    registry = Ledgers()
+    clocks = _BlockClocks()
+    consensus, comms, schedulers, wals, sidecar_clients, apps = {}, {}, {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sidecar-") as tmp:
+        server = VerifySidecarServer(os.path.join(tmp, "sidecar.sock"), served,
+                                     auth_secret=SIDECAR_SECRET)
+        server.start()
+        try:
+            with held_ports(replicas) as ports:
+                addrs = {i + 1: ("127.0.0.1", ports[i]) for i in range(replicas)}
+                for node_id in addrs:
+                    client = SidecarVerifierClient(
+                        server.address, local_engine=local, bypass_below=min_device_batch,
+                        auth_secret=SIDECAR_SECRET, request_timeout=timeout,
+                    )
+                    sidecar_clients[node_id] = client
+                    app = SignedRequestApp(node_id, registry, signers[node_id],
+                                           SigOnlyVerifier(keys, engine=client),
+                                           client_keys=keyring.public_keys, engine=client)
+                    apps[node_id] = app
+                    rt = RealtimeScheduler()
+                    rt.start(thread_name=f"replica-{node_id}")
+                    schedulers[node_id] = rt
+
+                    def route(sender, payload, is_request, nid=node_id):
+                        c = consensus.get(nid)
+                        if c is None:
+                            return
+                        if is_request:
+                            c.handle_request(sender, payload)
+                        else:
+                            c.handle_message(sender, payload)
+
+                    comm = TcpComm(node_id, addrs, route, reconnect_backoff=0.05,
+                                   auth_secret=SIDECAR_SECRET)
+                    comm.start()
+                    comms[node_id] = comm
+                    wal, _ = initialize_and_read_all(
+                        os.path.join(tmp, f"wal-{node_id}"),
+                        segment_max_bytes=DEFAULT_SEGMENT_MAX_BYTES, scheduler=rt)
+                    wals[node_id] = wal
+                    config = Configuration(
+                        self_id=node_id, leader_rotation=False, decisions_per_leader=0,
+                        request_batch_max_count=requests,
+                        request_batch_max_interval=SIDECAR_BATCH_INTERVAL,
+                        request_pool_size=3 * requests,
+                    )
+                    consensus[node_id] = Consensus(
+                        config=config, scheduler=rt, comm=comm, application=app, assembler=app,
+                        wal=wal, signer=app, verifier=app, request_inspector=app.inspector,
+                        synchronizer=app,
+                    )
+                for c in consensus.values():
+                    c.start()
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            # The earlier phases' objects, which no replica process of a
+            # deployment holds, go to the collector's permanent generation:
+            # a full collection over them stalls all 7 replicas at once, and
+            # a stall past the followers' 2 s request-forward timer has the
+            # leader verify ~6,000 forwarded requests one by one on its host.
+            gc.collect()
+            gc.freeze()
+            block_log = []
+            with clocks:
+                for b in range(blocks):
+                    sweeps0, flushes0 = len(served.sweeps), engine.flushes
+                    local0 = local.read()
+                    launches0 = _sidecar_launches()
+                    fsync0, fsyncs0, gc0, collections0 = clocks.read()
+                    t0 = time.perf_counter()
+                    for raw in raws[b]:
+                        for c in consensus.values():
+                            c.submit_request(raw)
+                    deadline = time.monotonic() + 300.0
+                    while not all(len(a.ledger) > b for a in apps.values()):
+                        if time.monotonic() > deadline:
+                            raise AssertionError(f"block {b + 1} was not ordered over TCP")
+                        time.sleep(0.002)
+                    if on_card:
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    local1 = local.read()
+                    fsync1, fsyncs1, gc1, collections1 = clocks.read()
+                    block_log.append({
+                        "wall_ms": wall * 1e3,
+                        "sweeps": len(served.sweeps) - sweeps0,
+                        "flushes": engine.flushes - flushes0,
+                        "launches": tuple(a - b0 for a, b0 in
+                                          zip(_sidecar_launches(), launches0)),
+                        "local_calls": local1[0] - local0[0],
+                        "failovers": local1[1] - local0[1],
+                        "fsync_ms": (fsync1 - fsync0) * 1e3, "fsyncs": fsyncs1 - fsyncs0,
+                        "gc_ms": (gc1 - gc0) * 1e3, "collections": collections1 - collections0,
+                    })
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            suspect = [i for i, c in sidecar_clients.items() if c._suspect]
+            device_suspect = coalescer.device_suspect
+            ledgers = {i: list(a.ledger) for i, a in apps.items()}
+            views = {c.controller.curr_view_number for c in consensus.values()}
+        finally:
+            gc.unfreeze()
+            for c in consensus.values():
+                c.stop()
+            for comm in comms.values():
+                comm.stop()
+            for rt in schedulers.values():
+                with contextlib.suppress(RuntimeError):
+                    rt.stop(timeout=2.0)
+            for wal in wals.values():
+                wal.close()
+            for client in sidecar_clients.values():
+                client.close()
+            server.stop()
+            coalescer.close()
+        wal_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.wal"))
+
+    digests = {i: [d.proposal.digest() for d in ledger] for i, ledger in ledgers.items()}
+    if len({tuple(v[:blocks]) for v in digests.values()}) != 1 or \
+            any(len(v) < blocks for v in digests.values()):
+        raise AssertionError(f"the replicas' ledgers differ: {digests}")
+    if min(len(d.signatures) for ledger in ledgers.values() for d in ledger) < quorum:
+        raise AssertionError(f"a decision carries fewer than {quorum} commit signatures")
+    ordered = [r for d in ledgers[1] for r in unpack_batch(d.proposal.payload)]
+    submitted = [r for block in raws for r in block]
+    if len(ordered) != len(set(ordered)) or sorted(ordered) != sorted(submitted):
+        raise AssertionError(f"{len(ordered)} requests ordered ({len(set(ordered))} distinct) "
+                             f"for {len(submitted)} submitted")
+    flushes = sum(b["flushes"] for b in block_log)
+    launches = tuple(sum(b["launches"][k] for b in block_log) for k in range(3))
+    if launches != ((flushes,) * 3 if on_card else (0, 0, 0)) or not flushes:
+        raise AssertionError(f"(horner_scan, decompress25519, comb25519) launched {launches} "
+                             f"for {flushes} coalesced flushes")
+    failovers = sum(b["failovers"] for b in block_log)
+    if failovers or suspect or device_suspect or engine.host_calls:
+        raise AssertionError(f"{failovers} failovers to the local engine, clients suspect "
+                             f"{suspect}, coalescer device suspect {device_suspect}, "
+                             f"{engine.host_calls} flushes served on the host")
+    measured = block_log[1:] or block_log
+    return {
+        "replicas": replicas, "requests": requests, "blocks": blocks, "clients": clients,
+        "quorum": quorum, "min_device_batch": min_device_batch, "max_batch": max_batch,
+        "block_log": block_log, "flushes": flushes, "launches": launches,
+        "sweeps": len(served.sweeps), "sweep_sizes": sorted(set(served.sweeps)),
+        "local_calls": len(local.calls), "local_sigs": sum(local.calls),
+        "views": sorted(views), "heights": sorted({len(v) for v in digests.values()}),
+        "tx_per_s": requests * len(measured) / sum(b["wall_ms"] / 1e3 for b in measured),
+        "peak_bytes": peak, "signed_now": signed_now, "sign_s": sign_s,
+        "wal_bytes": wal_bytes, "phase_s": time.perf_counter() - phase_t0,
+    }
+
+
+def log_sidecar_tenants(s: dict, direct_ms: float, card: str) -> None:
+    """Print phase 22a's sweeps, waves and round trips."""
+    log(f"sidecar, {s['tenants']} tenants: phase 3's {s['signatures']} signatures in sweeps of "
+        f"{s['sweep']} over TCP (per-tenant mutual handshake, MAC on every frame) to one "
+        f"multi-tenant VerifySidecarServer (FairShareWaveFormer, max_wave {s['max_wave']}) over "
+        f"Ed25519BatchVerifier at min_device_batch {s['min_device_batch']}; reassembled verdicts "
+        f"equal phase 3's on every lane ({s['rejected']} rejected); no failover, no client suspect")
+    per_wave = s["tenant_rides"] / s["waves"] if s["waves"] else 0.0
+    log(f"  waves {s['waves']} ({per_wave:.2f} tenants a wave), launches (horner_scan, "
+        f"decompress25519, comb25519) {s['launches']}; per-tenant signatures and waves "
+        f"{ {k: (v['signatures'], v['waves']) for k, v in s['accounting'].items()} }")
+    log(f"  round trip per tenant (host clock, barrier to verdicts): "
+        + ", ".join(f"{x:.3f} ms" for x in s["roundtrip_ms"])
+        + f"; all four {s['wall_ms']:.3f} ms; phase 3's direct wave {direct_ms:.3f} ms; {card}")
+    log(f"  torch.cuda.max_memory_allocated: {s['peak_bytes']} bytes")
+
+
+def log_sidecar_cluster(c: dict, phase12_blocks: list, card: str) -> None:
+    """Print phase 22b's blocks beside phase 12's."""
+    signed = (f"signed with ref_sign in {c['sign_s']:.3f} s, set-up" if c["signed_now"]
+              else "the requests phase 12 signed, reused")
+    log(f"cluster over TCP: {c['replicas']} replicas (RealtimeScheduler, TcpComm with "
+        f"auth_secret, file WAL) x {c['blocks']} blocks x {c['requests']} signed requests from "
+        f"{c['clients']} clients ({signed}); every replica's engine a SidecarVerifierClient on one "
+        f"unix-socket VerifySidecarServer over ThreadCoalescingVerifier (max_batch "
+        f"{c['max_batch']}) over Ed25519BatchVerifier at min_device_batch {c['min_device_batch']}, "
+        f"bypass_below {c['min_device_batch']}")
+    log(f"  all ledgers identical (heights {c['heights']}, views {c['views']}), every decision "
+        f">= {c['quorum']} signatures, every request ordered exactly once; 0 failovers, no "
+        f"client suspect, the coalescer never suspect")
+    for i, b in enumerate(c["block_log"]):
+        twelve = phase12_blocks[i]["wall_ms"] if i < len(phase12_blocks) else None
+        log(f"  block {i + 1}{' (warm-up)' if i == 0 else ''}: {b['wall_ms']:.3f} ms (host clock, "
+            f"submit to the last replica's ledger, ending in torch.cuda.synchronize()); sweeps "
+            f"to the sidecar {b['sweeps']}, coalesced flushes {b['flushes']}, launches "
+            f"(horner_scan, decompress25519, comb25519) {b['launches']}, calls served by the "
+            f"local engines {b['local_calls']} (bypassed, {b['failovers']} failovers); collector "
+            f"pauses {b['gc_ms']:.3f} ms ({b['collections']} collections, the set-up heap frozen), "
+            f"WAL fsync {b['fsync_ms']:.3f} ms ({b['fsyncs']} calls); phase 12's block {i + 1} "
+            f"{_ms(twelve)} (the sim, serial waves, heap not frozen)")
+    log(f"  sweep sizes {c['sweep_sizes']}; flushes {c['flushes']} for {c['sweeps']} sweeps; local "
+        f"calls {c['local_calls']} ({c['local_sigs']} signatures); tx/s over the measured blocks "
+        f"{c['tx_per_s']:.1f}; {card}")
+    log(f"  torch.cuda.max_memory_allocated: {c['peak_bytes']} bytes; WAL on disk "
+        f"{c['wal_bytes']} bytes; phase {c['phase_s']:.3f} s")
+
+
 def _share(x) -> str:
     return "not measured" if x is None else f"{100 * x:.3f} %"
 
@@ -3771,6 +4241,16 @@ def main() -> int:
     log_mxu(k21, w21, sass21, infos["mxu_limbs"], card)
     log(f"phase 21 took {time.perf_counter() - t21:.3f} s (host clock)")
     m1 = k21["times"][("ed25519", MXU_WIDTHS[0])]
+
+    # Phase 22: the sidecar and the transport on the card.
+    log(f"== phase 22: the sidecar and the transport ({SIDECAR_TENANTS} tenants on one sidecar; "
+        f"the config-3 cluster over TCP through one sidecar, {SIDECAR_CLUSTER_BLOCKS} of phase "
+        f"12's {CLUSTER_BLOCKS} blocks)")
+    t22 = time.perf_counter()
+    log_sidecar_tenants(phase_sidecar_tenants(device, corpus, REPLICAS, w["verdicts"]),
+                        w["wave_ms"], card)
+    log_sidecar_cluster(phase_sidecar_cluster(device), c12["block_log"], card)
+    log(f"phase 22 took {time.perf_counter() - t22:.3f} s (host clock)")
 
     log(card)
     log(json.dumps({"kernels": [

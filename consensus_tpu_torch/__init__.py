@@ -18,7 +18,12 @@ Layout:
                 facade over them
     sync/       verified, chunked state transfer behind the Synchronizer port
     membership/ membership epochs and the joining-node bootstrap
-    net/        the listener-hardening framing layer the sync transport uses
+    net/        the listener-hardening framing layer, the TCP transport
+                (TcpComm) and the verification sidecar (one engine, and one
+                card, serving many replica processes over a socket)
+    ingress/    client workload traces, admission control, tenant placement
+                over a sidecar fleet and the open-loop ingress driver
+    deploy/     the JSON-line control listener of the deployment rig
     trace/      decision-lifecycle tracer
     utils/      quorum math, leader selection, blacklist, digests
     ops/        GF(2^255-19) and GF(p256) limb arithmetic, edwards25519 and

@@ -1,9 +1,14 @@
-"""Network pieces of the port: the listener-hardening framing layer that
-the sync transport uses.  The TCP transport and the verification sidecar
-(``net/transport.py``, ``net/sidecar.py`` in the JAX package) are
-ROADMAP.md queue A item 14.
+"""Network transports: production Comm implementations (TCP over DCN).
+
+The PyTorch port's copy of ``consensus_tpu/net/__init__.py``, its imports renamed.
 """
 
-from consensus_tpu_torch.net.framing import FrameStall, ListenerGuard, recv_exact
+from consensus_tpu_torch.net.transport import MAX_FRAME_BYTES, TcpComm
+from consensus_tpu_torch.net.sidecar import SidecarVerifierClient, VerifySidecarServer
 
-__all__ = ["FrameStall", "ListenerGuard", "recv_exact"]
+__all__ = [
+    "TcpComm",
+    "MAX_FRAME_BYTES",
+    "VerifySidecarServer",
+    "SidecarVerifierClient",
+]
