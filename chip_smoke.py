@@ -7,7 +7,8 @@ then through the engine layer the JAX package launches them through (the
 coalescer and the supervisor), then through the protocol core (a replica
 cluster ordering blocks), then through the process seams (a sidecar serving
 the card to tenants over sockets, and the cluster over TCP verifying
-through it):
+through it), then through the consensus groups' shared verifier fleet and
+the process-per-replica deployment rig:
 
 * strict Ed25519 batch verification at the size of one block of a
   7-replica (f=2) Ed25519 deployment with 1,000 requests per block
@@ -200,6 +201,31 @@ Phases:
    exactly once, B1, D1 and D2 launched once per coalesced flush, 0
    failovers; each block's wall ms, sweeps, flushes, launches, local calls,
    collector pauses (the set-up heap frozen) and fsyncs beside phase 12's.
+23. the consensus groups and the deployment rig (``groups/``, ``deploy/``),
+   the set-up heap frozen: (a) ``ShardedCluster(4, n=7)``, four config-3
+   groups on one sim clock, 16 tenants, 8 rounds of one request a tenant
+   (each group deciding at least 8 times); its committed certificates as
+   real Ed25519 signatures (``cert_workload``) through one shared
+   ``FairShareWaveFormer`` (``drive_shared_fleet``, one thread a group) and
+   through one private former a group (``drive_private_fleets``), each over
+   the strict engine on the card at ``min_device_batch=1``, the launch
+   counts set to 0 just before each drive and read just after: every
+   certificate verifies, both drives carry the same signatures, B1, D1 and
+   D2 launch once per drive launch, the shared drive launches less often
+   and at least once for 2+ groups; one forged signature makes the shared
+   drive raise naming its group, and the card and the host path reject that
+   lane alone; each drive's host-clock ms, launches and mean wave; (b)
+   ``ClusterSpec.generate(7, 2, hold_ports=True)`` launched by
+   ``ClusterLauncher(spec, device="cuda:0")``: 7 replica and 2 sidecar
+   processes of the port's mains, the JAX acceptance legs (kill -9 the
+   leader, kill -9 ``sc-0``, the old leader restarted by its supervisor
+   rejoining from its WAL) with 5 replicas (n - f) as the bar for
+   progress, then the port's ``driver_main`` for 10 s as its own process;
+   the invariant monitor clean and no orphan or leaked port at
+   ``launcher.stop()``; the processes holding the card after the boot.
+   Cut: decisions of one request (the JAX smoke's
+   ``request_batch_max_count``), since the rig's processes verify on the
+   host path in pure Python, as the JAX mains do with OpenSSL.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -216,6 +242,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import socket
 import struct
 import subprocess
@@ -232,6 +259,8 @@ from torch.autograd import DeviceType
 
 from consensus_tpu_torch.config import Configuration, ObsConfig
 from consensus_tpu_torch.consensus import Consensus
+from consensus_tpu_torch.deploy import ClusterLauncher, ClusterSpec
+from consensus_tpu_torch.deploy.identity import make_client_keyring
 from consensus_tpu_torch.metrics import (
     ENGINE_CROSSCHECK_KEY,
     ENGINE_CROSSCHECK_MISMATCH_KEY,
@@ -262,6 +291,7 @@ from consensus_tpu_torch.models.verifier import (
     commit_message,
     engine_for_config,
 )
+from consensus_tpu_torch.groups import ShardedCluster
 from consensus_tpu_torch.obs import series_to_jsonl
 from consensus_tpu_torch.net import SidecarVerifierClient, TcpComm, VerifySidecarServer
 from consensus_tpu_torch.obs.kernels import KERNELS, TenantAccounting
@@ -3524,6 +3554,387 @@ def phase_sidecar_cluster(device, replicas: int = REPLICAS, requests: int = REQU
     }
 
 
+#: Phase 23a: four config-3 groups (7 replicas each, f = 2) on one sim
+#: clock, 16 tenants placed by the groups' directory, each group deciding
+#: at least 8 times (one round of every tenant's request a decision).
+GROUPS = 4
+GROUP_TENANTS = 16
+GROUP_DECISIONS = 8
+GROUPS_SEED = 23
+#: The JAX package's gate windows (tests/test_groups.py:292-293): the shared
+#: former waits 0.1 s to gather the groups' batches, a private one 0.01 s.
+SHARED_WINDOW = 0.1
+PRIVATE_WINDOW = 0.01
+#: Phase 23b: config 3's 7 replicas and a fleet of 2 sidecars as processes,
+#: under the JAX acceptance run's timers (tests/test_zz_deploy_rig.py:113-
+#: 120), its supervisor backoff, and decisions of one request (the JAX
+#: smoke's ``request_batch_max_count``).
+RIG_SIDECARS = 2
+RIG_OVERRIDES = {
+    "view_change_timeout": 3.0,
+    "view_change_resend_interval": 1.0,
+    "leader_heartbeat_timeout": 2.0,
+    "leader_heartbeat_count": 8,
+    "request_batch_max_count": 1,
+}
+RIG_BACKOFF = 8.0
+#: The port's driver_main as its own process: 10 s of the clean trace, at an
+#: offered rate the rig's host-path verification keeps up with.
+RIG_DRIVER_SECONDS = 10.0
+RIG_DRIVER_RATE = 10.0
+#: The in-phase injector's transport id (the deploy driver's, outside the
+#: replica ids); the injector stops before driver_main takes the id.
+RIG_CLIENT_ID = 900
+REPO = Path(__file__).resolve().parent
+
+
+def _forge(workload: dict, gid: str) -> tuple[dict, tuple]:
+    """``workload`` with bit 0 of S's byte 8 flipped in the first signature
+    of ``gid``'s first batch (S stays below L: the lane fails the group
+    equation, not a host check); returns it and that batch."""
+    forged = {g: list(batches) for g, batches in workload.items()}
+    msgs, sigs, keys = forged[gid][0]
+    bad = bytearray(sigs[0])
+    bad[40] ^= 1
+    batch = (list(msgs), [bytes(bad)] + list(sigs[1:]), list(keys))
+    forged[gid][0] = batch
+    return forged, batch
+
+
+def phase_groups_fleet(device, n_groups: int = GROUPS, n: int = REPLICAS,
+                       tenants: int = GROUP_TENANTS, decisions: int = GROUP_DECISIONS) -> dict:
+    """The groups' shared verifier fleet on ``device``.
+
+    ``ShardedCluster(n_groups, n=n)`` on one sim clock orders ``decisions``
+    rounds of every tenant's request (each group at least one decision a
+    round), then its committed quorum certificates, re-expressed as real
+    Ed25519 signatures (``cert_workload``), are replayed through one shared
+    ``FairShareWaveFormer`` (one thread a group) and through one private
+    former a group, each over ``Ed25519BatchVerifier`` on ``device`` at
+    ``min_device_batch=1``.  The launch counts are set to 0 just before each
+    drive and read just after: B1, D1 and D2 launch once per drive launch
+    (none on the CPU, where the plain versions run).  Every certificate must
+    verify, both drives carry the same signatures, the shared drive launches
+    less often than the private ones, and at least one of its launches
+    serves two groups.  Then one signature of the last group's first batch is
+    forged: the shared drive must raise naming that group, and the device
+    path and the host path must both reject that lane alone."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    shard = ShardedCluster(n_groups, n=n, seed=GROUPS_SEED, device=device)
+    names = [f"tenant-{t}" for t in range(tenants)]
+    placed = {shard.router.directory.assign(t) for t in names}
+    if placed != set(shard.group_ids()):
+        raise AssertionError(f"the {tenants} tenants reach only groups {sorted(placed)}")
+    t0 = time.perf_counter()
+    shard.start()
+    for r in range(decisions):
+        for t in names:
+            shard.submit(t, b"round-%d" % r)
+        if not shard.run_until_heights(r + 1, max_time=600.0):
+            raise AssertionError(f"the groups stalled at heights {shard.heights()}")
+    shard.assert_clean()
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    workload = shard.cert_workload()
+    sign_s = time.perf_counter() - t0
+
+    def engine():
+        return med.Ed25519BatchVerifier(min_device_batch=1, device=device)
+
+    drives = {
+        "shared": lambda w: shard.drive_shared_fleet(window=SHARED_WINDOW, engine=engine(),
+                                                     workload=w),
+        "private": lambda w: shard.drive_private_fleets(window=PRIVATE_WINDOW,
+                                                        engine_factory=engine, workload=w),
+    }
+    out = {}
+    for name, drive in drives.items():
+        if on_card:
+            torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        r = drive(workload)
+        if on_card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _sidecar_launches()
+        if launches != ((r["launches"],) * 3 if on_card else (0, 0, 0)) or not r["launches"]:
+            raise AssertionError(f"the {name} drive's {r['launches']} launches launched "
+                                 f"(horner_scan, decompress25519, comb25519) {launches}")
+        out[name] = dict(r, ms=ms, kernel_launches=launches,
+                         mean_wave=r["total_signatures"] / r["launches"])
+    shared, private = out["shared"], out["private"]
+    if shared["total_signatures"] != private["total_signatures"]:
+        raise AssertionError(f"the shared drive verified {shared['total_signatures']} "
+                             f"signatures, the private ones {private['total_signatures']}")
+    if not shared["launches"] < private["launches"] or shared["multi_group_launches"] < 1:
+        raise AssertionError(f"shared {shared['launches']} launches "
+                             f"({shared['multi_group_launches']} serving 2+ groups), private "
+                             f"{private['launches']}")
+    gid = shard.group_ids()[-1]
+    forged, (msgs, sigs, keys) = _forge(workload, gid)
+    try:
+        shard.drive_shared_fleet(window=SHARED_WINDOW, engine=engine(), workload=forged)
+    except AssertionError as exc:
+        if not str(exc).endswith(f" {gid}"):
+            raise AssertionError(f"the forged drive raised {exc!r}, not naming {gid}") from exc
+        raised = str(exc)
+    else:
+        raise AssertionError(f"the shared drive accepted a forged signature of {gid}")
+    want = [False] + [True] * (len(msgs) - 1)
+    lanes = {
+        "device": [bool(v) for v in engine().verify_batch(msgs, sigs, keys)],
+        "host": [bool(v) for v in med.Ed25519BatchVerifier(
+            min_device_batch=10**9, device=device).verify_batch(msgs, sigs, keys)],
+    }
+    if any(v != want for v in lanes.values()):
+        raise AssertionError(f"the forged batch's verdicts {lanes}, not {want}")
+    return {
+        "groups": n_groups, "n": n, "tenants": tenants, "decisions": decisions,
+        "heights": shard.heights(), "batches": {g: len(b) for g, b in workload.items()},
+        "sim_s": sim_s, "sign_s": sign_s, "shared": shared, "private": private,
+        "forged_group": gid, "forged_error": raised, "forged_lanes": len(msgs),
+    }
+
+
+class RigInjector:
+    """Requests signed with a cluster's client keys, sent to every replica
+    over an authenticated ``TcpComm`` from ``RIG_CLIENT_ID``, as the deploy
+    driver sends them.  ``port`` is the injector's own listen port."""
+
+    def __init__(self, spec, port: int) -> None:
+        self.spec = spec
+        self.keyring = make_client_keyring(spec.key_namespace, spec.clients)
+        addresses = dict(spec.comm_addresses())
+        addresses[RIG_CLIENT_ID] = ("127.0.0.1", port)
+        self.comm = TcpComm(RIG_CLIENT_ID, addresses, lambda *a: None,
+                            reconnect_backoff=0.05, auth_secret=spec.auth_secret)
+        self.comm.start()
+        self._seq = 0
+
+    def submit(self, n: int, pace: float = 0.02) -> None:
+        for _ in range(n):
+            s = self._seq
+            self._seq += 1
+            client = s % self.spec.clients
+            raw = self.keyring.make_request(client, (client << 32) | s)
+            for node_id in self.spec.node_ids():
+                self.comm.send_transaction(node_id, raw)
+            time.sleep(pace)
+
+    def stop(self) -> None:
+        self.comm.stop()
+
+
+def _compute_apps() -> list[tuple[int, str]]:
+    """(pid, used memory) of every process holding the card, as nvidia-smi
+    reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    rows = [line.split(",", 1) for line in out.stdout.strip().splitlines() if line.strip()]
+    return [(int(pid), mem.strip()) for pid, mem in rows]
+
+
+def _wait(predicate, timeout: float, step: float = 0.2) -> float | None:
+    """Seconds until ``predicate()`` held, or None after ``timeout``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if predicate():
+            return time.perf_counter() - t0
+        time.sleep(step)
+    return None
+
+
+def phase_rig(device, n: int = REPLICAS, driver_seconds: float = RIG_DRIVER_SECONDS) -> dict:
+    """The deployment rig at config 3's ``n``: ``ClusterSpec.generate(n,
+    RIG_SIDECARS, hold_ports=True)`` launched by ``ClusterLauncher(spec,
+    device=device)`` as ``n`` processes of the port's ``replica_main`` and
+    ``RIG_SIDECARS`` of its ``sidecar_main`` (``--device`` in every argv), then
+    the JAX acceptance legs (tests/test_zz_deploy_rig.py:109-205) with
+    ``n - f`` replicas as the bar for progress: kill -9 the leader (a view
+    change completes and ordering resumes), kill -9 ``sc-0`` (ordering goes
+    on with ``sc-1``), and the supervisor's restart of the old leader, which
+    rejoins from its WAL to the cluster's height.  Then the port's
+    ``driver_main`` runs as its own process for ``driver_seconds``.  The
+    invariant monitor must be clean, and ``launcher.stop()`` (always
+    reached) must find no orphan and no leaked port.  On the card the
+    children's holdings of device memory are read from nvidia-smi."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    f = (n - 1) // 3
+    bar = n - f
+    phase_t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="ctpu-rig-")
+    spec = ClusterSpec.generate(n, RIG_SIDECARS, base, config_overrides=RIG_OVERRIDES,
+                                hold_ports=True)
+    launcher = ClusterLauncher(spec, backoff_initial=RIG_BACKOFF, device=str(device))
+    injector = None
+    out: dict = {"n": n, "f": f, "bar": bar, "sidecars": RIG_SIDECARS, "backoff": RIG_BACKOFF}
+    try:
+        with held_ports(1) as (client_port,):
+            t0 = time.perf_counter()
+            launcher.start(timeout=180)
+            out["boot_s"] = time.perf_counter() - t0
+            argv = [sup.argv for sup in list(launcher.replicas.values())
+                    + list(launcher.sidecars.values())]
+            if not all(a[-2:] == ["--device", str(device)] for a in argv):
+                raise AssertionError(f"a child was started without --device {device}: {argv}")
+            out["gpu_apps"] = _compute_apps() if on_card else None
+            out["child_pids"] = [sup.pid for sup in list(launcher.replicas.values())
+                                 + list(launcher.sidecars.values())]
+            injector = RigInjector(spec, client_port)
+            injector.submit(5)
+            if not launcher.wait_height(1, timeout=30):
+                raise AssertionError(f"the rig never decided: {launcher.heights()}")
+            old_leader = launcher.leader_id()
+            if old_leader is None:
+                raise AssertionError("no replica reports a leader")
+            out["old_leader"] = old_leader
+
+            # Leg 1: kill -9 the leader; a view change completes and
+            # ordering resumes on n - f replicas.
+            launcher.kill_replica(old_leader)
+            t_kill = time.perf_counter()
+
+            def view_advanced() -> bool:
+                views = [h["view"] for i, sup in launcher.replicas.items()
+                         if i != old_leader and (h := sup.probe()) is not None]
+                return bool(views) and max(views) >= 1
+
+            out["view_change_s"] = _wait(view_advanced, 40.0)
+            if out["view_change_s"] is None:
+                raise AssertionError("the view change never completed after the leader's kill")
+            h0 = max(launcher.heights().values())
+
+            def progressed(h: int):
+                def check() -> bool:
+                    injector.submit(2)
+                    return sum(1 for v in launcher.heights().values() if v >= h + 1) >= bar
+                return check
+
+            out["resume_s"] = _wait(progressed(h0), 40.0, step=0.5)
+            if out["resume_s"] is None:
+                raise AssertionError(f"ordering did not resume: {launcher.heights()}")
+            out["new_leader"] = launcher.leader_id()
+            if out["new_leader"] == old_leader:
+                raise AssertionError(f"replica {old_leader} still leads after its kill")
+
+            # Leg 2: kill -9 sc-0; ordering goes on with sc-1.
+            launcher.kill_sidecar("sc-0")
+            h1 = max(launcher.heights().values())
+            out["sidecar_kill_s"] = _wait(progressed(h1), 40.0, step=0.5)
+            if out["sidecar_kill_s"] is None:
+                raise AssertionError(f"ordering stalled after the sidecar's kill: "
+                                     f"{launcher.heights()}")
+
+            # Leg 3: the supervisor restarts the old leader, which rejoins
+            # from its WAL through verified sync.
+            target = max(launcher.heights().values())
+            sup = launcher.replicas[old_leader]
+
+            def rejoined() -> bool:
+                h = sup.probe()
+                return bool(h and h.get("restarted") and h.get("ledger", 0) >= target)
+
+            out["rejoin_s"] = _wait(rejoined, 90.0, step=0.5)
+            if out["rejoin_s"] is None:
+                raise AssertionError(f"the old leader never rejoined: {sup.probe()}")
+            out["rejoin_after_kill_s"] = time.perf_counter() - t_kill
+            if sup.restarts < 1:
+                raise AssertionError("the old leader was never restarted by its supervisor")
+            out["target"] = target
+            out["legs_heights"] = launcher.heights()
+            out["sidecar_health"] = {sid: s.probe() for sid, s in launcher.sidecars.items()}
+            injector.stop()
+            injector = None
+
+        # The port's driver_main as its own process.
+        env = os.environ.copy()
+        env["PYTHONPATH"] = (str(REPO) + os.pathsep + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+        h2 = max(launcher.heights().values())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "consensus_tpu_torch.deploy.driver_main", "--config",
+             spec.config_path, "--seconds", str(driver_seconds), "--rate", str(RIG_DRIVER_RATE)],
+            capture_output=True, text=True, env=env, cwd=str(REPO),
+            timeout=driver_seconds + 120,
+        )
+        out["driver_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"driver_main exited {proc.returncode}: {proc.stderr[-2000:]}")
+        out["driver"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        if out["driver"]["submitted"] < 1:
+            raise AssertionError(f"driver_main submitted nothing: {out['driver']}")
+        out["driver_drain_s"] = _wait(
+            lambda: launcher.wait_height(h2 + 1, timeout=0.5, min_nodes=bar), 60.0)
+        if out["driver_drain_s"] is None:
+            raise AssertionError(f"the driver's requests were never ordered: "
+                                 f"{launcher.heights()}")
+        out["heights"] = launcher.heights()
+        launcher.observe_invariants()
+        launcher.monitor.assert_clean()
+        out["agreed"] = len(launcher.monitor.agreed)
+        out["restarts"] = {name: s.restarts for name, s in
+                           list(launcher.replicas.items()) + list(launcher.sidecars.items())}
+    finally:
+        if injector is not None:
+            injector.stop()
+        out["teardown"] = launcher.stop()
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
+def log_groups_fleet(g: dict, card: str) -> None:
+    """Print phase 23a's drives."""
+    log(f"groups: {g['groups']} groups x {g['n']} replicas on one sim clock, {g['tenants']} "
+        f"tenants, {g['decisions']} rounds (heights {g['heights']}, cert batches "
+        f"{g['batches']}); sim {g['sim_s']:.3f} s, cert workload signed in {g['sign_s']:.3f} s "
+        f"(set-up)")
+    for name in ("shared", "private"):
+        d = g[name]
+        log(f"  {name} drive: {d['ms']:.3f} ms (host clock, ending in torch.cuda.synchronize()); "
+            f"launches {d['launches']}, signatures {d['total_signatures']}, mean wave "
+            f"{d['mean_wave']:.3f}; (horner_scan, decompress25519, comb25519) launched "
+            f"{d['kernel_launches']}"
+            + (f"; launches serving 2+ groups {d['multi_group_launches']}" if name == "shared"
+               else "") + f"; {card}")
+    log(f"  launch sizes: shared {list(g['shared']['launch_sizes'])}, private "
+        f"{list(g['private']['launch_sizes'])}")
+    log(f"  forged lane in {g['forged_group']}: the shared drive raised {g['forged_error']!r}; "
+        f"the batch's {g['forged_lanes']} lanes on the card and on the host path: lane 0 "
+        f"rejected, the rest accepted")
+
+
+def log_rig(r: dict, card: str) -> None:
+    """Print phase 23b's legs, driver and teardown."""
+    log(f"rig: {r['n']} replica processes (f={r['f']}) and {r['sidecars']} sidecars of the "
+        f"port's mains, booted in {r['boot_s']:.3f} s (host clock); supervisor backoff "
+        f"{r['backoff']} s; progress bar {r['bar']} replicas")
+    log(f"  leg 1: kill -9 leader {r['old_leader']}: view change in {r['view_change_s']:.3f} s, "
+        f"ordering resumed {r['resume_s']:.3f} s later, new leader {r['new_leader']}")
+    log(f"  leg 2: kill -9 sc-0: ordering went on {r['sidecar_kill_s']:.3f} s later; sidecar "
+        f"health {r['sidecar_health']}")
+    log(f"  leg 3: replica {r['old_leader']} restarted and rejoined at height >= {r['target']} "
+        f"{r['rejoin_s']:.3f} s after the leg began ({r['rejoin_after_kill_s']:.3f} s after its "
+        f"kill); heights {r['legs_heights']}")
+    log(f"  driver_main, {r['driver_s']:.3f} s as its own process: {json.dumps(r['driver'])}; "
+        f"its requests ordered on {r['bar']} replicas {r['driver_drain_s']:.3f} s after it ended")
+    log(f"  invariants clean ({r['agreed']} agreed decisions), heights {r['heights']}, "
+        f"restarts {r['restarts']}")
+    log(f"  teardown: orphans {r['teardown']['orphans']}, leaked ports "
+        f"{r['teardown']['leaked_ports']}; phase {r['phase_s']:.3f} s; {card}")
+    if r["gpu_apps"] is not None:
+        mine = [app for app in r["gpu_apps"] if app[0] in set(r["child_pids"])]
+        log(f"  processes holding the card after the rig's boot (nvidia-smi "
+            f"--query-compute-apps): {len(r['gpu_apps'])}, {r['gpu_apps']}, this process's "
+            f"context among them; the children's pids {r['child_pids']}, matched by pid: "
+            f"{mine if mine else 'none'} (nvidia-smi may report pids of another namespace)")
+
+
 def log_sidecar_tenants(s: dict, direct_ms: float, card: str) -> None:
     """Print phase 22a's sweeps, waves and round trips."""
     log(f"sidecar, {s['tenants']} tenants: phase 3's {s['signatures']} signatures in sweeps of "
@@ -4251,6 +4662,20 @@ def main() -> int:
                         w["wave_ms"], card)
     log_sidecar_cluster(phase_sidecar_cluster(device), c12["block_log"], card)
     log(f"phase 22 took {time.perf_counter() - t22:.3f} s (host clock)")
+
+    # Phase 23: the consensus groups' shared fleet and the process rig.
+    log(f"== phase 23: the groups and the rig ({GROUPS} groups x {REPLICAS} replicas over one "
+        f"shared fleet on the card; {REPLICAS} replica and {RIG_SIDECARS} sidecar processes of "
+        f"the port's mains)")
+    t23 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    try:
+        log_groups_fleet(phase_groups_fleet(device), card)
+        log_rig(phase_rig(device), card)
+    finally:
+        gc.unfreeze()
+    log(f"phase 23 took {time.perf_counter() - t23:.3f} s (host clock)")
 
     log(card)
     log(json.dumps({"kernels": [

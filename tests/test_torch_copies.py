@@ -34,7 +34,23 @@ VERBATIM = [
     "core/state.py",
     "core/view.py",
     "core/viewchanger.py",
+    "deploy/__init__.py",
+    "deploy/autoscaler.py",
     "deploy/control.py",
+    "deploy/identity.py",
+    "deploy/invariants.py",
+    "deploy/launcher.py",
+    "deploy/replica_main.py",
+    "deploy/sidecar_main.py",
+    "deploy/spec.py",
+    "deploy/supervisor.py",
+    "groups/__init__.py",
+    "groups/chaos.py",
+    "groups/cluster.py",
+    "groups/deploy.py",
+    "groups/directory.py",
+    "groups/router.py",
+    "groups/twopc.py",
     "ingress/__init__.py",
     "ingress/admission.py",
     "ingress/driver.py",
@@ -82,8 +98,8 @@ VERBATIM = [
     "wire/messages.py",
 ]
 REWORDED = [
-    "api/deps.py", "config.py", "metrics.py", "parallel/__init__.py", "parallel/topology.py",
-    "testing/crypto_app.py",
+    "api/deps.py", "config.py", "deploy/chaos.py", "deploy/driver_main.py", "metrics.py",
+    "parallel/__init__.py", "parallel/topology.py", "testing/crypto_app.py",
 ]
 
 #: The divergences the port keeps on purpose, each as pairs of (the JAX
@@ -128,6 +144,132 @@ DIVERGENCES = {
             engine = Ed25519BatchVerifier(
                 min_device_batch=10**9, device=self.device
             )
+""",
+        ),
+    ],
+    # ROADMAP.md queue C, divergence 25: the rig's mains take ``--device``
+    # (``cuda`` when it is not given), the launcher passes it to every
+    # child when it is named, and the sharded cluster's fleet drives build
+    # their default engine on the device it names, resolved only then.
+    "deploy/sidecar_main.py": [
+        (
+            """    ap.add_argument("--sidecar-id", required=True)
+    args = ap.parse_args()
+""",
+            """    ap.add_argument("--sidecar-id", required=True)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args()
+""",
+        ),
+        (
+            """    engine = _CountingEngine(Ed25519BatchVerifier(min_device_batch=10**9))
+""",
+            """    engine = _CountingEngine(
+        Ed25519BatchVerifier(min_device_batch=10**9, device=args.device)
+    )
+""",
+        ),
+    ],
+    "deploy/replica_main.py": [
+        (
+            """    ap.add_argument("--node-id", type=int, required=True)
+    args = ap.parse_args()
+""",
+            """    ap.add_argument("--node-id", type=int, required=True)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args()
+""",
+        ),
+        (
+            """    host_engine = Ed25519BatchVerifier(min_device_batch=10**9)
+""",
+            """    host_engine = Ed25519BatchVerifier(min_device_batch=10**9, device=args.device)
+""",
+        ),
+    ],
+    "deploy/launcher.py": [
+        (
+            """        spawn_sidecars: bool = True,
+    ) -> None:
+""",
+            """        spawn_sidecars: bool = True,
+        device: Optional[str] = None,
+    ) -> None:
+""",
+        ),
+        (
+            """        self.spawn_sidecars = spawn_sidecars
+""",
+            """        self.spawn_sidecars = spawn_sidecars
+        #: The device the children's engines live on, passed as
+        #: ``--device``; unset, the children resolve ``cuda``.
+        self.device = device
+""",
+        ),
+        (
+            """            "--config", self.spec.config_path, "--node-id", str(node_id),
+        ]
+""",
+            """            "--config", self.spec.config_path, "--node-id", str(node_id),
+        ] + self._device_argv()
+""",
+        ),
+        (
+            """            "--config", self.spec.config_path, "--sidecar-id", sidecar_id,
+        ]
+""",
+            """            "--config", self.spec.config_path, "--sidecar-id", sidecar_id,
+        ] + self._device_argv()
+
+    def _device_argv(self) -> list:
+        return [] if self.device is None else ["--device", str(self.device)]
+""",
+        ),
+    ],
+    "groups/cluster.py": [
+        (
+            """        check_durability: bool = True,
+    ) -> None:
+        if n_groups < 1:
+            raise ValueError("need at least one group")
+        self.seed = seed
+""",
+            """        check_durability: bool = True,
+        device=None,
+    ) -> None:
+        if n_groups < 1:
+            raise ValueError("need at least one group")
+        self.seed = seed
+        #: Where the fleet drives' default engines live (``cuda`` unless
+        #: named); resolved only when a drive builds one.
+        self.device = device
+""",
+        ),
+        (
+            """            engine if engine is not None else _host_engine()
+""",
+            """            engine if engine is not None else _host_engine(self.device)
+""",
+        ),
+        (
+            """        factory = engine_factory if engine_factory is not None else _host_engine
+""",
+            """        factory = (
+            engine_factory if engine_factory is not None
+            else lambda: _host_engine(self.device)
+        )
+""",
+        ),
+        (
+            """def _host_engine():
+    from consensus_tpu.models.ed25519 import Ed25519BatchVerifier
+
+    return Ed25519BatchVerifier(min_device_batch=10**9)
+""",
+            """def _host_engine(device=None):
+    from consensus_tpu.models.ed25519 import Ed25519BatchVerifier
+
+    return Ed25519BatchVerifier(min_device_batch=10**9, device=device)
 """,
         ),
     ],
@@ -287,14 +429,9 @@ def test_verbatim_copy_has_the_jax_modules_text(module):
 def test_every_copy_is_listed():
     """Every port module whose JAX namesake it copies whole is listed; the
     rest of the port (the engine layer, the kernels, the package
-    ``__init__`` files that export less) is its own code.
-
-    ``deploy/__init__.py`` exports only the control listener: the JAX
-    file imports the spec, the supervisor, the launcher, the autoscaler,
-    the invariant monitor and the process chaos, which wait for ROADMAP.md
-    queue A item 14b."""
+    ``__init__`` files that export less) is its own code."""
     own = {
-        "__init__.py", "device.py", "deploy/__init__.py", "trace/__init__.py",
+        "__init__.py", "device.py", "trace/__init__.py",
         "testing/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
     }
     own_dirs = {"models", "ops", "obs", "runtime", "csrc"}

@@ -918,3 +918,26 @@ def test_mxu_lane_strict_wave_on_card_gives_the_lane_off_verdicts(cuda_device, m
     assert {k: v for k, v in on_launches.items() if k != "mxu_limbs"} == {
         k: v for k, v in off_launches.items() if k != "mxu_limbs"}
     assert KERNELS.stats("ed25519.verify_mxu").launches == booked + 1
+
+
+# --- the consensus groups' shared fleet on the card ---------------------------
+
+
+@pytest.mark.cuda
+def test_groups_shared_fleet_on_card_launches_once_per_wave(cuda_device):
+    """Phase 23a at 2 groups of 4: the committed certificates through one
+    shared wave former and through one private former a group, each over the
+    strict engine on the card at ``min_device_batch=1``.  B1, D1 and D2
+    launch once per launch of each drive, the shared drive launches less
+    often with the same signatures, and a forged lane is refused by the
+    shared drive (naming its group), the card and the host path alike."""
+    from chip_smoke import phase_groups_fleet
+
+    g = phase_groups_fleet(cuda_device, n_groups=2, n=4, tenants=8, decisions=3)
+    shared, private = g["shared"], g["private"]
+    for d in (shared, private):
+        assert d["kernel_launches"] == (d["launches"],) * 3 and d["launches"] >= 1
+    assert shared["total_signatures"] == private["total_signatures"]
+    assert shared["launches"] < private["launches"]
+    assert shared["multi_group_launches"] >= 1
+    assert g["forged_error"].endswith(" " + g["forged_group"])
