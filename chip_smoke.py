@@ -37,8 +37,8 @@ Phases:
    registers, stack frame and spills ptxas reports for B1;
 3. the Ed25519 path: the 7,000-signature wave with every rejection class
    mixed in, verdicts held against the construction and against the
-   RFC 8032 reference, kernel launch counts read around the run (D1, B1
-   and D2 once each), then a 2f+1 commit quorum through
+   RFC 8032 reference, kernel launch counts read around the run (D1, B1,
+   D2 and E1 once each), then a 2f+1 commit quorum through
    ``verify_consenter_sigs_batch``;
 4. the P-256 kernel B2 against its plain torch version on the card on the
    phase-5 wave's own kernel inputs (real keys and u2 digits, off-curve keys
@@ -46,8 +46,9 @@ Phases:
    version's and its bound;
 5. the P-256 path: the 2,000-signature wave with every rejection class of
    the JAX engine mixed in, verdicts held against the construction and the
-   pure-Python reference, launch counts read around the run, a profiled
-   re-run's stage split, then a 2f+1 commit quorum through
+   pure-Python reference, launch counts read around the run (B2, P1 and P2
+   once each), a profiled re-run's stage split, then a 2f+1 commit quorum
+   through
    ``EcdsaP256VerifierMixin.verify_consenter_sigs_batch``;
 6. the Straus MSM kernel B3 against its plain torch version on the card on
    the phase-7 wave's first aggregate (its transcript's digits, padded and
@@ -60,7 +61,7 @@ Phases:
    undecodable classes mixed in, through ``engine_for_config(
    Configuration(batch_verify_mode=True))``, verdicts held against the
    construction, the strict engine and the RFC 8032 reference, launch counts
-   read around the run (B3, D1 and D2 twice: the aggregate, then the
+   read around the run (B3, D1, D2 and E1 twice: the aggregate, then the
    survivors' re-check), and a profiled re-run's stage split;
 8. a sync catch-up chunk: 51 decisions' 5-vote quorums (255 votes, 3 of
    them forged) through ``verify_consenter_sigs_multi_batch`` on the
@@ -137,8 +138,9 @@ Phases:
    D2 on the wave's S digits (8,192 lanes), on its first 1,024 lanes and on
    one lane; each with its time through its wrapper (as every other
    kernel's) and of its launches alone, the plain version's and its bound,
-   and the registers, shared memory, stack frame and spills ptxas reports.  D1 and D2 launch once per device call on
-   every Ed25519 path (phases 3, 7, 8, 12 and 14-17 count them).
+   and the registers, shared memory, stack frame and spills ptxas reports.  D1, D2 and E1
+   launch once per device call on every Ed25519 path, P1 and P2 once per
+   P-256 call (phases 3, 5, 7-12, 14-17, 19, 20, 22 and 23 count them).
 19. the device-fault chaos matrix (the JAX package's, tests/test_supervisor.py:
    425-497) through the port's chaos harness (``testing/chaos.py``): seed
    31's 4-replica schedule of 6 actions with one hang, one raise and one
@@ -177,10 +179,13 @@ Phases:
    on CPU copies and to the VPU lane's eager torch on the card; its time
    through the wrapper and alone beside the eager product's, the plain
    version's, ``torch._int_mm``'s one byte plane and the bound; then the
-   strict, randomized and P-256 waves with the lane off and on (Ed25519
-   through ``engine_for_config`` under ``CTPU_MXU_LIMBS=1``, booked as
-   ``ed25519.verify_mxu`` and the like; P-256 under ``force_mxu_limbs``):
-   verdicts equal, M1's launches, wall ms, busy share and peak memory.
+   strict, randomized and P-256 waves once with the lane off and once on
+   (Ed25519 through ``engine_for_config`` under ``CTPU_MXU_LIMBS=1``, booked
+   as ``ed25519.verify_mxu`` and the like; P-256 under
+   ``force_mxu_limbs``): verdicts equal, M1 launched 0 times in both lanes
+   (every product of a wave runs inside the waves' kernels, which take no
+   lane) and every other kernel as often.  Both lanes run the same kernels,
+   so the waves are not timed.
 22. the sidecar and the transport (``net/sidecar.py``, ``net/transport.py``):
    (a) phase 3's wave in 4 tenants' sweeps of 1,750, sent at once over TCP
    (per-tenant mutual handshake, a MAC on every frame) to one multi-tenant
@@ -226,6 +231,21 @@ Phases:
    Cut: decisions of one request (the JAX smoke's
    ``request_batch_max_count``), since the rig's processes verify on the
    host path in pure Python, as the JAX mains do with OpenSSL.
+24. the waves' verdict tails: kernels E1 (the Ed25519 add-and-compare,
+   ``csrc/verdict25519.cu``), P1 (the P-256 fixed-base comb [u1]G,
+   ``csrc/comb_p256.cu``) and P2 (the P-256 verdict, ``csrc/verdict_p256.cu``)
+   against their plain torch versions on the main path's own inputs,
+   tolerance 0: E1's strict mode on phase 3's wave (8,192 lanes, acc, comb
+   and R from B1, D2 and D1, and again in negative weak limbs), its verdicts
+   phase 3's; its identity mode at one lane (the randomized wave's first
+   aggregate from B3 and D2, comb against -comb, comb against itself); P1
+   on phase 5's u1 digits (2,048 lanes) and on one lane, frozen X, Y, Z;
+   P2 on phase 5's wave (acc from B2, comb from P1) with synthetic lanes
+   over its padded columns (x(R') >= n with has_r2 set and cleared, Z = 0,
+   Q off the curve, a host rejection, a valid lane), and again in weak
+   limbs, its verdicts phase 5's and the construction's; each with its
+   time through its wrapper and of its launches alone, the plain version's,
+   its bound, and the ptxas reports.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -386,7 +406,7 @@ P256_SQUARE_PRODUCTS = 8 * 9 // 2
 
 #: The record_function ranges of the P-256 engine's wave, in the order they run.
 P256_WAVE_RANGES = (
-    "p256.host_prep", "p256.on_curve", "p256.horner_scan", "p256.comb", "p256.check",
+    "p256.host_prep", "p256.horner_scan", "p256.comb", "p256.check",
 )
 
 _REQ_TAG = b"ctpu/request"
@@ -698,13 +718,15 @@ def horner_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
             "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def _frozen_max_err(kernel: str, got: ed.Point, want: ed.Point) -> float:
-    """The max abs err of frozen X, Y, Z, T of a kernel's point against its
-    plain version's; raises where any lane differs (tolerance 0)."""
+def _frozen_max_err(kernel: str, got, want, field=fe) -> float:
+    """The max abs err of the frozen coordinates (X, Y, Z and, on Edwards
+    points, T; ``field`` the curve's field module) of a kernel's point
+    against its plain version's; raises where any lane differs (tolerance
+    0)."""
     lanes = got.x.shape[-1]
     max_err = 0.0
     for name, g, w in zip("XYZT", got, want):
-        fg, fw = fe.freeze(g), fe.freeze(w)
+        fg, fw = field.freeze(g), field.freeze(w)
         diff = (fg - fw).abs()
         max_err = max(max_err, float(diff.max()))
         bad = torch.nonzero(diff.amax(dim=0)).flatten()
@@ -856,7 +878,7 @@ def phase_wave(device, corpus, replicas: int) -> dict:
     wave_s = time.perf_counter() - t0
     wave_launches, horner_p256, msm = _launch_counts()
     d_launches = _d_launches()
-    other_launches = horner_p256 + msm
+    other_launches = horner_p256 + msm + sum(_p_launches())
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -888,11 +910,11 @@ def phase_wave(device, corpus, replicas: int) -> dict:
     # takes the engine's host path (_verify_host) and launches no kernel.
     proposal = Proposal(payload=b"block-1", metadata=b"view-0/seq-1")
     quorum = [s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:QUORUM]]
-    before = sum(_launch_counts()) + sum(_d_launches())
+    before = sum(_launch_counts()) + sum(_d_launches()) + sum(_p_launches())
     results = verifier.verify_consenter_sigs_batch(quorum, proposal)
     if results != [q.msg for q in quorum]:
         raise AssertionError(f"commit quorum rejected: {results}")
-    quorum_launches = sum(_launch_counts()) + sum(_d_launches()) - before
+    quorum_launches = sum(_launch_counts()) + sum(_d_launches()) + sum(_p_launches()) - before
 
     n = len(wave_msgs)
     return {
@@ -1003,7 +1025,7 @@ def p256_scan_inputs(corpus, replicas: int, device):
     qx = qx.to(torch.float32).contiguous()
     qy = qy.to(torch.float32).contiguous()
     u2d = u2d.to(torch.int32).contiguous()
-    off_curve = int((~p256.on_curve(qx, qy)).sum())
+    off_curve = int((~p256.on_curve(qx.cpu(), qy.cpu())).sum())
     padded = qx.shape[1] - len(msgs)
     return (qx, qy, u2d), off_curve, padded
 
@@ -1086,7 +1108,7 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
     )
     engine = verifier.engine
     wave_msgs, wave_sigs, wave_keys, want = replica_wave(corpus, replicas)
-    p256.comb_table(device)  # the constant table is set-up, not part of the wave
+    scan_kernels.comb_p256_table(device)  # P1's constant table is set-up, not the wave's
 
     # The main path, with the launch counts read around it.
     if device.type == "cuda":
@@ -1100,6 +1122,7 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
     wave_s = time.perf_counter() - t0
     horner, wave_launches, msm = _launch_counts()
     other_launches = horner + msm + sum(_d_launches())
+    p_launches = _p_launches()
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -1134,11 +1157,11 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
     quorum = [
         s.sign_proposal(proposal, b"aux-%d" % s.node_id) for s in signers[:P256_QUORUM]
     ]
-    before = sum(_launch_counts())
+    before = sum(_launch_counts()) + sum(_p_launches())
     results = verifier.verify_consenter_sigs_batch(quorum, proposal)
     if results != [q.msg for q in quorum]:
         raise AssertionError(f"P-256 commit quorum rejected: {results}")
-    quorum_launches = sum(_launch_counts()) - before
+    quorum_launches = sum(_launch_counts()) + sum(_p_launches()) - before
 
     n = len(wave_msgs)
     return {
@@ -1152,6 +1175,7 @@ def phase_wave_p256(device, corpus, replicas: int, valid_checked: int = 100) -> 
         "sigs_per_s": n / wave_s,
         "profiled": prof,
         "wave_launches": wave_launches,
+        "p_launches": p_launches,
         "other_launches": other_launches,
         "quorum_size": len(quorum),
         "quorum_launches": quorum_launches,
@@ -1320,9 +1344,18 @@ def _s1_launches() -> int:
     return KERNELS.stats("sha512").launches
 
 
-def _d_launches() -> tuple[int, int]:
-    """D1 and D2's launches from the kernel ledger."""
-    return KERNELS.stats("decompress25519").launches, KERNELS.stats("comb25519").launches
+def _d_launches() -> tuple[int, int, int]:
+    """D1's, D2's and E1's launches from the kernel ledger: every Ed25519
+    device body launches each once (decompression, the comb, the
+    add-and-compare)."""
+    return tuple(KERNELS.stats(name).launches
+                 for name in ("decompress25519", "comb25519", "verdict25519"))
+
+
+def _p_launches() -> tuple[int, int]:
+    """P1's and P2's launches from the kernel ledger: the P-256 body
+    launches each once, after B2."""
+    return KERNELS.stats("comb_p256").launches, KERNELS.stats("verdict_p256").launches
 
 
 def _reset_launch_counts() -> None:
@@ -1356,6 +1389,7 @@ def phase_wave_randomized(device, corpus, replicas: int) -> dict:
     wave_s = time.perf_counter() - t0
     horner, horner_p256, msm = _launch_counts()
     d_launches = _d_launches()
+    p_launches = _p_launches()
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
 
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -1394,6 +1428,7 @@ def phase_wave_randomized(device, corpus, replicas: int) -> dict:
         "profiled": prof,
         "msm_launches": msm,
         "d_launches": d_launches,
+        "p_launches": p_launches,
         "horner_launches": horner,
         "horner_p256_launches": horner_p256,
         "peak_bytes": peak,
@@ -1619,6 +1654,14 @@ def phase_coalesced(device, corpus, replicas: int, direct, curve: str = "ed25519
         )
     if sum(launches) != launches[kernel]:
         raise AssertionError(f"the coalesced wave launched another kernel: {launches}")
+    # Each flush's body ends in its tail kernels: D1, D2 and E1 (Ed25519) or
+    # P1 and P2 (P-256), once a flush, and the other curve's never.
+    tails = (_d_launches(), _p_launches())
+    want_tails = ((0,) * 3, (flush_launches,) * 2) if curve == "p256" else \
+        ((flush_launches,) * 3, (0,) * 2)
+    if tails != want_tails:
+        raise AssertionError(f"the coalesced wave's tail kernels launched {tails}, not "
+                             f"{want_tails}")
     if engine.host_calls:
         raise AssertionError(f"the coalescer served {engine.host_calls} flushes from the host")
     if coalescer.device_suspect:
@@ -1626,7 +1669,7 @@ def phase_coalesced(device, corpus, replicas: int, direct, curve: str = "ed25519
     return {
         "replicas": replicas, "signatures": wave, "hard_cap": engine.padded_size(wave),
         "window_s": window, "flushes": engine.flushes,
-        "launches": launches[kernel], "host_calls": engine.host_calls,
+        "launches": launches[kernel], "tail_launches": tails, "host_calls": engine.host_calls,
         "quorum_size": quorum_size, "bypass_below": bypass_below,
         "wave_ms": (max(returned.values()) - started[0]) * 1e3, "peak_bytes": peak,
         "held_bytes": held,
@@ -1717,6 +1760,9 @@ def phase_supervised(device, decisions: int) -> dict:
         kernel = 2 if label == "randomized" else 0
         if bool(launches[kernel]) != bool(on_card) or sum(launches) != launches[kernel]:
             raise AssertionError(f"supervised {label} chunk: kernel launches {launches}")
+        if _d_launches() != (launches[kernel],) * 3 or any(_p_launches()):
+            raise AssertionError(f"supervised {label} chunk: (D1, D2, E1) {_d_launches()} "
+                                 f"and (P1, P2) {_p_launches()} for {launches[kernel]} bodies")
         out[label] = {"launches": launches, "crosscheck_s": twin.seconds[0],
                       "call_ms": seconds * 1e3, "engine": dump}
 
@@ -1758,15 +1804,24 @@ def phase_supervised(device, decisions: int) -> dict:
 # --- the protocol core: phase 12 (a config-3 cluster ordering blocks) ---------
 
 
+#: A collector pause at least this long is logged with its generation and
+#: the heap it walked.
+LONG_PAUSE_S = 0.1
+
+
 class _BlockClocks:
     """WAL fsync and collector pause time while installed: ``os.fsync``
     wrapped in a timer (the WAL calls it through the ``os`` module) and a
     ``gc.callbacks`` entry timing each collection from its start to its
-    stop.  Lives here, not in the copied protocol modules."""
+    stop; each pause of at least ``LONG_PAUSE_S`` is kept in ``long_pauses``
+    with its generation, what it collected, the objects the collector still
+    tracks and those frozen.  Lives here, not in the copied protocol
+    modules."""
 
     def __init__(self) -> None:
         self.fsync_s = self.gc_s = 0.0
         self.fsyncs = self.collections = 0
+        self.long_pauses: list[dict] = []
         self._lock = threading.Lock()
         self._gc_t0: float | None = None
 
@@ -1794,10 +1849,17 @@ class _BlockClocks:
         if phase == "start":
             self._gc_t0 = time.perf_counter()
         elif self._gc_t0 is not None:
+            pause = time.perf_counter() - self._gc_t0
             with self._lock:
-                self.gc_s += time.perf_counter() - self._gc_t0
+                self.gc_s += pause
                 self.collections += 1
             self._gc_t0 = None
+            if pause >= LONG_PAUSE_S:
+                self.long_pauses.append({
+                    "ms": pause * 1e3, "generation": info.get("generation"),
+                    "collected": info.get("collected"), "tracked": len(gc.get_objects()),
+                    "frozen": gc.get_freeze_count(),
+                })
 
     def read(self) -> tuple[float, int, float, int]:
         with self._lock:
@@ -1924,9 +1986,15 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
             verify_before = KERNELS.stats(ledger_name).launches
             _reset_launch_counts()
             block_log = []
+            # The set-up heap (the earlier phases' objects, which no replica
+            # of a deployment holds) goes to the collector's permanent
+            # generation, as in phase 22b.
+            gc.collect()
+            gc.freeze()
             with clocks:
                 for b in range(blocks):
                     first_call = len(engine.calls)
+                    pauses0 = len(clocks.long_pauses)
                     fsync0, fsyncs0, gc0, collections0 = clocks.read()
                     t0 = time.perf_counter()
                     for raw in raws[b]:
@@ -1954,16 +2022,19 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
                         "device_calls": sum(c["device"] for c in block),
                         "host_calls": sum(not c["device"] for c in block),
                         "host_sigs": sum(c["n"] for c in block if not c["device"]),
+                        "long_pauses": clocks.long_pauses[pauses0:],
                     })
             launches = _launch_counts()
             s1_launches = _s1_launches()
             d_launches = _d_launches()
+            p_launches = _p_launches()
             verify_calls = KERNELS.stats(ledger_name).launches - verify_before
             calls = list(engine.calls)
             peak = torch.cuda.max_memory_allocated() if on_card else None
             ledgers = {i: list(n.app.ledger) for i, n in cluster.nodes.items()}
             views = {n.consensus.controller.curr_view_number for n in cluster.nodes.values()}
         finally:
+            gc.unfreeze()
             for node in cluster.nodes.values():
                 if node.consensus is not None:
                     node.consensus.stop()
@@ -2011,9 +2082,9 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
             if not med.ref_verify(key, sig, msg):
                 raise AssertionError(f"commit signature {i} fails the RFC 8032 reference")
 
-    # The device calls: each replica's proposal wave, nothing else; B1, D1
-    # and D2 (and S1 on the fused engine) once per device call on the card
-    # (the CPU runs the plain versions), B2 and B3 never.
+    # The device calls: each replica's proposal wave, nothing else; B1, D1,
+    # D2 and E1 (and S1 on the fused engine) once per device call on the card
+    # (the CPU runs the plain versions), B2, B3, P1 and P2 never.
     device_calls = [c for c in calls if c["device"]]
     others = [c for c in device_calls if c["wave_of"] is None]
     if others:
@@ -2026,8 +2097,11 @@ def phase_cluster(device, replicas: int = REPLICAS, requests: int = REQUESTS,
         raise AssertionError(f"kernel launches {launches} for {len(device_calls)} device calls")
     if s1_launches != (len(device_calls) if on_card and fused else 0):
         raise AssertionError(f"S1 launches {s1_launches} for {len(device_calls)} device calls")
-    if d_launches != ((len(device_calls),) * 2 if on_card else (0, 0)):
-        raise AssertionError(f"D1, D2 launches {d_launches} for {len(device_calls)} device calls")
+    if d_launches != ((len(device_calls),) * 3 if on_card else (0, 0, 0)):
+        raise AssertionError(f"D1, D2, E1 launches {d_launches} for {len(device_calls)} device "
+                             f"calls")
+    if any(p_launches):
+        raise AssertionError(f"the Ed25519 cluster launched (P1, P2) {p_launches}")
     if len(followers) < (replicas - 1) * blocks:
         raise AssertionError(f"{len(followers)} follower waves for {blocks} blocks of {replicas} replicas")
     # The stages of the last follower wave, read off a profiled re-run of
@@ -2201,6 +2275,340 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
                                  else out[key]["ms"])
         out[key]["plain_ms"] = _time_ms(lambda: plain(*args), plain_reps, device)
     out["invalid_points"] = int((~scan_kernels.decompress_reference(*cases["d1"][1])[1]).sum())
+    return out
+
+
+# --- kernels E1, P1 and P2 (the waves' verdict tails): phase 24 ------------------
+
+#: Field multiplications a lane of kernel E1 (csrc/verdict25519.cu): the
+#: add (8, and T1 times 2d) and, in its strict mode, the comparison's 4 (X's
+#: 2 on a lane whose masks pass, Y's 2 where X matches); P1's (csrc/comb_p256.cu) 32 complete adds of
+#: 14 (12, and 2 by b); P2's (csrc/verdict_p256.cu) add, r Z and (r + n) Z
+#: and the on-curve check's qx^2 qx, with its 2 squarings (qy^2, qx^2).
+#: tests/test_torch_limbs_counting.py holds these to the counting shim's
+#: count of the plain versions.
+E1_ADD_MULS = 9
+E1_COMPARE_MULS = 4
+P1_MULS = 32 * 14
+P2_MULS, P2_SQUARES = 14 + 2 + 1, 2
+#: Bytes of one entry of P1's table: (x, y), 8 uint32 words each.
+P1_ENTRY_BYTES = 2 * 8 * 4
+#: P2's synthetic lanes, written over padded columns (whose comb is the
+#: identity, so R' is the lane's acc): x(R') in [n, p) with has_r2 set
+#: (accepted) and cleared, R' the identity (Z = 0), a lane whose key is
+#: moved off the curve, one the host rejected, and a valid one.
+P2_SYNTHETIC = (("has_r2", True), ("has_r2_cleared", False), ("z_zero", False),
+                ("q_off_curve", False), ("host_rejected", False), ("valid", True))
+
+
+def e1_bound(lanes: int, mode: str, sm_count: int, sm_clock_hz: float, host_ok: int = 0,
+             host_r_ok: int = 0, compared: int = 0, x_matched: int = 0) -> dict:
+    """E1 at ``lanes`` lanes, counting what the kernel reads on this data.
+    Every lane reads acc and comb (eight (32,) f32 coordinates) and writes
+    one verdict byte, and takes the add's products.  The strict mode reads
+    host_ok on every lane, r_ok on its ``host_ok`` lanes, a_ok on its
+    ``host_r_ok`` lanes (host_ok and r_ok), and R's X, Y and Z on its
+    ``compared`` lanes (every mask set), where it takes the X comparison's
+    two products; the Y comparison's two are taken on the ``x_matched``
+    lanes of those."""
+    muls = E1_ADD_MULS * lanes
+    n_bytes = lanes * (8 * fe.LIMBS * 4 + 1)
+    if mode == "strict":
+        muls += 2 * compared + (E1_COMPARE_MULS - 2) * x_matched
+        n_bytes += lanes + host_ok + host_r_ok + compared * 3 * fe.LIMBS * 4
+    return _products_or_bytes(muls * MUL_PRODUCTS, n_bytes, sm_count, sm_clock_hz)
+
+
+def p1_bound(digits: torch.Tensor, sm_count: int, sm_clock_hz: float) -> dict:
+    """P1 on ``digits`` ((32, n) int32): P1_MULS products a lane, and its
+    bytes: the digits in, three (32,) f32 coordinates a lane out, and each
+    table entry these digits pick read once."""
+    lanes = digits.shape[1]
+    windows = torch.arange(digits.shape[0], device=digits.device)[:, None]
+    entries = int(torch.unique(windows * 256 + digits.to(torch.int64)).numel())
+    n_bytes = lanes * fp.LIMBS * 4 + entries * P1_ENTRY_BYTES + lanes * 3 * fp.LIMBS * 4
+    out = _products_or_bytes(P1_MULS * P256_MUL_PRODUCTS * lanes, n_bytes, sm_count, sm_clock_hz)
+    out["entries"] = entries
+    return out
+
+
+def p2_bound(lanes: int, has_r2: int, sm_count: int, sm_clock_hz: float) -> dict:
+    """P2 at ``lanes`` lanes, ``has_r2`` of them with has_r2 set: on every
+    lane nine (32,) f32 coordinates (acc, comb, qx, qy, r1) and two mask
+    bytes in, one verdict byte out, and every product but (r + n) Z; r2 and
+    its product only on the ``has_r2`` lanes."""
+    products = ((P2_MULS - 1) * P256_MUL_PRODUCTS + P2_SQUARES * P256_SQUARE_PRODUCTS) * lanes
+    products += P256_MUL_PRODUCTS * has_r2
+    n_bytes = (9 * fp.LIMBS * 4 + 3) * lanes + fp.LIMBS * 4 * has_r2
+    return _products_or_bytes(products, n_bytes, sm_count, sm_clock_hz)
+
+
+def _check_verdicts(kernel: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A kernel's (batch,) bool verdicts against its plain version's,
+    tolerance 0; returns the max abs err (0.0)."""
+    if got.dtype != torch.bool or got.shape != want.shape:
+        raise AssertionError(f"{kernel}: verdicts {got.dtype} {tuple(got.shape)}, plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    bad = torch.nonzero(got != want).flatten()
+    if bad.numel():
+        raise AssertionError(f"{kernel}: the verdict differs from the plain version on "
+                             f"{bad.numel()} of {got.numel()} lanes (first {bad[:8].tolist()})")
+    return float((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+
+def x_matched_lanes(acc, comb, r_point, mask: torch.Tensor) -> int:
+    """The lanes of ``mask`` where X(acc + comb) Z_R == X_R Z(acc + comb),
+    by the plain field ops: the lanes on which E1 goes on to compare Y."""
+    s = ed.add(acc, comb)
+    return int((mask & fe.eq(fe.mul(s.x, r_point.z), fe.mul(r_point.x, s.z))).sum())
+
+
+def strict_tail_inputs(engine, msgs, sigs, keys) -> tuple:
+    """E1's strict inputs for one wave as ``verify_impl`` builds them: acc =
+    [k](-A) from B1, comb = [S]B from D2, R from D1 (row slices of its
+    R || A output) and the masks host_ok, r_ok, a_ok."""
+    y_r, sign_r, y_a, sign_a, s_digits8, k_digits, host_ok = engine.prepare_device_inputs(
+        msgs, sigs, keys)
+    b = y_r.shape[-1]
+    pt, pt_ok = scan_kernels.decompress(
+        torch.cat([y_r, y_a], dim=-1).to(torch.float32),
+        torch.cat([sign_r, sign_a], dim=-1).to(torch.int32),
+    )
+    r_point = ed.Point(*(c[..., :b] for c in pt))
+    neg_a = [c.contiguous() for c in ed.negate(ed.Point(*(c[..., b:] for c in pt)))]
+    acc = scan_kernels.horner_scan(*neg_a, k_digits.to(torch.int32).contiguous())
+    comb = scan_kernels.fixed_base_mul_comb(s_digits8.to(torch.int32).contiguous())
+    return acc, comb, r_point, host_ok.to(torch.bool), pt_ok[:b], pt_ok[b:]
+
+
+def p256_tail_inputs(engine, msgs, sigs, keys) -> tuple:
+    """P1's digits and P2's inputs for one P-256 wave as ``verify_impl``
+    builds them: (u1 digits, [acc from B2, comb from P1, qx, qy, r1, r2,
+    has_r2, host_ok])."""
+    qx, qy, u1d, u2d, r1, r2, has_r2, host_ok = engine.prepare_device_inputs(msgs, sigs, keys)
+    qx = qx.to(torch.float32).contiguous()
+    qy = qy.to(torch.float32).contiguous()
+    u1d = u1d.to(torch.int32).contiguous()
+    acc = scan_kernels.horner_scan_p256(qx, qy, u2d.to(torch.int32).contiguous())
+    comb = scan_kernels.fixed_base_mul_comb_p256(u1d)
+    return u1d, [acc, comb, qx, qy, r1.to(torch.float32).contiguous(),
+                 r2.to(torch.float32).contiguous(), has_r2.to(torch.bool), host_ok.to(torch.bool)]
+
+
+def p256_point_with_x_at_least_n() -> tuple[int, int]:
+    """The curve point with the least x in [n, p): x(R') mod n = x - n, and
+    (x - n) + n < p, so a lane whose R' it is needs P2's second comparison
+    (has_r2).  Random keys give such a lane with probability ~2^-128."""
+    x = p256.N
+    while True:
+        rhs = (x * x * x - 3 * x + p256.B) % fp.P
+        y = pow(rhs, (fp.P + 1) // 4, fp.P)
+        if y * y % fp.P == rhs:
+            return x, y
+        x += 1
+
+
+def write_p256_synthetic_lanes(acc, qx, qy, r1, r2, has_r2, host_ok, start: int,
+                               seed: int = SEED) -> list[bool]:
+    """Write :data:`P2_SYNTHETIC`'s lanes over columns ``start`` onwards of
+    P2's host inputs (numpy: the three (32, n) acc coordinates, qx, qy, r1,
+    r2, and the (n,) bool has_r2 and host_ok), whose comb there must be the
+    identity (a padded lane's), so that R' is acc: each acc in a random
+    projective representative.  Returns the expected verdicts."""
+    rng = np.random.default_rng(seed)
+    big = p256_point_with_x_at_least_n()
+    g2x, g2y = p256._add_int((p256.GX, p256.GY), (p256.GX, p256.GY))
+
+    def put(arr, lane, value):
+        arr[:, lane] = fp.int_to_limbs(value % fp.P)
+
+    for j, (kind, _) in enumerate(P2_SYNTHETIC):
+        lane = start + j
+        point, r, flag, q, ok = (g2x, g2y), g2x % p256.N, False, (p256.GX, p256.GY), True
+        if kind.startswith("has_r2"):
+            point, r, flag = big, big[0] - p256.N, kind == "has_r2"
+        elif kind == "z_zero":
+            point, r = None, 5
+        elif kind == "q_off_curve":
+            q = (p256.GX, p256.GY + 1)
+        elif kind == "host_rejected":
+            ok = False
+        lam = int.from_bytes(rng.bytes(32), "big") % fp.P or 1
+        xyz = (0, lam, 0) if point is None else (point[0] * lam, point[1] * lam, lam)
+        for c, v in zip(acc, xyz):
+            put(c, lane, v)
+        put(qx, lane, q[0])
+        put(qy, lane, q[1])
+        put(r1, lane, r)
+        put(r2, lane, r + p256.N if flag else 0)
+        has_r2[lane], host_ok[lane] = flag, ok
+    return [want for _, want in P2_SYNTHETIC]
+
+
+def _timed_kernel(kernel, plain, launch, reps: int, plain_reps: int, device) -> dict:
+    """``kernel`` through its wrapper (``ms``), its launch alone on
+    preallocated outputs (``launch_ms``; on the CPU the wrapper again) and
+    ``plain`` (``plain_ms``), each a mean over CUDA events on the card."""
+    row = {"ms": _time_ms(kernel, reps, device)}
+    row["launch_ms"] = _time_ms(launch, reps, device) if device.type == "cuda" else row["ms"]
+    row["plain_ms"] = _time_ms(plain, plain_reps, device)
+    return row
+
+
+def phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps: int, plain_reps: int,
+                          replicas: int = REPLICAS, p256_replicas: int = P256_REPLICAS,
+                          strict_verdicts=None, p256_verdicts=None) -> dict:
+    """E1, P1 and P2 against their plain versions on the main path's own
+    inputs, tolerance 0:
+
+    * E1's strict mode on the strict wave (``replicas`` copies of
+      ``corpus``, every rejection class in it: a forged s, the wrong key,
+      the wrong message, undecodable points, host rejections): acc, comb and
+      R from D1, B1 and D2 as ``verify_impl`` builds them, and again with
+      every coordinate in negative weak limbs; the verdicts equal to
+      ``strict_verdicts`` (phase 3's) where given;
+    * E1's identity mode at one lane: the randomized wave's first aggregate
+      (B3 and D2 on ``rand_corpus``; it fails, since its undecodable lanes'
+      z s stay in the comb's scalar), comb against -comb (the identity) and
+      comb against itself;
+    * P1 on the P-256 wave's u1 digits (``p256_replicas`` copies of
+      ``p256_corpus``) and on its first lane, frozen X, Y, Z;
+    * P2 on that wave's own inputs (acc from B2, comb from P1) with
+      :data:`P2_SYNTHETIC`'s lanes over its padded columns, and again in
+      negative weak limbs; the wave's verdicts equal to ``p256_verdicts``
+      (phase 5's) where given, the synthetic lanes' to the construction.
+
+    Each kernel is timed through its wrapper, alone, and its plain version
+    (:func:`_timed_kernel`); the bounds are the caller's."""
+    device = torch.device(device)
+    out: dict = {}
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # E1, strict.
+    wave = replica_wave(corpus, replicas)
+    engine = med.Ed25519BatchVerifier(device=device)
+    acc, comb, r_point, host_ok, r_ok, a_ok = strict_tail_inputs(engine, *wave[:3])
+    lanes = host_ok.shape[0]
+    args = (acc, comb, r_point, host_ok, r_ok, a_ok)
+    got = scan_kernels.add_and_equal(*args)
+    err = _check_verdicts("verdict25519", got, scan_kernels.add_and_equal_reference(*args))
+    if strict_verdicts is not None and not np.array_equal(
+            got.cpu().numpy()[:len(wave[0])], strict_verdicts):
+        raise AssertionError("verdict25519: the wave's verdicts differ from phase 3's")
+    weak = (*(ed.Point(*(weaken(c) for c in p)) for p in (acc, comb, r_point)), host_ok, r_ok,
+            a_ok)
+    weak_got = scan_kernels.add_and_equal(*weak)
+    err = max(err, _check_verdicts("verdict25519 (weak limbs)", weak_got,
+                                   scan_kernels.add_and_equal_reference(*weak)))
+    if not torch.equal(weak_got, got):
+        raise AssertionError("verdict25519: weak limbs changed a verdict")
+    verdict = torch.empty(lanes, dtype=torch.bool, device=device)
+    r_ld = r_point.x.stride(0)
+    out["e1"] = {
+        "lanes": lanes, "signatures": len(wave[0]), "accepted": int(got.sum()),
+        "host_ok": int(host_ok.sum()), "host_r_ok": int((host_ok & r_ok).sum()),
+        "compared": int((host_ok & r_ok & a_ok).sum()),
+        "x_matched": x_matched_lanes(acc, comb, r_point, host_ok & r_ok & a_ok),
+        "max_abs_err": err, "inputs": args,
+        **_timed_kernel(
+            lambda: scan_kernels.add_and_equal(*args),
+            lambda: scan_kernels.add_and_equal_reference(*args),
+            lambda: scan_kernels._launch("verdict25519", (*acc, *comb, *r_point, host_ok, r_ok,
+                                                          a_ok), (verdict,), lanes, device,
+                                         (0, r_ld)),
+            reps, plain_reps, device),
+    }
+
+    # E1, identity, at one lane.
+    rengine = engine_for_config(Configuration(batch_verify_mode=True), device=device)
+    rmsgs, rsigs, rkeys, _ = replica_wave(rand_corpus, replicas)
+    ok, scalars = rengine._host_scalars(rmsgs, rsigs, rkeys)
+    idx = np.flatnonzero(ok).tolist()
+    zs = med._transcript_coefficients([rmsgs[i] for i in idx], [rsigs[i] for i in idx],
+                                      [rkeys[i] for i in idx])
+    y_r, sign_r, y_a, sign_a, zs8, zk, z, hok = rengine._aggregate_device_inputs(
+        idx, rsigs, rkeys, scalars, zs)
+    neg_a, neg_r, zk, z, _ = med.msm_inputs(y_r, sign_r, y_a, sign_a, zk, z, hok)
+    agg = scan_kernels.straus_msm(neg_a, neg_r, zk, z)
+    agg_comb = scan_kernels.fixed_base_mul_comb(zs8.to(torch.int32).contiguous())
+    neg_comb = ed.Point(*(c.contiguous() for c in ed.negate(agg_comb)))
+    cases = {"aggregate": (agg, agg_comb, False), "identity": (neg_comb, agg_comb, True),
+             "double": (agg_comb, agg_comb, False)}
+    err = 0.0
+    for label, (p, q, want) in cases.items():
+        got = scan_kernels.add_is_identity(p, q)
+        err = max(err, _check_verdicts(f"verdict25519 identity ({label})", got,
+                                       scan_kernels.add_is_identity_reference(p, q)))
+        if bool(got.cpu()[0]) != want:
+            raise AssertionError(f"verdict25519 identity ({label}): {bool(got.cpu()[0])}")
+    one = torch.empty(1, dtype=torch.bool, device=device)
+    out["e1_identity"] = {
+        "lanes": 1, "cases": list(cases), "max_abs_err": err, "aggregate_lanes": zk.shape[1],
+        **_timed_kernel(
+            lambda: scan_kernels.add_is_identity(agg, agg_comb),
+            lambda: scan_kernels.add_is_identity_reference(agg, agg_comb),
+            lambda: scan_kernels._launch("verdict25519", (*agg, *agg_comb, *(None,) * 7), (one,),
+                                         1, device, (1, 1)),
+            reps, plain_reps, device),
+    }
+
+    # P1 at the wave's width and at one lane, then P2.
+    pwave = replica_wave(p256_corpus, p256_replicas)
+    pengine = mp.EcdsaP256BatchVerifier(device=device)
+    u1d, tail = p256_tail_inputs(pengine, *pwave[:3])
+    plane = u1d.shape[1]
+    table = scan_kernels.comb_p256_table(device)
+    for key, digits in (("p1", u1d), ("p1_one", u1d[:, :1].contiguous())):
+        n = digits.shape[1]
+        outs = [torch.empty((fp.LIMBS, n), dtype=torch.float32, device=device) for _ in range(3)]
+        out[key] = {
+            "lanes": n, "digits": digits,
+            "max_abs_err": _frozen_max_err(
+                "comb_p256", scan_kernels.fixed_base_mul_comb_p256(digits),
+                scan_kernels.fixed_base_mul_comb_p256_reference(digits), field=fp),
+            **_timed_kernel(
+                lambda: scan_kernels.fixed_base_mul_comb_p256(digits),
+                lambda: scan_kernels.fixed_base_mul_comb_p256_reference(digits),
+                lambda: scan_kernels._launch("comb_p256", (table, digits), outs, n, device),
+                reps, plain_reps, device),
+        }
+    acc, comb, qx, qy, r1, r2, has_r2, host_ok = tail
+    n_sigs = len(pwave[0])
+    if plane - n_sigs < len(P2_SYNTHETIC):
+        raise AssertionError(f"P2: {plane - n_sigs} padded lanes for {len(P2_SYNTHETIC)} "
+                             f"synthetic ones")
+    host = [c.cpu().numpy().copy() for c in (*acc, qx, qy, r1, r2, has_r2, host_ok)]
+    expected = write_p256_synthetic_lanes(host[:3], *host[3:], start=n_sigs)
+    acc = p256.Point(*(dev(c) for c in host[:3]))
+    qx, qy, r1, r2, has_r2, host_ok = (dev(c) for c in host[3:])
+    args = (acc, comb, qx, qy, r1, r2, has_r2, host_ok)
+    got = scan_kernels.verdict_p256(*args)
+    err = _check_verdicts("verdict_p256", got, scan_kernels.verdict_p256_reference(*args))
+    cpu = got.cpu().numpy()
+    if cpu[n_sigs:n_sigs + len(expected)].tolist() != expected:
+        raise AssertionError(f"verdict_p256: synthetic lanes {cpu[n_sigs:n_sigs + 6].tolist()}, "
+                             f"constructed {expected}")
+    if p256_verdicts is not None and not np.array_equal(cpu[:n_sigs], p256_verdicts):
+        raise AssertionError("verdict_p256: the wave's verdicts differ from phase 5's")
+    weak = (p256.Point(*(weaken(c) for c in acc)), p256.Point(*(weaken(c) for c in comb)),
+            *(weaken(c) for c in (qx, qy, r1, r2)), has_r2, host_ok)
+    weak_got = scan_kernels.verdict_p256(*weak)
+    err = max(err, _check_verdicts("verdict_p256 (weak limbs)", weak_got,
+                                   scan_kernels.verdict_p256_reference(*weak)))
+    if not torch.equal(weak_got, got):
+        raise AssertionError("verdict_p256: weak limbs changed a verdict")
+    pverdict = torch.empty(plane, dtype=torch.bool, device=device)
+    out["p2"] = {
+        "lanes": plane, "signatures": n_sigs, "accepted": int(got.sum()),
+        "synthetic": [kind for kind, _ in P2_SYNTHETIC], "max_abs_err": err,
+        "has_r2_lanes": int(has_r2.sum()),
+        **_timed_kernel(
+            lambda: scan_kernels.verdict_p256(*args),
+            lambda: scan_kernels.verdict_p256_reference(*args),
+            lambda: scan_kernels._launch("verdict_p256", (*acc, *comb, qx, qy, r1, r2, has_r2,
+                                                          host_ok), (pverdict,), plane, device),
+            reps, plain_reps, device),
+    }
     return out
 
 
@@ -2646,18 +3054,18 @@ CHAOS_FAULTS = ((2, "hang"), (5, "raise"), (8, "flip"))
 #: ``min_randomized`` strictly, so B1 may launch there too; half-agg runs the
 #: strict engine and checks each certificate with one B3 launch.
 CHAOS_KERNELS = {
-    "strict": (("horner_scan", "decompress25519", "comb25519"),
-               ("horner_scan_p256", "straus_msm", "sha512")),
-    "randomized": (("straus_msm", "decompress25519", "comb25519"),
-                   ("horner_scan_p256", "sha512")),
-    "halfagg": (("horner_scan", "straus_msm", "decompress25519", "comb25519"),
-                ("horner_scan_p256", "sha512")),
-    "fused": (("sha512", "horner_scan", "decompress25519", "comb25519"),
-              ("horner_scan_p256", "straus_msm")),
+    "strict": (("horner_scan", "decompress25519", "comb25519", "verdict25519"),
+               ("horner_scan_p256", "straus_msm", "sha512", "comb_p256", "verdict_p256")),
+    "randomized": (("straus_msm", "decompress25519", "comb25519", "verdict25519"),
+                   ("horner_scan_p256", "sha512", "comb_p256", "verdict_p256")),
+    "halfagg": (("horner_scan", "straus_msm", "decompress25519", "comb25519", "verdict25519"),
+                ("horner_scan_p256", "sha512", "comb_p256", "verdict_p256")),
+    "fused": (("sha512", "horner_scan", "decompress25519", "comb25519", "verdict25519"),
+              ("horner_scan_p256", "straus_msm", "comb_p256", "verdict_p256")),
     # The JAX package's mesh2 mode: the strict engine sharded over 2 virtual
     # shards of one device; each quorum check launches its kernels per shard.
-    "mesh2": (("horner_scan", "decompress25519", "comb25519"),
-              ("horner_scan_p256", "straus_msm", "sha512")),
+    "mesh2": (("horner_scan", "decompress25519", "comb25519", "verdict25519"),
+              ("horner_scan_p256", "straus_msm", "sha512", "comb_p256", "verdict_p256")),
 }
 
 
@@ -2910,9 +3318,9 @@ MXU_MACS = {"ed25519": 32 * 32 + 63 * 1024, "p256": 32 * 32 + 63 * 1024 + 32 * 6
 #: Dense int8 tensor-core operations a second of an H100 SXM (NVIDIA data
 #: sheet; a MAC is two operations).
 INT8_OPS_PER_S = 1979e12
-#: M1's widths on the main path: the strict wave's add_and_equal (8,192),
-#: the P-256 comb and check (2,048), phase 12's waves (1,024), a certificate
-#: (1); and the broadcast case, a (32, 1) constant against 8,192 lanes.
+#: M1's widths: the strict wave's (8,192), the P-256 wave's (2,048), phase
+#: 12's waves (1,024), a certificate (1); and the broadcast case, a (32, 1)
+#: constant against 8,192 lanes.
 MXU_WIDTHS = (8192, 2048, 1024, 1)
 MXU_BROADCAST_LANES = 8192
 #: The operand ranges of tests/test_mxu_limbs.py: canonical bytes, one raw
@@ -2921,13 +3329,11 @@ MXU_BROADCAST_LANES = 8192
 MXU_RANGES = {"ed25519": ((0, 256), (-340, 341), (-345, 681)), "p256": ((0, 256), (-600, 601))}
 #: (the lane's product, the VPU lane's) by curve.
 MXU_PRODUCTS = {"ed25519": (mxu_limbs.mul25519, fe.mul), "p256": (mxu_limbs.mul_p256, fp.mul)}
-#: Phase 21's waves: (corpus key, replicas, engine config, curve, profiled
-#: ranges, the ranges' kernel).
+#: Phase 21's waves: (corpus key, replicas, engine config, curve).
 MXU_WAVES = {
-    "strict": ("strict", REPLICAS, {}, "ed25519", WAVE_RANGES, "horner_scan"),
-    "randomized": ("randomized", REPLICAS, {"batch_verify_mode": True}, "ed25519",
-                   BATCH_RANGES, "straus_msm"),
-    "p256": ("p256", P256_REPLICAS, {}, "p256", P256_WAVE_RANGES, "horner_scan_p256"),
+    "strict": ("strict", REPLICAS, {}, "ed25519"),
+    "randomized": ("randomized", REPLICAS, {"batch_verify_mode": True}, "ed25519"),
+    "p256": ("p256", P256_REPLICAS, {}, "p256"),
 }
 
 
@@ -3067,11 +3473,6 @@ def phase_mxu_kernel(device, reps: int, plain_reps: int, widths=MXU_WIDTHS,
     return out
 
 
-#: The order phase 21 times a wave's two lanes in: in turns, so drift on
-#: the host's clock falls on both.
-MXU_TURNS = ("off", "on", "on", "off")
-
-
 def _lane(lane: str, curve: str):
     """The lane's context: the VPU lane under ``suppress_mxu_limbs``; the
     tensor-core lane from ``CTPU_MXU_LIMBS=1`` for Ed25519 (the registry's
@@ -3083,72 +3484,47 @@ def _lane(lane: str, curve: str):
 
 
 def phase_mxu_waves(device, corpora: dict, waves=tuple(MXU_WAVES),
-                    replicas: dict | None = None, turns=MXU_TURNS) -> dict:
-    """Phase 3's strict, phase 7's randomized and phase 5's P-256 waves with
-    the lane off and on, each lane's engine from ``engine_for_config``
-    under its lane and warmed up by one uncounted call, then timed calls in
-    ``turns``, each with the launch counts set to 0 just before it and read
-    just after: verdicts equal across every call (and to the
-    construction), M1 launched only with the lane on and every other kernel
-    as often, wall ms (host clock, ending in synchronize), the device's
-    busy share over one profiled re-run a lane, peak device memory.  The
-    Ed25519 lane-on engines book their calls under the ``_mxu`` names."""
+                    replicas: dict | None = None) -> dict:
+    """Phase 3's strict, phase 7's randomized and phase 5's P-256 waves once
+    with the lane off and once with it on, each lane's engine from
+    ``engine_for_config`` under its lane, each call with the launch counts
+    set to 0 just before it and read just after: verdicts equal to the
+    construction in both lanes, M1 launched in neither and every other
+    kernel as often.  Every eager field product a wave had ends inside E1,
+    P1 or P2 now, and those kernels (like B1-B3, D1 and D2) run their own
+    products on the card whatever the lane says (ROADMAP divergence 23): the
+    lane reaches no product of a wave, so both lanes run the same kernels
+    and the phase times neither.  The Ed25519 lane-on engines book their
+    calls under the ``_mxu`` names."""
     device = torch.device(device)
     out = {}
     for name in waves:
-        corpus_key, n_rep, knobs, curve, ranges, kernel = MXU_WAVES[name]
+        corpus_key, n_rep, knobs, curve = MXU_WAVES[name]
         n_rep = (replicas or {}).get(name, n_rep)
         msgs, sigs, keys, want = replica_wave(corpora[corpus_key], n_rep)
-        engines = {}
+        runs = {}
         for lane in ("off", "on"):
             with _lane(lane, curve):
-                engines[lane] = engine_for_config(Configuration(**knobs), curve=curve,
-                                                  device=device)
-                engines[lane].verify_batch(msgs, sigs, keys)
-        runs = {lane: {"ms": []} for lane in ("off", "on")}
-        for lane in turns:
-            run = runs[lane]
-            with _lane(lane, curve):
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
+                engine = engine_for_config(Configuration(**knobs), curve=curve, device=device)
                 booked = KERNELS.snapshot()
                 _reset_launch_counts()
-                t0 = time.perf_counter()
-                got = engines[lane].verify_batch(msgs, sigs, keys)
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                got = engine.verify_batch(msgs, sigs, keys)
                 launches = _kernel_launches()
                 calls = {k: v["launches"] - booked.get(k, {}).get("launches", 0)
                          for k, v in KERNELS.snapshot().items()
                          if k not in scan_kernels.KERNELS
                          and v["launches"] != booked.get(k, {}).get("launches", 0)}
-                peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
             if got.shape != want.shape or not np.array_equal(got, want):
                 wrong = np.flatnonzero(got != want)
                 raise AssertionError(f"{name} wave, lane {lane}: verdicts differ from the "
                                      f"construction at {wrong[:16]}")
-            if run.setdefault("launches", launches) != launches or \
-                    run.setdefault("calls", calls) != calls:
-                raise AssertionError(f"{name} wave, lane {lane}: launches {launches} and calls "
-                                     f"{calls} differ from the lane's first call's")
-            run["peak_bytes"] = peak
-        for lane in ("off", "on"):
-            with _lane(lane, curve):
-                prof = profile_wave(engines[lane], msgs, sigs, keys, device, wave_ranges=ranges,
-                                    kernel=kernel)
-            if not np.array_equal(prof["verdicts"], want):
-                raise AssertionError(f"{name} wave, lane {lane}: the profiled re-run disagrees")
-            runs[lane]["busy_share"] = prof["busy_share"]
+            runs[lane] = {"launches": launches, "calls": calls}
         off, on = runs["off"], runs["on"]
-        on_card = device.type == "cuda"
-        if off["launches"]["mxu_limbs"] or (on_card and not on["launches"]["mxu_limbs"]):
+        if off["launches"]["mxu_limbs"] or on["launches"]["mxu_limbs"]:
             raise AssertionError(f"{name} wave: M1 launched {off['launches']['mxu_limbs']} times "
                                  f"with the lane off and {on['launches']['mxu_limbs']} with it on")
-        if {k: v for k, v in on["launches"].items() if k != "mxu_limbs"} != \
-                {k: v for k, v in off["launches"].items() if k != "mxu_limbs"}:
-            raise AssertionError(f"{name} wave: the lane changed the other kernels' launches: "
+        if on["launches"] != off["launches"]:
+            raise AssertionError(f"{name} wave: the lane changed the kernels' launches: "
                                  f"{off['launches']} against {on['launches']}")
         if curve == "ed25519":
             # The lane-on engine books its device calls under the _mxu names.
@@ -3237,8 +3613,8 @@ class _Sweeps:
         return self.inner.device_suspect
 
 
-def _sidecar_launches() -> tuple[int, int, int]:
-    """B1's, D1's and D2's launches from the kernel ledger."""
+def _sidecar_launches() -> tuple[int, int, int, int]:
+    """B1's, D1's, D2's and E1's launches from the kernel ledger."""
     return (KERNELS.stats("horner_scan").launches,) + _d_launches()
 
 
@@ -3326,8 +3702,9 @@ def phase_sidecar_tenants(device, corpus, replicas: int, direct,
         raise AssertionError(f"the tenants' verdicts differ from phase 3's at {wrong[:16]}")
     if not np.array_equal(verdicts, want):
         raise AssertionError("the tenants' verdicts differ from the construction")
-    if launches != ((waves,) * 3 if on_card else (0, 0, 0)) or waves < 1:
-        raise AssertionError(f"(horner_scan, decompress25519, comb25519) launched {launches} "
+    if launches != ((waves,) * 4 if on_card else (0,) * 4) or waves < 1:
+        raise AssertionError(f"(horner_scan, decompress25519, comb25519, verdict25519) launched "
+                             f"{launches} "
                              f"for the server's {waves} waves")
     if signatures != n:
         raise AssertionError(f"the server's waves carried {signatures} signatures, not {n}")
@@ -3531,9 +3908,10 @@ def phase_sidecar_cluster(device, replicas: int = REPLICAS, requests: int = REQU
         raise AssertionError(f"{len(ordered)} requests ordered ({len(set(ordered))} distinct) "
                              f"for {len(submitted)} submitted")
     flushes = sum(b["flushes"] for b in block_log)
-    launches = tuple(sum(b["launches"][k] for b in block_log) for k in range(3))
-    if launches != ((flushes,) * 3 if on_card else (0, 0, 0)) or not flushes:
-        raise AssertionError(f"(horner_scan, decompress25519, comb25519) launched {launches} "
+    launches = tuple(sum(b["launches"][k] for b in block_log) for k in range(4))
+    if launches != ((flushes,) * 4 if on_card else (0,) * 4) or not flushes:
+        raise AssertionError(f"(horner_scan, decompress25519, comb25519, verdict25519) launched "
+                             f"{launches} "
                              f"for {flushes} coalesced flushes")
     failovers = sum(b["failovers"] for b in block_log)
     if failovers or suspect or device_suspect or engine.host_calls:
@@ -3659,9 +4037,10 @@ def phase_groups_fleet(device, n_groups: int = GROUPS, n: int = REPLICAS,
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = _sidecar_launches()
-        if launches != ((r["launches"],) * 3 if on_card else (0, 0, 0)) or not r["launches"]:
+        if launches != ((r["launches"],) * 4 if on_card else (0,) * 4) or not r["launches"]:
             raise AssertionError(f"the {name} drive's {r['launches']} launches launched "
-                                 f"(horner_scan, decompress25519, comb25519) {launches}")
+                                 f"(horner_scan, decompress25519, comb25519, verdict25519) "
+                                 f"{launches}")
         out[name] = dict(r, ms=ms, kernel_launches=launches,
                          mean_wave=r["total_signatures"] / r["launches"])
     shared, private = out["shared"], out["private"]
@@ -3898,7 +4277,8 @@ def log_groups_fleet(g: dict, card: str) -> None:
         d = g[name]
         log(f"  {name} drive: {d['ms']:.3f} ms (host clock, ending in torch.cuda.synchronize()); "
             f"launches {d['launches']}, signatures {d['total_signatures']}, mean wave "
-            f"{d['mean_wave']:.3f}; (horner_scan, decompress25519, comb25519) launched "
+            f"{d['mean_wave']:.3f}; (horner_scan, decompress25519, comb25519, verdict25519) "
+            f"launched "
             f"{d['kernel_launches']}"
             + (f"; launches serving 2+ groups {d['multi_group_launches']}" if name == "shared"
                else "") + f"; {card}")
@@ -3944,7 +4324,8 @@ def log_sidecar_tenants(s: dict, direct_ms: float, card: str) -> None:
         f"equal phase 3's on every lane ({s['rejected']} rejected); no failover, no client suspect")
     per_wave = s["tenant_rides"] / s["waves"] if s["waves"] else 0.0
     log(f"  waves {s['waves']} ({per_wave:.2f} tenants a wave), launches (horner_scan, "
-        f"decompress25519, comb25519) {s['launches']}; per-tenant signatures and waves "
+        f"decompress25519, comb25519, verdict25519) {s['launches']}; per-tenant signatures and "
+        f"waves "
         f"{ {k: (v['signatures'], v['waves']) for k, v in s['accounting'].items()} }")
     log(f"  round trip per tenant (host clock, barrier to verdicts): "
         + ", ".join(f"{x:.3f} ms" for x in s["roundtrip_ms"])
@@ -3970,11 +4351,12 @@ def log_sidecar_cluster(c: dict, phase12_blocks: list, card: str) -> None:
         log(f"  block {i + 1}{' (warm-up)' if i == 0 else ''}: {b['wall_ms']:.3f} ms (host clock, "
             f"submit to the last replica's ledger, ending in torch.cuda.synchronize()); sweeps "
             f"to the sidecar {b['sweeps']}, coalesced flushes {b['flushes']}, launches "
-            f"(horner_scan, decompress25519, comb25519) {b['launches']}, calls served by the "
+            f"(horner_scan, decompress25519, comb25519, verdict25519) {b['launches']}, calls "
+            f"served by the "
             f"local engines {b['local_calls']} (bypassed, {b['failovers']} failovers); collector "
             f"pauses {b['gc_ms']:.3f} ms ({b['collections']} collections, the set-up heap frozen), "
             f"WAL fsync {b['fsync_ms']:.3f} ms ({b['fsyncs']} calls); phase 12's block {i + 1} "
-            f"{_ms(twelve)} (the sim, serial waves, heap not frozen)")
+            f"{_ms(twelve)} (the sim, serial waves)")
     log(f"  sweep sizes {c['sweep_sizes']}; flushes {c['flushes']} for {c['sweeps']} sweeps; local "
         f"calls {c['local_calls']} ({c['local_sigs']} signatures); tx/s over the measured blocks "
         f"{c['tx_per_s']:.1f}; {card}")
@@ -4015,17 +4397,10 @@ def log_mxu(k: dict, w: dict, sass: dict, info: scan_kernels.BuildInfo, card: st
         f"the outer product and the reduction); the VPU lane's eager product "
         f"{k['times'][('ed25519', width)]['vpu_ms']:.6f} ms")
     for name, r in w.items():
-        for lane in ("off", "on"):
-            x = r[lane]
-            log(f"{name} wave, lane {lane}: {r['signatures']} signatures, {r['rejected']} rejected "
-                f"as constructed; {', '.join(f'{ms:.3f}' for ms in x['ms'])} ms (host clock, calls "
-                f"in the turns {'/'.join(MXU_TURNS)} after one warm-up call a lane, each ending in "
-                f"torch.cuda.synchronize()); M1 launches {x['launches']['mxu_limbs']}; kernels "
-                f"{x['launches']}; device calls booked {x['calls']}; device busy "
-                f"{_share(x['busy_share'])} of a profiled re-run; peak memory "
-                f"{x['peak_bytes']} bytes")
-        log(f"  {name}: verdicts equal lane off and on; lane on / off (means) = "
-            f"{np.mean(r['on']['ms']) / np.mean(r['off']['ms']):.3f}")
+        log(f"{name} wave: {r['signatures']} signatures, {r['rejected']} rejected as constructed, "
+            f"verdicts equal lane off and on; M1 launches {r['on']['launches']['mxu_limbs']} with "
+            f"the lane on; kernels {r['on']['launches']} in both lanes; device calls booked "
+            f"{r['off']['calls']} (lane off) and {r['on']['calls']} (lane on)")
     log(f"  ({card})")
 
 
@@ -4080,8 +4455,13 @@ def log_cluster(c: dict, direct_ms: float) -> None:
             f"{b['host_sigs']} signatures) + the rest {b['rest_ms']:.3f} ms")
         log(f"    the rest = WAL fsync {b['fsync_ms']:.3f} ms ({b['fsyncs']} calls of os.fsync) "
             f"+ collector pauses outside the engine's calls {b['gc_ms']:.3f} ms "
-            f"({b['collections']} collections in the block, gc.callbacks) + what is left "
-            f"(protocol, codec, WAL writes, the sim) {b['left_ms']:.3f} ms")
+            f"({b['collections']} collections in the block, gc.callbacks; the set-up heap "
+            f"frozen) + what is left (protocol, codec, WAL writes, the sim) "
+            f"{b['left_ms']:.3f} ms")
+        for pause in b["long_pauses"]:
+            log(f"    collector pause {pause['ms']:.3f} ms: generation {pause['generation']}, "
+                f"{pause['collected']} collected, {pause['tracked']} objects tracked after it, "
+                f"{pause['frozen']} frozen")
     log(f"  the sim's serial tx/s (the {c['replicas']} waves of a block run in turn on one thread, "
         f"not side by side as in a deployment): {c['tx_per_s']:.1f} over "
         + (f"blocks 2-{c['blocks']}" if c["blocks"] > 2 else "block 2"))
@@ -4092,7 +4472,8 @@ def log_cluster(c: dict, direct_ms: float) -> None:
         f"per wave {min(ms):.3f}-{max(ms):.3f} ms, mean {sum(ms) / len(ms):.3f} ms (host clock, "
         f"through the engine's read-back); phase 3's direct 7-replica wave {direct_ms:.3f} ms")
     log(f"  kernel launches (horner_scan, horner_scan_p256, straus_msm) {c['launches']}, "
-        f"sha512 {c['s1_launches']}, (decompress25519, comb25519) {c['d_launches']}; host-path calls {c['host_calls']} ({c['host_sigs']} signatures "
+        f"sha512 {c['s1_launches']}, (decompress25519, comb25519, verdict25519) "
+        f"{c['d_launches']}; host-path calls {c['host_calls']} ({c['host_sigs']} signatures "
         f"< min_device_batch {c['min_device_batch']}); no coalescer, so nothing can mark the "
         f"device suspect")
     if c["half_agg"]:
@@ -4142,7 +4523,9 @@ def log_coalesced(c: dict, kernel: str, direct_ms: float) -> None:
         f"= {c['signatures']} signatures through one ThreadCoalescingVerifier (window "
         f"{c['window_s']} s, max_batch {c['signatures']}, hard_cap {c['hard_cap']}, "
         f"bypass_below {c['bypass_below']}); every replica's verdicts equal the direct wave's")
-    log(f"  device flushes {c['flushes']}, {kernel} launches {c['launches']}, host-served "
+    log(f"  device flushes {c['flushes']}, {kernel} launches {c['launches']}, tail kernels "
+        f"((decompress25519, comb25519, verdict25519), (comb_p256, verdict_p256)) "
+        f"{c['tail_launches']}, host-served "
         f"flushes {c['host_calls']}, device suspect: no; each {c['quorum_size']}-vote commit "
         f"quorum bypassed the window on its replica's thread (host path, no launch)")
     log(f"  barrier to the last replica's return {c['wave_ms']:.3f} ms (host clock); the direct "
@@ -4208,9 +4591,10 @@ def main() -> int:
         f"({scan_kernels.comb_niels_np().nbytes} bytes), built and copied to the card in "
         f"{time.perf_counter() - t0:.3f} s (set-up)")
     t0 = time.perf_counter()
-    p256.comb_table(device)
-    log(f"P-256 comb table [d * 2^(8j)]G, 32 x 256 entries, built from integers "
-        f"and copied to the card in {time.perf_counter() - t0:.3f} s (set-up)")
+    scan_kernels.comb_p256_table(device)
+    log(f"P1's table, the P-256 comb's [d * 2^(8j)]G, 32 x 256 entries as affine (x, y) in "
+        f"32-bit words ({scan_kernels.comb_p256_np().nbytes} bytes), built from integers and "
+        f"copied to the card in {time.perf_counter() - t0:.3f} s (set-up)")
     props = torch.cuda.get_device_properties(0)
     sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
@@ -4249,10 +4633,10 @@ def main() -> int:
     # Phase 3: the main path.
     log("== phase 3: config-3 wave (7 replicas, f=2, 1,000 requests per block)")
     w = phase_wave(device, corpus, replicas=REPLICAS)
-    if w["wave_launches"] != 1 or w["d_launches"] != (1, 1):
+    if w["wave_launches"] != 1 or w["d_launches"] != (1, 1, 1):
         raise AssertionError(
             f"wave launched horner_scan {w['wave_launches']} times and (decompress25519, "
-            f"comb25519) {w['d_launches']}, not 1 and (1, 1)"
+            f"comb25519, verdict25519) {w['d_launches']}, not 1 and (1, 1, 1)"
         )
     if w["quorum_launches"] != 0:
         raise AssertionError("the commit quorum launched the kernel")
@@ -4260,11 +4644,13 @@ def main() -> int:
         f"{w['rejected']} rejected as constructed; {w['reference_checked']} "
         f"requests held against ref_verify + _canonical_ok")
     log(f"  launches in the wave: decompress25519 {w['d_launches'][0]}, horner_scan "
-        f"{w['wave_launches']}, comb25519 {w['d_launches'][1]}")
+        f"{w['wave_launches']}, comb25519 {w['d_launches'][1]}, verdict25519 "
+        f"{w['d_launches'][2]}")
     log(f"  end to end {w['wave_ms']:.3f} ms = {w['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize())")
     if w["other_launches"] != 0:
-        raise AssertionError("the Ed25519 wave launched horner_scan_p256 or straus_msm")
+        raise AssertionError("the Ed25519 wave launched horner_scan_p256, straus_msm, "
+                             "comb_p256 or verdict_p256")
     log_profile(w["profiled"], "horner_scan")
     log(f"  torch.cuda.max_memory_allocated: {w['peak_bytes']} bytes")
     log(f"commit quorum: {w['quorum_size']} signatures < crypto_tpu_min_batch "
@@ -4301,15 +4687,20 @@ def main() -> int:
         raise AssertionError(
             f"P-256 wave launched horner_scan_p256 {w2['wave_launches']} times, not 1"
         )
+    if w2["p_launches"] != (1, 1):
+        raise AssertionError(f"P-256 wave launched (comb_p256, verdict_p256) "
+                             f"{w2['p_launches']}, not (1, 1)")
     if w2["other_launches"] != 0:
-        raise AssertionError("the P-256 wave launched horner_scan or straus_msm")
+        raise AssertionError("the P-256 wave launched horner_scan, straus_msm or an Ed25519 "
+                             "kernel")
     if w2["quorum_launches"] != 0:
         raise AssertionError("the P-256 commit quorum launched a kernel")
     log(f"wave: {w2['signatures']} signatures padded to {w2['padded']}, "
         f"{w2['rejected']} rejected as constructed, {w2['high_s_accepted']} high-s "
         f"lanes accepted; {w2['reference_checked']} requests held against "
         f"ref_p256_verify")
-    log(f"  horner_scan_p256 launches in the wave: {w2['wave_launches']}")
+    log(f"  launches in the wave: horner_scan_p256 {w2['wave_launches']}, comb_p256 "
+        f"{w2['p_launches'][0]}, verdict_p256 {w2['p_launches'][1]}")
     log(f"  end to end {w2['wave_ms']:.3f} ms = {w2['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize())")
     log_profile(w2["profiled"], "horner_scan_p256")
@@ -4369,15 +4760,17 @@ def main() -> int:
         )
     if w3["horner_launches"] or w3["horner_p256_launches"]:
         raise AssertionError("the randomized wave launched a Horner scan kernel")
-    if w3["d_launches"] != (w3["msm_launches"],) * 2:
-        raise AssertionError(f"randomized wave launched (D1, D2) {w3['d_launches']}")
+    if w3["d_launches"] != (w3["msm_launches"],) * 3 or any(w3["p_launches"]):
+        raise AssertionError(f"randomized wave launched (D1, D2, E1) {w3['d_launches']} and "
+                             f"(P1, P2) {w3['p_launches']}")
     log(f"wave: {w3['signatures']} signatures padded to {w3['padded']}, {w3['rejected']} "
         f"rejected as constructed ({w3['host_rejected']} by the host pre-checks, the rest "
         f"undecodable), equal to the strict engine's verdicts; {w3['reference_checked']} "
         f"requests held against ref_verify + _canonical_ok")
     log(f"  straus_msm launches in the wave: {w3['msm_launches']} (the aggregate, then the "
         f"survivors' re-check); decompress25519 {w3['d_launches'][0]}, comb25519 "
-        f"{w3['d_launches'][1]} (one each a check); horner_scan {w3['horner_launches']}, "
+        f"{w3['d_launches'][1]}, verdict25519 {w3['d_launches'][2]} (one each a check); "
+        f"horner_scan {w3['horner_launches']}, "
         f"horner_scan_p256 {w3['horner_p256_launches']}")
     log(f"  end to end {w3['wave_ms']:.3f} ms = {w3['sigs_per_s']:.1f} signatures/s "
         f"(host clock, ending in torch.cuda.synchronize()); the strict wave of phase 3: "
@@ -4395,14 +4788,15 @@ def main() -> int:
         )
     if c["horner_launches"] or c["horner_p256_launches"]:
         raise AssertionError("the catch-up chunk launched a Horner scan kernel")
-    if c["d_launches"] != (c["device_checks"],) * 2:
-        raise AssertionError(f"catch-up chunk launched (D1, D2) {c['d_launches']}")
+    if c["d_launches"] != (c["device_checks"],) * 3:
+        raise AssertionError(f"catch-up chunk launched (D1, D2, E1) {c['d_launches']}")
     log(f"chunk: {c['votes']} votes padded to {c['padded']} in one "
         f"verify_consenter_sigs_multi_batch call; forged votes at {c['forged']} came back "
         f"None ({c['rejected']} rejected), equal to the strict engine's answer")
     log(f"  aggregate checks: {c['device_checks']} on the device (>= {c['min_device_batch']} "
         f"votes; straus_msm launches {c['msm_launches']}, decompress25519 {c['d_launches'][0]}, "
-        f"comb25519 {c['d_launches'][1]}), {c['host_checks']} on the host")
+        f"comb25519 {c['d_launches'][1]}, verdict25519 {c['d_launches'][2]}), "
+        f"{c['host_checks']} on the host")
     log(f"  end to end {c['chunk_ms']:.3f} ms (host clock, ending in torch.cuda.synchronize())")
 
     # Phases 9-10: the replicas' waves through the coalescer, as the JAX
@@ -4494,10 +4888,10 @@ def main() -> int:
     # Phase 14: the fused strict wave.
     log("== phase 14: config-3 fused strict wave (device_prep=True)")
     log("  expected launches: sha512 1, decompress25519 1, horner_scan 1, comb25519 1, "
-        "horner_scan_p256 0, straus_msm 0")
+        "verdict25519 1, horner_scan_p256 0, straus_msm 0")
     f14 = phase_fused_wave(device, corpus, REPLICAS, w["verdicts"])
     if (f14["launches"] != (1, 0, 0) or f14["s1"] != 1 or f14["calls"] != 1
-            or f14["d_launches"] != (1, 1)):
+            or f14["d_launches"] != (1, 1, 1)):
         raise AssertionError(
             f"the fused wave launched (B1, B2, B3) {f14['launches']}, S1 {f14['s1']} in "
             f"{f14['calls']} device calls, not (1, 0, 0) and 1 in 1"
@@ -4508,7 +4902,7 @@ def main() -> int:
         f"FusedEd25519BatchVerifier, {f14['rejected']} rejected: verdicts equal to phase 3's "
         f"host-prep engine on every lane")
     log(f"  launches: sha512 {f14['s1']}, (horner_scan, horner_scan_p256, straus_msm) "
-        f"{f14['launches']}, (decompress25519, comb25519) {f14['d_launches']}, in "
+        f"{f14['launches']}, (decompress25519, comb25519, verdict25519) {f14['d_launches']}, in "
         f"{f14['calls']} device call")
     log(f"  end to end {f14['wave_ms']:.3f} ms = {f14['sigs_per_s']:.1f} signatures/s (host clock, "
         f"ending in torch.cuda.synchronize()); phase 3's host-prep wave {w['wave_ms']:.3f} ms")
@@ -4529,7 +4923,7 @@ def main() -> int:
     f15 = phase_fused_randomized(device, rand_corpus, REPLICAS, w3["verdicts"])
     if (f15["launches"] != (0, 0, w3["msm_launches"]) or f15["checks"] != w3["msm_launches"]
             or f15["s1"] != S1_PER_CHECK * f15["checks"]
-            or f15["d_launches"] != (f15["checks"],) * 2):
+            or f15["d_launches"] != (f15["checks"],) * 3):
         raise AssertionError(
             f"the fused randomized wave launched (B1, B2, B3) {f15['launches']}, S1 {f15['s1']} "
             f"in {f15['checks']} checks; phase 7 made {w3['msm_launches']}"
@@ -4539,6 +4933,7 @@ def main() -> int:
         f"phase 7's on every lane")
     log(f"  launches: straus_msm {f15['launches'][2]} in {f15['checks']} aggregate checks, sha512 "
         f"{f15['s1']}, decompress25519 {f15['d_launches'][0]}, comb25519 {f15['d_launches'][1]}, "
+        f"verdict25519 {f15['d_launches'][2]}, "
         f"horner_scan {f15['launches'][0]}, horner_scan_p256 {f15['launches'][1]}")
     log(f"  end to end {f15['wave_ms']:.3f} ms = {f15['sigs_per_s']:.1f} signatures/s (host clock, "
         f"ending in torch.cuda.synchronize()); phase 7's host-prep wave {w3['wave_ms']:.3f} ms")
@@ -4551,7 +4946,7 @@ def main() -> int:
     h16 = phase_halfagg_certs(device, CATCH_UP_DECISIONS)
     if (h16["launches"] != (0, 0, h16["certs"]) or h16["checks"] != h16["certs"]
             or h16["s1"] != S1_PER_CHECK * h16["certs"]
-            or h16["d_launches"] != (h16["certs"],) * 2):
+            or h16["d_launches"] != (h16["certs"],) * 3):
         raise AssertionError(
             f"{h16['certs']} cert verifies launched (B1, B2, B3) {h16['launches']} and S1 "
             f"{h16['s1']} in {h16['checks']} checks"
@@ -4561,7 +4956,8 @@ def main() -> int:
         f"{h16['aggregate_ms']:.3f} ms (each a self-check on the card; host clock)")
     log(f"  verified on the card: every verdict equal to the host twin's; straus_msm "
         f"{h16['launches'][2]} launches (one a cert), decompress25519 {h16['d_launches'][0]}, "
-        f"comb25519 {h16['d_launches'][1]}, sha512 {h16['s1']}, {h16['checks']} "
+        f"comb25519 {h16['d_launches'][1]}, verdict25519 {h16['d_launches'][2]}, sha512 "
+        f"{h16['s1']}, {h16['checks']} "
         f"fused_halfagg_verify checks; {h16['verify_ms']:.3f} ms for all (host clock), "
         f"{h16['verify_ms'] / h16['certs']:.3f} ms a cert; the host twin {h16['host_ms']:.3f} ms "
         f"for all")
@@ -4677,6 +5073,69 @@ def main() -> int:
         gc.unfreeze()
     log(f"phase 23 took {time.perf_counter() - t23:.3f} s (host clock)")
 
+    # Phase 24: kernels E1, P1 and P2 against their plain versions.
+    log("== phase 24: verdict25519 (E1), comb_p256 (P1) and verdict_p256 (P2) against their "
+        "plain versions")
+    t24 = time.perf_counter()
+    k24 = phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps=20, plain_reps=3,
+                                strict_verdicts=w["verdicts"], p256_verdicts=w2["verdicts"])
+    bounds24 = {
+        "e1": e1_bound(k24["e1"]["lanes"], "strict", sm_count, sm_clock_hz,
+                       **{k: k24["e1"][k] for k in ("host_ok", "host_r_ok", "compared",
+                                                    "x_matched")}),
+        "e1_identity": e1_bound(1, "identity", sm_count, sm_clock_hz),
+        "p1": p1_bound(k24["p1"]["digits"], sm_count, sm_clock_hz),
+        "p1_one": p1_bound(k24["p1_one"]["digits"], sm_count, sm_clock_hz),
+        "p2": p2_bound(k24["p2"]["lanes"], k24["p2"]["has_r2_lanes"], sm_count, sm_clock_hz),
+    }
+    labels24 = {
+        "e1": (f"verdict25519 (strict) on phase 3's wave ({k24['e1']['signatures']} signatures on "
+               f"{k24['e1']['lanes']} lanes, acc, comb and R from B1, D2 and D1; again in negative "
+               f"weak limbs): verdicts equal to the plain version's and phase 3's on every lane "
+               f"({k24['e1']['accepted']} accepted, {k24['e1']['compared']} with every mask set)"),
+        "e1_identity": (f"verdict25519 (identity) at one lane: the randomized wave's first "
+                        f"aggregate (B3 over {k24['e1_identity']['aggregate_lanes']} lanes, D2; "
+                        f"refused), comb + (-comb) (accepted), comb + comb (refused): equal to "
+                        f"the plain version's"),
+        "p1": (f"comb_p256 on phase 5's u1 digits ({k24['p1']['lanes']} lanes): frozen X, Y, Z "
+               f"equal on every lane"),
+        "p1_one": "comb_p256 on one lane: frozen X, Y, Z equal",
+        "p2": (f"verdict_p256 on phase 5's wave ({k24['p2']['signatures']} signatures on "
+               f"{k24['p2']['lanes']} lanes, acc from B2, comb from P1) with synthetic lanes "
+               f"{k24['p2']['synthetic']} over padded columns ({k24['p2']['has_r2_lanes']} lanes "
+               f"with has_r2); again in negative weak limbs: verdicts equal to the plain "
+               f"version's, phase 5's and the construction's ({k24['p2']['accepted']} accepted)"),
+    }
+    work24 = {
+        "e1": f"{E1_ADD_MULS} multiplications a lane, 2 more on each of the {k24['e1']['compared']} "
+              f"lanes whose masks pass and 2 more on the {k24['e1']['x_matched']} of those whose "
+              f"X matches, x {MUL_PRODUCTS} 32x32->64 products",
+        "e1_identity": f"{E1_ADD_MULS} multiplications x {MUL_PRODUCTS} 32x32->64 products",
+        "p1": f"{P1_MULS} multiplications x {P256_MUL_PRODUCTS} 32x32->64 products a lane",
+        "p2": f"{P2_MULS - 1} multiplications x {P256_MUL_PRODUCTS} + {P2_SQUARES} squarings x "
+              f"{P256_SQUARE_PRODUCTS} 32x32->64 products a lane, and (r + n) Z on the "
+              f"{k24['p2']['has_r2_lanes']} has_r2 lanes",
+    }
+    for key, label in labels24.items():
+        r, b = k24[key], bounds24[key]
+        log(f"{label} (max abs err {r['max_abs_err']})")
+        log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of 20 "
+            f"after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of 20 back to back "
+            f"on preallocated outputs)")
+        log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3)")
+        entries = (f"; {b['entries']} distinct table entries x {P1_ENTRY_BYTES} bytes read"
+                   if "entries" in b else "")
+        log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: "
+            f"{work24[key.replace('_one', '')]}{entries} = {b['products']} IMAD.WIDE over "
+            f"{sm_count} SMs x {IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
+            f"{b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} ms; "
+            f"kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
+            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone; {card}")
+    for name in ("verdict25519", "comb_p256", "verdict_p256"):
+        log_ptxas(infos[name])
+    log("  library: none (no PyTorch call adds curve points or computes [u]G)")
+    log(f"phase 24 took {time.perf_counter() - t24:.3f} s (host clock)")
+
     log(card)
     log(json.dumps({"kernels": [
         {
@@ -4773,6 +5232,48 @@ def main() -> int:
             "bound_ms": m1["bound"]["bound_ms"],
             "bound_by": m1["bound"]["bound_by"],
             "library_ms": k21["library_ms"],
+        },
+        {
+            "name": "verdict25519",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/verdict25519.cu",
+            "replaces": "consensus_tpu/ops/ed25519.py:86",
+            "launches": w["d_launches"][2],
+            "max_abs_err": k24["e1"]["max_abs_err"],
+            "ms": k24["e1"]["ms"],
+            "launch_ms": k24["e1"]["launch_ms"],
+            "plain_ms": k24["e1"]["plain_ms"],
+            "bound_ms": bounds24["e1"]["bound_ms"],
+            "bound_by": bounds24["e1"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "comb_p256",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/comb_p256.cu",
+            "replaces": "consensus_tpu/ops/p256.py:239",
+            "launches": w2["p_launches"][0],
+            "max_abs_err": k24["p1"]["max_abs_err"],
+            "ms": k24["p1"]["ms"],
+            "launch_ms": k24["p1"]["launch_ms"],
+            "plain_ms": k24["p1"]["plain_ms"],
+            "bound_ms": bounds24["p1"]["bound_ms"],
+            "bound_by": bounds24["p1"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "verdict_p256",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/verdict_p256.cu",
+            "replaces": "consensus_tpu/models/ecdsa_p256.py:152",
+            "launches": w2["p_launches"][1],
+            "max_abs_err": k24["p2"]["max_abs_err"],
+            "ms": k24["p2"]["ms"],
+            "launch_ms": k24["p2"]["launch_ms"],
+            "plain_ms": k24["p2"]["plain_ms"],
+            "bound_ms": bounds24["p2"]["bound_ms"],
+            "bound_by": bounds24["p2"]["bound_by"],
+            "library_ms": None,
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -6,12 +6,15 @@ Split of labor, as in the JAX module:
 * **Host** (numpy and Python integers): parse and range-check r, s and the
   SEC1 key, hash the message with SHA-256, and compute u1 = e/s and
   u2 = r/s mod n with one batched inversion.
-* **Device**: :func:`verify_impl` checks that Q is on the curve, computes
-  [u2]Q with the hand-written Horner-scan kernel
-  (:func:`consensus_tpu_torch.ops.scan_kernels.horner_scan_p256`), adds
-  [u1]G from the 8-bit fixed-base comb, and accepts iff the sum is not the
-  identity and X == r Z or (r + n < p and X == (r + n) Z).  Everything
-  around the kernel is plain torch on the P-256 field module's f32 limbs.
+* **Device**: :func:`verify_impl` computes [u2]Q with the hand-written
+  Horner-scan kernel B2
+  (:func:`consensus_tpu_torch.ops.scan_kernels.horner_scan_p256`) and
+  [u1]G with the 8-bit fixed-base comb kernel P1
+  (:func:`~consensus_tpu_torch.ops.scan_kernels.fixed_base_mul_comb_p256`),
+  then kernel P2 (:func:`~consensus_tpu_torch.ops.scan_kernels.verdict_p256`)
+  adds them and accepts iff Q is on the curve, the sum is not the identity
+  and X == r Z or (r + n < p and X == (r + n) Z).  Around the kernels only
+  dtype widening runs in torch.
 
 Native formats: signature = 64 bytes big-endian r || s; public key =
 65 bytes SEC1 uncompressed (0x04 || X || Y).  Compressed keys are rejected,
@@ -111,23 +114,22 @@ def verify_impl(
     time off the real call."""
     qx = qx.to(torch.float32).contiguous()
     qy = qy.to(torch.float32).contiguous()
+    u1_digits = u1_digits.to(torch.int32).contiguous()
     u2_digits = u2_digits.to(torch.int32).contiguous()
-    r1 = r1.to(torch.float32)
-    r2 = r2.to(torch.float32)
-    with record_function("p256.on_curve"):
-        q_ok = p256.on_curve(qx, qy)
+    r1 = r1.to(torch.float32).contiguous()
+    r2 = r2.to(torch.float32).contiguous()
     with record_function("p256.horner_scan"):
         acc = scan_kernels.horner_scan_p256(qx, qy, u2_digits)
     with record_function("p256.comb"):
-        comb = p256.fixed_base_mul_comb(u1_digits)
+        comb = scan_kernels.fixed_base_mul_comb_p256(u1_digits)
     with record_function("p256.check"):
-        acc = p256.add(acc, comb)
-        # Accept iff R' is not the identity and x(R') = r (mod n):
-        # X == r Z, or (r + n < p and X == (r + n) Z), projectively.
-        nonzero = ~fp.is_zero(acc.z)
-        match1 = fp.eq(acc.x, fp.mul(r1, acc.z))
-        match2 = has_r2 & fp.eq(acc.x, fp.mul(r2, acc.z))
-        return host_ok & q_ok & nonzero & (match1 | match2)
+        # Q on the curve, R' = acc + comb not the identity and x(R') = r
+        # (mod n), in one kernel (P2).  The scan's and the comb's formulas
+        # are polynomials, so an off-curve key is refused here, last.
+        return scan_kernels.verdict_p256(
+            acc, comb, qx, qy, r1, r2,
+            has_r2.to(torch.bool).contiguous(), host_ok.to(torch.bool).contiguous(),
+        )
 
 
 def pad_prepared(prepped: Sequence[np.ndarray], padded: int) -> tuple[np.ndarray, ...]:

@@ -12,8 +12,10 @@ Split of labor:
   (:func:`consensus_tpu_torch.ops.scan_kernels.horner_scan`), adds [S]B
   from the 8-bit fixed-base comb (kernel D2,
   :func:`consensus_tpu_torch.ops.scan_kernels.fixed_base_mul_comb`), and
-  compares the sum with R.  The negation, the add and the comparison around
-  the kernels are plain torch on the field module's f32 limbs.
+  adds the two and compares the sum with R in kernel E1
+  (:func:`consensus_tpu_torch.ops.scan_kernels.add_and_equal`).  The
+  negation between the kernels is plain torch on the field module's f32
+  limbs.
 
 Batches are padded to the next power of two (``pad_pow2``) or to a fixed
 ``pad_to``; padding lanes carry y = 0 and ``host_ok = False``.
@@ -23,9 +25,10 @@ batch in one aggregate equation, sum z_i (S_i B - k_i A_i - R_i) = 0 with
 128-bit transcript coefficients z_i, and bisects only when it fails.  Its
 device body :func:`batch_verify_impl` runs the shared-doubling multi-scalar
 multiplication in the hand-written Straus MSM kernel
-(:func:`consensus_tpu_torch.ops.scan_kernels.straus_msm`).  The pure-Python
-RFC 8032 reference at the bottom is the host path for small batches and the
-signer of :mod:`consensus_tpu_torch.models.verifier`.
+(:func:`consensus_tpu_torch.ops.scan_kernels.straus_msm`) and ends in E1's
+identity check (:func:`~consensus_tpu_torch.ops.scan_kernels.add_is_identity`).
+The pure-Python RFC 8032 reference at the bottom is the host path for small
+batches and the signer of :mod:`consensus_tpu_torch.models.verifier`.
 """
 
 from __future__ import annotations
@@ -94,7 +97,9 @@ def verify_impl(
     with record_function("ed25519.comb"):
         comb = scan_kernels.fixed_base_mul_comb(s_digits8.to(torch.int32).contiguous())
     with record_function("ed25519.add_and_equal"):
-        return host_ok & r_ok & a_ok & ed.equal(ed.add(acc, comb), r_point)
+        return scan_kernels.add_and_equal(
+            acc, comb, r_point, host_ok.to(torch.bool).contiguous(), r_ok, a_ok
+        )
 
 
 _P_BYTES_BE = np.frombuffer(fe.P.to_bytes(32, "big"), dtype=np.uint8)
@@ -486,8 +491,9 @@ def batch_verify_impl(
 
     Returns ``(eq_ok, valid)``: the aggregate verdict (a 0-d bool) and the
     lanes that passed the host pre-checks and decompressed.  Decompression
-    is kernel D1, the MSM the Straus kernel B3 and the comb kernel D2 at
-    batch 1 (each its plain version on a CPU tensor).
+    is kernel D1, the MSM the Straus kernel B3, the comb kernel D2 at
+    batch 1 and the add and identity check kernel E1 (each its plain
+    version on a CPU tensor).
     Each stage runs in a ``record_function`` range ``ed25519.batch.<stage>``."""
     neg_a, neg_r, zk_digits, z_digits, valid = msm_inputs(
         y_r, sign_r, y_a, sign_a, zk_digits, z_digits, host_ok
@@ -497,7 +503,7 @@ def batch_verify_impl(
     with record_function("ed25519.batch.comb"):
         comb = scan_kernels.fixed_base_mul_comb(zs_digits8.to(torch.int32).contiguous())
     with record_function("ed25519.batch.check"):
-        return ed.is_identity(ed.add(acc, comb))[0], valid
+        return scan_kernels.add_is_identity(acc, comb)[0], valid
 
 
 def _ref_negate(p):

@@ -7,9 +7,11 @@ registry, is
 
 * each launch of a hand-written CUDA kernel, by its wrapper in
   ``ops/scan_kernels.py`` (``horner_scan``, ``horner_scan_p256``,
-  ``straus_msm``, ``decompress25519``, ``comb25519``) or ``ops/sha512.py``
-  (``sha512``; the plain versions, run for CPU tensors, are not launches),
-  with ``compiles`` counting the kernel library's nvcc builds;
+  ``straus_msm``, ``decompress25519``, ``comb25519``, ``verdict25519``
+  (E1), ``comb_p256`` (P1), ``verdict_p256`` (P2)), ``ops/mxu_limbs.py``
+  (``mxu_limbs``) or ``ops/sha512.py`` (``sha512``; the plain versions,
+  run for CPU tensors, are not launches), with ``compiles`` counting the
+  kernel library's nvcc builds;
 * each device call of an engine, under the JAX package's names
   (``ed25519.verify``, ``ed25519.batch_verify``, ``ecdsa_p256.verify``, the
   sharded engines' ``ed25519.sharded_verify`` and the like: one a wave,

@@ -7,10 +7,11 @@ Formulas: add-2008-hwcd-3 (8M) and dbl-2008-hwcd (4M + 4S), complete for
 this curve, in the JAX module's exact operation order so both packages
 return the same limbs.
 
-Decompression (RFC 8032 section 5.1.3), the fixed-base comb [S]B and the
-shared-doubling Straus MSM of the randomized verifier run here as plain
-torch: they are the plain versions of the hand-written kernels in
-:mod:`consensus_tpu_torch.ops.scan_kernels` (D1, D2 and B3; the
+Decompression (RFC 8032 section 5.1.3), the fixed-base comb [S]B, the
+shared-doubling Straus MSM of the randomized verifier and ``add`` with
+``equal`` / ``is_identity`` run here as plain torch: they are the plain
+versions of the hand-written kernels in
+:mod:`consensus_tpu_torch.ops.scan_kernels` (D1, D2, B3 and E1; the
 variable-base Horner scan B1 has its own there), which the engines launch
 on the card.  The JAX module's ``lax.scan`` loops are Python loops here.
 """

@@ -8,9 +8,10 @@ Renes-Costello-Batina 2015, Algorithms 4 (addition, 12M + 2mb) and 6
 every input, the identity (0 : 1 : 0) and P + P included.  The operation
 order is the JAX module's, so both packages return the same limbs.
 
-The variable-base Horner scan [u2]Q has its hand-written kernel in
-:mod:`consensus_tpu_torch.ops.scan_kernels`; the on-curve check, the
-fixed-base comb [u1]G and the final check run here as plain torch.
+The variable-base Horner scan [u2]Q, the fixed-base comb [u1]G and the
+final check with the on-curve test have their hand-written kernels in
+:mod:`consensus_tpu_torch.ops.scan_kernels` (B2, P1 and P2); this module's
+functions are the plain versions they are held to.
 """
 
 from __future__ import annotations

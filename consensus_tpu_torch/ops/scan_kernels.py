@@ -8,14 +8,20 @@ randomized verifier's shared-doubling Straus MSM (``straus_msm``, TPU body
 own kernels, which replace plain XLA of the JAX package: SHA-512 (S1, whose
 wrapper is ``ops/sha512.py::sha512_blocks``), Ed25519 point decompression
 (D1, :func:`decompress`), the fixed-base comb [S]B (D2,
-:func:`fixed_base_mul_comb`) and the tensor-core field lane's products (M1,
-whose wrappers are in ``ops/mxu_limbs.py``).
+:func:`fixed_base_mul_comb`), the tensor-core field lane's products (M1,
+whose wrappers are in ``ops/mxu_limbs.py``), and the waves' verdict tails:
+the Ed25519 add-and-compare (E1, :func:`add_and_equal` and
+:func:`add_is_identity`), the P-256 fixed-base comb [u1]G (P1,
+:func:`fixed_base_mul_comb_p256`) and the P-256 verdict (P2,
+:func:`verdict_p256`).
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
 tensor it runs its plain torch version (``horner_scan_reference``,
 ``horner_scan_p256_reference``, ``straus_msm_reference``,
-``decompress_reference``, ``fixed_base_mul_comb_reference``).  Every kernel is
+``decompress_reference``, ``fixed_base_mul_comb_reference``,
+``add_and_equal_reference``, ``add_is_identity_reference``,
+``fixed_base_mul_comb_p256_reference``, ``verdict_p256_reference``).  Every kernel is
 built by one helper: nvcc for ``sm_90a`` on first use, into ``csrc/build/``
 keyed by a hash of the source and of the headers beside it, loaded through
 ctypes; a build or load failure raises.  A lock per kernel serializes its
@@ -50,6 +56,7 @@ from consensus_tpu_torch.obs.kernels import COMPILE_CACHE
 from consensus_tpu_torch.obs.kernels import KERNELS as LEDGER
 from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
+from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import limbs
 from consensus_tpu_torch.ops import p256
 
@@ -78,6 +85,11 @@ KERNELS = {
     # Kernel M1, the tensor-core field lane's products; its wrapper is
     # ops/mxu_limbs.py (mul25519, square25519, mul_p256, square_p256).
     "mxu_limbs": (_CSRC / "mxu_limbs.cu", 3, ("curve", "a_bcast", "b_bcast")),
+    # Kernels E1, P1 and P2, the waves' verdict tails: the Ed25519
+    # add-and-compare, the P-256 fixed-base comb and the P-256 verdict.
+    "verdict25519": (_CSRC / "verdict25519.cu", 16, ("mode", "r_ld")),
+    "comb_p256": (_CSRC / "comb_p256.cu", 5, ()),
+    "verdict_p256": (_CSRC / "verdict_p256.cu", 13, ()),
 }
 
 #: Loaded libraries, name -> (library, BuildInfo), and the lock that
@@ -195,7 +207,8 @@ def _launch(
 
     The range is the kind inductor puts around its Triton launches: a
     profiler links device work only to op-scope ranges, so without it the
-    kernel would belong to no range of a trace.
+    kernel would belong to no range of a trace.  An input given as None is
+    passed as a null pointer (an operand the kernel's mode does not read).
 
     Inside a field-operation count (``limbs.counting()``) it raises: a
     hand-written kernel cannot note its operations, and a count that
@@ -209,7 +222,8 @@ def _launch(
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch._C._profiler._RecordFunctionFast(f"{name}_kernel"):
         code = getattr(lib, f"{name}_launch")(
-            *(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outputs),
+            *(None if t is None else t.data_ptr() for t in inputs),
+            *(o.data_ptr() for o in outputs),
             batch, *int_args, device.index or 0, stream,
         )
     if code != 0:
@@ -222,12 +236,14 @@ def _check_inputs(
     coords: dict[str, torch.Tensor],
     digits: dict[str, tuple[torch.Tensor, int]],
     per_lane: dict[str, torch.Tensor] | None = None,
+    masks: dict[str, torch.Tensor] | None = None,
 ) -> int:
     """Check what the kernel ``name`` takes -- float32 (32, batch)
     coordinates, int32 (windows, batch) digit arrays (label -> (array,
-    windows)), int32 (batch,) per-lane values, one device, contiguous -- and
-    return the batch."""
+    windows)), int32 (batch,) per-lane values, bool (batch,) masks, one
+    device, contiguous -- and return the batch."""
     per_lane = per_lane or {}
+    masks = masks or {}
     first = next(iter(coords.values()), None)
     if first is None:
         first = next(iter(digits.values()))[0]
@@ -252,7 +268,13 @@ def _check_inputs(
             raise TypeError(f"{name}: {label} must be int32, got {v.dtype}")
         if v.shape != (batch,):
             raise ValueError(f"{name}: {label} must be ({batch},), got {tuple(v.shape)}")
-    for t in (*coords.values(), *(d for d, _ in digits.values()), *per_lane.values()):
+    for label, m in masks.items():
+        if m.dtype != torch.bool:
+            raise TypeError(f"{name}: {label} must be bool, got {m.dtype}")
+        if m.shape != (batch,):
+            raise ValueError(f"{name}: {label} must be ({batch},), got {tuple(m.shape)}")
+    for t in (*coords.values(), *(d for d, _ in digits.values()), *per_lane.values(),
+              *masks.values()):
         if t.device != first.device:
             raise ValueError(f"{name}: all inputs must be on one device")
         if not t.is_contiguous():
@@ -499,16 +521,200 @@ def comb_niels_table(device) -> torch.Tensor:
     return torch.from_numpy(comb_niels_np().view(np.int64)).to(torch.device(device))
 
 
+# --- kernels E1, P1 and P2: the waves' verdict tails ------------------------------
+
+#: The plain torch version of P1: the port's op, unchanged (held limb for
+#: limb to the JAX package's plain XLA).
+fixed_base_mul_comb_p256_reference = p256.fixed_base_mul_comb
+
+#: E1's modes (csrc/verdict25519.cu).
+_MODE_EQUAL, _MODE_IDENTITY = 0, 1
+
+
+def _point_coords(prefix: str, point, fields: str) -> dict[str, torch.Tensor]:
+    return {f"{prefix}_{c}": v for c, v in zip(fields, point)}
+
+
+def _row_stride(name: str, point: ed.Point, batch: int, device) -> int:
+    """The common row stride of ``point``'s four (32, batch) float32
+    coordinates, whose limbs may sit in rows of a wider tensor (D1 writes R
+    and A side by side) but whose lanes are adjacent; raises on anything
+    else."""
+    strides = {c.stride(0) for c in point}
+    for c in point:
+        if c.dtype != torch.float32 or c.shape != (fe.LIMBS, batch):
+            raise ValueError(
+                f"{name}: r_point's coordinates must be float32 ({fe.LIMBS}, {batch}), got "
+                f"{c.dtype} {tuple(c.shape)}"
+            )
+        if c.device != device:
+            raise ValueError(f"{name}: all inputs must be on one device")
+    if len(strides) != 1 or any(c.stride(1) != 1 for c in point) or min(strides) < batch:
+        raise ValueError(f"{name}: r_point's coordinates must share one row stride >= batch "
+                         f"with adjacent lanes")
+    return strides.pop()
+
+
+def add_and_equal(
+    acc: ed.Point,            # four (32, batch) f32 coordinates: [k](-A) from B1
+    comb: ed.Point,           # four (32, batch) f32 coordinates: [S]B from D2
+    r_point: ed.Point,        # four (32, batch) f32 coordinates: R from D1
+    host_ok: torch.Tensor,    # (batch,) bool
+    r_ok: torch.Tensor,       # (batch,) bool
+    a_ok: torch.Tensor,       # (batch,) bool
+) -> torch.Tensor:
+    """The strict verdict per lane: ``host_ok & r_ok & a_ok & (acc + comb
+    == r_point)``, projectively.
+
+    Coordinates follow the field module's weak contract; on CUDA
+    ``r_point``'s may be row slices of a wider tensor (one row stride for
+    all four; the plain version takes any broadcastable form).  On CUDA
+    one launch of kernel E1 writes the (batch,) bool verdicts, the plain
+    version's bit for bit; on the CPU it is the plain version's output."""
+    coords = {**_point_coords("acc", acc, "xyzt"), **_point_coords("comb", comb, "xyzt")}
+    n = _check_inputs("verdict25519", coords, {},
+                      masks={"host_ok": host_ok, "r_ok": r_ok, "a_ok": a_ok})
+    device = acc.x.device
+    if device.type == "cpu":
+        return add_and_equal_reference(acc, comb, r_point, host_ok, r_ok, a_ok)
+    r_ld = _row_stride("verdict25519", r_point, n, device)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    _launch("verdict25519", (*acc, *comb, *r_point, host_ok, r_ok, a_ok), (out,), n, device,
+            (_MODE_EQUAL, r_ld))
+    LEDGER.record_launch("verdict25519")
+    return out
+
+
+def add_is_identity(acc: ed.Point, comb: ed.Point) -> torch.Tensor:
+    """``acc + comb`` is the neutral element, per lane: the randomized check's
+    and the half-aggregated certificate's verdict (batch 1 there).  On CUDA
+    one launch of kernel E1 writes the (batch,) bool verdicts; on the CPU it
+    is the plain version's output."""
+    coords = {**_point_coords("acc", acc, "xyzt"), **_point_coords("comb", comb, "xyzt")}
+    n = _check_inputs("verdict25519", coords, {})
+    device = acc.x.device
+    if device.type == "cpu":
+        return add_is_identity_reference(acc, comb)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    _launch("verdict25519", (*acc, *comb, *(None,) * 7), (out,), n, device, (_MODE_IDENTITY, n))
+    LEDGER.record_launch("verdict25519")
+    return out
+
+
+def add_and_equal_reference(
+    acc: ed.Point, comb: ed.Point, r_point: ed.Point,
+    host_ok: torch.Tensor, r_ok: torch.Tensor, a_ok: torch.Tensor,
+) -> torch.Tensor:
+    """The plain torch version of E1's strict mode: the strict body's last
+    line, unchanged."""
+    return host_ok & r_ok & a_ok & ed.equal(ed.add(acc, comb), r_point)
+
+
+def add_is_identity_reference(acc: ed.Point, comb: ed.Point) -> torch.Tensor:
+    """The plain torch version of E1's identity mode: the randomized body's
+    last line, unchanged."""
+    return ed.is_identity(ed.add(acc, comb))
+
+
+def fixed_base_mul_comb_p256(digits8: torch.Tensor) -> p256.Point:
+    """[u]G per lane on P-256 from (32, n) int32 8-bit window digits (bytes
+    0-255), LSB window first.  On CUDA one launch of kernel P1 writes the
+    plain version's projective point as canonical limbs; on the CPU it is
+    the plain version's output."""
+    n = _check_inputs("comb_p256", {}, {"digits8": (digits8, _COMB_WINDOWS)})
+    device = digits8.device
+    if device.type == "cpu":
+        return p256.fixed_base_mul_comb(digits8)
+    outs = [
+        torch.empty((fe.LIMBS, n), dtype=torch.float32, device=device) for _ in range(3)
+    ]
+    _launch("comb_p256", (comb_p256_table(device), digits8), outs, n, device)
+    LEDGER.record_launch("comb_p256")
+    return p256.Point(*outs)
+
+
+@functools.lru_cache(maxsize=1)
+def comb_p256_np() -> np.ndarray:
+    """Kernel P1's table: entry [j][d] of the plain version's comb table
+    (``d * 2^(8j) * G``, affine; (0, 1) at d = 0, whose Z the kernel sets
+    to 0) as (x, y), each coordinate 8 little-endian 32-bit words, a
+    (32, 256, 2, 8) uint32 array."""
+    xs, ys, _ = p256._comb_table_np()
+    return np.stack(
+        [np.ascontiguousarray(c.astype(np.uint8)).view("<u4") for c in (xs, ys)], axis=2
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def comb_p256_table(device) -> torch.Tensor:
+    """:func:`comb_p256_np` on ``device`` as int32 (the same bits), built
+    once per device."""
+    return torch.from_numpy(comb_p256_np().view(np.int32)).to(torch.device(device))
+
+
+def verdict_p256(
+    acc: p256.Point,          # three (32, batch) f32 coordinates: [u2]Q from B2
+    comb: p256.Point,         # three (32, batch) f32 coordinates: [u1]G from P1
+    qx: torch.Tensor,         # (32, batch) f32: the key's affine coordinates
+    qy: torch.Tensor,
+    r1: torch.Tensor,         # (32, batch) f32: r
+    r2: torch.Tensor,         # (32, batch) f32: r + n (where r + n < p)
+    has_r2: torch.Tensor,     # (batch,) bool: r + n < p
+    host_ok: torch.Tensor,    # (batch,) bool: the host pre-checks passed
+) -> torch.Tensor:
+    """The ECDSA verdict per lane: R' = acc + comb is not the identity,
+    X(R') == r Z(R') or (has_r2 and X(R') == (r + n) Z(R')), Q is on the
+    curve, and the host pre-checks passed.
+
+    Coordinates follow the P-256 field module's weak contract.  On CUDA one
+    launch of kernel P2 writes the (batch,) bool verdicts, the plain
+    version's bit for bit; on the CPU it is the plain version's output."""
+    coords = {**_point_coords("acc", acc, "xyz"), **_point_coords("comb", comb, "xyz"),
+              "qx": qx, "qy": qy, "r1": r1, "r2": r2}
+    n = _check_inputs("verdict_p256", coords, {}, masks={"has_r2": has_r2, "host_ok": host_ok})
+    device = qx.device
+    if device.type == "cpu":
+        return verdict_p256_reference(acc, comb, qx, qy, r1, r2, has_r2, host_ok)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    _launch("verdict_p256", (*acc, *comb, qx, qy, r1, r2, has_r2, host_ok), (out,), n, device)
+    LEDGER.record_launch("verdict_p256")
+    return out
+
+
+def verdict_p256_reference(
+    acc: p256.Point, comb: p256.Point, qx: torch.Tensor, qy: torch.Tensor,
+    r1: torch.Tensor, r2: torch.Tensor, has_r2: torch.Tensor, host_ok: torch.Tensor,
+) -> torch.Tensor:
+    """The plain torch version of P2: the P-256 body's on-curve check and
+    last lines, unchanged."""
+    q_ok = p256.on_curve(qx, qy)
+    acc = p256.add(acc, comb)
+    # Accept iff R' is not the identity and x(R') = r (mod n):
+    # X == r Z, or (r + n < p and X == (r + n) Z), projectively.
+    nonzero = ~fp.is_zero(acc.z)
+    match1 = fp.eq(acc.x, fp.mul(r1, acc.z))
+    match2 = has_r2 & fp.eq(acc.x, fp.mul(r2, acc.z))
+    return host_ok & q_ok & nonzero & (match1 | match2)
+
+
 __all__ = [
     "BUILD_DIR",
     "BuildInfo",
     "KERNELS",
+    "add_and_equal",
+    "add_and_equal_reference",
+    "add_is_identity",
+    "add_is_identity_reference",
     "build",
     "comb_niels_np",
     "comb_niels_table",
+    "comb_p256_np",
+    "comb_p256_table",
     "decompress",
     "decompress_reference",
     "fixed_base_mul_comb",
+    "fixed_base_mul_comb_p256",
+    "fixed_base_mul_comb_p256_reference",
     "fixed_base_mul_comb_reference",
     "horner_scan",
     "horner_scan_p256",
@@ -516,4 +722,6 @@ __all__ = [
     "horner_scan_reference",
     "straus_msm",
     "straus_msm_reference",
+    "verdict_p256",
+    "verdict_p256_reference",
 ]

@@ -37,6 +37,14 @@ from consensus_tpu_torch.testing import ClientKeyring, Cluster, SigOnlyVerifier,
 P = fe.P
 
 
+def _launches() -> dict:
+    return {name: KERNELS.stats(name).launches for name in scan_kernels.KERNELS}
+
+
+def _delta(before: dict) -> dict:
+    return {name: n - before[name] for name, n in _launches().items()}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -108,9 +116,10 @@ def test_engine_on_card_matches_host_and_launches_once(cuda_device):
     msgs[3] = b"x" + msgs[3]                                   # wrong message
     engine = engine_for_config(Configuration(crypto_tpu_min_batch=1))
     assert engine.device.type == "cuda"
-    before = KERNELS.stats("horner_scan").launches
+    before = _launches()
     got = engine.verify_batch(msgs, sigs, keys)
-    assert KERNELS.stats("horner_scan").launches == before + 1
+    delta = _delta(before)
+    assert (delta["horner_scan"], delta["verdict25519"], delta["verdict_p256"]) == (1, 1, 0)
     np.testing.assert_array_equal(got, engine.verify_host(msgs, sigs, keys))
     assert got.tolist() == [False] * 4 + [True] * 4
 
@@ -181,9 +190,11 @@ def test_p256_engine_on_card_matches_reference_and_launches_once(cuda_device):
     sigs[3] = sigs[3][:32] + (mp.N - s3).to_bytes(32, "big")              # high s: accepted
     engine = engine_for_config(Configuration(crypto_tpu_min_batch=1), curve="p256")
     assert engine.device.type == "cuda"
-    before = (KERNELS.stats("horner_scan").launches, KERNELS.stats("horner_scan_p256").launches)
+    before = _launches()
     got = engine.verify_batch(msgs, sigs, keys)
-    assert (KERNELS.stats("horner_scan").launches, KERNELS.stats("horner_scan_p256").launches) == (before[0], before[1] + 1)
+    delta = _delta(before)
+    assert {k: v for k, v in delta.items() if v} == {
+        "horner_scan_p256": 1, "comb_p256": 1, "verdict_p256": 1}
     want = [mp.ref_p256_verify(k, s, m) for m, s, k in zip(msgs, sigs, keys)]
     assert got.tolist() == want == [False] * 3 + [True] * 5
 
@@ -271,9 +282,11 @@ def test_randomized_engine_on_card_matches_strict_and_launches_once(cuda_device)
     sigs = [med.ref_sign(seeds[i % 8], m) for i, m in enumerate(msgs)]
     engine = engine_for_config(Configuration(batch_verify_mode=True))
     assert engine.randomized and engine.device.type == "cuda"
-    before = (KERNELS.stats("horner_scan").launches, KERNELS.stats("straus_msm").launches)
+    before = _launches()
     got = engine.verify_batch(msgs, sigs, keys)
-    assert (KERNELS.stats("horner_scan").launches, KERNELS.stats("straus_msm").launches) == (before[0], before[1] + 1)
+    delta = _delta(before)
+    assert {k: v for k, v in delta.items() if v} == {
+        "straus_msm": 1, "decompress25519": 1, "comb25519": 1, "verdict25519": 1}
     strict = engine_for_config(Configuration()).verify_batch(msgs, sigs, keys)
     assert got.all() and np.array_equal(got, strict)
 
@@ -442,7 +455,8 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
     """4 SignedRequestApp replicas order 2 blocks of 64 signed requests with
     one strict engine on the card: every replica's proposal wave (64
     requests, then 64 + the previous commit certificate) is a device call,
-    B1 launches once per device call and B2 and B3 never, and the ledgers
+    B1, D1, D2 and E1 launch once per device call and B2, B3, P1 and P2
+    never, and the ledgers
     equal those of the same cluster on the host path."""
     card = _CountingEngine(device=cuda_device, min_device_batch=32)
     before = {name: KERNELS.stats(name).launches for name in scan_kernels.KERNELS}
@@ -452,6 +466,7 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
     assert launches == {
         "horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 0,
         "decompress25519": card.device_calls, "comb25519": card.device_calls, "mxu_limbs": 0,
+        "verdict25519": card.device_calls, "comb_p256": 0, "verdict_p256": 0,
     }
     host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
     assert _signed_request_cluster(host) == on_card
@@ -461,12 +476,6 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
 # --- kernel S1 (SHA-512) and the fused front end ------------------------------
 
 
-def _launches() -> dict:
-    return {name: KERNELS.stats(name).launches for name in scan_kernels.KERNELS}
-
-
-def _delta(before: dict) -> dict:
-    return {name: n - before[name] for name, n in _launches().items()}
 
 
 @pytest.mark.cuda
@@ -554,11 +563,11 @@ def _signed(n, seed):
 
 @pytest.mark.cuda
 def test_fused_waves_launch_as_counted_on_card(cuda_device):
-    """A fused strict wave is one S1, one D1, one B1 and one D2 launch; a
-    fused randomized wave with one forged signature launches B3 once per
-    aggregate check it books and S1 four times a check, plus one S1 and one
-    B1 per strict-floor call, and D1 and D2 once per check and per floor
-    call; both equal the host-prep engine's verdicts."""
+    """A fused strict wave is one S1, one D1, one B1, one D2 and one E1
+    launch; a fused randomized wave with one forged signature launches B3
+    once per aggregate check it books and S1 four times a check, plus one S1
+    and one B1 per strict-floor call, and D1, D2 and E1 once per check and
+    per floor call; both equal the host-prep engine's verdicts."""
     msgs, sigs, keys = _signed(40, seed=5)
     sigs[7] = sigs[7][:40] + bytes([sigs[7][40] ^ 1]) + sigs[7][41:]  # S off by one bit
     sigs[9] = sigs[9][:63]  # bad length: rejected before the device
@@ -569,7 +578,8 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     assert np.array_equal(strict.verify_batch(msgs, sigs, keys), want)
     assert _delta(before) == {
         "horner_scan": 1, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 1,
-        "decompress25519": 1, "comb25519": 1, "mxu_limbs": 0,
+        "decompress25519": 1, "comb25519": 1, "mxu_limbs": 0, "verdict25519": 1,
+        "comb_p256": 0, "verdict_p256": 0,
     }
 
     randomized = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_randomized=4)
@@ -583,15 +593,16 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     assert _delta(before) == {
         "horner_scan": floors, "horner_scan_p256": 0, "straus_msm": checks,
         "sha512": 4 * checks + floors, "decompress25519": checks + floors,
-        "comb25519": checks + floors, "mxu_limbs": 0,
+        "comb25519": checks + floors, "mxu_limbs": 0, "verdict25519": checks + floors,
+        "comb_p256": 0, "verdict_p256": 0,
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("device_prep", [False, True])
 def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
-    """A half-aggregated cert verify on the card is one B3, one D1 and one
-    D2 launch (and four S1 launches on the fused path), accepting the
+    """A half-aggregated cert verify on the card is one B3, one D1, one D2
+    and one E1 launch (and four S1 launches on the fused path), accepting the
     honest cert and rejecting a tampered one as the host twin does."""
     msgs, sigs, keys = _signed(5, seed=6)
     host = HalfAggregator(min_device_batch=10**9, device=cuda_device)
@@ -606,7 +617,7 @@ def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
         assert _delta(before) == {
             "horner_scan": 0, "horner_scan_p256": 0, "straus_msm": 1,
             "sha512": 4 if device_prep else 0, "decompress25519": 1, "comb25519": 1,
-            "mxu_limbs": 0,
+            "mxu_limbs": 0, "verdict25519": 1, "comb_p256": 0, "verdict_p256": 0,
         }
 
 
@@ -688,10 +699,11 @@ def test_decompress_and_comb_kernels_reject_mixed_devices(cuda_device):
 
 @pytest.mark.cuda
 def test_ed25519_waves_launch_d1_d2_and_never_the_plain_versions(cuda_device, monkeypatch):
-    """With ops/ed25519.py's decompress and fixed_base_mul_comb patched to
-    raise: a strict wave launches D1, B1 and D2 once each, and a randomized
-    wave with an undecodable key (the aggregate, then the survivors'
-    re-check) D1, D2 and B3 twice each; both answer as the host path."""
+    """With ops/ed25519.py's decompress, fixed_base_mul_comb, add, equal and
+    is_identity patched to raise: a strict wave launches D1, B1, D2 and E1
+    once each, and a randomized wave with an undecodable key (the
+    aggregate, then the survivors' re-check) D1, D2, B3 and E1 twice each;
+    both answer as the host path."""
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on the card's path")
@@ -701,15 +713,17 @@ def test_ed25519_waves_launch_d1_d2_and_never_the_plain_versions(cuda_device, mo
     host = med.Ed25519BatchVerifier(device="cpu").verify_host(msgs, sigs, keys)
     strict = engine_for_config(Configuration(crypto_tpu_min_batch=1), device=cuda_device)
     randomized = engine_for_config(Configuration(batch_verify_mode=True), device=cuda_device)
-    monkeypatch.setattr(ed, "decompress", refuse)
-    monkeypatch.setattr(ed, "fixed_base_mul_comb", refuse)
+    for name in ("decompress", "fixed_base_mul_comb", "add", "equal", "is_identity"):
+        monkeypatch.setattr(ed, name, refuse)
     zero = {name: 0 for name in scan_kernels.KERNELS}
     before = _launches()
     assert np.array_equal(strict.verify_batch(msgs, sigs, keys), host)
-    assert _delta(before) == {**zero, "decompress25519": 1, "horner_scan": 1, "comb25519": 1}
+    assert _delta(before) == {**zero, "decompress25519": 1, "horner_scan": 1, "comb25519": 1,
+                              "verdict25519": 1}
     before = _launches()
     assert np.array_equal(randomized.verify_batch(msgs, sigs, keys), host)
-    assert _delta(before) == {**zero, "decompress25519": 2, "straus_msm": 2, "comb25519": 2}
+    assert _delta(before) == {**zero, "decompress25519": 2, "straus_msm": 2, "comb25519": 2,
+                              "verdict25519": 2}
 
 
 # --- the chaos harness on the card: device faults under the supervisor --------
@@ -891,9 +905,10 @@ def test_counting_refuses_an_m1_launch_on_card(cuda_device):
 def test_mxu_lane_strict_wave_on_card_gives_the_lane_off_verdicts(cuda_device, monkeypatch):
     """The strict engine from ``engine_for_config`` with
     ``CTPU_MXU_LIMBS=1`` (the registry's ``mxu`` key): its wave's verdicts
-    equal the lane-off engine's, its field products launch M1 (none with
-    the lane off), B1, D1 and D2 launch as often, and its device call is
-    booked as ``ed25519.verify_mxu``."""
+    equal the lane-off engine's, M1 launches in neither lane (every product
+    of the wave runs inside B1, D1, D2 and E1, which take no lane:
+    ROADMAP divergence 23), every kernel launches as often, and its device
+    call is booked as ``ed25519.verify_mxu``."""
     signers = [Ed25519Signer(i, bytes([i + 1]) * 32) for i in range(4)]
     msgs = [b"mxu-wave-%d" % i for i in range(64)]
     sigs = [signers[i % 4].sign_raw(m) for i, m in enumerate(msgs)]
@@ -914,9 +929,8 @@ def test_mxu_lane_strict_wave_on_card_gives_the_lane_off_verdicts(cuda_device, m
     on = on_engine.verify_batch(msgs, sigs, keys)
     on_launches = _delta(before)
     assert np.array_equal(on, off) and list(np.flatnonzero(~on)) == [3, 9, 17, 30]
-    assert off_launches["mxu_limbs"] == 0 and on_launches["mxu_limbs"] > 0
-    assert {k: v for k, v in on_launches.items() if k != "mxu_limbs"} == {
-        k: v for k, v in off_launches.items() if k != "mxu_limbs"}
+    assert off_launches["mxu_limbs"] == 0 and on_launches["mxu_limbs"] == 0
+    assert on_launches == off_launches and off_launches["verdict25519"] == 1
     assert KERNELS.stats("ed25519.verify_mxu").launches == booked + 1
 
 
@@ -927,7 +941,7 @@ def test_mxu_lane_strict_wave_on_card_gives_the_lane_off_verdicts(cuda_device, m
 def test_groups_shared_fleet_on_card_launches_once_per_wave(cuda_device):
     """Phase 23a at 2 groups of 4: the committed certificates through one
     shared wave former and through one private former a group, each over the
-    strict engine on the card at ``min_device_batch=1``.  B1, D1 and D2
+    strict engine on the card at ``min_device_batch=1``.  B1, D1, D2 and E1
     launch once per launch of each drive, the shared drive launches less
     often with the same signatures, and a forged lane is refused by the
     shared drive (naming its group), the card and the host path alike."""
@@ -936,8 +950,165 @@ def test_groups_shared_fleet_on_card_launches_once_per_wave(cuda_device):
     g = phase_groups_fleet(cuda_device, n_groups=2, n=4, tenants=8, decisions=3)
     shared, private = g["shared"], g["private"]
     for d in (shared, private):
-        assert d["kernel_launches"] == (d["launches"],) * 3 and d["launches"] >= 1
+        assert d["kernel_launches"] == (d["launches"],) * 4 and d["launches"] >= 1
     assert shared["total_signatures"] == private["total_signatures"]
     assert shared["launches"] < private["launches"]
     assert shared["multi_group_launches"] >= 1
     assert g["forged_error"].endswith(" " + g["forged_group"])
+
+
+# --- kernels E1, P1 and P2: the waves' verdict tails ---------------------------
+
+
+def _strict_tail(n: int, device):
+    """E1's strict inputs for ``n`` requests as the strict body builds them
+    on the card (D1, B1, D2): every 9th signature tampered, every 11th key
+    off the curve, every 13th message changed."""
+    from chip_smoke import strict_tail_inputs
+
+    msgs, sigs, keys = _signed(n, seed=n)
+    for i in range(0, n, 9):
+        sigs[i] = sigs[i][:32] + bytes([sigs[i][32] ^ 1]) + sigs[i][33:]
+    for i in range(5, n, 11):
+        keys[i] = (2).to_bytes(32, "little")
+    for i in range(7, n, 13):
+        msgs[i] = b"x" + msgs[i]
+    engine = med.Ed25519BatchVerifier(device=device, min_device_batch=1)
+    host = engine.verify_host(msgs, sigs, keys)
+    return strict_tail_inputs(engine, msgs, sigs, keys), host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 8192 + 37])
+def test_e1_strict_matches_plain_and_host_on_card(cuda_device, n):
+    """E1's strict mode on the body's own inputs (R as row slices of D1's
+    R || A output) and on the same values in negative weak limbs and
+    contiguous R: verdicts equal the plain version's and the host path's,
+    tolerance 0, one launch a call."""
+    args, host = _strict_tail(n, cuda_device)
+    acc, comb, r_point, *masks = args
+    before = KERNELS.stats("verdict25519").launches
+    got = scan_kernels.add_and_equal(*args)
+    assert KERNELS.stats("verdict25519").launches == before + 1
+    assert got.dtype == torch.bool
+    assert torch.equal(got, scan_kernels.add_and_equal_reference(*args))
+    assert np.array_equal(got.cpu().numpy()[:n], host)
+    weak = [ed.Point(*(weaken(c).contiguous() for c in p)) for p in (acc, comb, r_point)]
+    assert torch.equal(scan_kernels.add_and_equal(*weak, *masks), got)
+    assert torch.equal(scan_kernels.add_and_equal_reference(*weak, *masks), got)
+
+
+@pytest.mark.cuda
+def test_e1_identity_matches_plain_on_card(cuda_device):
+    """E1's identity mode: comb + (-comb) in another representative is the
+    identity, comb + comb is not, at one lane and at 37."""
+    rng = np.random.default_rng(17)
+    digits = torch.from_numpy(rng.integers(0, 256, (32, 37)).astype(np.int32)).to(cuda_device)
+    comb = scan_kernels.fixed_base_mul_comb(digits)
+    neg = ed.Point(*(weaken(c).contiguous() for c in ed.negate(comb)))
+    for p, want in ((neg, True), (comb, False)):
+        for width in (1, 37):
+            a = ed.Point(*(c[:, :width].contiguous() for c in p))
+            b = ed.Point(*(c[:, :width].contiguous() for c in comb))
+            got = scan_kernels.add_is_identity(a, b)
+            assert torch.equal(got, scan_kernels.add_is_identity_reference(a, b))
+            assert bool(got.all()) is want and bool(got.any()) is want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 2048 + 37])
+def test_p1_matches_plain_on_card(cuda_device, n):
+    """P1 against the plain comb: frozen X, Y, Z equal on every lane, digits
+    0 and 255 in every window included; canonical limbs; one launch."""
+    rng = np.random.default_rng(n)
+    digits = rng.integers(0, 256, (32, n)).astype(np.int32)
+    digits[:, 0] = 0
+    if n > 2:
+        digits[:, 1] = 255
+        digits[::2, 2] = 0
+    digits = torch.from_numpy(digits).to(cuda_device)
+    before = KERNELS.stats("comb_p256").launches
+    got = scan_kernels.fixed_base_mul_comb_p256(digits)
+    assert KERNELS.stats("comb_p256").launches == before + 1
+    want = scan_kernels.fixed_base_mul_comb_p256_reference(digits)
+    for g, w in zip(got, want):
+        assert torch.equal(g, fp.freeze(g).to(torch.float32))
+        assert torch.equal(fp.freeze(g), fp.freeze(w))
+
+
+@pytest.mark.cuda
+def test_p2_matches_plain_on_card_with_the_synthetic_lanes(cuda_device):
+    """P2 on a P-256 wave's own inputs (acc from B2, comb from P1) with the
+    synthetic lanes over its padded columns (x(R') >= n with has_r2 set and
+    cleared, Z = 0, Q off the curve, a host rejection, a valid lane), and
+    in negative weak limbs: the plain version's verdicts, the host path's
+    on the signed lanes and the construction's on the synthetic ones."""
+    from chip_smoke import p256_tail_inputs, write_p256_synthetic_lanes
+
+    rng = np.random.default_rng(19)
+    privs = [int.from_bytes(rng.bytes(32), "big") % (mp.N - 1) + 1 for _ in range(40)]
+    keys = [mp.ref_p256_public_key(d) for d in privs]
+    msgs = [b"p2-%d" % i for i in range(40)]
+    sigs = [mp.ref_p256_sign(d, m) for d, m in zip(privs, msgs)]
+    sigs[0] = sigs[0][:32] + mp.N.to_bytes(32, "big")
+    keys[1] = b"\x04" + keys[1][1:33] + bytes(32)
+    msgs[2] = b"x" + msgs[2]
+    engine = mp.EcdsaP256BatchVerifier(device=cuda_device)
+    _, tail = p256_tail_inputs(engine, msgs, sigs, keys)
+    acc, comb, qx, qy, r1, r2, has_r2, host_ok = tail
+    host = [c.cpu().numpy().copy() for c in (*acc, qx, qy, r1, r2, has_r2, host_ok)]
+    want = write_p256_synthetic_lanes(host[:3], *host[3:], start=40)
+    dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    args = (p256.Point(*(dev(c) for c in host[:3])), comb, *(dev(c) for c in host[3:]))
+    before = KERNELS.stats("verdict_p256").launches
+    got = scan_kernels.verdict_p256(*args)
+    assert KERNELS.stats("verdict_p256").launches == before + 1
+    assert torch.equal(got, scan_kernels.verdict_p256_reference(*args))
+    cpu = got.cpu().numpy()
+    assert cpu[:40].tolist() == [mp.ref_p256_verify(k, s, m) for m, s, k in zip(msgs, sigs, keys)]
+    assert cpu[40:40 + len(want)].tolist() == want
+    weak = (p256.Point(*(weaken(c) for c in args[0])), p256.Point(*(weaken(c) for c in comb)),
+            *(weaken(c) for c in args[2:6]), *args[6:])
+    assert torch.equal(scan_kernels.verdict_p256(*weak), got)
+
+
+@pytest.mark.cuda
+def test_p256_wave_never_runs_the_plain_tail_on_card(cuda_device, monkeypatch):
+    """With ops/p256.py's fixed_base_mul_comb, add and on_curve patched to
+    raise, a P-256 wave launches B2, P1 and P2 once each and answers as the
+    host path."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    rng = np.random.default_rng(23)
+    privs = [int.from_bytes(rng.bytes(32), "big") % (mp.N - 1) + 1 for _ in range(8)]
+    keys = [mp.ref_p256_public_key(d) for d in privs]
+    msgs = [b"tail-%d" % i for i in range(8)]
+    sigs = [mp.ref_p256_sign(d, m) for d, m in zip(privs, msgs)]
+    keys[3] = b"\x04" + keys[3][1:33] + bytes(32)
+    engine = engine_for_config(Configuration(crypto_tpu_min_batch=1), curve="p256")
+    for name in ("fixed_base_mul_comb", "add", "on_curve"):
+        monkeypatch.setattr(p256, name, refuse)
+    before = _launches()
+    got = engine.verify_batch(msgs, sigs, keys)
+    assert {k: v for k, v in _delta(before).items() if v} == {
+        "horner_scan_p256": 1, "comb_p256": 1, "verdict_p256": 1}
+    assert got.tolist() == [mp.ref_p256_verify(k, s, m) for m, s, k in zip(msgs, sigs, keys)]
+
+
+@pytest.mark.cuda
+def test_verdict_kernels_reject_mixed_devices(cuda_device):
+    args, _ = _strict_tail(8, cuda_device)
+    acc, comb, r_point, host_ok, r_ok, a_ok = args
+    with pytest.raises(ValueError, match="one device"):
+        scan_kernels.add_and_equal(acc, comb, r_point, host_ok.cpu(), r_ok, a_ok)
+    with pytest.raises(ValueError, match="one device"):
+        scan_kernels.add_and_equal(acc, comb, ed.Point(*(c.cpu() for c in r_point)), *args[3:])
+    on_card = lambda: torch.zeros((32, 4), device=cuda_device)
+    flag = torch.zeros(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        scan_kernels.verdict_p256(
+            p256.Point(on_card(), on_card(), on_card()),
+            p256.Point(*(torch.zeros((32, 4)) for _ in range(3))),
+            on_card(), on_card(), on_card(), on_card(), flag, flag)

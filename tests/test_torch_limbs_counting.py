@@ -29,6 +29,7 @@ from consensus_tpu_torch.ops import ed25519 as ed
 from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import limbs
+from consensus_tpu_torch.ops import p256
 from consensus_tpu_torch.ops import scalar25519 as sc
 from consensus_tpu_torch.ops import scan_kernels
 
@@ -278,6 +279,32 @@ def test_bound_work_counts_are_the_plain_versions_counts():
     assert (d1.muls, d1.squares) == (
         chip_smoke.DECOMPRESS_MULS * n, chip_smoke.DECOMPRESS_SQUARES * n
     )
+
+
+def test_verdict_kernel_work_counts_are_the_plain_versions_counts():
+    """``chip_smoke.py``'s per-lane work counts of E1 (both modes), P1 and
+    P2 equal the shim's count of each kernel's plain version, lane for
+    lane (E1's comparison counted on lanes whose masks pass, as the kernel
+    runs it)."""
+    rng = np.random.default_rng(6)
+    n = 3
+    pt = lambda k: [torch.from_numpy(_limbs(rng, n)) for _ in range(k)]
+    yes = torch.ones(n, dtype=torch.bool)
+    e1 = limbs.measure_field_ops(
+        scan_kernels.add_and_equal_reference, ed.Point(*pt(4)), ed.Point(*pt(4)),
+        ed.Point(*pt(4)), yes, yes, yes)
+    assert (e1.muls, e1.squares) == (
+        (chip_smoke.E1_ADD_MULS + chip_smoke.E1_COMPARE_MULS) * n, 0)
+    e1_id = limbs.measure_field_ops(
+        scan_kernels.add_is_identity_reference, ed.Point(*pt(4)), ed.Point(*pt(4)))
+    assert (e1_id.muls, e1_id.squares) == (chip_smoke.E1_ADD_MULS * n, 0)
+    digits = torch.from_numpy(rng.integers(0, 256, (32, n)).astype(np.int32))
+    p1 = limbs.measure_field_ops(scan_kernels.fixed_base_mul_comb_p256_reference, digits)
+    assert (p1.muls, p1.squares) == (chip_smoke.P1_MULS * n, 0)
+    p2 = limbs.measure_field_ops(
+        scan_kernels.verdict_p256_reference, p256.Point(*pt(3)), p256.Point(*pt(3)), *pt(4),
+        yes, yes)
+    assert (p2.muls, p2.squares) == (chip_smoke.P2_MULS * n, chip_smoke.P2_SQUARES * n)
 
 
 # --- the batch-512 pins (slow, as in the JAX package) ---------------------------

@@ -85,7 +85,7 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     # The plain version runs on the CPU: no kernel launch, and the 5-vote
     # quorum takes the host path.
     assert w["wave_launches"] == 0 and w["quorum_launches"] == 0
-    assert w["d_launches"] == (0, 0)
+    assert w["d_launches"] == (0, 0, 0)
     assert w["quorum_size"] == 5 < w["min_device_batch"]
     # The stages are read off the engine's own ranges; on the CPU the
     # profiler sees no device, so no device time is claimed.
@@ -197,7 +197,7 @@ def _rehearse_randomized_phases(monkeypatch):
     assert w["signatures"] == 32 and w["padded"] == 32
     assert w["rejected"] == 6 and w["host_rejected"] == 4 and w["reference_checked"] == 32
     assert (w["msm_launches"], w["horner_launches"], w["horner_p256_launches"]) == (0, 0, 0)
-    assert w["d_launches"] == (0, 0)
+    assert w["d_launches"] == (0, 0, 0)
     p = w["profiled"]
     assert list(p["ranges"]) == list(chip_smoke.BATCH_RANGES)
     assert all(r["host_ms"] > 0 and r["device_ms"] is None for r in p["ranges"].values())
@@ -209,7 +209,7 @@ def _rehearse_randomized_phases(monkeypatch):
     assert c["votes"] == 20 and c["padded"] == 32 and c["rejected"] == 3
     assert len(c["forged"]) == 3 and c["min_device_batch"] == 16
     assert len(calls) == c["device_checks"] == 1 and c["host_checks"] >= 2
-    assert (c["msm_launches"], c["horner_launches"]) == (0, 0) and c["d_launches"] == (0, 0)
+    assert (c["msm_launches"], c["horner_launches"]) == (0, 0) and c["d_launches"] == (0, 0, 0)
 
 
 def test_ptxas_summary_reads_each_function():
@@ -348,7 +348,7 @@ def test_chip_smoke_cluster_phase_rehearses_on_cpu(monkeypatch):
     # 20 requests, then 20 + the previous decision's 3-vote certificate.
     assert c["wave_sizes"] == [20, 23] and c["padded"] == [32]
     assert c["launches"] == (0, 0, 0) and c["host_calls"] > 0 and c["host_sigs"] < 16 * c["host_calls"]
-    assert c["d_launches"] == (0, 0)
+    assert c["d_launches"] == (0, 0, 0)
     assert [b["device_calls"] for b in c["block_log"]] == [4, 4]
     for b in c["block_log"]:
         assert b["wall_ms"] >= b["device_ms"] + b["host_ms"] > 0

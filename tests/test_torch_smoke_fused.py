@@ -180,7 +180,7 @@ def test_chip_smoke_fused_phases_rehearse_on_cpu(monkeypatch):
     assert (f["signatures"], f["padded"], f["rejected"]) == (32, 32, 16)
     # No kernel launches on the CPU; one device call of the fused engine.
     assert f["launches"] == (0, 0, 0) and f["s1"] == 0 and f["calls"] == 1
-    assert f["d_launches"] == (0, 0)
+    assert f["d_launches"] == (0, 0, 0)
     assert f["stream_waves"] == 2 and f["stream_s1"] == 0
     # The wave, its profiled re-run and the two streamed waves: 4 hashes.
     assert len(hashes) == 4 and len(scans) == 4
@@ -204,7 +204,7 @@ def test_chip_smoke_fused_randomized_phase_rehearses_on_cpu(monkeypatch):
     assert f["checks"] == 2 and msm == [32] * 4
     assert len(hashes) == 2 * chip_smoke.S1_PER_CHECK * 2
     assert (f["signatures"], f["rejected"]) == (32, 12)
-    assert f["launches"] == (0, 0, 0) and f["s1"] == 0 and f["d_launches"] == (0, 0)
+    assert f["launches"] == (0, 0, 0) and f["s1"] == 0 and f["d_launches"] == (0, 0, 0)
     assert list(f["profiled"]["ranges"]) == list(chip_smoke.FUSED_BATCH_RANGES)
 
 
@@ -212,7 +212,7 @@ def test_chip_smoke_halfagg_phase_rehearses_on_cpu(monkeypatch):
     msm = _bigint_msm(monkeypatch)
     h = chip_smoke.phase_halfagg_certs("cpu", 2)
     assert (h["certs"], h["components"], h["checks"], h["tampered"]) == (2, 5, 2, 2)
-    assert h["launches"] == (0, 0, 0) and h["s1"] == 0 and h["d_launches"] == (0, 0)
+    assert h["launches"] == (0, 0, 0) and h["s1"] == 0 and h["d_launches"] == (0, 0, 0)
     # Each forged vote localized to its own signer.
     signers, groups, _, forged = chip_smoke.catch_up_chunk(2)
     assert [pos for pos, _ in h["localized"]] == forged
@@ -236,7 +236,7 @@ def test_chip_smoke_config_cluster_phase_rehearses_on_cpu(monkeypatch):
     # The previous decision's certificate is a QuorumCert: it is checked on
     # its own (host twin), so every proposal wave is its 20 requests.
     assert c["wave_sizes"] == [20] and c["padded"] == [32]
-    assert c["launches"] == (0, 0, 0) and c["s1_launches"] == 0 and c["d_launches"] == (0, 0)
+    assert c["launches"] == (0, 0, 0) and c["s1_launches"] == 0 and c["d_launches"] == (0, 0, 0)
     assert c["votes_checked"] == 4 * 2 and c["reference_checked"] == 0
     assert c["scan"]["kernel"] == "sha512" and c["scan"]["max_abs_err"] == 0
     assert c["scan"]["lanes"] == 32 and c["wal_bytes"] > 0

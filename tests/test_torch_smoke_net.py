@@ -30,7 +30,7 @@ def test_sidecar_tenants_phase_rehearses_on_cpu(one_thread):
     s = chip_smoke.phase_sidecar_tenants("cpu", corpus, 1, direct, min_device_batch=1,
                                          timeout=300.0)
     assert (s["tenants"], s["signatures"], s["sweep"]) == (4, 16, [4, 4, 4, 4])
-    assert 1 <= s["waves"] <= 4 and s["launches"] == (0, 0, 0)
+    assert 1 <= s["waves"] <= 4 and s["launches"] == (0, 0, 0, 0)
     assert s["tenant_rides"] >= 4 and s["rejected"] == len(bad)
     assert set(s["accounting"]) == {f"tenant-{t}" for t in range(4)}
     assert all(v["signatures"] == 4 for v in s["accounting"].values())
@@ -50,7 +50,7 @@ def test_sidecar_cluster_phase_rehearses_on_cpu(one_thread):
     c = chip_smoke.phase_sidecar_cluster("cpu", replicas=4, requests=8, blocks=2, clients=4,
                                          min_device_batch=8, timeout=300.0)
     assert (c["replicas"], c["blocks"], c["quorum"]) == (4, 2, 3)
-    assert c["heights"][0] >= 2 and c["launches"] == (0, 0, 0) and c["flushes"] >= 2
+    assert c["heights"][0] >= 2 and c["launches"] == (0, 0, 0, 0) and c["flushes"] >= 2
     # Every follower wave (8 requests, then 8 + the previous 3-vote
     # certificate) went to the sidecar; each quorum check stayed local.
     assert set(c["sweep_sizes"]) <= {8, 11} and c["sweeps"] >= 2 * 3
