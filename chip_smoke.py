@@ -239,11 +239,14 @@ Phases:
    and R from B1, D2 and D1, and again in negative weak limbs), its verdicts
    phase 3's; its identity mode at one lane (the randomized wave's first
    aggregate from B3 and D2, comb against -comb, comb against itself); P1
-   on phase 5's u1 digits (2,048 lanes) and on one lane, frozen X, Y, Z;
-   P2 on phase 5's wave (acc from B2, comb from P1) with synthetic lanes
-   over its padded columns (x(R') >= n with has_r2 set and cleared, Z = 0,
-   Q off the curve, a host rejection, a valid lane), and again in weak
-   limbs, its verdicts phase 5's and the construction's; each with its
+   on phase 5's u1 digits (2,048 lanes) and on one lane, the plain
+   version's point projectively (P1's window groups land on another
+   representative: ROADMAP divergence 26); P2 on phase 5's wave (acc from
+   B2, comb from P1) with synthetic lanes over its padded columns (x(R')
+   >= n with has_r2 set and cleared, Z = 0, Q off the curve, a host
+   rejection, a valid lane), and again in weak limbs, its verdicts phase
+   5's, the construction's and the plain version's from the plain comb's
+   point; each with its
    time through its wrapper and of its launches alone, the plain version's,
    its bound, and the ptxas reports.
 
@@ -718,15 +721,13 @@ def horner_bound(lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
             "products": products, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def _frozen_max_err(kernel: str, got, want, field=fe) -> float:
-    """The max abs err of the frozen coordinates (X, Y, Z and, on Edwards
-    points, T; ``field`` the curve's field module) of a kernel's point
-    against its plain version's; raises where any lane differs (tolerance
-    0)."""
+def _frozen_max_err(kernel: str, got: ed.Point, want: ed.Point) -> float:
+    """The max abs err of frozen X, Y, Z, T of a kernel's point against its
+    plain version's; raises where any lane differs (tolerance 0)."""
     lanes = got.x.shape[-1]
     max_err = 0.0
     for name, g, w in zip("XYZT", got, want):
-        fg, fw = field.freeze(g), field.freeze(w)
+        fg, fw = fe.freeze(g), fe.freeze(w)
         diff = (fg - fw).abs()
         max_err = max(max_err, float(diff.max()))
         bad = torch.nonzero(diff.amax(dim=0)).flatten()
@@ -735,6 +736,38 @@ def _frozen_max_err(kernel: str, got, want, field=fe) -> float:
                 f"{kernel}: {name} differs from the plain version on "
                 f"{bad.numel()} of {lanes} lanes (first {bad[:8].tolist()})"
             )
+    return max_err
+
+
+def p256_projective_max_err(kernel: str, got, want) -> float:
+    """A P-256 kernel's point against its plain version's where the two are
+    projective representatives of the same point that may differ (P1,
+    ROADMAP divergence 26): on the card the kernel's limbs canonical (on the
+    CPU ``got`` is the plain version's, in weak limbs); Z = 0 on exactly the
+    plain version's identity lanes, and X = 0, Y != 0 there; frozen X_k Z_p
+    == X_p Z_k and Y_k Z_p == Y_p Z_k on every lane.  Raises where any lane
+    differs (tolerance 0); returns the max abs err of the frozen cross
+    products (0.0)."""
+    lanes = got.x.shape[-1]
+
+    def fail(what: str, bad: torch.Tensor) -> None:
+        bad = torch.nonzero(bad).flatten()
+        if bad.numel():
+            raise AssertionError(f"{kernel}: {what} on {bad.numel()} of {lanes} lanes "
+                                 f"(first {bad[:8].tolist()})")
+
+    for name, c in zip("XYZ", got):
+        if c.is_cuda:
+            fail(f"{name} is not canonical", (c != fp.freeze(c).to(c.dtype)).any(dim=0))
+    identity = fp.is_zero(got.z)
+    fail("Z = 0 differs from the plain version's", identity != fp.is_zero(want.z))
+    fail("the identity is not (0 : Y : 0) with Y != 0",
+         identity & ~(fp.is_zero(got.x) & ~fp.is_zero(got.y)))
+    max_err = 0.0
+    for name, ck, cp in (("X", got.x, want.x), ("Y", got.y, want.y)):
+        diff = (fp.freeze(fp.mul(ck, want.z)) - fp.freeze(fp.mul(cp, got.z))).abs()
+        max_err = max(max_err, float(diff.max()))
+        fail(f"{name} Z differs from the plain version's projectively", diff.amax(dim=0) != 0)
     return max_err
 
 
@@ -2280,11 +2313,13 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
 
 # --- kernels E1, P1 and P2 (the waves' verdict tails): phase 24 ------------------
 
-#: Field multiplications a lane of kernel E1 (csrc/verdict25519.cu): the
-#: add (8, and T1 times 2d) and, in its strict mode, the comparison's 4 (X's
-#: 2 on a lane whose masks pass, Y's 2 where X matches); P1's (csrc/comb_p256.cu) 32 complete adds of
-#: 14 (12, and 2 by b); P2's (csrc/verdict_p256.cu) add, r Z and (r + n) Z
-#: and the on-curve check's qx^2 qx, with its 2 squarings (qy^2, qx^2).
+#: Field multiplications a lane of the function of kernel E1
+#: (csrc/verdict25519.cu): the add (8, and T1 times 2d) and, in its strict
+#: mode, the comparison's 4 (X's 2 on a lane whose masks pass, Y's 2 where X
+#: matches); of P1 (csrc/comb_p256.cu): 32 complete adds of 14 (12, and 2 by
+#: b; the kernel's window groups and joins are its design, not this work);
+#: of P2 (csrc/verdict_p256.cu): the add, r Z and (r + n) Z and the on-curve
+#: check's qx^2 qx, with its 2 squarings (qy^2, qx^2).
 #: tests/test_torch_limbs_counting.py holds these to the counting shim's
 #: count of the plain versions.
 E1_ADD_MULS = 9
@@ -2445,12 +2480,29 @@ def write_p256_synthetic_lanes(acc, qx, qy, r1, r2, has_r2, host_ok, start: int,
     return [want for _, want in P2_SYNTHETIC]
 
 
+def graph_ms(launch, reps: int, device) -> float:
+    """Mean milliseconds of one launch when ``reps`` launches captured in one
+    CUDA graph are replayed, after a warm-up replay: the device's time, with
+    no host work between launches.  A loop of launches from Python issues
+    one every ~0.015-0.02 ms, so a kernel that runs shorter than that is
+    timed by the loop as the host's issue rate."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    return _time_ms(graph.replay, 1, device) / reps
+
+
 def _timed_kernel(kernel, plain, launch, reps: int, plain_reps: int, device) -> dict:
     """``kernel`` through its wrapper (``ms``), its launch alone on
-    preallocated outputs (``launch_ms``; on the CPU the wrapper again) and
+    preallocated outputs in a loop (``launch_ms``) and replayed from a CUDA
+    graph (``graph_ms``; on the CPU both are the wrapper again) and
     ``plain`` (``plain_ms``), each a mean over CUDA events on the card."""
     row = {"ms": _time_ms(kernel, reps, device)}
-    row["launch_ms"] = _time_ms(launch, reps, device) if device.type == "cuda" else row["ms"]
+    cuda = device.type == "cuda"
+    row["launch_ms"] = _time_ms(launch, reps, device) if cuda else row["ms"]
+    row["graph_ms"] = graph_ms(launch, reps, device) if cuda else row["ms"]
     row["plain_ms"] = _time_ms(plain, plain_reps, device)
     return row
 
@@ -2472,11 +2524,14 @@ def phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps: int, p
       z s stay in the comb's scalar), comb against -comb (the identity) and
       comb against itself;
     * P1 on the P-256 wave's u1 digits (``p256_replicas`` copies of
-      ``p256_corpus``) and on its first lane, frozen X, Y, Z;
+      ``p256_corpus``) and on its first lane, projectively
+      (:func:`p256_projective_max_err`: P1 lands on another representative,
+      ROADMAP divergence 26);
     * P2 on that wave's own inputs (acc from B2, comb from P1) with
       :data:`P2_SYNTHETIC`'s lanes over its padded columns, and again in
       negative weak limbs; the wave's verdicts equal to ``p256_verdicts``
-      (phase 5's) where given, the synthetic lanes' to the construction.
+      (phase 5's) where given, the synthetic lanes' to the construction,
+      and all of them to the plain version's from the plain comb's point.
 
     Each kernel is timed through its wrapper, alone, and its plain version
     (:func:`_timed_kernel`); the bounds are the caller's."""
@@ -2558,14 +2613,15 @@ def phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps: int, p
     u1d, tail = p256_tail_inputs(pengine, *pwave[:3])
     plane = u1d.shape[1]
     table = scan_kernels.comb_p256_table(device)
+    plain_comb = {}
     for key, digits in (("p1", u1d), ("p1_one", u1d[:, :1].contiguous())):
         n = digits.shape[1]
         outs = [torch.empty((fp.LIMBS, n), dtype=torch.float32, device=device) for _ in range(3)]
+        plain_comb[key] = scan_kernels.fixed_base_mul_comb_p256_reference(digits)
         out[key] = {
             "lanes": n, "digits": digits,
-            "max_abs_err": _frozen_max_err(
-                "comb_p256", scan_kernels.fixed_base_mul_comb_p256(digits),
-                scan_kernels.fixed_base_mul_comb_p256_reference(digits), field=fp),
+            "max_abs_err": p256_projective_max_err(
+                "comb_p256", scan_kernels.fixed_base_mul_comb_p256(digits), plain_comb[key]),
             **_timed_kernel(
                 lambda: scan_kernels.fixed_base_mul_comb_p256(digits),
                 lambda: scan_kernels.fixed_base_mul_comb_p256_reference(digits),
@@ -2590,6 +2646,11 @@ def phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps: int, p
                              f"constructed {expected}")
     if p256_verdicts is not None and not np.array_equal(cpu[:n_sigs], p256_verdicts):
         raise AssertionError("verdict_p256: the wave's verdicts differ from phase 5's")
+    # P1 writes another representative than the plain comb (divergence 26):
+    # the verdicts from the plain comb's point are the same, bit for bit.
+    err = max(err, _check_verdicts(
+        "verdict_p256 (from the plain comb's point)", got,
+        scan_kernels.verdict_p256_reference(acc, plain_comb["p1"], *args[2:])))
     weak = (p256.Point(*(weaken(c) for c in acc)), p256.Point(*(weaken(c) for c in comb)),
             *(weaken(c) for c in (qx, qy, r1, r2)), has_r2, host_ok)
     weak_got = scan_kernels.verdict_p256(*weak)
@@ -5097,14 +5158,16 @@ def main() -> int:
                         f"aggregate (B3 over {k24['e1_identity']['aggregate_lanes']} lanes, D2; "
                         f"refused), comb + (-comb) (accepted), comb + comb (refused): equal to "
                         f"the plain version's"),
-        "p1": (f"comb_p256 on phase 5's u1 digits ({k24['p1']['lanes']} lanes): frozen X, Y, Z "
-               f"equal on every lane"),
-        "p1_one": "comb_p256 on one lane: frozen X, Y, Z equal",
+        "p1": (f"comb_p256 on phase 5's u1 digits ({k24['p1']['lanes']} lanes): the plain "
+               f"version's point on every lane, projectively (canonical limbs, X Z' == X' Z, "
+               f"Y Z' == Y' Z, Z = 0 on exactly its identity lanes; divergence 26)"),
+        "p1_one": "comb_p256 on one lane: the plain version's point, projectively",
         "p2": (f"verdict_p256 on phase 5's wave ({k24['p2']['signatures']} signatures on "
                f"{k24['p2']['lanes']} lanes, acc from B2, comb from P1) with synthetic lanes "
                f"{k24['p2']['synthetic']} over padded columns ({k24['p2']['has_r2_lanes']} lanes "
                f"with has_r2); again in negative weak limbs: verdicts equal to the plain "
-               f"version's, phase 5's and the construction's ({k24['p2']['accepted']} accepted)"),
+               f"version's, phase 5's, the construction's and the plain version's from the plain "
+               f"comb's point ({k24['p2']['accepted']} accepted)"),
     }
     work24 = {
         "e1": f"{E1_ADD_MULS} multiplications a lane, 2 more on each of the {k24['e1']['compared']} "
@@ -5121,7 +5184,8 @@ def main() -> int:
         log(f"{label} (max abs err {r['max_abs_err']})")
         log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of 20 "
             f"after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of 20 back to back "
-            f"on preallocated outputs)")
+            f"on preallocated outputs); {r['graph_ms']:.6f} ms a launch replayed from a CUDA "
+            f"graph of 20 (the device's time)")
         log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3)")
         entries = (f"; {b['entries']} distinct table entries x {P1_ENTRY_BYTES} bytes read"
                    if "entries" in b else "")
@@ -5130,7 +5194,8 @@ def main() -> int:
             f"{sm_count} SMs x {IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
             f"{b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} ms; "
             f"kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
-            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone; {card}")
+            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone, "
+            f"{100 * b['bound_ms'] / r['graph_ms']:.3f} % from a graph; {card}")
     for name in ("verdict25519", "comb_p256", "verdict_p256"):
         log_ptxas(infos[name])
     log("  library: none (no PyTorch call adds curve points or computes [u]G)")
@@ -5242,6 +5307,7 @@ def main() -> int:
             "max_abs_err": k24["e1"]["max_abs_err"],
             "ms": k24["e1"]["ms"],
             "launch_ms": k24["e1"]["launch_ms"],
+            "graph_ms": k24["e1"]["graph_ms"],
             "plain_ms": k24["e1"]["plain_ms"],
             "bound_ms": bounds24["e1"]["bound_ms"],
             "bound_by": bounds24["e1"]["bound_by"],
@@ -5256,6 +5322,7 @@ def main() -> int:
             "max_abs_err": k24["p1"]["max_abs_err"],
             "ms": k24["p1"]["ms"],
             "launch_ms": k24["p1"]["launch_ms"],
+            "graph_ms": k24["p1"]["graph_ms"],
             "plain_ms": k24["p1"]["plain_ms"],
             "bound_ms": bounds24["p1"]["bound_ms"],
             "bound_by": bounds24["p1"]["bound_by"],
@@ -5270,6 +5337,7 @@ def main() -> int:
             "max_abs_err": k24["p2"]["max_abs_err"],
             "ms": k24["p2"]["ms"],
             "launch_ms": k24["p2"]["launch_ms"],
+            "graph_ms": k24["p2"]["graph_ms"],
             "plain_ms": k24["p2"]["plain_ms"],
             "bound_ms": bounds24["p2"]["bound_ms"],
             "bound_by": bounds24["p2"]["bound_by"],

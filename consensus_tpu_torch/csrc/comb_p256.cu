@@ -6,44 +6,67 @@
 // window), fused into the verifier's jitted program.  Run eagerly in torch
 // (consensus_tpu_torch/ops/p256.py::fixed_base_mul_comb, the plain version,
 // an index gather), it is 32 windows of a few hundred small launches.  This
-// kernel computes the same function: from the identity (0 : 1 : 0), for
-// window j = 0..31 (LSB first) one complete add (RCB15 Algorithm 4, a = -3)
-// of table entry [j][digit_j] = digit_j * 2^(8j) * G.  Digit 0 is added too,
-// as the entry (0 : 1 : 0), as the plain version does: the complete add
-// scales the accumulator's coordinates there, so skipping it would give the
-// same point but another projective representative.  With exact arithmetic
-// mod p the kernel lands on the plain version's representative and writes it
-// as canonical limbs, equal to the plain version's after fp.freeze.
+// kernel computes the same point: the sum over windows j = 0..31 (LSB first)
+// of table entry [j][digit_j] = digit_j * 2^(8j) * G, by complete adds (RCB15
+// Algorithm 4, a = -3), digit 0's entry being the identity (0 : 1 : 0).
 //
 // The table is the plain version's (ops/p256.py::_comb_table_np) as affine
-// (x, y) in 8 little-endian 32-bit words a coordinate, built once per device
-// by ops/scan_kernels.py: 32 x 256 entries of 64 bytes, 524,288 bytes, which
-// stay in the 50 MB L2.  Entry d = 0 holds (0, 1); the kernel gives an entry
-// Z = 1 for d != 0 and Z = 0 for d = 0, the plain table's Z.
+// (x, y) with b x mod p beside them, 8 little-endian 32-bit words each,
+// built once per device by ops/scan_kernels.py: 32 x 256 entries of 96
+// bytes, 786,432 bytes, which stay in the 50 MB L2.  Entry d = 0 holds
+// (0, 1, 0); the kernel gives an entry Z = 1 for d != 0 and Z = 0 for
+// d = 0, the plain table's Z.
 //
-// What bounds it on this card: latency.  A lane is one chain of 32 complete
+// What bounds it on this card: latency, and at the wave's width the issue
+// of its instructions.  A lane is a sum of 32 table entries by complete
 // adds of 14 field multiplications (2 of them by b); at 2,048 lanes the
-// products over every SM take microseconds and the bytes (digits, outputs and
-// the table's entries read once, under a megabyte) well under that, but each
-// lane's adds run one after another, and each waits on a table read from L2
-// at an address its digit picks.
+// products over every SM take microseconds and the bytes (digits, outputs
+// and the table's entries read once, under a megabyte) well under that,
+// but a chain of adds runs one add after another, and each waits on a table
+// read from L2 at an address its digit picks.  The first design ran the 32
+// adds of a lane as one chain (from the identity, window 0 to 31) on a
+// group of 8 threads: 0.121 ms at 2,048 lanes and 0.118 at one lane on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (scripts/e1_p1_trials.py, a launch
+// replayed from a CUDA graph), about 3.7 us an add, with 512 warps in
+// flight over 132 SMs.
 //
-// What the design does about it, as kernel B2 does for its adds:
-// - A group of G = 8 threads per lane, in one warp: each add is cut into its
-//   three product levels (p256_field.cuh's add_level1..3), role r of the
-//   group computes product r of a level into the group's slots in shared
-//   memory, and the group meets at __syncwarp on its own lanes.  An add costs
-//   3 multiplication latencies where one thread runs 14.
-// - Each thread reads the entry of window j + 1 from L2 while the group adds
-//   window j's: the lane's 32 digits are staged in shared memory first.
-// - 16 lanes a 128-thread block (128 blocks at 2,048 lanes).  A group past
-//   the batch leaves as a whole; the barriers name only the group's own
-//   lanes.
-// The comb is a template over the group (comb_lane): serial_group runs every
-// role in turn on one thread, which is what the host check compiled with g++
-// replays (tests/test_torch_verdict_kernels.py).
+// What the design does about it:
+// - The windows split over W = 4 window groups, one warp a lane: group w of
+//   G = 8 threads sums windows 8w .. 8w + 7, starting from its first entry
+//   (not from the identity), so 7 adds.  The four partial sums then join in
+//   two levels inside the warp: w0 + w1 and w2 + w3 at once (groups 0 and
+//   2), then the two results (group 0).  A lane's chain is 7 + 2 = 9 adds
+//   where it was 32.  The partial sums pass through shared memory between
+//   the levels, with __syncwarp over the warp.
+// - Each add is cut into product levels: role r of a group computes
+//   product r of a level into the group's slots in shared memory, and the
+//   group meets at __syncwarp on its own lanes.  An entry's add is the
+//   complete add (RCB15 Algorithm 4) with Z2 in {0, 1}: Z1 Z2 is a select
+//   and both products by b move into the first level (b Z1, b X1 and
+//   Z1 (b x2), the table holding b x2), so it is 2 levels of 8 and 6
+//   products where the general add has 3.  A digit 0 (the entry
+//   (0 : 1 : 0)) and an identity partial sum need no branch.  The joins
+//   are the general add (p256_field.cuh's add_level1..3).
+// - Each thread reads the entry of window j + 1 from L2 while its group adds
+//   window j's: each group stages its 8 digits in shared memory first.
+// - 4 lanes a 128-thread block (512 blocks at 2,048 lanes).  A lane past the
+//   batch leaves as a whole warp.  One add site each for the entries and
+//   the joins: ptxas 148 registers, no spills.
+// In one call (scripts/e1_p1_trials.py, same card) this took 0.084-0.085 ms
+// at 2,048 lanes and 0.030 at one lane; the same window groups with the
+// general add for every entry took 0.095 and 0.037, and capping the
+// registers at 128 for a fourth block an SM did not help (0.086, with
+// spills): at 2,048 lanes 16 warps an SM issue the adds' instructions as
+// fast as the schedulers take them, where one lane is one chain's latency.
+// The sum is not the plain version's chain, so the kernel lands on another
+// projective representative of the same point (ROADMAP divergence 26): it
+// writes canonical limbs, and Z = 0 exactly where the point is the identity.
+// The comb is a template over the lane's warp (comb_lane): serial_warp runs
+// every window group, and serial_group every role, in turn on one thread,
+// which is what the host check compiled with g++ replays
+// (tests/test_torch_verdict_kernels.py).
 //
-// Layout at the C boundary: the (32, 256, 2, 8) uint32 table; (32, n) int32
+// Layout at the C boundary: the (32, 256, 3, 8) uint32 table; (32, n) int32
 // digits, LSB window first, element (j, lane) at j * n + lane (bytes 0-255:
 // the kernel reads the low 8 bits); three (32, n) float32 outputs holding
 // canonical limbs in [0, 255].
@@ -57,12 +80,15 @@ namespace {
 
 constexpr int COMB_WINDOWS = 32;
 constexpr int COMB_ENTRIES = 256;
-constexpr int ENTRY_WORDS = 16;  // x, y: 8 words each
-constexpr int LANES = 16;  // lanes (groups) a block
-constexpr int THREADS = G * LANES;
+constexpr int ENTRY_WORDS = 24;  // x, y, b x: 8 words each
+constexpr int W = 4;  // window groups a lane
+constexpr int GROUP_WINDOWS = COMB_WINDOWS / W;
+constexpr int LANE_THREADS = W * G;  // one warp
+constexpr int LANES = 4;  // lanes (warps) a block
+constexpr int THREADS = LANE_THREADS * LANES;
 
 // The lane that thread t of block b works on.
-HD long long comb_group_lane(long long b, int t) { return b * LANES + t / G; }
+HD long long comb_warp_lane(long long b, int t) { return b * LANES + t / LANE_THREADS; }
 
 HD u32 load_word(const u32* p) {
 #ifdef __CUDA_ARCH__
@@ -72,40 +98,156 @@ HD u32 load_word(const u32* p) {
 #endif
 }
 
-// Entry [window][digit] as a projective point: (x : y : 1), or the identity
-// (0 : 1 : 0) for digit 0, whose (x, y) the table holds as (0, 1).
-HD ge comb_point(const u32* table, int window, int digit) {
+// A table entry as the projective point (x : y : z) with z = 1, or the
+// identity (0 : 1 : 0) for digit 0 (whose (x, y, b x) the table holds as
+// (0, 1, 0)), and b x.
+struct entry {
+  fe x, y, bx;
+  bool z;
+};
+
+HD entry comb_entry(const u32* table, int window, int digit) {
   const u32* e = table + ((long long)window * COMB_ENTRIES + digit) * ENTRY_WORDS;
-  ge q;
+  entry q;
   for (int i = 0; i < 8; ++i) {
-    q.X.v[i] = load_word(e + i);
-    q.Y.v[i] = load_word(e + 8 + i);
+    q.x.v[i] = load_word(e + i);
+    q.y.v[i] = load_word(e + 8 + i);
+    q.bx.v[i] = load_word(e + 16 + i);
   }
-  q.Z = digit != 0 ? fe_one() : fe_zero();
+  q.z = digit != 0;
   return q;
 }
 
-// [u1]G for the lane at column `lane` of the (32, n) digits, on group g with
-// its stage of COMB_WINDOWS digits; writes X, Y, Z at o[i * n + lane].
+HD ge entry_point(const entry& q) { return ge{q.x, q.y, q.z ? fe_one() : fe_zero()}; }
+
+// --- the complete add of a table entry by product level ----------------------------
+// RCB15 Algorithm 4 (p256_field.cuh's add_level1..3) with Z2 = z in {0, 1},
+// so that Z1 Z2 needs no product and the two products by b move into the
+// first level: 2 levels of products where the general add has 3.  Every
+// value is the general formula's mod p (each is the same polynomial with z
+// substituted), so an entry's add lands on the general add's
+// representative.
+
+// Level 1, product k (slot k): X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), Z1 y2,
+// Z1 x2, b Z1, b X1, Z1 (b x2).
+HD fe madd_level1(const ge& p, const entry& q, int k) {
+  const fe a = fe_sel(k == 5 || k == 6, fe_b(),
+                      fe_sel(k == 0, p.X,
+                             fe_sel(k == 1, p.Y, fe_sel(k == 2, fe_add(p.X, p.Y), p.Z))));
+  const fe b = fe_sel(k == 0 || k == 4, q.x,
+                      fe_sel(k == 1 || k == 3, q.y,
+                             fe_sel(k == 2, fe_add(q.x, q.y),
+                                    fe_sel(k == 5, p.Z, fe_sel(k == 6, p.X, q.bx)))));
+  return mul(a, b);
+}
+
+// The factors of level 2 (add_level3's terms) from level 1's products: as
+// add_level3_terms with t2 = Z1 z, t4 = Y1 z + Z1 y2, X1 Z2 + X2 Z1 =
+// X1 z + Z1 x2, b t2 = (b Z1) z and b (X1 z + Z1 x2) = (b X1) z + Z1 (b x2).
+HD add_terms madd_level2_terms(const fe* s, const ge& p, bool z) {
+  const fe zero = fe_zero();
+  add_terms v;
+  const fe t2 = fe_sel(z, p.Z, zero);
+  v.t3 = fe_sub(s[2], fe_add(s[0], s[1]));
+  v.t4 = fe_add(s[3], fe_sel(z, p.Y, zero));
+  fe x3 = fe_sub(fe_add(s[4], fe_sel(z, p.X, zero)), fe_sel(z, s[5], zero));
+  x3 = fe_add(x3, fe_add(x3, x3));
+  v.z3 = fe_sub(s[1], x3);
+  v.x3 = fe_add(s[1], x3);
+  const fe t2x3 = fe_add(fe_add(t2, t2), t2);
+  const fe y3 = fe_sub(fe_sub(fe_add(s[7], fe_sel(z, s[6], zero)), t2x3), s[0]);
+  v.y3 = fe_add(fe_add(y3, y3), y3);
+  v.t0 = fe_sub(fe_add(fe_add(s[0], s[0]), s[0]), t2x3);
+  return v;
+}
+
+// p + q on group g: level 1's 8 products in slots 0-7, level 2's 6 (the
+// header's add_level3) in slots 8-13, as the general add's last level.
 template <class Group>
-HD void comb_lane(const Group& g, int32_t* stage, const u32* table, const int32_t* digits,
-                  float* ox, float* oy, float* oz, long long n, long long lane) {
+HD ge group_madd(const Group& g, const ge& p, const entry& q) {
+  fe* const s = g.slots;
   for (int r = g.role_lo; r < g.role_hi; ++r)
-    for (int j = r; j < COMB_WINDOWS; j += G) stage[j] = digits[j * n + lane] & (COMB_ENTRIES - 1);
+    for (int k = r; k < 8; k += G) s[k] = madd_level1(p, q, k);
   group_sync(g);
-  ge acc = ge_identity();
-  ge q = comb_point(table, 0, stage[0]);
-#pragma unroll 1
-  for (int j = 0; j < COMB_WINDOWS; ++j) {
-    const int next = j + 1 < COMB_WINDOWS ? j + 1 : j;
-    const ge q_next = comb_point(table, next, stage[next]);
-    acc = group_add(g, acc, q);
-    q = q_next;
+  const add_terms v = madd_level2_terms(s, p, q.z);
+  for (int r = g.role_lo; r < g.role_hi; ++r)
+    for (int k = r; k < 6; k += G) s[8 + k] = add_level3(v, k);
+  group_sync(g);
+  return add_result(s);
+}
+
+// --- the warp of one lane ---------------------------------------------------------
+// A lane's warp runs GROUPS of its W window groups on this thread (group(i)
+// is the i-th), and passes their partial sums through sums[W].  serial_warp
+// runs every group in turn, each a serial_group over its own slots, with no
+// barrier; on the card (lane_warp below) each thread is one role of one
+// group.
+
+struct serial_warp {
+  static constexpr int GROUPS = W;
+  fe (*slots)[SLOTS];  // one set for each window group
+  ge* sums;
+};
+
+HD int group(const serial_warp&, int i) { return i; }
+HD serial_group lane_group(const serial_warp& wp, int w) {
+  return serial_group{wp.slots[w], 0, G};
+}
+HD void warp_sync(const serial_warp&) {}
+
+// [u1]G for the lane at column `lane` of the (32, n) digits, on warp wp with
+// its stage of COMB_WINDOWS digits; writes X, Y, Z at o[i * n + lane].
+// Group w starts from entry 8w and adds entries 8w + 1 .. 8w + 7 (the next
+// read while the group adds the current one); then the joins, general
+// adds: w0 + w1 and w2 + w3 on groups 0 and 2, then their sums on group 0,
+// whose roles 0-2 store.
+template <class Warp>
+HD void comb_lane(const Warp& wp, int32_t* stage, const u32* table, const int32_t* digits,
+                  float* ox, float* oy, float* oz, long long n, long long lane) {
+  constexpr int K = Warp::GROUPS;
+  ge acc[K];
+  entry q[K];
+  for (int i = 0; i < K; ++i) {
+    const int w = group(wp, i), j0 = w * GROUP_WINDOWS;
+    const auto g = lane_group(wp, w);
+    for (int r = g.role_lo; r < g.role_hi; ++r)
+      for (int j = j0 + r; j < j0 + GROUP_WINDOWS; j += G)
+        stage[j] = digits[j * n + lane] & (COMB_ENTRIES - 1);
+    group_sync(g);
+    acc[i] = entry_point(comb_entry(table, j0, stage[j0]));
+    q[i] = comb_entry(table, j0 + 1, stage[j0 + 1]);
   }
-  for (int r = g.role_lo; r < g.role_hi; ++r) {
-    if (r == 0) fe_store(ox + lane, n, acc.X);
-    if (r == 1) fe_store(oy + lane, n, acc.Y);
-    if (r == 2) fe_store(oz + lane, n, acc.Z);
+#pragma unroll 1
+  for (int j = 1; j < GROUP_WINDOWS; ++j) {
+    for (int i = 0; i < K; ++i) {
+      const int next = group(wp, i) * GROUP_WINDOWS + (j + 1 < GROUP_WINDOWS ? j + 1 : j);
+      const entry q_next = comb_entry(table, next, stage[next]);
+      acc[i] = group_madd(lane_group(wp, group(wp, i)), acc[i], q[i]);
+      q[i] = q_next;
+    }
+  }
+#pragma unroll 1
+  for (int span = 1; span < W; span *= 2) {
+    for (int i = 0; i < K; ++i) {
+      const int w = group(wp, i);
+      if (w % (2 * span) == span && lane_group(wp, w).role_lo == 0) wp.sums[w] = acc[i];
+    }
+    warp_sync(wp);
+    for (int i = 0; i < K; ++i) {
+      const int w = group(wp, i);
+      if (w % (2 * span) != 0) continue;
+      const ge other = wp.sums[w + span];
+      acc[i] = group_add(lane_group(wp, w), acc[i], other);
+    }
+  }
+  for (int i = 0; i < K; ++i) {
+    if (group(wp, i) != 0) continue;
+    const auto g = lane_group(wp, 0);
+    for (int r = g.role_lo; r < g.role_hi; ++r) {
+      if (r == 0) fe_store(ox + lane, n, acc[i].X);
+      if (r == 1) fe_store(oy + lane, n, acc[i].Y);
+      if (r == 2) fe_store(oz + lane, n, acc[i].Z);
+    }
   }
 }
 
@@ -113,20 +255,46 @@ HD void comb_lane(const Group& g, int32_t* stage, const u32* table, const int32_
 
 #ifdef __CUDACC__
 
-static_assert(THREADS % 32 == 0, "whole warps, each holding whole groups");
+static_assert(LANE_THREADS == 32, "a lane is one warp");
+static_assert(GROUP_WINDOWS * W == COMB_WINDOWS && (W & (W - 1)) == 0,
+              "the joins halve the partial sums");
+
+// One role of one window group of a lane's warp: the group (its slots and
+// the mask of its G lanes) and the warp's partial sums in shared memory.
+struct lane_warp {
+  static constexpr int GROUPS = 1;
+  int w;
+  warp_group g;
+  ge* sums;
+};
+
+// The card's warp functions are __host__ __device__ like the template that
+// calls them; their intrinsic exists only in the device pass.
+__host__ __device__ __forceinline__ int group(const lane_warp& wp, int) { return wp.w; }
+
+__host__ __device__ __forceinline__ warp_group lane_group(const lane_warp& wp, int) {
+  return wp.g;
+}
+
+__host__ __device__ __forceinline__ void warp_sync(const lane_warp&) {
+#ifdef __CUDA_ARCH__
+  __syncwarp();
+#endif
+}
 
 __global__ void __launch_bounds__(THREADS)
 comb_p256_kernel(const u32* __restrict__ table, const int32_t* __restrict__ digits,
                  float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ oz,
                  int n) {
-  __shared__ fe slots[LANES][SLOTS];
+  __shared__ fe slots[LANES][W][SLOTS];
+  __shared__ ge sums[LANES][W];
   __shared__ int32_t stages[LANES][COMB_WINDOWS];
-  const int t = threadIdx.x, sub = t / G, role = t % G;
-  const long long lane = comb_group_lane(blockIdx.x, t);
-  if (lane >= n) return;  // the ragged edge: the whole group leaves
+  const int t = threadIdx.x, sub = t / LANE_THREADS, w = t % LANE_THREADS / G, role = t % G;
+  const long long lane = comb_warp_lane(blockIdx.x, t);
+  if (lane >= n) return;  // the ragged edge: the whole warp leaves
   const unsigned mask = ((1u << G) - 1u) << ((t % 32) & ~(G - 1));
-  const warp_group g = {slots[sub], role, role + 1, mask};
-  comb_lane(g, stages[sub], table, digits, ox, oy, oz, n, lane);
+  const lane_warp wp = {w, warp_group{slots[sub][w], role, role + 1, mask}, sums[sub]};
+  comb_lane(wp, stages[sub], table, digits, ox, oy, oz, n, lane);
 }
 
 // Launches on `stream` of CUDA device `device` and returns the launch's

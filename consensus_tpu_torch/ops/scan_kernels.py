@@ -619,8 +619,10 @@ def add_is_identity_reference(acc: ed.Point, comb: ed.Point) -> torch.Tensor:
 def fixed_base_mul_comb_p256(digits8: torch.Tensor) -> p256.Point:
     """[u]G per lane on P-256 from (32, n) int32 8-bit window digits (bytes
     0-255), LSB window first.  On CUDA one launch of kernel P1 writes the
-    plain version's projective point as canonical limbs; on the CPU it is
-    the plain version's output."""
+    plain version's point as canonical limbs, in another projective
+    representative (its window groups sum the entries in another order:
+    ROADMAP divergence 26; Z = 0 exactly on the identity); on the CPU it
+    is the plain version's output."""
     n = _check_inputs("comb_p256", {}, {"digits8": (digits8, _COMB_WINDOWS)})
     device = digits8.device
     if device.type == "cpu":
@@ -637,12 +639,14 @@ def fixed_base_mul_comb_p256(digits8: torch.Tensor) -> p256.Point:
 def comb_p256_np() -> np.ndarray:
     """Kernel P1's table: entry [j][d] of the plain version's comb table
     (``d * 2^(8j) * G``, affine; (0, 1) at d = 0, whose Z the kernel sets
-    to 0) as (x, y), each coordinate 8 little-endian 32-bit words, a
-    (32, 256, 2, 8) uint32 array."""
+    to 0) as (x, y, b x mod p), each 8 little-endian 32-bit words, a
+    (32, 256, 3, 8) uint32 array."""
     xs, ys, _ = p256._comb_table_np()
-    return np.stack(
-        [np.ascontiguousarray(c.astype(np.uint8)).view("<u4") for c in (xs, ys)], axis=2
-    )
+    x, y = (np.ascontiguousarray(c.astype(np.uint8)) for c in (xs, ys))
+    bx = np.frombuffer(b"".join(
+        (p256.B * int.from_bytes(e.tobytes(), "little") % fp.P).to_bytes(32, "little")
+        for e in x.reshape(-1, fp.LIMBS)), dtype=np.uint8).reshape(x.shape)
+    return np.stack([c.view("<u4") for c in (x, y, bx)], axis=2)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,12 +15,15 @@ host-rejected lanes, an off-curve Q, Z = 0 and a synthetic ``has_r2`` lane
 ``csrc/comb_p256.cu``, ``csrc/verdict_p256.cu`` and what they use of
 ``csrc/ed25519_field.cuh`` and ``csrc/p256_field.cuh``) is
 ``__host__ __device__``: compiled as plain C++ with g++ and run with each
-kernel's block schedule over poisoned outputs, on limbs that are not
-canonical, it must equal the plain versions (tolerance 0: verdicts, and
-P1's frozen limbs).  The bodies reach the eager add, compare, comb and
-on-curve ops only through these wrappers, which on a CUDA tensor launch the
-kernels.  The kernels themselves run only on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 24).
+kernel's block schedule (E1's 4 roles a lane and P1's 4 window groups of 8
+roles in turn, over slots poisoned before each block) over poisoned
+outputs, on limbs that are not canonical, it must equal the plain versions
+(tolerance 0: verdicts, and P1's point projectively, since its window
+groups land on another representative: ROADMAP divergence 26).  The bodies
+reach the eager add, compare, comb and on-curve ops only through these
+wrappers, which on a CUDA tensor launch the kernels.  The kernels
+themselves run only on the card (tests/test_torch_cuda.py, chip_smoke.py
+phase 24).
 """
 
 import collections
@@ -50,10 +53,12 @@ from test_torch_straus_msm import _host_build
 PE = tfe.P
 PP = tfp.P
 N = tp.N
-#: The kernels' geometry: E1's and P2's lanes a block (one thread a lane),
-#: P1's lanes (groups of 8 threads) a block.
+#: The kernels' geometry: E1's lanes (groups of 4 threads) a block, P1's
+#: lanes (warps of 4 window groups of 8 threads) a block, P2's lanes (one
+#: thread a lane) a block.
+E1_LANES = 16
+COMB_LANES = 4
 VERDICT_LANES = 64
-COMB_LANES = 16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -251,9 +256,12 @@ _E1_HARNESS = r"""
 #include <cstring>
 #include <vector>
 #include "verdict25519.cu"
-// E1's per-lane code on the host with the kernel's block schedule (blocks of
-// VERDICT_LANES lanes, a lane past the batch skipped) over verdicts poisoned
-// first.  Mode 1 gets null R and mask pointers, as the wrapper passes them.
+// E1's group code on the host with the kernel's block schedule (blocks of
+// LANES groups, the lane of each group at verdict_group_lane(block, thread),
+// a group past the batch skipped, each group running its G roles in turn
+// (serial_group) over its block's slots, poisoned before every block) over
+// verdicts poisoned first.  Mode 1 gets null R and mask pointers, as the
+// wrapper passes them.
 //   harness <n> <mode> <r_ld> <in: acc X Y Z T, comb X Y Z T (32 x n each),
 //           R X Y Z T (32 x r_ld each), host_ok, r_ok, a_ok (n bytes each)> <out>
 int main(int argc, char** argv) {
@@ -267,27 +275,30 @@ int main(int argc, char** argv) {
       fread(r.data(), 4, r.size(), f) != r.size() ||
       fread(masks.data(), 1, masks.size(), f) != masks.size()) return 3;
   fclose(f);
-  const float* a[4];
-  const float* c[4];
-  const float* rr[4];
-  const float* none[4] = {nullptr, nullptr, nullptr, nullptr};
+  verdict_args v;
   for (int k = 0; k < 4; ++k) {
-    a[k] = &ac[k * 32 * n];
-    c[k] = &ac[(4 + k) * 32 * n];
-    rr[k] = &r[k * 32 * r_ld];
+    v.acc[k] = &ac[k * 32 * n];
+    v.comb[k] = &ac[(4 + k) * 32 * n];
+    v.r[k] = mode == 1 ? nullptr : &r[k * 32 * r_ld];
   }
-  const long long blocks = (n + VERDICT_LANES - 1) / VERDICT_LANES;
-  for (long long b = 0; b < blocks; ++b)
-    for (int t = 0; t < VERDICT_LANES; ++t) {
-      const long long lane = b * VERDICT_LANES + t;
+  v.host_ok = mode == 1 ? nullptr : &masks[0];
+  v.r_ok = mode == 1 ? nullptr : &masks[n];
+  v.a_ok = mode == 1 ? nullptr : &masks[2 * n];
+  v.out = out.data();
+  v.n = n;
+  v.r_ld = r_ld;
+  v.mode = mode;
+  const long long blocks = (n + LANES - 1) / LANES;
+  for (long long b = 0; b < blocks; ++b) {
+    static fe slots[LANES][SLOTS];
+    memset(slots, 0x5a, sizeof slots);
+    for (int t = 0; t < THREADS; t += G) {
+      const long long lane = verdict_group_lane(b, t);
       if (lane >= n) continue;
-      if (mode == 1)
-        out[lane] = verdict_lane(a, c, none, nullptr, nullptr, nullptr, mode, n, r_ld, lane);
-      else
-        out[lane] = verdict_lane(a, c, rr, &masks[0], &masks[n], &masks[2 * n], mode, n, r_ld,
-                                 lane);
+      verdict_group(serial_group{0, G, slots[t / G]}, v, lane);
     }
-  printf("blocks %lld lanes %d\n", blocks, VERDICT_LANES);
+  }
+  printf("blocks %lld lanes %d roles %d\n", blocks, LANES, G);
   f = fopen(argv[5], "wb");
   if (!f || fwrite(out.data(), 1, out.size(), f) != out.size()) return 4;
   fclose(f);
@@ -314,8 +325,8 @@ def _run_e1(harness, mode, acc, comb, r, r_ld, masks):
         [str(exe), str(n), str(mode), str(r_ld), str(tmp / "in.bin"), str(tmp / "out.bin")],
         check=True, capture_output=True, text=True, timeout=120,
     )
-    assert proc.stdout.split() == ["blocks", str(-(-n // VERDICT_LANES)), "lanes",
-                                   str(VERDICT_LANES)]
+    assert proc.stdout.split() == ["blocks", str(-(-n // E1_LANES)), "lanes", str(E1_LANES),
+                                   "roles", "4"]
     out = np.fromfile(tmp / "out.bin", dtype=np.uint8)
     assert set(out.tolist()) <= {0, 1}  # every lane written
     return out.astype(bool)
@@ -357,20 +368,64 @@ def test_e1_identity_kernel_code_matches_plain(e1_harness):
     assert one.tolist() == [bool(want[0])]
 
 
+def _tiled(a: np.ndarray, width: int) -> np.ndarray:
+    """``a``'s columns (or entries) repeated up to ``width``."""
+    reps = -(-width // a.shape[-1])
+    return np.ascontiguousarray(np.tile(a, (1, reps) if a.ndim == 2 else reps)[..., :width])
+
+
+@pytest.mark.parametrize("width", [40, 1])
+@pytest.mark.parametrize("mode", ["strict", "identity"])
+def test_e1_group_schedule_matches_plain_at_ragged_widths(e1_harness, ed_case, mode, width):
+    """E1's four roles a lane run in turn over slots poisoned before each
+    block, at 40 lanes (16 a block: three blocks, the last ragged) and at
+    one lane, every coordinate in negative weak limbs: the plain version's
+    verdicts, accepted and refused lanes both at 40.  Strict: the case with
+    R in D1's layout (row stride 2n), the masks on; identity: comb against
+    -comb, comb, -comb + B and the 2-torsion point."""
+    if mode == "strict":
+        c = ed_case
+        acc, comb = ([_weak(_tiled(a, width)) for a in c[k]] for k in ("acc", "comb"))
+        r_own = [_weak(_tiled(a, width)) for a in _r_of(c)]
+        r = [np.concatenate([a, a], axis=1) for a in r_own]
+        masks = [_tiled(c[k], width) for k in ("host_ok", "r_ok", "a_ok")]
+        got = _run_e1(e1_harness, 0, acc, comb, r, 2 * width, masks)
+        want = scan_kernels.add_and_equal_reference(
+            *(ted.Point(*map(torch.from_numpy, x)) for x in (acc, comb, r_own)),
+            *(torch.from_numpy(m) for m in masks),
+        ).numpy()
+        assert np.array_equal(want, _tiled(c["model"], width))
+    else:
+        acc0, comb0, want0 = _identity_case()
+        acc, comb = ([_weak(_tiled(a, width)) for a in x] for x in (acc0, comb0))
+        got = _run_e1(e1_harness, 1, acc, comb, [], 0, [])
+        want = scan_kernels.add_is_identity_reference(
+            ted.Point(*map(torch.from_numpy, acc)), ted.Point(*map(torch.from_numpy, comb))
+        ).numpy()
+        assert np.array_equal(want, _tiled(want0, width))
+    assert min(x.min() for x in (*acc, *comb)) < 0
+    assert np.array_equal(got, want)
+    assert want.any() and (width == 1 or not want.all())
+
+
 # --- P1: the P-256 fixed-base comb ---------------------------------------------------
 
 
 def _p1_digits() -> np.ndarray:
-    """(32, 40) int32 digits: u = 0, 1, N - 1, 255 in every window, digits
-    0 and 255 alternating both ways, then random scalars below N."""
+    """(32, 40) int32 digits: u = 0 (the identity), 1, N - 1, random scalars
+    below N, then 255 in every window, digits 0 and 255 alternating both
+    ways, random digits, random digits with window group 1 (windows 8-15)
+    all 0 (an identity partial sum), and with groups 0 and 3 all 0."""
     rng = np.random.default_rng(47)
-    scalars = [0, 1, N - 1] + [int.from_bytes(rng.bytes(32), "big") % N for _ in range(33)]
+    scalars = [0, 1, N - 1] + [int.from_bytes(rng.bytes(32), "big") % N for _ in range(31)]
     d = np.stack([np.frombuffer(s.to_bytes(32, "little"), np.uint8) for s in scalars], axis=1)
-    extra = np.zeros((32, 4), dtype=np.uint8)
+    extra = np.zeros((32, 6), dtype=np.uint8)
     extra[:, 0] = 255
     extra[::2, 1], extra[1::2, 1] = 0, 255
     extra[::2, 2], extra[1::2, 2] = 255, 0
-    extra[:, 3] = rng.integers(0, 256, 32)
+    extra[:, 3:] = rng.integers(0, 256, (32, 3))
+    extra[8:16, 4] = 0
+    extra[:8, 5] = extra[24:, 5] = 0
     return np.ascontiguousarray(np.concatenate([d, extra], axis=1).astype(np.int32))
 
 
@@ -393,12 +448,12 @@ def test_p1_plain_matches_jax_limb_for_limb(p1_case):
 
 
 def test_p1_table_is_the_plain_tables_words():
-    """Entry [j][d] of P1's table is the plain comb table's (x, y) in 8
-    little-endian 32-bit words each; [j][0] is (0, 1), whose Z the kernel
-    sets to 0; built once per device, the same bits as int32."""
+    """Entry [j][d] of P1's table is the plain comb table's (x, y) and b x
+    mod p in 8 little-endian 32-bit words each; [j][0] is (0, 1, 0), whose
+    Z the kernel sets to 0; built once per device, the same bits as int32."""
     table = scan_kernels.comb_p256_np()
     xs, ys, zs = tp._comb_table_np()
-    assert table.shape == (32, 256, 2, 8) and table.dtype == np.uint32
+    assert table.shape == (32, 256, 3, 8) and table.dtype == np.uint32
 
     def value(words) -> int:
         return sum(int(w) << (32 * i) for i, w in enumerate(words))
@@ -406,8 +461,10 @@ def test_p1_table_is_the_plain_tables_words():
     for j, d in ((0, 0), (0, 1), (5, 200), (31, 255), (17, 0)):
         assert value(table[j, d, 0]) == tfp.limbs_to_int(xs[j, d])
         assert value(table[j, d, 1]) == tfp.limbs_to_int(ys[j, d])
+        assert value(table[j, d, 2]) == tp.B * tfp.limbs_to_int(xs[j, d]) % PP
         assert tfp.limbs_to_int(zs[j, d]) == (d != 0)
     assert value(table[3, 0, 0]) == 0 and value(table[3, 0, 1]) == 1
+    assert value(table[3, 0, 2]) == 0
     t_cpu = scan_kernels.comb_p256_table(torch.device("cpu"))
     assert t_cpu is scan_kernels.comb_p256_table(torch.device("cpu"))
     assert t_cpu.dtype == torch.int32 and np.array_equal(t_cpu.numpy().view(np.uint32), table)
@@ -421,11 +478,12 @@ _P256_HARNESS = r"""
 #include "comb_p256.cu"
 #include "verdict_p256.cu"
 // P1's and P2's per-lane code on the host with each kernel's block schedule,
-// over outputs poisoned first.  P1: blocks of LANES groups, the lane of each
-// group at comb_group_lane(block, thread), a group past the batch skipped,
-// each group running its G roles in turn (serial_group) over its block's
-// slots and digit stage, both poisoned before every block.  P2: blocks of
-// VERDICT_LANES lanes.
+// over outputs poisoned first.  P1: blocks of LANES lanes, the lane of each
+// warp at comb_warp_lane(block, thread), a lane past the batch skipped, each
+// lane's W window groups run in turn (serial_warp), each group's G roles in
+// turn (serial_group), over its block's slots, partial sums and digit
+// stage, all poisoned before every block.  P2: blocks of VERDICT_LANES
+// lanes.
 //   harness comb <n> <in: table, digits> <out: X, Y, Z>
 //   harness verdict <n> <in: 10 x (32 x n) f32, has_r2, host_ok> <out: n bytes>
 static bool read_all(FILE* f, void* p, size_t bytes) { return fread(p, 1, bytes, f) == bytes; }
@@ -444,21 +502,24 @@ int main(int argc, char** argv) {
     std::vector<float> o(3 * 32 * n, -7.0f);
     blocks = (n + LANES - 1) / LANES;
     for (long long b = 0; b < blocks; ++b) {
-      static fe slots[LANES][SLOTS];
+      static fe slots[LANES][W][SLOTS];
+      static ge sums[LANES][W];
       static int32_t stages[LANES][COMB_WINDOWS];
       memset(slots, 0x5a, sizeof slots);
+      memset(sums, 0x3c, sizeof sums);
       memset(stages, 0xa5, sizeof stages);
-      for (int t = 0; t < THREADS; t += G) {
-        const long long lane = comb_group_lane(b, t);
+      for (int t = 0; t < THREADS; t += LANE_THREADS) {
+        const long long lane = comb_warp_lane(b, t);
         if (lane >= n) continue;
-        const serial_group g = {slots[t / G], 0, G};
-        comb_lane(g, stages[t / G], table.data(), digits.data(), &o[0], &o[32 * n],
-                  &o[64 * n], n, lane);
+        const int sub = t / LANE_THREADS;
+        const serial_warp wp = {slots[sub], sums[sub]};
+        comb_lane(wp, stages[sub], table.data(), digits.data(), &o[0], &o[32 * n], &o[64 * n],
+                  n, lane);
       }
     }
     out.resize(4 * o.size());
     memcpy(out.data(), o.data(), out.size());
-    printf("comb blocks %lld lanes %d roles %d\n", blocks, LANES, G);
+    printf("comb blocks %lld lanes %d groups %d roles %d\n", blocks, LANES, W, G);
   } else {
     std::vector<float> c(10 * 32 * n);
     std::vector<uint8_t> masks(2 * n);
@@ -504,32 +565,42 @@ def _run_p256(harness, mode: str, n: int, payload: bytes) -> tuple[str, np.ndarr
 
 @pytest.mark.parametrize("width", [40, 1])
 def test_p1_kernel_code_compiled_for_the_host_matches_plain(p256_harness, p1_case, width):
-    """P1's per-lane code with its block schedule (16 lanes of 8 roles a
-    block; 40 lanes are 3 blocks, the last ragged) and at one lane: canonical
-    limbs equal to the plain version's frozen X, Y, Z (the same projective
-    representative: digit 0 is added as (0 : 1 : 0), not skipped), and the
-    affine point [u]G in big integers."""
+    """P1's per-lane code with its block schedule (4 lanes a block, each of 4
+    window groups of 8 roles: 40 lanes are 10 blocks, and one lane a block
+    of one) and at one lane: canonical limbs of the plain version's point,
+    projectively (divergence 26: the window groups' sums and their joins
+    land on another representative), Z = 0 exactly on the identity lanes,
+    and the affine point [u]G in big integers.  The lanes include the
+    identity (u = 0), 255 in every window and a window group of zero digits
+    (an identity partial sum)."""
     digits = np.ascontiguousarray(p1_case[0][:, :width])
     stdout, raw = _run_p256(
         p256_harness, "comb", width, scan_kernels.comb_p256_np().tobytes() + digits.tobytes()
     )
     assert stdout.split() == ["comb", "blocks", str(-(-width // COMB_LANES)), "lanes",
-                              str(COMB_LANES), "roles", "8"]
+                              str(COMB_LANES), "groups", "4", "roles", "8"]
     got = raw.view(np.float32).reshape(3, 32, width)
     assert got.min() >= 0 and got.max() <= 255
     plain = scan_kernels.fixed_base_mul_comb_p256_reference(torch.from_numpy(digits))
-    for name, g, w in zip("XYZ", got, plain):
-        want = tfp.freeze(w).numpy().astype(np.float32)
-        assert np.array_equal(g, want), (name, np.flatnonzero((g != want).any(axis=0))[:8])
+    err = chip_smoke.p256_projective_max_err("comb_p256",
+                                             tp.Point(*map(torch.from_numpy, got)), plain)
+    assert err == 0.0
     for lane in range(width):
         u = int.from_bytes(bytes(digits[:, lane].astype(np.uint8)), "little")
         x, y, z = (tfp.limbs_to_int(c[:, lane]) for c in got)
+        assert max(x, y, z) < PP  # canonical
+        xp, yp, zp = (tfp.limbs_to_int(tfp.freeze(c[:, lane : lane + 1])[:, 0]) for c in plain)
+        assert (x * zp - xp * z) % PP == 0 and (y * zp - yp * z) % PP == 0
         ref = tmp._to_affine(tmp._base_mul(u)) if u else None
         if ref is None:
-            assert z == 0
+            assert z == 0 == zp and x == 0 and y != 0
         else:
             zi = pow(z, PP - 2, PP)
             assert (x * zi % PP, y * zi % PP) == ref
+    if width > 1:
+        assert (digits[8:16, 38] == 0).all() and digits[:, 38].any()
+        assert not np.array_equal(got[2], tfp.freeze(plain.z).numpy()), (
+            "the window groups' representative should differ from the plain chain's")
 
 
 # --- P2: the P-256 verdict -----------------------------------------------------------
@@ -870,3 +941,24 @@ def test_verdict_bounds_count_the_work():
     b = chip_smoke.p2_bound(2048, 1, 132, 1.98e9)
     assert b["products"] == (16 * 64 + 2 * 36) * 2048 + 64
     assert b["bytes"] == 1155 * 2048 + 128 and b["bound_by"] == "bytes"
+
+
+def test_trials_script_names_its_designs_and_refuses_without_a_card(tmp_path):
+    """``scripts/e1_p1_trials.py`` builds csrc's E1 and P1 and every
+    ``<kernel>_<design>.cu`` named on its command line, refuses any other
+    name, and exits 1 where no card is present."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "e1_p1_trials", scan_kernels._CSRC.parent.parent / "scripts" / "e1_p1_trials.py")
+    trials = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trials)
+    alt = tmp_path / "comb_p256_general.cu"
+    got = trials.designs([alt])
+    assert got == {("verdict25519", "csrc"): scan_kernels._CSRC / "verdict25519.cu",
+                   ("comb_p256", "csrc"): scan_kernels._CSRC / "comb_p256.cu",
+                   ("comb_p256", "general"): alt.resolve()}
+    with pytest.raises(SystemExit, match="not <kernel>_<design>.cu"):
+        trials.designs([tmp_path / "sha512_x.cu"])
+    if not torch.cuda.is_available():
+        assert trials.main([]) == 1
