@@ -110,17 +110,17 @@ Phases:
    (measured by a clock64() probe), and its bytes;
 14. the fused strict wave (``device_prep``): phase 3's corpus through
    ``engine_for_config(Configuration(device_prep=True))``, verdicts equal to
-   phase 3's lane for lane, S1 and B1 launched once, B2 and B3 never; both
+   phase 3's lane for lane, S1, L1 and B1 launched once, B2 and B3 never; both
    engines' host prep timed on the wave, a profiled re-run, peak memory,
    and three replicas' waves through ``verify_stream``;
 15. the fused randomized wave: phase 7's corpus through
    ``FusedEd25519RandomizedBatchVerifier``, verdicts equal to phase 7's, B3
-   launched once per aggregate check (as many as phase 7's) and S1 four
-   times a check;
+   launched once per aggregate check (as many as phase 7's), S1 four times
+   a check and L1 twice (the challenges, the aggregate's scalars);
 16. half-aggregated certificates: the catch-up chunk's 51 decisions'
    honest quorums aggregated over the fused engine at
-   ``min_device_batch=1``, each cert verified on the card (one B3 launch)
-   and on the host twin, tampered certs rejected, and each forged vote of
+   ``min_device_batch=1``, each cert verified on the card (one B3 launch,
+   two of L1) and on the host twin, tampered certs rejected, and each forged vote of
    the chunk localized by bisection exactly as the strict engine does;
 17. the configuration path: phase 12's cluster with the engine that
    ``engine_for_config`` builds from ``Configuration(device_prep=True,
@@ -134,13 +134,18 @@ Phases:
    fixed-base comb, ``csrc/comb25519.cu``) against their plain torch
    versions on phase 3's own inputs, tolerance 0: D1 on the wave's R || A
    stack (16,384 points), on its first 1,024 lanes' (2,048, phase 12's
-   width) and on its first 256 lanes' (512), with the valid masks equal;
+   width) and on its first 256 lanes' (512), and with its negate option on
+   the whole stack (A negated, as the strict body asks; R and A, as the
+   batch bodies ask) against the plain decompression followed by
+   ``ops/ed25519.py::negate``, with the valid masks equal;
    D2 on the wave's S digits (8,192 lanes), on its first 1,024 lanes and on
    one lane; each with its time through its wrapper (as every other
    kernel's) and of its launches alone, the plain version's and its bound,
    and the registers, shared memory, stack frame and spills ptxas reports.  D1, D2 and E1
    launch once per device call on every Ed25519 path, P1 and P2 once per
-   P-256 call (phases 3, 5, 7-12, 14-17, 19, 20, 22 and 23 count them).
+   P-256 call (phases 3, 5, 7-12, 14-17, 19, 20, 22 and 23 count them), L1
+   once per fused strict body and twice per fused aggregate check
+   (phases 14-16, 19 and 20).
 19. the device-fault chaos matrix (the JAX package's, tests/test_supervisor.py:
    425-497) through the port's chaos harness (``testing/chaos.py``): seed
    31's 4-replica schedule of 6 actions with one hang, one raise and one
@@ -246,9 +251,21 @@ Phases:
    >= n with has_r2 set and cleared, Z = 0, Q off the curve, a host
    rejection, a valid lane), and again in weak limbs, its verdicts phase
    5's, the construction's and the plain version's from the plain comb's
-   point; each with its
-   time through its wrapper and of its launches alone, the plain version's,
-   its bound, and the ptxas reports.
+   point, and P2 again at one lane; each with its
+   time through its wrapper, of its launches alone and replayed from a CUDA
+   graph, the plain version's, its bound, and the ptxas reports;
+25. kernel L1 (the fused scalar stage, ``csrc/scalar25519.cu``: k = H mod L
+   and its signed digits; the digits of z k mod L and z, and u = sum z s mod
+   L) against its plain versions at tolerance 0 on the main path's own
+   inputs, recorded from its engines' runs: phase 14's digests (8,192
+   lanes), phase 15's two aggregate checks (6,860 and 6,790 signatures on
+   8,192 lanes), a half-aggregated certificate's 8 lanes with u given, one
+   lane, and the edges (digests 0, L - 1, L, L + 1, 2L, 2^252 - 1, 2^252,
+   2^512 - 1 and multiples of L; z = 1 and s = L - 1 on every lane of
+   8,192); each with its time through its wrapper, of its launches alone
+   and replayed from a CUDA graph, the plain version's on the card, the
+   stage's host-clock time through L1 and through the plain version, its
+   bound, and the ptxas report.
 
 The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -306,6 +323,7 @@ from consensus_tpu_torch.models.fused import (
     canonical_ok_fast,
 )
 from consensus_tpu_torch.models.fused import _frame as frame
+from consensus_tpu_torch.models import fused as fused_module
 from consensus_tpu_torch.models.supervisor import FAULT_CLASSES, EngineSupervisor, HostTwin
 from consensus_tpu_torch.models.verifier import (
     EcdsaP256Signer,
@@ -323,6 +341,7 @@ from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import mxu_limbs
 from consensus_tpu_torch.ops import p256
+from consensus_tpu_torch.ops import scalar25519 as sc
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.ops import sha512 as sh
 from consensus_tpu_torch.parallel import (
@@ -475,6 +494,9 @@ FUSED_BATCH_RANGES = (
 #: S1 launches of one fused aggregate check: the challenges, the transcript's
 #: leaves, its root and its coefficients (models/fused.py).
 S1_PER_CHECK = 4
+#: L1 launches of one fused aggregate check: the challenges (as bytes), then
+#: the aggregate's digits and sum (models/fused.py).
+L1_PER_CHECK = 2
 #: 32-bit integer add, logical and shift results per clock per SM on compute
 #: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 #: throughput table); S1's bound counts SHA-512's instructions at this rate.
@@ -1391,6 +1413,12 @@ def _p_launches() -> tuple[int, int]:
     return KERNELS.stats("comb_p256").launches, KERNELS.stats("verdict_p256").launches
 
 
+def _l1_launches() -> int:
+    """L1's launches from the kernel ledger: once a fused strict body, twice
+    a fused aggregate check (the challenges, then the aggregate's scalars)."""
+    return KERNELS.stats("scalar25519").launches
+
+
 def _reset_launch_counts() -> None:
     for name in scan_kernels.KERNELS:
         KERNELS.stats(name).launches = 0
@@ -2217,17 +2245,31 @@ def comb_bound(digits: torch.Tensor, sm_count: int, sm_clock_hz: float) -> dict:
     return out
 
 
-def _check_decompress(y: torch.Tensor, sign: torch.Tensor) -> float:
-    """decompress (D1 on CUDA) against decompress_reference on the same
-    inputs: the valid masks equal and frozen X, Y, Z, T equal on every lane,
-    valid or not, tolerance 0.  Returns the max abs err."""
-    got, ok = scan_kernels.decompress(y, sign)
-    want, want_ok = scan_kernels.decompress_reference(y, sign)
+def _check_decompress(y: torch.Tensor, sign: torch.Tensor,
+                      negate: tuple[bool, bool] = (False, False)) -> float:
+    """decompress (D1 on CUDA) against its plain version on the same inputs
+    (decompress_reference, then ops/ed25519.py::negate on the halves
+    ``negate`` names): the valid masks equal and frozen X, Y, Z, T equal on
+    every lane, valid or not, tolerance 0.  Returns the max abs err."""
+    got, ok = scan_kernels.decompress(y, sign, negate)
+    want, want_ok = scan_kernels.decompress_negated_reference(y, sign, negate)
     if not torch.equal(ok, want_ok):
         raise AssertionError(
             f"decompress25519: the valid mask differs on {int((ok != want_ok).sum())} lanes"
         )
     return _frozen_max_err("decompress25519", got, want)
+
+
+#: D1's negate flags as the bodies pass them: the strict body's -A, the
+#: batch bodies' -R and -A.
+D1_NEGATE_STRICT, D1_NEGATE_BATCH = (False, True), (True, True)
+
+
+def _check_decompress_negated(y: torch.Tensor, sign: torch.Tensor) -> float:
+    """:func:`_check_decompress` with the strict body's and the batch
+    bodies' negate flags."""
+    return max(_check_decompress(y, sign, D1_NEGATE_STRICT),
+               _check_decompress(y, sign, D1_NEGATE_BATCH))
 
 
 def _check_comb(digits: torch.Tensor) -> float:
@@ -2246,10 +2288,11 @@ def _launch_ms(kind: str, args, reps: int, device) -> float:
     (its checks, the output allocation) takes about as long as these kernels
     run, so a loop of wrapper calls leaves the card idle between launches."""
     width, int_args = args[0].shape[-1], ()
-    if kind == "decompress":
+    if kind.startswith("decompress"):
         name, inputs = "decompress25519", args
         outs = [torch.empty_like(args[0]) for _ in range(4)]
         outs.append(torch.empty(width, dtype=torch.bool, device=device))
+        int_args = (2 if kind == "decompress_negate" else 0,)
     elif kind == "comb":
         name, inputs = "comb25519", (scan_kernels.comb_niels_table(device), args[0])
         outs = [torch.empty((fe.LIMBS, width), dtype=torch.float32, device=device)
@@ -2267,7 +2310,10 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
     """D1 and D2 against their plain versions on the strict wave's own
     inputs as the engine packs them (``replicas`` copies of ``corpus``):
     D1 on the R || A stack of every lane (phase 3's wave: 16,384 points), of
-    the first ``cluster_lanes`` lanes and of the first ``sub_lanes``, D2 on
+    the first ``cluster_lanes`` lanes and of the first ``sub_lanes``, and
+    with its negate option on the whole stack (``d1_negate``: the strict
+    body's -A and the batch bodies' -R and -A checked, the strict body's
+    timed), D2 on
     every lane's S digits, on the first ``cluster_lanes`` lanes' and on one
     lane; each kernel timed over ``reps`` calls of its wrapper after its
     check (``ms``, as every other kernel is timed) and over ``reps`` of its
@@ -2289,13 +2335,17 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
     digits = s_digits8.to(torch.int32).contiguous()
     cases = {
         "d1": ("decompress", stack(lanes)), "d1_cluster": ("decompress", stack(wide)),
-        "d1_sub": ("decompress", stack(cols)),
+        "d1_sub": ("decompress", stack(cols)), "d1_negate": ("decompress_negate", stack(lanes)),
         "d2": ("comb", (digits,)), "d2_cluster": ("comb", (digits[:, :wide].contiguous(),)),
         "d2_one": ("comb", (digits[:, :1].contiguous(),)),
     }
     kernels = {
         "decompress": (_check_decompress, scan_kernels.decompress,
                        scan_kernels.decompress_reference),
+        "decompress_negate": (
+            _check_decompress_negated,
+            lambda y, sign: scan_kernels.decompress(y, sign, D1_NEGATE_STRICT),
+            lambda y, sign: scan_kernels.decompress_negated_reference(y, sign, D1_NEGATE_STRICT)),
         "comb": (_check_comb, scan_kernels.fixed_base_mul_comb,
                  scan_kernels.fixed_base_mul_comb_reference),
     }
@@ -2400,17 +2450,18 @@ def x_matched_lanes(acc, comb, r_point, mask: torch.Tensor) -> int:
 
 def strict_tail_inputs(engine, msgs, sigs, keys) -> tuple:
     """E1's strict inputs for one wave as ``verify_impl`` builds them: acc =
-    [k](-A) from B1, comb = [S]B from D2, R from D1 (row slices of its
-    R || A output) and the masks host_ok, r_ok, a_ok."""
+    [k](-A) from B1 (-A from D1's negate option), comb = [S]B from D2, R
+    from D1 (row slices of its R || A output) and the masks host_ok, r_ok,
+    a_ok."""
     y_r, sign_r, y_a, sign_a, s_digits8, k_digits, host_ok = engine.prepare_device_inputs(
         msgs, sigs, keys)
     b = y_r.shape[-1]
     pt, pt_ok = scan_kernels.decompress(
         torch.cat([y_r, y_a], dim=-1).to(torch.float32),
-        torch.cat([sign_r, sign_a], dim=-1).to(torch.int32),
+        torch.cat([sign_r, sign_a], dim=-1).to(torch.int32), D1_NEGATE_STRICT,
     )
     r_point = ed.Point(*(c[..., :b] for c in pt))
-    neg_a = [c.contiguous() for c in ed.negate(ed.Point(*(c[..., b:] for c in pt)))]
+    neg_a = [c[..., b:].contiguous() for c in pt]
     acc = scan_kernels.horner_scan(*neg_a, k_digits.to(torch.int32).contiguous())
     comb = scan_kernels.fixed_base_mul_comb(s_digits8.to(torch.int32).contiguous())
     return acc, comb, r_point, host_ok.to(torch.bool), pt_ok[:b], pt_ok[b:]
@@ -2670,6 +2721,226 @@ def phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps: int, p
                                                           host_ok), (pverdict,), plane, device),
             reps, plain_reps, device),
     }
+    # P2 at one lane: its latency.
+    lane0 = lambda t: t[..., :1].contiguous()
+    one_args = (p256.Point(*map(lane0, acc)), p256.Point(*map(lane0, comb)),
+                *map(lane0, args[2:]))
+    got = scan_kernels.verdict_p256(*one_args)
+    one_verdict = torch.empty(1, dtype=torch.bool, device=device)
+    out["p2_one"] = {
+        "lanes": 1, "has_r2_lanes": int(one_args[6].sum()),
+        "max_abs_err": _check_verdicts("verdict_p256 (one lane)", got,
+                                       scan_kernels.verdict_p256_reference(*one_args)),
+        **_timed_kernel(
+            lambda: scan_kernels.verdict_p256(*one_args),
+            lambda: scan_kernels.verdict_p256_reference(*one_args),
+            lambda: scan_kernels._launch("verdict_p256", (*one_args[0], *one_args[1],
+                                                          *one_args[2:]), (one_verdict,), 1,
+                                         device),
+            reps, plain_reps, device),
+    }
+    return out
+
+
+# --- kernel L1 (the fused scalar stage): phase 25 --------------------------------
+
+#: Field-multiplication equivalents of L1's plain versions as the counting
+#: shim books them (ops/scalar25519.py), a lane and once a call: a reduction
+#: of 64 bytes 3, a 16 x 32 product 1 more, the sum's reduction once.
+#: tests/test_torch_scalar_kernel.py holds these to the shim's count.
+L1_MULS = {"challenge": (3, 0), "challenge_bytes": (3, 0), "aggregate": (8, 3),
+           "certificate": (4, 0)}
+#: int32 rows L1 reads and writes, a lane and once a call: the digest and
+#: k's 64 digits (or 32 bytes); z, k, s, z k's 64 digits and z's 33, and u.
+L1_ROWS = {"challenge": (64 + 64, 0), "challenge_bytes": (64 + 32, 0),
+           "aggregate": (16 + 32 + 32 + 64 + 33, 32), "certificate": (16 + 32 + 64 + 33, 0)}
+#: Values on L1's carries and folds: around L, 2^252 and 2^512, and two
+#: multiples of L (digests that reduce to 0).
+L1_EDGES = (0, 1, sc.L - 1, sc.L, sc.L + 1, 2 * sc.L, 2**252 - 1, 2**252, 2**253 - 1,
+            2**256 - 1, 2**512 - 1, sc.L * (2**259 + 12345), sc.L * ((2**512 - 1) // sc.L))
+
+
+def l1_bound(mode: str, lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
+    """L1 in ``mode`` (challenge, challenge_bytes, aggregate, certificate) at
+    ``lanes`` lanes: the counting shim's field multiplications of the plain
+    version (:data:`L1_MULS`) at MUL_PRODUCTS 32x32->64-bit products each,
+    and its int32 rows (:data:`L1_ROWS`) read and written once."""
+    muls, muls_once = L1_MULS[mode]
+    rows, rows_once = L1_ROWS[mode]
+    return _products_or_bytes((muls * lanes + muls_once) * MUL_PRODUCTS,
+                              (rows * lanes + rows_once) * 4, sm_count, sm_clock_hz)
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """The arguments of every call of ``module.name`` made inside the block
+    (the callers look the name up at call time), in a list."""
+    calls: list = []
+    orig = getattr(module, name)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _int_rows(values, width: int, device) -> torch.Tensor:
+    raw = b"".join(v.to_bytes(width, "little") for v in values)
+    rows = np.frombuffer(raw, dtype=np.uint8).reshape(len(values), width).T
+    return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(device)
+
+
+def scalar_edge_inputs(device, lanes: int = 8192, seed: int = SEED) -> tuple:
+    """L1's edge inputs: (64, len(L1_EDGES)) digests of :data:`L1_EDGES`, and
+    an aggregate of ``lanes`` lanes with z = 1 and z = 2^128 - 1, k the
+    edges mod L and s = L - 1 on every lane (the sum's columns far past 32
+    bits), the other z random."""
+    rng = np.random.default_rng(seed)
+    digest = _int_rows(L1_EDGES, 64, device)
+    z = torch.from_numpy(rng.integers(0, 256, (16, lanes)).astype(np.int32)).to(device)
+    z[:, :2] = _int_rows([1, 2**128 - 1], 16, device)
+    k = torch.zeros((32, lanes), dtype=torch.int32, device=device)
+    k[:, :len(L1_EDGES)] = _int_rows([v % sc.L for v in L1_EDGES], 32, device)
+    s = _int_rows([sc.L - 1], 32, device).expand(32, lanes).contiguous()
+    return digest, z, k, s
+
+
+def _max_err(kernel: str, got, want) -> float:
+    """L1's outputs against its plain version's, tolerance 0 (None where
+    neither writes one); returns the max abs err (0.0)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if g is None or w is None or g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{kernel}: an output's form differs from the plain version's")
+        diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+        if diff:
+            bad = int((g != w).any(dim=0).sum())
+            raise AssertionError(f"{kernel}: differs from the plain version on {bad} lanes")
+        err = max(err, float(diff))
+    return err
+
+
+def _host_ms(fn, reps: int, device) -> float:
+    """Mean host-clock milliseconds a call, through the device's finish."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_scalar_kernel(device, corpus, rand_corpus, reps: int, plain_reps: int,
+                        replicas: int = REPLICAS) -> dict:
+    """L1 against its plain versions on the main path's own inputs, tolerance
+    0, each recorded from a run of its engine (the wrappers' arguments):
+
+    * ``strict``: the fused strict wave's digests (phase 14: ``replicas``
+      copies of ``corpus``), challenge digits;
+    * ``aggregate`` and ``recheck``: the fused randomized wave's two
+      aggregate checks (phase 15, ``rand_corpus``): each check's challenge
+      bytes and its z k and z digits and u;
+    * ``certificate``: a half-aggregated certificate of 5 of ``corpus``'s
+      valid signatures verified on the fused path (8 lanes, as phase 16's),
+      u given;
+    * ``one``: the first lane of the strict digests and of the aggregate;
+    * ``edges``: :func:`scalar_edge_inputs`.
+
+    Each row is timed through the wrapper (``ms``), as a loop of launches
+    and replayed from a CUDA graph, and its plain version (``plain_ms``, on
+    the same device); ``host_ms`` / ``plain_host_ms`` are the host clock of
+    one call through the device's finish: the stage before and after."""
+    device = torch.device(device)
+    wave = replica_wave(corpus, replicas)[:3]
+    with recorded(sc, "scalar_challenge") as strict_calls:
+        FusedEd25519BatchVerifier(device=device).verify_batch(*wave)
+    rengine = FusedEd25519RandomizedBatchVerifier(device=device)
+    with recorded(sc, "scalar_challenge") as rk, recorded(sc, "scalar_aggregate") as ragg, \
+            recorded(fused_module, "fused_aggregate_check") as checks:
+        rengine.verify_batch(*replica_wave(rand_corpus, replicas)[:3])
+    msgs, sigs, keys, expected, _ = corpus
+    good = np.flatnonzero(expected)[:QUORUM].tolist()
+    quorum = [[x[i] for i in good] for x in (msgs, sigs, keys)]
+    (rs, s_agg), bad = HalfAggregator(min_device_batch=10**9, device=device).aggregate(*quorum)
+    card = HalfAggregator(min_device_batch=1, device_prep=True, device=device)
+    with recorded(sc, "scalar_challenge") as ck, recorded(sc, "scalar_aggregate") as cagg:
+        if bad or not card.verify(quorum[0], list(rs), s_agg, quorum[2]):
+            raise AssertionError("phase 25: the certificate did not verify")
+    if (len(strict_calls), len(rk), len(ragg), len(ck), len(cagg)) != (1, 2, 2, 1, 1):
+        raise AssertionError(f"phase 25: recorded {len(strict_calls)} strict, {len(rk)} + "
+                             f"{len(ragg)} aggregate, {len(ck)} + {len(cagg)} certificate calls")
+
+    def challenge(digest, digits=True):
+        rows, n = digest.shape
+        out = torch.empty((64 if digits else 32, n), dtype=torch.int32, device=device)
+        return (lambda: sc.scalar_challenge(digest, digits=digits),
+                lambda: sc.scalar_challenge_reference(digest, digits=digits),
+                lambda: scan_kernels._launch(
+                    "scalar25519", (digest, None, None),
+                    (out if digits else None, None, None if digits else out, None, None),
+                    n, device, (0, rows)))
+
+    def aggregate(z, k, s=None):
+        n = z.shape[1]
+        outs = [torch.empty((w, n), dtype=torch.int32, device=device) for w in (64, 33)]
+        u = partials = None
+        if s is not None:
+            u = torch.empty((32, 1), dtype=torch.int32, device=device)
+            partials = torch.empty(-(-n // sc.L1_LANES) * 8, dtype=torch.int64, device=device)
+        return (lambda: sc.scalar_aggregate(z, k, s),
+                lambda: sc.scalar_aggregate_reference(z, k, s),
+                lambda: scan_kernels._launch("scalar25519", (z, k, s),
+                                             (*outs, None, u, partials), n, device, (1, 16)))
+
+    def first(t):
+        return t[:, :1].contiguous()
+
+    digest = strict_calls[0][0][0]
+    (z0, k0, s0), (z1, k1, s1) = (c[0][:3] for c in ragg)
+    edge_digest, ez, ek, es = scalar_edge_inputs(device)
+    cert = cagg[0][0]
+    rows = {
+        "strict": ("challenge", [challenge(digest)]),
+        "aggregate": ("aggregate", [aggregate(z0, k0, s0),
+                                    challenge(rk[0][0][0], digits=False)]),
+        "recheck": ("aggregate", [aggregate(z1, k1, s1), challenge(rk[1][0][0], digits=False)]),
+        "certificate": ("certificate", [aggregate(*cert[:2], cert[2]),
+                                        challenge(ck[0][0][0], digits=False)]),
+        "one": ("challenge", [challenge(first(digest)),
+                              aggregate(first(z0), first(k0), first(s0))]),
+        "edges": ("aggregate", [aggregate(ez, ek, es), challenge(edge_digest),
+                                challenge(edge_digest, digits=False)]),
+    }
+    out: dict = {}
+    for key, (mode, cases) in rows.items():
+        err = 0.0
+        for kernel, plain, _ in cases:
+            got, want = kernel(), plain()
+            got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+            err = max(err, _max_err(f"scalar25519 ({key})", got, want))
+        kernel, plain, launch = cases[0]
+        out[key] = {
+            "mode": mode, "max_abs_err": err,
+            "lanes": {"strict": digest.shape[1], "aggregate": z0.shape[1],
+                      "recheck": z1.shape[1], "certificate": cert[0].shape[1], "one": 1,
+                      "edges": ez.shape[1]}[key],
+            **_timed_kernel(kernel, plain, launch, reps, plain_reps, device),
+            "host_ms": _host_ms(kernel, reps, device),
+            "plain_host_ms": _host_ms(plain, plain_reps, device),
+        }
+    for key, (_, kw) in zip(("aggregate", "recheck"), checks):
+        out[key]["live"] = len(kw["messages"])
+    out["certificate"]["live"] = QUORUM
     return out
 
 
@@ -2946,6 +3217,7 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
+    l1 = _l1_launches()
     calls = KERNELS.stats("ed25519.fused_verify").launches - calls_before
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     if not np.array_equal(got, direct):
@@ -2973,7 +3245,8 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
     return {
         "signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
         "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches, "s1": s1,
-        "d_launches": d_launches, "calls": calls, "fused_prep_ms": fused_prep_ms, "host_prep_ms": host_prep_ms,
+        "d_launches": d_launches, "l1": l1, "calls": calls, "fused_prep_ms": fused_prep_ms,
+        "host_prep_ms": host_prep_ms,
         "profiled": prof, "peak_bytes": peak, "stream_waves": len(waves),
         "stream_ms": stream_ms, "stream_s1": stream_s1,
     }
@@ -3001,6 +3274,7 @@ def phase_fused_randomized(device, corpus, replicas: int, direct) -> dict:
         torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
     launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
+    l1 = _l1_launches()
     checks = KERNELS.stats("ed25519.fused_batch_verify").launches - checks_before
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     if not np.array_equal(got, direct):
@@ -3013,7 +3287,7 @@ def phase_fused_randomized(device, corpus, replicas: int, direct) -> dict:
     n = len(wave_msgs)
     return {"signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
             "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches,
-            "s1": s1, "d_launches": d_launches, "checks": checks, "profiled": prof,
+            "s1": s1, "d_launches": d_launches, "l1": l1, "checks": checks, "profiled": prof,
             "peak_bytes": peak}
 
 
@@ -3061,6 +3335,7 @@ def phase_halfagg_certs(device, decisions: int) -> dict:
         torch.cuda.synchronize()
     verify_ms = (time.perf_counter() - t0) * 1e3
     launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
+    l1 = _l1_launches()
     checks = KERNELS.stats("ed25519.fused_halfagg_verify").launches - checks_before
     t0 = time.perf_counter()
     host_verdicts = [host.verify(*parts(p, c)) for (p, _), c in zip(honest, certs)]
@@ -3098,7 +3373,8 @@ def phase_halfagg_certs(device, decisions: int) -> dict:
         localized.append((pos, votes[pos % QUORUM].id))
     return {"certs": len(certs), "components": QUORUM, "aggregate_ms": aggregate_ms,
             "verify_ms": verify_ms, "host_ms": host_ms, "checks": checks,
-            "launches": launches, "s1": s1, "d_launches": d_launches, "tampered": tampered,
+            "launches": launches, "s1": s1, "d_launches": d_launches, "l1": l1,
+            "tampered": tampered,
             "localized": localized}
 
 
@@ -3116,17 +3392,20 @@ CHAOS_FAULTS = ((2, "hang"), (5, "raise"), (8, "flip"))
 #: strict engine and checks each certificate with one B3 launch.
 CHAOS_KERNELS = {
     "strict": (("horner_scan", "decompress25519", "comb25519", "verdict25519"),
-               ("horner_scan_p256", "straus_msm", "sha512", "comb_p256", "verdict_p256")),
+               ("horner_scan_p256", "straus_msm", "sha512", "comb_p256", "verdict_p256",
+                "scalar25519")),
     "randomized": (("straus_msm", "decompress25519", "comb25519", "verdict25519"),
-                   ("horner_scan_p256", "sha512", "comb_p256", "verdict_p256")),
+                   ("horner_scan_p256", "sha512", "comb_p256", "verdict_p256", "scalar25519")),
     "halfagg": (("horner_scan", "straus_msm", "decompress25519", "comb25519", "verdict25519"),
-                ("horner_scan_p256", "sha512", "comb_p256", "verdict_p256")),
-    "fused": (("sha512", "horner_scan", "decompress25519", "comb25519", "verdict25519"),
+                ("horner_scan_p256", "sha512", "comb_p256", "verdict_p256", "scalar25519")),
+    "fused": (("sha512", "scalar25519", "horner_scan", "decompress25519", "comb25519",
+               "verdict25519"),
               ("horner_scan_p256", "straus_msm", "comb_p256", "verdict_p256")),
     # The JAX package's mesh2 mode: the strict engine sharded over 2 virtual
     # shards of one device; each quorum check launches its kernels per shard.
     "mesh2": (("horner_scan", "decompress25519", "comb25519", "verdict25519"),
-              ("horner_scan_p256", "straus_msm", "sha512", "comb_p256", "verdict_p256")),
+              ("horner_scan_p256", "straus_msm", "sha512", "comb_p256", "verdict_p256",
+               "scalar25519")),
 }
 
 
@@ -4948,21 +5227,22 @@ def main() -> int:
 
     # Phase 14: the fused strict wave.
     log("== phase 14: config-3 fused strict wave (device_prep=True)")
-    log("  expected launches: sha512 1, decompress25519 1, horner_scan 1, comb25519 1, "
-        "verdict25519 1, horner_scan_p256 0, straus_msm 0")
+    log("  expected launches: sha512 1, scalar25519 1, decompress25519 1, horner_scan 1, "
+        "comb25519 1, verdict25519 1, horner_scan_p256 0, straus_msm 0")
     f14 = phase_fused_wave(device, corpus, REPLICAS, w["verdicts"])
     if (f14["launches"] != (1, 0, 0) or f14["s1"] != 1 or f14["calls"] != 1
-            or f14["d_launches"] != (1, 1, 1)):
+            or f14["d_launches"] != (1, 1, 1) or f14["l1"] != 1):
         raise AssertionError(
-            f"the fused wave launched (B1, B2, B3) {f14['launches']}, S1 {f14['s1']} in "
-            f"{f14['calls']} device calls, not (1, 0, 0) and 1 in 1"
+            f"the fused wave launched (B1, B2, B3) {f14['launches']}, S1 {f14['s1']}, L1 "
+            f"{f14['l1']} in {f14['calls']} device calls, not (1, 0, 0), 1 and 1 in 1"
         )
     if f14["stream_s1"] != f14["stream_waves"]:
         raise AssertionError(f"verify_stream launched S1 {f14['stream_s1']} times")
     log(f"wave: {f14['signatures']} signatures padded to {f14['padded']} through "
         f"FusedEd25519BatchVerifier, {f14['rejected']} rejected: verdicts equal to phase 3's "
         f"host-prep engine on every lane")
-    log(f"  launches: sha512 {f14['s1']}, (horner_scan, horner_scan_p256, straus_msm) "
+    log(f"  launches: sha512 {f14['s1']}, scalar25519 {f14['l1']}, (horner_scan, "
+        f"horner_scan_p256, straus_msm) "
         f"{f14['launches']}, (decompress25519, comb25519, verdict25519) {f14['d_launches']}, in "
         f"{f14['calls']} device call")
     log(f"  end to end {f14['wave_ms']:.3f} ms = {f14['sigs_per_s']:.1f} signatures/s (host clock, "
@@ -4980,20 +5260,23 @@ def main() -> int:
     log("== phase 15: config-3 fused randomized wave (device_prep=True, batch_verify_mode=True)")
     log(f"  expected launches: straus_msm {w3['msm_launches']} (phase 7's aggregate checks), "
         f"sha512 {S1_PER_CHECK * w3['msm_launches']} ({S1_PER_CHECK} a check: challenges, "
-        f"leaves, root, coefficients), horner_scan 0, horner_scan_p256 0")
+        f"leaves, root, coefficients), scalar25519 {L1_PER_CHECK * w3['msm_launches']} "
+        f"({L1_PER_CHECK} a check: the challenges, the aggregate's scalars), horner_scan 0, "
+        f"horner_scan_p256 0")
     f15 = phase_fused_randomized(device, rand_corpus, REPLICAS, w3["verdicts"])
     if (f15["launches"] != (0, 0, w3["msm_launches"]) or f15["checks"] != w3["msm_launches"]
             or f15["s1"] != S1_PER_CHECK * f15["checks"]
+            or f15["l1"] != L1_PER_CHECK * f15["checks"]
             or f15["d_launches"] != (f15["checks"],) * 3):
         raise AssertionError(
-            f"the fused randomized wave launched (B1, B2, B3) {f15['launches']}, S1 {f15['s1']} "
-            f"in {f15['checks']} checks; phase 7 made {w3['msm_launches']}"
+            f"the fused randomized wave launched (B1, B2, B3) {f15['launches']}, S1 {f15['s1']}, "
+            f"L1 {f15['l1']} in {f15['checks']} checks; phase 7 made {w3['msm_launches']}"
         )
     log(f"wave: {f15['signatures']} signatures padded to {f15['padded']} through "
         f"FusedEd25519RandomizedBatchVerifier, {f15['rejected']} rejected: verdicts equal to "
         f"phase 7's on every lane")
     log(f"  launches: straus_msm {f15['launches'][2]} in {f15['checks']} aggregate checks, sha512 "
-        f"{f15['s1']}, decompress25519 {f15['d_launches'][0]}, comb25519 {f15['d_launches'][1]}, "
+        f"{f15['s1']}, scalar25519 {f15['l1']}, decompress25519 {f15['d_launches'][0]}, comb25519 {f15['d_launches'][1]}, "
         f"verdict25519 {f15['d_launches'][2]}, "
         f"horner_scan {f15['launches'][0]}, horner_scan_p256 {f15['launches'][1]}")
     log(f"  end to end {f15['wave_ms']:.3f} ms = {f15['sigs_per_s']:.1f} signatures/s (host clock, "
@@ -5007,10 +5290,11 @@ def main() -> int:
     h16 = phase_halfagg_certs(device, CATCH_UP_DECISIONS)
     if (h16["launches"] != (0, 0, h16["certs"]) or h16["checks"] != h16["certs"]
             or h16["s1"] != S1_PER_CHECK * h16["certs"]
+            or h16["l1"] != L1_PER_CHECK * h16["certs"]
             or h16["d_launches"] != (h16["certs"],) * 3):
         raise AssertionError(
-            f"{h16['certs']} cert verifies launched (B1, B2, B3) {h16['launches']} and S1 "
-            f"{h16['s1']} in {h16['checks']} checks"
+            f"{h16['certs']} cert verifies launched (B1, B2, B3) {h16['launches']}, S1 "
+            f"{h16['s1']} and L1 {h16['l1']} in {h16['checks']} checks"
         )
     log(f"certs: {h16['certs']} QuorumCerts of {h16['components']} components aggregated through "
         f"a SigOnlyVerifier over FusedEd25519BatchVerifier(min_device_batch=1) in "
@@ -5018,7 +5302,7 @@ def main() -> int:
     log(f"  verified on the card: every verdict equal to the host twin's; straus_msm "
         f"{h16['launches'][2]} launches (one a cert), decompress25519 {h16['d_launches'][0]}, "
         f"comb25519 {h16['d_launches'][1]}, verdict25519 {h16['d_launches'][2]}, sha512 "
-        f"{h16['s1']}, {h16['checks']} "
+        f"{h16['s1']}, scalar25519 {h16['l1']}, {h16['checks']} "
         f"fused_halfagg_verify checks; {h16['verify_ms']:.3f} ms for all (host clock), "
         f"{h16['verify_ms'] / h16['certs']:.3f} ms a cert; the host twin {h16['host_ms']:.3f} ms "
         f"for all")
@@ -5042,7 +5326,7 @@ def main() -> int:
     k18 = phase_decompress_comb(device, corpus, REPLICAS, reps=20, plain_reps=3)
     bounds18 = {
         key: decompress_bound(k18[key]["width"], sm_count, sm_clock_hz)
-        for key in ("d1", "d1_cluster", "d1_sub")
+        for key in ("d1", "d1_cluster", "d1_sub", "d1_negate")
     }
     bounds18.update({
         key: comb_bound(k18[key]["inputs"][0], sm_count, sm_clock_hz)
@@ -5055,6 +5339,9 @@ def main() -> int:
                       f"stack (phase 12's wave width)",
         "d1_sub": f"decompress25519 on the first {k18['sub_lanes']} lanes' R || A stack "
                   f"(the catch-up chunk's width)",
+        "d1_negate": "decompress25519 with its negate option on phase 3's R || A stack (A "
+                     "negated, as the strict body asks, timed; R and A negated, as the batch "
+                     "bodies ask): against decompress_reference then ops/ed25519.py::negate",
         "d2": f"comb25519 on phase 3's S digits ({k18['lanes']} lanes)",
         "d2_cluster": f"comb25519 on the first {k18['cluster_lanes']} lanes' S digits "
                       f"(phase 12's wave width)",
@@ -5148,6 +5435,7 @@ def main() -> int:
         "p1": p1_bound(k24["p1"]["digits"], sm_count, sm_clock_hz),
         "p1_one": p1_bound(k24["p1_one"]["digits"], sm_count, sm_clock_hz),
         "p2": p2_bound(k24["p2"]["lanes"], k24["p2"]["has_r2_lanes"], sm_count, sm_clock_hz),
+        "p2_one": p2_bound(1, k24["p2_one"]["has_r2_lanes"], sm_count, sm_clock_hz),
     }
     labels24 = {
         "e1": (f"verdict25519 (strict) on phase 3's wave ({k24['e1']['signatures']} signatures on "
@@ -5168,6 +5456,7 @@ def main() -> int:
                f"with has_r2); again in negative weak limbs: verdicts equal to the plain "
                f"version's, phase 5's, the construction's and the plain version's from the plain "
                f"comb's point ({k24['p2']['accepted']} accepted)"),
+        "p2_one": "verdict_p256 on one lane (the wave's first): the plain version's verdict",
     }
     work24 = {
         "e1": f"{E1_ADD_MULS} multiplications a lane, 2 more on each of the {k24['e1']['compared']} "
@@ -5178,6 +5467,9 @@ def main() -> int:
         "p2": f"{P2_MULS - 1} multiplications x {P256_MUL_PRODUCTS} + {P2_SQUARES} squarings x "
               f"{P256_SQUARE_PRODUCTS} 32x32->64 products a lane, and (r + n) Z on the "
               f"{k24['p2']['has_r2_lanes']} has_r2 lanes",
+        "p2_one": f"{P2_MULS - 1} multiplications x {P256_MUL_PRODUCTS} + {P2_SQUARES} squarings "
+                  f"x {P256_SQUARE_PRODUCTS} 32x32->64 products, and (r + n) Z on "
+                  f"{k24['p2_one']['has_r2_lanes']} has_r2 lanes",
     }
     for key, label in labels24.items():
         r, b = k24[key], bounds24[key]
@@ -5190,7 +5482,8 @@ def main() -> int:
         entries = (f"; {b['entries']} distinct table entries x {P1_ENTRY_BYTES} bytes read"
                    if "entries" in b else "")
         log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: "
-            f"{work24[key.replace('_one', '')]}{entries} = {b['products']} IMAD.WIDE over "
+            f"{work24.get(key) or work24[key.replace('_one', '')]}{entries} = "
+            f"{b['products']} IMAD.WIDE over "
             f"{sm_count} SMs x {IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
             f"{b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} ms; "
             f"kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
@@ -5200,6 +5493,50 @@ def main() -> int:
         log_ptxas(infos[name])
     log("  library: none (no PyTorch call adds curve points or computes [u]G)")
     log(f"phase 24 took {time.perf_counter() - t24:.3f} s (host clock)")
+
+    # Phase 25: kernel L1, the fused scalar stage, against its plain versions.
+    log("== phase 25: scalar25519 (L1) against its plain versions")
+    t25 = time.perf_counter()
+    k25 = phase_scalar_kernel(device, corpus, rand_corpus, reps=20, plain_reps=3)
+    bounds25 = {key: l1_bound(r["mode"], r["lanes"], sm_count, sm_clock_hz)
+                for key, r in k25.items()}
+    labels25 = {
+        "strict": f"challenge digits on phase 14's digests ({k25['strict']['lanes']} lanes)",
+        "aggregate": (f"phase 15's first aggregate check ({k25['aggregate']['live']} signatures "
+                      f"on {k25['aggregate']['lanes']} lanes): z k and z digits and u, timed; "
+                      f"its challenge bytes"),
+        "recheck": (f"phase 15's re-check ({k25['recheck']['live']} signatures on "
+                    f"{k25['recheck']['lanes']} lanes): the same"),
+        "certificate": (f"a half-aggregated certificate ({k25['certificate']['live']} "
+                        f"signatures on {k25['certificate']['lanes']} lanes, u given): z k and z "
+                        f"digits, timed; its challenge bytes"),
+        "one": "one lane: challenge digits, timed; the aggregate's first lane",
+        "edges": (f"the {len(L1_EDGES)} edge digests (0, L - 1, L, L + 1, 2L, 2^252 - 1, 2^252, "
+                  f"2^512 - 1, multiples of L) as digits and bytes; an aggregate of "
+                  f"{k25['edges']['lanes']} lanes with z = 1 and s = L - 1 on every lane, timed"),
+    }
+    for key, label in labels25.items():
+        r, b = k25[key], bounds25[key]
+        log(f"scalar25519 ({r['mode']}) {label}: equal to the plain version on every lane "
+            f"(max abs err {r['max_abs_err']})")
+        log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of 20 "
+            f"after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of 20 back to back "
+            f"on preallocated outputs); {r['graph_ms']:.6f} ms a launch replayed from a CUDA "
+            f"graph of 20 (the device's time)")
+        log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3, CUDA events); the stage "
+            f"on the host clock through the device's finish: {r['host_ms']:.6f} ms through L1, "
+            f"{r['plain_host_ms']:.6f} ms by the plain version on the card")
+        log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: the counting shim's "
+            f"{L1_MULS[r['mode']][0]} field multiplications a lane (+{L1_MULS[r['mode']][1]} "
+            f"a call) x {MUL_PRODUCTS} 32x32->64 products = {b['products']} IMAD.WIDE over "
+            f"{sm_count} SMs x {IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
+            f"{b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} ms; "
+            f"kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
+            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone, "
+            f"{100 * b['bound_ms'] / r['graph_ms']:.3f} % from a graph; {card}")
+    log_ptxas(infos["scalar25519"])
+    log("  library: none (no PyTorch call reduces mod L or recodes signed digits)")
+    log(f"phase 25 took {time.perf_counter() - t25:.3f} s (host clock)")
 
     log(card)
     log(json.dumps({"kernels": [
@@ -5341,6 +5678,21 @@ def main() -> int:
             "plain_ms": k24["p2"]["plain_ms"],
             "bound_ms": bounds24["p2"]["bound_ms"],
             "bound_by": bounds24["p2"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "scalar25519",
+            "route": "cuda",
+            "source": "consensus_tpu_torch/csrc/scalar25519.cu",
+            "replaces": None,
+            "launches": f14["l1"],
+            "max_abs_err": max(r["max_abs_err"] for r in k25.values()),
+            "ms": k25["strict"]["ms"],
+            "launch_ms": k25["strict"]["launch_ms"],
+            "graph_ms": k25["strict"]["graph_ms"],
+            "plain_ms": k25["strict"]["plain_ms"],
+            "bound_ms": bounds25["strict"]["bound_ms"],
+            "bound_by": bounds25["strict"]["bound_by"],
             "library_ms": None,
         },
     ]}))

@@ -14,7 +14,11 @@
 //   Z = 1, T = x y.
 // It writes X, Y, Z and T as canonical limbs, so every output equals the
 // plain version's after fe.freeze (Y is y mod p: a y >= p input is reduced),
-// and the valid mask as one byte a point.
+// and the valid mask as one byte a point.  Its negate option names halves of
+// the stack (bit 0 the first m / 2 points, R; bit 1 the rest, A) whose
+// points it writes negated, (p - X) mod p and (p - T) mod p: the strict body
+// takes -A (bit 1) and the batch bodies -R and -A (both); the plain version
+// is ops/ed25519.py::negate after the plain decompression.
 //
 // What bounds it on this card: latency.  A point is one chain of 275
 // dependent field products (255 squarings, 251 of them the (p-5)/8 power,
@@ -49,7 +53,8 @@
 // Layout at the C boundary (batch trailing, limbs leading, as in the JAX
 // package): (32, m) float32 y limbs, weakly reduced (bytes 0-255 from the
 // host); (m,) int32 sign bits; four (32, m) float32 outputs holding canonical
-// limbs in [0, 255]; (m,) uint8 valid mask (0 or 1, a torch.bool tensor).
+// limbs in [0, 255]; (m,) uint8 valid mask (0 or 1, a torch.bool tensor);
+// the int negate flags (bits 0 and 1; m even where either is set).
 //
 // Everything above the __CUDACC__ line is __host__ __device__, so the same
 // source compiles as plain C++ for the host check
@@ -100,10 +105,17 @@ HD fe fe_select(bool cond, const fe& a, const fe& b) {
   return r;
 }
 
+// Whether point `lane` of m is written negated under the negate flags.
+HD bool point_negated(long long m, long long lane, int negate) {
+  return (negate >> (lane < m / 2 ? 0 : 1)) & 1;
+}
+
 // Point `lane` of m: reads y's limbs at y[i * m + lane] and the sign at
-// sign[lane]; writes X, Y, Z, T the same way and the mask at valid[lane].
+// sign[lane]; writes X, Y, Z, T (the point's negation where `neg`) the same
+// way and the mask at valid[lane].
 HD void decompress_point(const float* y_limbs, const int32_t* sign, float* ox, float* oy,
-                         float* oz, float* ot, uint8_t* valid, long long m, long long lane) {
+                         float* oz, float* ot, uint8_t* valid, long long m, long long lane,
+                         bool neg) {
   const fe y = fe_load(y_limbs + lane, m);
   const fe one = fe_one();
   const fe y2 = sq25(y);
@@ -125,10 +137,11 @@ HD void decompress_point(const float* y_limbs, const int32_t* sign, float* ox, f
   ok = ok && !(x_zero && s == 1);  // x = 0 has no negative twin
   x = fe_select(fe_parity(x) != s && !x_zero, fe_neg(x), x);
 
-  fe_store(ox + lane, m, x);
+  const fe t = mul<MUL_R25_CALL>(x, y);
+  fe_store(ox + lane, m, fe_select(neg, fe_neg(x), x));
   fe_store(oy + lane, m, y);
   fe_store(oz + lane, m, one);
-  fe_store(ot + lane, m, mul<MUL_R25_CALL>(x, y));
+  fe_store(ot + lane, m, fe_select(neg, fe_neg(t), t));
   valid[lane] = ok ? 1 : 0;
 }
 
@@ -139,24 +152,27 @@ HD void decompress_point(const float* y_limbs, const int32_t* sign, float* ox, f
 __global__ void __launch_bounds__(POINTS)
 decompress25519_kernel(const float* __restrict__ y_limbs, const int32_t* __restrict__ sign,
                        float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ oz,
-                       float* __restrict__ ot, uint8_t* __restrict__ valid, int m) {
+                       float* __restrict__ ot, uint8_t* __restrict__ valid, int m,
+                       int negate) {
   const long long lane = (long long)blockIdx.x * POINTS + threadIdx.x;
   if (lane >= m) return;
-  decompress_point(y_limbs, sign, ox, oy, oz, ot, valid, m, lane);
+  decompress_point(y_limbs, sign, ox, oy, oz, ot, valid, m, lane,
+                   point_negated(m, lane, negate));
 }
 
 // Launches on `stream` of CUDA device `device` and returns the launch's
 // cudaGetLastError() (0 on success).
 extern "C" int decompress25519_launch(const void* y_limbs, const void* sign, void* ox,
                                       void* oy, void* oz, void* ot, void* valid, int m,
-                                      int device, void* stream) {
+                                      int negate, int device, void* stream) {
+  if (negate < 0 || negate > 3 || (negate && m % 2)) return (int)cudaErrorInvalidValue;
   if (m <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (m + POINTS - 1) / POINTS;
   decompress25519_kernel<<<blocks, POINTS, 0, (cudaStream_t)stream>>>(
       (const float*)y_limbs, (const int32_t*)sign, (float*)ox, (float*)oy, (float*)oz,
-      (float*)ot, (uint8_t*)valid, m);
+      (float*)ot, (uint8_t*)valid, m, negate);
   return (int)cudaGetLastError();
 }
 

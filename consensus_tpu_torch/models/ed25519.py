@@ -6,16 +6,14 @@ Split of labor:
 * **Host** (numpy): parse signatures, range-check ``S < L`` and ``y < p``,
   hash ``k = SHA-512(R || A || M) mod L``, and pack scalars and field
   elements into fixed-shape uint8 limb/digit arrays.
-* **Device**: :func:`verify_impl` decompresses R and A (kernel D1,
-  :func:`consensus_tpu_torch.ops.scan_kernels.decompress`), computes [k](-A)
+* **Device**: :func:`verify_impl` decompresses R and A, A negated (kernel
+  D1, :func:`consensus_tpu_torch.ops.scan_kernels.decompress`), computes [k](-A)
   with the hand-written Horner-scan kernel B1
   (:func:`consensus_tpu_torch.ops.scan_kernels.horner_scan`), adds [S]B
   from the 8-bit fixed-base comb (kernel D2,
   :func:`consensus_tpu_torch.ops.scan_kernels.fixed_base_mul_comb`), and
   adds the two and compares the sum with R in kernel E1
-  (:func:`consensus_tpu_torch.ops.scan_kernels.add_and_equal`).  The
-  negation between the kernels is plain torch on the field module's f32
-  limbs.
+  (:func:`consensus_tpu_torch.ops.scan_kernels.add_and_equal`).
 
 Batches are padded to the next power of two (``pad_pow2``) or to a fixed
 ``pad_to``; padding lanes carry y = 0 and ``host_ok = False``.
@@ -81,17 +79,18 @@ def verify_impl(
     sign_r = sign_r.to(torch.int32)
     sign_a = sign_a.to(torch.int32)
     k_digits = k_digits.to(torch.int32)
-    # Decompress R and A in one pass over both, stacked on the batch axis.
+    # Decompress R and A in one pass over both, stacked on the batch axis;
+    # the A half comes out negated (D1's negate option).
     batch = y_r.shape[-1]
     with record_function("ed25519.decompress"):
         pt, pt_ok = scan_kernels.decompress(
-            torch.cat([y_r, y_a], dim=-1), torch.cat([sign_r, sign_a], dim=-1)
+            torch.cat([y_r, y_a], dim=-1), torch.cat([sign_r, sign_a], dim=-1),
+            negate=(False, True),
         )
     r_point = ed.Point(*(c[..., :batch] for c in pt))
-    a_point = ed.Point(*(c[..., batch:] for c in pt))
     r_ok, a_ok = pt_ok[..., :batch], pt_ok[..., batch:]
     with record_function("ed25519.negate"):
-        neg_a = [c.contiguous() for c in ed.negate(a_point)]
+        neg_a = [c[..., batch:].contiguous() for c in pt]
     with record_function("ed25519.horner_scan"):
         acc = scan_kernels.horner_scan(*neg_a, k_digits.contiguous())
     with record_function("ed25519.comb"):
@@ -455,24 +454,24 @@ def msm_inputs(
     host_ok: torch.Tensor,   # (batch,)    host pre-checks passed
 ) -> tuple[ed.Point, ed.Point, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The Straus MSM's inputs: (-A, -R, masked zk digits, masked z digits,
-    valid).  R and A are decompressed in one pass; a lane that failed a host
-    pre-check or decompression has its digits set to 8 (digit 0), so it
-    contributes the identity -- padding lanes ride the same mechanism."""
+    valid).  R and A are decompressed and negated in one pass (D1's negate
+    option on both halves); a lane that failed a host pre-check or
+    decompression has its digits set to 8 (digit 0), so it contributes the
+    identity -- padding lanes ride the same mechanism."""
     batch = y_r.shape[-1]
     with record_function("ed25519.batch.decompress"):
         pt, pt_ok = scan_kernels.decompress(
             torch.cat([y_r, y_a], dim=-1).to(torch.float32),
             torch.cat([sign_r, sign_a], dim=-1).to(torch.int32),
+            negate=(True, True),
         )
     with record_function("ed25519.batch.negate"):
         valid = host_ok & pt_ok[..., :batch] & pt_ok[..., batch:]
         eight = torch.full((), 8, dtype=torch.int32, device=y_r.device)
         zk_digits = torch.where(valid[None], zk_digits.to(torch.int32), eight)
         z_digits = torch.where(valid[None], z_digits.to(torch.int32), eight)
-        neg_r = ed.negate(ed.Point(*(c[..., :batch] for c in pt)))
-        neg_a = ed.negate(ed.Point(*(c[..., batch:] for c in pt)))
-        neg_r = ed.Point(*(c.contiguous() for c in neg_r))
-        neg_a = ed.Point(*(c.contiguous() for c in neg_a))
+        neg_r = ed.Point(*(c[..., :batch].contiguous() for c in pt))
+        neg_a = ed.Point(*(c[..., batch:].contiguous() for c in pt))
     return neg_a, neg_r, zk_digits, z_digits, valid
 
 

@@ -48,9 +48,7 @@ from consensus_tpu_torch.ops import scalar25519 as sc
 from consensus_tpu_torch.ops import sha512 as sh
 
 from consensus_tpu_torch.models.ed25519 import (
-    _WINDOWS,
     _Z_TAG,
-    _Z_WINDOWS,
     _next_pow2,
     _transcript_coefficients,
     Ed25519BatchVerifier,
@@ -169,18 +167,17 @@ def fused_verify_impl(
     host_ok: torch.Tensor,   # (batch,) host length checks passed
 ) -> torch.Tensor:
     """The fused strict body: the whole front end on the device (S1 for the
-    hash), then the host-prep engine's device body
-    (:func:`consensus_tpu_torch.models.ed25519.verify_impl`, B1) with the S
-    bytes as the comb's 8-bit digits.  Each front-end stage runs in a
-    ``record_function`` range ``ed25519.fused.<stage>``; ``verify_impl``
-    keeps its own."""
+    hash, L1 for k = H mod L and its digits), then the host-prep engine's
+    device body (:func:`consensus_tpu_torch.models.ed25519.verify_impl`, B1)
+    with the S bytes as the comb's 8-bit digits.  Each front-end stage runs
+    in a ``record_function`` range ``ed25519.fused.<stage>``;
+    ``verify_impl`` keeps its own."""
     sig = sig_rows.to(torch.int32)
     key = key_rows.to(torch.int32)
     with record_function("ed25519.fused.sha512"):
         digest = sh.digest_bytes(sh.sha512_blocks(blocks, n_blocks))
     with record_function("ed25519.fused.scalars"):
-        k_bytes = sc.reduce_bytes_mod_l(digest)
-        k_digits = sc.signed_window_digits(k_bytes, _WINDOWS)
+        k_digits = sc.scalar_challenge(digest)
     with record_function("ed25519.fused.checks"):
         s_bytes = sig[32:]
         y_r = torch.cat([sig[:31], (sig[31] & 0x7F)[None]])
@@ -390,9 +387,10 @@ def aggregate_leaves(
     """The aggregate body's first stage, lane by lane: the challenge scalars
     ``k_i = H(R_i || A_i || m_i) mod L`` ((32, lanes) bytes) and the
     transcript leaf digests ((64, lanes)).  On the card it launches S1
-    twice."""
+    twice and L1 once."""
     with record_function("ed25519.fused.challenge"):
-        k_bytes = sc.reduce_bytes_mod_l(sh.digest_bytes(sh.sha512_blocks(k_blocks, k_nblocks)))
+        k_bytes = sc.scalar_challenge(
+            sh.digest_bytes(sh.sha512_blocks(k_blocks, k_nblocks)), digits=False)
     with record_function("ed25519.fused.transcript"):
         leaves = sh.digest_bytes(sh.sha512_blocks(leaf_blocks, leaf_nblocks))
     return k_bytes, leaves
@@ -408,15 +406,14 @@ def aggregate_verdict(
     u: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The aggregate body's second stage, from the coefficients ``z`` to the
-    check: the digits of ``z_i k_i`` and ``z_i``, the base scalar ``u =
+    check: the digits of ``z_i k_i`` and ``z_i`` and the base scalar ``u =
     sum z_i s_i mod L`` (unless ``u`` is given: half-agg's certificate
-    scalar), then :func:`batch_verify_impl` (D1, B3, D2).  Returns its
-    ``(eq_ok, valid)``."""
+    scalar) in one launch of L1, then :func:`batch_verify_impl` (D1, B3,
+    D2, E1).  Returns its ``(eq_ok, valid)``."""
     with record_function("ed25519.fused.scalars"):
-        zk_digits = sc.signed_window_digits(sc.mul_mod_l(z, k_bytes), _WINDOWS)
-        z_digits = sc.signed_window_digits(z, _Z_WINDOWS)
-        if u is None:
-            u = sc.sum_mod_l(sc.mul_mod_l(z, s_rows.to(torch.int32)))
+        s = None if u is not None else s_rows.to(torch.int32).contiguous()
+        zk_digits, z_digits, zs = sc.scalar_aggregate(z, k_bytes, s)
+        u = zs if u is None else u
     r = r_rows.to(torch.int32)
     key = key_rows.to(torch.int32)
     y_r = torch.cat([r[:31], (r[31] & 0x7F)[None]])

@@ -24,16 +24,27 @@ Reduction exploits L's sparse form ``L = 2^252 + delta`` (delta < 2^125):
 Both modules book their byte products into the field-operation counting
 shim (``limbs.note_byte_muls``) at the same sites, and the window recoding
 runs as a ``limbs.counted_scan``.
+
+The fused bodies reach the stage through two wrappers of kernel L1
+(``csrc/scalar25519.cu``): :func:`scalar_challenge` (k = H mod L, as digits
+or bytes) and :func:`scalar_aggregate` (the digits of z k and z, and u = sum
+z s mod L).  On a CUDA tensor each launches L1 once or raises; on a CPU
+tensor it runs its plain version (:func:`scalar_challenge_reference`,
+:func:`scalar_aggregate_reference`: the functions above, unchanged, so the
+counting shim's notes and the JAX parity stay as they were).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
+from consensus_tpu_torch.obs.kernels import KERNELS as LEDGER
 from consensus_tpu_torch.ops import limbs
+from consensus_tpu_torch.ops import scan_kernels
 
 #: Group order of edwards25519 (RFC 8032) and its sparse-form tail.
 L = 2**252 + 27742317777372353535851937790883648493
@@ -168,12 +179,106 @@ def signed_window_digits(k_bytes: torch.Tensor, windows: int = 64) -> torch.Tens
     return digits.flip(0) + 8
 
 
+# --- kernel L1: the fused scalar stage -----------------------------------------
+
+#: Windows of the recodings: a scalar below 2^253, a 128-bit coefficient.
+K_WINDOWS = 64
+Z_WINDOWS = 33
+#: L1's lanes a block: the aggregate sum's scratch is one row of 8 uint64 a
+#: block (csrc/scalar25519.cu).
+L1_LANES = 64
+_L1_SUM_WORDS = 8
+_MODE_CHALLENGE, _MODE_AGGREGATE = 0, 1
+
+
+def scalar_challenge_reference(digest: torch.Tensor, *, digits: bool = True) -> torch.Tensor:
+    """The plain version of L1's challenge mode: k = digest mod L
+    (:func:`reduce_bytes_mod_l`), then its :data:`K_WINDOWS` signed window
+    digits (:func:`signed_window_digits`), or k's bytes where ``digits`` is
+    false."""
+    k = reduce_bytes_mod_l(digest)
+    return signed_window_digits(k, K_WINDOWS) if digits else k
+
+
+def scalar_aggregate_reference(
+    z: torch.Tensor, k: torch.Tensor, s: Optional[torch.Tensor] = None
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of L1's aggregate mode: the digits of z k mod L and
+    of z, and u = sum z s mod L (None without ``s``), by the functions
+    above."""
+    zk_digits = signed_window_digits(mul_mod_l(z, k), K_WINDOWS)
+    z_digits = signed_window_digits(z, Z_WINDOWS)
+    u = None if s is None else sum_mod_l(mul_mod_l(z, s))
+    return zk_digits, z_digits, u
+
+
+def scalar_challenge(digest: torch.Tensor, *, digits: bool = True) -> torch.Tensor:
+    """The challenge scalars k = H mod L per lane from the digest's
+    little-endian byte rows ``(n_bytes, lanes)`` int32 (n_bytes <= 64, each
+    a byte): their ``(64, lanes)`` signed window digits (d + 8, most
+    significant window first) or, where ``digits`` is false, their canonical
+    ``(32, lanes)`` bytes.  On CUDA one launch of kernel L1 writes the plain
+    version's values; on the CPU it is the plain version's output."""
+    rows = digest.shape[0] if digest.dim() == 2 else 0
+    if not 1 <= rows <= 64:
+        raise ValueError(f"scalar25519: the digest must be (1..64, lanes), got "
+                         f"{tuple(digest.shape)}")
+    n = scan_kernels._check_inputs("scalar25519", {}, {"digest": (digest, rows)})
+    device = digest.device
+    if device.type == "cpu":
+        return scalar_challenge_reference(digest, digits=digits)
+    out = torch.empty((K_WINDOWS if digits else 32, n), dtype=torch.int32, device=device)
+    scan_kernels._launch(
+        "scalar25519", (digest, None, None),
+        (out if digits else None, None, None if digits else out, None, None),
+        n, device, (_MODE_CHALLENGE, rows))
+    LEDGER.record_launch("scalar25519")
+    return out
+
+
+def scalar_aggregate(
+    z: torch.Tensor, k: torch.Tensor, s: Optional[torch.Tensor] = None
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The aggregate check's scalars from the coefficients ``z`` ``(16,
+    lanes)``, the challenges ``k`` and the S values ``s`` ``(32, lanes)``
+    (int32 byte rows): the ``(64, lanes)`` digits of z k mod L, the ``(33,
+    lanes)`` digits of z, and u = sum over the lanes of z s mod L as ``(32,
+    1)`` bytes; without ``s`` (half-aggregation's certificate scalar) u is
+    None.  On CUDA one launch of kernel L1 (its sum a second, one-block
+    kernel of the same launch) writes the plain version's values; on the CPU
+    it is the plain version's output."""
+    rows = {"z": (z, 16), "k": (k, 32)}
+    if s is not None:
+        rows["s"] = (s, 32)
+    n = scan_kernels._check_inputs("scalar25519", {}, rows)
+    device = z.device
+    if device.type == "cpu":
+        return scalar_aggregate_reference(z, k, s)
+    new = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device=device)
+    zk_digits, z_digits = new(K_WINDOWS, n), new(Z_WINDOWS, n)
+    u = partials = None
+    if s is not None:
+        u = new(32, 1)
+        partials = new(-(-n // L1_LANES) * _L1_SUM_WORDS, dtype=torch.int64)
+    scan_kernels._launch("scalar25519", (z, k, s), (zk_digits, z_digits, None, u, partials),
+                         n, device, (_MODE_AGGREGATE, 16))
+    LEDGER.record_launch("scalar25519")
+    return zk_digits, z_digits, u
+
+
 __all__ = [
+    "K_WINDOWS",
     "L",
+    "L1_LANES",
     "L_BYTES_LE",
+    "Z_WINDOWS",
     "lt_l",
     "mul_mod_l",
     "reduce_bytes_mod_l",
+    "scalar_aggregate",
+    "scalar_aggregate_reference",
+    "scalar_challenge",
+    "scalar_challenge_reference",
     "signed_window_digits",
     "sum_mod_l",
 ]

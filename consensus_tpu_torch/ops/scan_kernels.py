@@ -13,13 +13,16 @@ whose wrappers are in ``ops/mxu_limbs.py``), and the waves' verdict tails:
 the Ed25519 add-and-compare (E1, :func:`add_and_equal` and
 :func:`add_is_identity`), the P-256 fixed-base comb [u1]G (P1,
 :func:`fixed_base_mul_comb_p256`) and the P-256 verdict (P2,
-:func:`verdict_p256`).
+:func:`verdict_p256`), and the fused front end's scalar stage (L1, whose
+wrappers are ``ops/scalar25519.py::scalar_challenge`` and
+``::scalar_aggregate``).
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
 tensor it runs its plain torch version (``horner_scan_reference``,
 ``horner_scan_p256_reference``, ``straus_msm_reference``,
-``decompress_reference``, ``fixed_base_mul_comb_reference``,
+``decompress_reference`` (with D1's negate option,
+``decompress_negated_reference``), ``fixed_base_mul_comb_reference``,
 ``add_and_equal_reference``, ``add_is_identity_reference``,
 ``fixed_base_mul_comb_p256_reference``, ``verdict_p256_reference``).  Every kernel is
 built by one helper: nvcc for ``sm_90a`` on first use, into ``csrc/build/``
@@ -80,7 +83,7 @@ KERNELS = {
     "sha512": (_CSRC / "sha512.cu", 3, ("block_count",)),
     # Kernels D1 and D2, decompression and the fixed-base comb of every
     # Ed25519 path.
-    "decompress25519": (_CSRC / "decompress25519.cu", 7, ()),
+    "decompress25519": (_CSRC / "decompress25519.cu", 7, ("negate",)),
     "comb25519": (_CSRC / "comb25519.cu", 6, ()),
     # Kernel M1, the tensor-core field lane's products; its wrapper is
     # ops/mxu_limbs.py (mul25519, square25519, mul_p256, square_p256).
@@ -90,6 +93,9 @@ KERNELS = {
     "verdict25519": (_CSRC / "verdict25519.cu", 16, ("mode", "r_ld")),
     "comb_p256": (_CSRC / "comb_p256.cu", 5, ()),
     "verdict_p256": (_CSRC / "verdict_p256.cu", 13, ()),
+    # Kernel L1, the fused front end's scalar stage; its wrappers are
+    # ops/scalar25519.py::scalar_challenge and ::scalar_aggregate.
+    "scalar25519": (_CSRC / "scalar25519.cu", 8, ("mode", "a_rows")),
 }
 
 #: Loaded libraries, name -> (library, BuildInfo), and the lock that
@@ -207,8 +213,9 @@ def _launch(
 
     The range is the kind inductor puts around its Triton launches: a
     profiler links device work only to op-scope ranges, so without it the
-    kernel would belong to no range of a trace.  An input given as None is
-    passed as a null pointer (an operand the kernel's mode does not read).
+    kernel would belong to no range of a trace.  An input or output given as
+    None is passed as a null pointer (an operand the kernel's mode does not
+    read, an output it does not write).
 
     Inside a field-operation count (``limbs.counting()``) it raises: a
     hand-written kernel cannot note its operations, and a count that
@@ -223,7 +230,7 @@ def _launch(
     with torch._C._profiler._RecordFunctionFast(f"{name}_kernel"):
         code = getattr(lib, f"{name}_launch")(
             *(None if t is None else t.data_ptr() for t in inputs),
-            *(o.data_ptr() for o in outputs),
+            *(None if o is None else o.data_ptr() for o in outputs),
             batch, *int_args, device.index or 0, stream,
         )
     if code != 0:
@@ -459,23 +466,47 @@ _COMB_WINDOWS = 32
 _RADIX51 = (1 << 51) - 1
 
 
-def decompress(y_limbs: torch.Tensor, sign: torch.Tensor) -> tuple[ed.Point, torch.Tensor]:
+def decompress(
+    y_limbs: torch.Tensor, sign: torch.Tensor, negate: tuple[bool, bool] = (False, False)
+) -> tuple[ed.Point, torch.Tensor]:
     """RFC 8032 section 5.1.3 decompression per lane: (point with Z = 1 and
     T = xy, valid mask).
 
     ``y_limbs`` is (32, m) float32 in the field module's weak contract (the
-    engines pass bytes, y >= p included), ``sign`` (m,) int32.  On CUDA the
-    point is the plain version's as canonical limbs (Y is y mod p) and the
-    mask a bool tensor; on the CPU it is the plain version's output."""
+    engines pass bytes, y >= p included), ``sign`` (m,) int32.  ``negate``
+    names the halves of the stack (R || A: lanes ``:m // 2`` and ``m // 2:``)
+    whose point comes out negated, (-x, y, 1, -xy): the bodies' -A and -R.
+    On CUDA the point is the plain version's as canonical limbs (Y is y mod
+    p) and the mask a bool tensor, one launch of D1 whatever ``negate``; on
+    the CPU it is the plain version's output (:func:`decompress_reference`
+    and then ``ops/ed25519.py::negate`` on the chosen halves)."""
     m = _check_inputs("decompress25519", {"y_limbs": y_limbs}, {}, {"sign": sign})
+    flags = int(bool(negate[0])) | int(bool(negate[1])) << 1
+    if flags and m % 2:
+        raise ValueError(f"decompress25519: negate takes a stack of two halves, got {m} points")
     device = y_limbs.device
     if device.type == "cpu":
-        return ed.decompress(y_limbs, sign)
+        return decompress_negated_reference(y_limbs, sign, negate)
     outs = [torch.empty_like(y_limbs) for _ in range(4)]
     valid = torch.empty(m, dtype=torch.bool, device=device)
-    _launch("decompress25519", (y_limbs, sign), (*outs, valid), m, device)
+    _launch("decompress25519", (y_limbs, sign), (*outs, valid), m, device, (flags,))
     LEDGER.record_launch("decompress25519")
     return ed.Point(*outs), valid
+
+
+def decompress_negated_reference(
+    y_limbs: torch.Tensor, sign: torch.Tensor, negate: tuple[bool, bool] = (False, False)
+) -> tuple[ed.Point, torch.Tensor]:
+    """The plain version of D1 with its negate option: the plain
+    decompression, then ``ops/ed25519.py::negate`` on each chosen half
+    (limb for limb with the JAX package's ``decompress`` and ``negate``)."""
+    pt, ok = ed.decompress(y_limbs, sign)
+    if not any(negate):
+        return pt, ok
+    half = y_limbs.shape[-1] // 2
+    halves = [ed.Point(*(c[..., :half] for c in pt)), ed.Point(*(c[..., half:] for c in pt))]
+    halves = [ed.negate(h) if flag else h for h, flag in zip(halves, negate)]
+    return ed.Point(*(torch.cat([a, b], dim=-1) for a, b in zip(*halves))), ok
 
 
 def fixed_base_mul_comb(s_digits8: torch.Tensor) -> ed.Point:
@@ -715,6 +746,7 @@ __all__ = [
     "comb_p256_np",
     "comb_p256_table",
     "decompress",
+    "decompress_negated_reference",
     "decompress_reference",
     "fixed_base_mul_comb",
     "fixed_base_mul_comb_p256",

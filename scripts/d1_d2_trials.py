@@ -47,10 +47,13 @@ from consensus_tpu_torch.ops import field25519 as fe  # noqa: E402
 from consensus_tpu_torch.ops import scan_kernels  # noqa: E402
 
 TRIALS = scan_kernels.BUILD_DIR / "trials"
-#: kernel -> (pointer arguments of its C launch function, widths).
+#: kernel -> (pointer arguments of its C launch function, widths, the int
+#: arguments after the batch: D1's negate flags, none set).  A D1 design
+#: written before its negate option takes no int: add the argument (and
+#: ignore it) before timing it here.
 KERNELS = {
-    "decompress25519": (7, (16384, 2048, 512, 16)),
-    "comb25519": (6, (8192, 1024, 8, 1)),
+    "decompress25519": (7, (16384, 2048, 512, 16), (0,)),
+    "comb25519": (6, (8192, 1024, 8, 1), ()),
 }
 REPS = 50
 ROUNDS = 3
@@ -105,16 +108,17 @@ def build_all(sources: dict) -> dict:
         figures = ptxas_figures(report)
         print(f"{name} {design}: built; ptxas {figures}", flush=True)
         launch = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
-        launch.argtypes = [ctypes.c_void_p] * KERNELS[name][0] + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
+        launch.argtypes = [ctypes.c_void_p] * KERNELS[name][0] + [ctypes.c_int] * (
+            2 + len(KERNELS[name][2])) + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
         built[name, design] = (launch, figures)
     return built
 
 
-def run(launch, inputs, outputs, batch: int, device) -> None:
+def run(launch, inputs, outputs, batch: int, device, ints=()) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
-    code = launch(*(t.data_ptr() for t in (*inputs, *outputs)), batch, device.index or 0, stream)
+    code = launch(*(t.data_ptr() for t in (*inputs, *outputs)), batch, *ints,
+                  device.index or 0, stream)
     if code:
         raise RuntimeError(f"launch failed: {code}")
 
@@ -156,7 +160,7 @@ def main(alternatives) -> int:
         order = [d for n, d in built if n == name]
         for design in order:
             outs = outputs(name, width)
-            run(built[name, design][0], inputs, outs, width, device)
+            run(built[name, design][0], inputs, outs, width, device, KERNELS[name][2])
             torch.cuda.synchronize()
             same = all(torch.equal(fe.freeze(g), w) for g, w in zip(outs[:4], frozen))
             if want_ok is not None:
@@ -168,12 +172,12 @@ def main(alternatives) -> int:
             for design in order if turn % 2 == 0 else order[::-1]:
                 outs = outputs(name, width)
                 launch = built[name, design][0]
-                run(launch, inputs, outs, width, device)  # warm-up
+                run(launch, inputs, outs, width, device, KERNELS[name][2])  # warm-up
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 for _ in range(REPS):
-                    run(launch, inputs, outs, width, device)
+                    run(launch, inputs, outs, width, device, KERNELS[name][2])
                 end.record()
                 torch.cuda.synchronize()
                 times.setdefault((name, design, width), []).append(

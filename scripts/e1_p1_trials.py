@@ -1,10 +1,11 @@
-"""Design trials of kernels E1 (the Ed25519 add-and-compare) and P1 (the
-P-256 fixed-base comb) on one NVIDIA GPU.
+"""Design trials of kernels E1 (the Ed25519 add-and-compare), P1 (the
+P-256 fixed-base comb) and P2 (the P-256 verdict) on one NVIDIA GPU.
 
     python3 scripts/e1_p1_trials.py [ALTERNATIVE.cu ...]
 
 Builds the designs in ``consensus_tpu_torch/csrc/`` (``verdict25519.cu``,
-``comb_p256.cu``) and every alternative named on the command line side by
+``comb_p256.cu``, ``verdict_p256.cu``) and every alternative named on the
+command line side by
 side.  An alternative is a copy of one of them with the same C entry point,
 named ``<kernel>_<design>.cu``; it is built against csrc's headers.  One
 nvcc per source, all started together, into
@@ -14,9 +15,11 @@ reported and left out.  The inputs are the main path's own, as
 wave (7 replicas x 1,000 requests with every rejection class, 8,192 lanes:
 acc, comb and R from B1, D2 and D1) and its identity mode on that wave's
 first lane; P1 on the config-2 wave's u1 digits (4 replicas x 500
-requests, 2,048 lanes) and on its first lane.  Each design is checked
-against the plain version at tolerance 0 (E1's verdicts; P1's point
-projectively, ``chip_smoke.p256_projective_max_err``), then its launches
+requests, 2,048 lanes) and on its first lane; P2 on that wave's own
+inputs (acc from B2, comb from P1) and on its first lane.  Each design is
+checked against the plain version at tolerance 0 (E1's and P2's verdicts;
+P1's point projectively, ``chip_smoke.p256_projective_max_err``), then its
+launches
 alone on preallocated outputs are timed with CUDA events in turns within
 one process (designs in order, reversed, in order), as a loop of launches
 from Python and as launches replayed from a CUDA graph
@@ -24,13 +27,14 @@ from Python and as launches replayed from a CUDA graph
 every ~0.016 ms).  Prints each design's ptxas figures, one line per design
 and width, a JSON summary, and the card's name and power limit.
 
-The first designs of both kernels (one thread a lane for E1; one chain of
+The first designs of E1 and P1 (one thread a lane for E1; one chain of
 32 complete adds on 8 threads a lane for P1) are in git history at the
 commit before their redesign; to time them again, write them out as
 alternatives (``git show <commit>:consensus_tpu_torch/csrc/comb_p256.cu >
 dist/comb_p256_first.cu``).  P1's table now holds b x beside (x, y), 24
 words an entry: an older P1 reads it after its ``ENTRY_WORDS`` is set to
-24.
+24.  P2's first design (one thread a lane through the header's serial
+add) is kept beside this script, ``e1_p1_trials/verdict_p256_first.cu``.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from consensus_tpu_torch.ops import scan_kernels  # noqa: E402
 
 TRIALS = scan_kernels.BUILD_DIR / "trials"
 #: kernel -> (pointer arguments, int arguments) of its C launch function.
-KERNELS = {"verdict25519": (16, 3), "comb_p256": (5, 1)}
+KERNELS = {"verdict25519": (16, 3), "comb_p256": (5, 1), "verdict_p256": (13, 1)}
 REPS = 50
 ROUNDS = 3
 
@@ -128,7 +132,7 @@ def cases(device) -> dict:
 
     pwave = cs.replica_wave(cs.make_p256_corpus(cs.P256_REQUESTS, per_class=3),
                             cs.P256_REPLICAS)
-    u1d, _ = cs.p256_tail_inputs(mp.EcdsaP256BatchVerifier(device=device), *pwave[:3])
+    u1d, tail = cs.p256_tail_inputs(mp.EcdsaP256BatchVerifier(device=device), *pwave[:3])
     table = scan_kernels.comb_p256_table(device)
 
     def comb_case(digits):
@@ -140,6 +144,18 @@ def cases(device) -> dict:
             cs.p256_projective_max_err("comb_p256", p256.Point(*outs[-3:]), want)
         return [table, digits, *outs], (digits.shape[1],), check
 
+    def p2_case(args):
+        want = scan_kernels.verdict_p256_reference(*args)
+        n = want.shape[0]
+
+        def check(outs):
+            cs._check_verdicts("verdict_p256", outs[-1], want)
+        return ([*args[0], *args[1], *args[2:], torch.empty(n, dtype=torch.bool, device=device)],
+                (n,), check)
+
+    lane0 = lambda t: t[..., :1].contiguous()
+    tail_one = [p256.Point(*map(lane0, tail[0])), p256.Point(*map(lane0, tail[1])),
+                *map(lane0, tail[2:])]
     out = torch.empty(lanes, dtype=torch.bool, device=device)
     return {
         ("verdict25519", f"strict {lanes}"): (
@@ -150,6 +166,8 @@ def cases(device) -> dict:
             (1, 1, 1), verdicts(identity_want)),
         ("comb_p256", f"{u1d.shape[1]}"): comb_case(u1d),
         ("comb_p256", "1"): comb_case(u1d[:, :1].contiguous()),
+        ("verdict_p256", f"{u1d.shape[1]}"): p2_case(tail),
+        ("verdict_p256", "1"): p2_case(tail_one),
     }
 
 

@@ -30,6 +30,7 @@ from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import field_p256 as fp
 from consensus_tpu_torch.ops import mxu_limbs
 from consensus_tpu_torch.ops import p256
+from consensus_tpu_torch.ops import scalar25519 as sc
 from consensus_tpu_torch.ops import scan_kernels
 from consensus_tpu_torch.ops import sha512 as sh
 from consensus_tpu_torch.testing import ClientKeyring, Cluster, SigOnlyVerifier, SignedRequestApp
@@ -467,6 +468,7 @@ def test_signed_request_cluster_on_card_launches_b1_and_orders_as_the_host_path(
         "horner_scan": card.device_calls, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 0,
         "decompress25519": card.device_calls, "comb25519": card.device_calls, "mxu_limbs": 0,
         "verdict25519": card.device_calls, "comb_p256": 0, "verdict_p256": 0,
+        "scalar25519": 0,
     }
     host = med.Ed25519BatchVerifier(device="cpu", min_device_batch=10**9)
     assert _signed_request_cluster(host) == on_card
@@ -563,11 +565,12 @@ def _signed(n, seed):
 
 @pytest.mark.cuda
 def test_fused_waves_launch_as_counted_on_card(cuda_device):
-    """A fused strict wave is one S1, one D1, one B1, one D2 and one E1
-    launch; a fused randomized wave with one forged signature launches B3
-    once per aggregate check it books and S1 four times a check, plus one S1
-    and one B1 per strict-floor call, and D1, D2 and E1 once per check and
-    per floor call; both equal the host-prep engine's verdicts."""
+    """A fused strict wave is one S1, one L1, one D1, one B1, one D2 and one
+    E1 launch; a fused randomized wave with one forged signature launches B3
+    once per aggregate check it books, S1 four times a check and L1 twice,
+    plus one S1, one L1 and one B1 per strict-floor call, and D1, D2 and E1
+    once per check and per floor call; both equal the host-prep engine's
+    verdicts."""
     msgs, sigs, keys = _signed(40, seed=5)
     sigs[7] = sigs[7][:40] + bytes([sigs[7][40] ^ 1]) + sigs[7][41:]  # S off by one bit
     sigs[9] = sigs[9][:63]  # bad length: rejected before the device
@@ -579,7 +582,7 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
     assert _delta(before) == {
         "horner_scan": 1, "horner_scan_p256": 0, "straus_msm": 0, "sha512": 1,
         "decompress25519": 1, "comb25519": 1, "mxu_limbs": 0, "verdict25519": 1,
-        "comb_p256": 0, "verdict_p256": 0,
+        "comb_p256": 0, "verdict_p256": 0, "scalar25519": 1,
     }
 
     randomized = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_randomized=4)
@@ -594,7 +597,7 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
         "horner_scan": floors, "horner_scan_p256": 0, "straus_msm": checks,
         "sha512": 4 * checks + floors, "decompress25519": checks + floors,
         "comb25519": checks + floors, "mxu_limbs": 0, "verdict25519": checks + floors,
-        "comb_p256": 0, "verdict_p256": 0,
+        "comb_p256": 0, "verdict_p256": 0, "scalar25519": 2 * checks + floors,
     }
 
 
@@ -602,8 +605,9 @@ def test_fused_waves_launch_as_counted_on_card(cuda_device):
 @pytest.mark.parametrize("device_prep", [False, True])
 def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
     """A half-aggregated cert verify on the card is one B3, one D1, one D2
-    and one E1 launch (and four S1 launches on the fused path), accepting the
-    honest cert and rejecting a tampered one as the host twin does."""
+    and one E1 launch (and four S1 and two L1 launches on the fused path),
+    accepting the honest cert and rejecting a tampered one as the host twin
+    does."""
     msgs, sigs, keys = _signed(5, seed=6)
     host = HalfAggregator(min_device_batch=10**9, device=cuda_device)
     agg, bad = host.aggregate(msgs, sigs, keys)
@@ -618,6 +622,7 @@ def test_halfagg_verify_launches_b3_once_on_card(cuda_device, device_prep):
             "horner_scan": 0, "horner_scan_p256": 0, "straus_msm": 1,
             "sha512": 4 if device_prep else 0, "decompress25519": 1, "comb25519": 1,
             "mxu_limbs": 0, "verdict25519": 1, "comb_p256": 0, "verdict_p256": 0,
+            "scalar25519": 2 if device_prep else 0,
         }
 
 
@@ -686,6 +691,29 @@ def test_comb_kernel_matches_reference_on_card(cuda_device, n):
     for g, w in zip(got, want):
         assert torch.equal(fe.freeze(g), fe.freeze(w))
         assert torch.equal(g, fe.freeze(g).to(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 66, 16384])
+@pytest.mark.parametrize("negate", [(False, True), (True, True), (True, False)])
+def test_decompress_negate_option_matches_plain_on_card(cuda_device, m, negate):
+    """D1's negate option (the strict body's -A, the batch bodies' -R and
+    -A, R alone): frozen X, Y, Z, T equal to the plain decompression
+    followed by ``ops/ed25519.py::negate`` on the chosen halves, tolerance
+    0, the valid mask unchanged; canonical limbs; one launch."""
+    y, sign = _decompress_case(m, cuda_device)
+    before = KERNELS.stats("decompress25519").launches
+    got, ok = scan_kernels.decompress(y, sign, negate)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("decompress25519").launches == before + 1
+    want, want_ok = scan_kernels.decompress_negated_reference(y, sign, negate)
+    assert torch.equal(ok, want_ok)
+    for g, w in zip(got, want):
+        assert torch.equal(fe.freeze(g), fe.freeze(w))
+        assert torch.equal(g, fe.freeze(g).to(torch.float32))
+    plain, _ = scan_kernels.decompress(y, sign)
+    for c in (1, 2):  # Y and Z as without the option
+        assert torch.equal(got[c], plain[c])
 
 
 @pytest.mark.cuda
@@ -1114,3 +1142,142 @@ def test_verdict_kernels_reject_mixed_devices(cuda_device):
             p256.Point(on_card(), on_card(), on_card()),
             p256.Point(*(torch.zeros((32, 4)) for _ in range(3))),
             on_card(), on_card(), on_card(), on_card(), flag, flag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 37, 8192])
+def test_p2_group_schedule_matches_plain_on_card_at_ragged_widths(cuda_device, n):
+    """The P2 redesign's groups (8 lanes a block, staged loads) at widths a
+    block straddles, one lane and the wave's 8,192: the plain version's
+    verdicts, tolerance 0, over random points (mostly refused), and lanes
+    where acc + comb is a valid R' for its r."""
+    rng = np.random.default_rng(n)
+    lam = lambda: int.from_bytes(rng.bytes(32), "big") % fp.P or 1
+    g = pt = (p256.GX, p256.GY)
+    cols = []
+    for i in range(n):
+        pt = p256._add_int(pt, g)  # (i + 2) G
+        l1, l2 = lam(), lam()
+        acc = (pt[0] * l1, pt[1] * l1, l1) if i % 3 else (0, l1, 0)
+        comb = (0, l2, 0) if i % 3 else (pt[0] * l2, pt[1] * l2, l2)
+        r = pt[0] % p256.N if i % 4 else (pt[0] + 1) % p256.N
+        cols.append([*acc, *comb, g[0], g[1] if i % 5 else g[1] + 1, r, r + p256.N])
+    limbs = [torch.from_numpy(np.stack([fp.int_to_limbs(c[j] % fp.P) for c in cols], axis=1))
+             .to(cuda_device) for j in range(10)]
+    has_r2 = torch.from_numpy(np.array([i % 7 == 0 for i in range(n)])).to(cuda_device)
+    host_ok = torch.from_numpy(np.array([i % 11 != 10 for i in range(n)])).to(cuda_device)
+    args = (p256.Point(*limbs[:3]), p256.Point(*limbs[3:6]), *limbs[6:], has_r2, host_ok)
+    before = KERNELS.stats("verdict_p256").launches
+    got = scan_kernels.verdict_p256(*args)
+    assert KERNELS.stats("verdict_p256").launches == before + 1
+    want = scan_kernels.verdict_p256_reference(*args)
+    assert torch.equal(got, want)
+    if n > 8:
+        assert 0 < int(want.sum()) < n
+
+
+# --- kernel L1: the fused scalar stage -------------------------------------------
+
+
+def _l1_case(n: int, device):
+    """(digest (64, n), z (16, n), k (32, n), s (32, n)) on ``device``: the
+    edge values of chip_smoke's L1_EDGES on the first lanes (digests; k mod
+    L; s below 2^256), z = 1 on lane 0, the rest random."""
+    from chip_smoke import L1_EDGES
+
+    rng = np.random.default_rng(n)
+
+    def rows(values, width):
+        raw = b"".join(v.to_bytes(width, "little") for v in values)
+        return np.frombuffer(raw, dtype=np.uint8).reshape(len(values), width).T
+
+    digest = rng.integers(0, 256, (64, n)).astype(np.int32)
+    z = rng.integers(0, 256, (16, n)).astype(np.int32)
+    k = rows([int(v) % sc.L for v in rng.integers(0, 2**62, n)], 32).astype(np.int32)
+    s = rng.integers(0, 256, (32, n)).astype(np.int32)
+    m = min(n, len(L1_EDGES))
+    digest[:, :m] = rows(L1_EDGES[:m], 64)
+    k[:, :m] = rows([v % sc.L for v in L1_EDGES[:m]], 32)
+    small = [v for v in L1_EDGES if v < 2**256][:m]
+    s[:, :len(small)] = rows(small, 32)
+    z[:, 0] = rows([1], 16)[:, 0]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (digest, z, k, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 65, 6860, 8192])
+def test_l1_matches_plain_on_card(cuda_device, n):
+    """L1's challenge mode (digits and bytes) and aggregate mode (with s,
+    and without: a certificate's u given) against the plain versions on the
+    card, tolerance 0, over the edge values and random lanes; one launch a
+    call."""
+    digest, z, k, s = _l1_case(n, cuda_device)
+    before = KERNELS.stats("scalar25519").launches
+    digits = sc.scalar_challenge(digest)
+    k_bytes = sc.scalar_challenge(digest, digits=False)
+    full = sc.scalar_aggregate(z, k, s)
+    cert = sc.scalar_aggregate(z, k)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("scalar25519").launches == before + 4
+    assert torch.equal(digits, sc.scalar_challenge_reference(digest))
+    assert torch.equal(k_bytes, sc.scalar_challenge_reference(digest, digits=False))
+    for got, want in zip(full, sc.scalar_aggregate_reference(z, k, s)):
+        assert torch.equal(got, want)
+    assert cert[2] is None
+    for got, want in zip(cert[:2], sc.scalar_aggregate_reference(z, k)[:2]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_l1_sums_l_minus_one_on_every_lane_on_card(cuda_device):
+    """s = L - 1 on all 8,192 lanes: u = -(sum z) mod L."""
+    n = 8192
+    z = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (16, n)).astype(np.int32))
+    s = torch.from_numpy(np.frombuffer((sc.L - 1).to_bytes(32, "little"), dtype=np.uint8)
+                         .astype(np.int32)[:, None].repeat(n, axis=1).copy())
+    _, _, u = sc.scalar_aggregate(z.to(cuda_device), torch.zeros((32, n), dtype=torch.int32,
+                                  device=cuda_device), s.to(cuda_device))
+    total = sum(int.from_bytes(bytes(z[:, i].to(torch.uint8).tolist()), "little")
+                for i in range(n))
+    got = int.from_bytes(bytes(u[:, 0].cpu().to(torch.uint8).tolist()), "little")
+    assert got == (-total) % sc.L
+
+
+@pytest.mark.cuda
+def test_fused_bodies_never_run_the_plain_scalar_stage_on_card(cuda_device, monkeypatch):
+    """With ops/scalar25519.py's reduce_bytes_mod_l, mul_mod_l, sum_mod_l
+    and signed_window_digits patched to raise, the fused strict wave, the
+    fused randomized wave and a fused certificate verify answer as the host
+    path and launch L1 once, twice and twice."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version of the scalar stage ran on the card's path")
+
+    msgs, sigs, keys = _signed(24, seed=29)
+    host = med.Ed25519BatchVerifier(device="cpu").verify_host(msgs, sigs, keys)
+    strict = FusedEd25519BatchVerifier(device=cuda_device, min_device_batch=1)
+    rand = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_device_batch=1)
+    agg, bad = HalfAggregator(min_device_batch=10**9, device=cuda_device).aggregate(
+        msgs[:5], sigs[:5], keys[:5])
+    assert bad == ()
+    card = HalfAggregator(min_device_batch=1, device_prep=True, device=cuda_device)
+    for name in ("reduce_bytes_mod_l", "mul_mod_l", "sum_mod_l", "signed_window_digits"):
+        monkeypatch.setattr(sc, name, refuse)
+    for run, want, l1 in ((lambda: strict.verify_batch(msgs, sigs, keys), host, 1),
+                          (lambda: rand.verify_batch(msgs, sigs, keys), host, 2),
+                          (lambda: card.verify(msgs[:5], list(agg[0]), agg[1], keys[:5]), True,
+                           2)):
+        before = KERNELS.stats("scalar25519").launches
+        got = run()
+        assert KERNELS.stats("scalar25519").launches - before == l1
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_l1_rejects_mixed_devices(cuda_device):
+    z = torch.zeros((16, 4), dtype=torch.int32, device=cuda_device)
+    k = torch.zeros((32, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        sc.scalar_aggregate(z, k.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        sc.scalar_aggregate(z, k, k.cpu())

@@ -33,6 +33,19 @@ from consensus_tpu_torch.ops import field25519 as tfe
 from consensus_tpu_torch.ops import scan_kernels
 
 P = tfe.P
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions' tensors are a few hundred lanes wide: one
+    intra-op thread runs them faster than many, and leaves the cores to the
+    other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: The kernels' geometry: D1's points a block, D2's lanes (groups of 4
 #: threads) a block.
 POINTS_A_BLOCK = 64
@@ -51,7 +64,7 @@ _HARNESS = r"""
 // thread), a group past the batch skipped, each group running its G roles
 // in turn (serial_group) over its block's slots and digit stage, as the
 // card's shared memory holds them, both poisoned before every block.
-//   harness decompress <m> <in: y limbs, signs> <out: X, Y, Z, T, valid>
+//   harness decompress[:<negate flags>] <m> <in: y limbs, signs> <out: X, Y, Z, T, valid>
 //   harness comb <n> <in: table, digits> <out: X, Y, Z, T>
 static bool read_parts(FILE* f, void* p, size_t bytes) { return fread(p, 1, bytes, f) == bytes; }
 int main(int argc, char** argv) {
@@ -63,13 +76,15 @@ int main(int argc, char** argv) {
   float* o[4] = {&out[0], &out[32 * n], &out[64 * n], &out[96 * n]};
   std::vector<uint8_t> valid;
   long long blocks = 0;
-  if (strcmp(argv[1], "decompress") == 0) {
+  if (strncmp(argv[1], "decompress", 10) == 0) {
+    const int negate = argv[1][10] == ':' ? atoi(argv[1] + 11) : 0;
     std::vector<float> y(32 * n);
     std::vector<int32_t> sign(n);
     if (!read_parts(in, y.data(), 4 * y.size()) || !read_parts(in, sign.data(), 4 * n)) return 3;
     valid.assign(n, 0xa5);
     for (long long lane = 0; lane < n; ++lane)
-      decompress_point(y.data(), sign.data(), o[0], o[1], o[2], o[3], valid.data(), n, lane);
+      decompress_point(y.data(), sign.data(), o[0], o[1], o[2], o[3], valid.data(), n, lane,
+                       point_negated(n, lane, negate));
     blocks = (n + POINTS - 1) / POINTS;
   } else {
     std::vector<u64> table(COMB_WINDOWS * COMB_ENTRIES * ENTRY_WORDS);
@@ -120,11 +135,12 @@ def harness(tmp_path_factory):
     return exe, tmp
 
 
-def _run(harness, mode: str, n: int, payload: bytes):
+def _run(harness, mode: str, n: int, payload: bytes, negate: int = 0):
     exe, tmp = harness
     (tmp / f"{mode}-{n}.in").write_bytes(payload)
     proc = subprocess.run(
-        [str(exe), mode, str(n), str(tmp / f"{mode}-{n}.in"), str(tmp / f"{mode}-{n}.out")],
+        [str(exe), f"{mode}:{negate}" if negate else mode, str(n), str(tmp / f"{mode}-{n}.in"),
+         str(tmp / f"{mode}-{n}.out")],
         check=True, capture_output=True, text=True, timeout=300,
     )
     per_block = {"decompress": POINTS_A_BLOCK, "comb": COMB_LANES_A_BLOCK}[mode]
@@ -247,6 +263,55 @@ def test_decompress_kernel_code_base_point_coordinates(harness):
     assert valid.tolist() == [1, 1]
     assert x == [ted._BX, P - ted._BX] and yy == [ted._BY] * 2 and z == [1, 1]
     assert t == [ted._BX * ted._BY % P, (P - ted._BX) * ted._BY % P]
+
+
+@pytest.mark.parametrize("negate", [(False, True), (True, True), (True, False)])
+def test_decompress_kernel_code_negate_option_matches_plain_and_jax(
+    harness, decompress_case, jax_decompressed, negate
+):
+    """D1's negate option (the strict body's -A, the batch bodies' -R and
+    -A, and R alone) on the 288-lane corpus: frozen X, Y, Z, T equal to the
+    plain decompression followed by ``ops/ed25519.py::negate`` on the chosen
+    halves (the wrapper's plain version on a CPU tensor), and to JAX's
+    ``negate`` of its ``decompress``; canonical limbs; the valid mask
+    unchanged."""
+    y, sign, _ = decompress_case
+    m = y.shape[1]
+    flags = int(negate[0]) | int(negate[1]) << 1
+    got, valid = _run(harness, "decompress", m, y.tobytes() + sign.tobytes(), negate=flags)
+    assert got.min() >= 0 and got.max() <= 255
+    plain, plain_ok = scan_kernels.decompress(torch.from_numpy(y), torch.from_numpy(sign),
+                                              negate)
+    assert np.array_equal(valid.astype(bool), plain_ok.numpy())
+    want = _frozen(plain)
+    half = m // 2
+    base = jax_decompressed[0]  # JAX's decompress, frozen
+    jhalves = [jed.Point(*(jnp.asarray(c[:, cols]) for c in base))
+               for cols in (slice(0, half), slice(half, m))]
+    jhalves = [jed.negate(h) if f else h for h, f in zip(jhalves, negate)]
+    jax_frozen = np.concatenate([_frozen(h) for h in jhalves], axis=2)
+    for name, g, w, j in zip("XYZT", got, want, jax_frozen):
+        assert np.array_equal(g, w), (name, np.flatnonzero((g != w).any(axis=0))[:8])
+        assert np.array_equal(g, j), name
+    assert np.array_equal(got[1:3], base[1:3])  # Y and Z are the decompression's
+
+
+def test_decompress_negate_option_wrapper_on_cpu():
+    """On a CPU tensor the option is the plain decompression, then
+    ``ops/ed25519.py::negate`` on each chosen half, limb for limb (the limbs
+    the bodies negated before), with no launch; an odd stack is refused."""
+    y = torch.from_numpy(_limbs([ted._BY] * 4))
+    sign = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    before = KERNELS.stats("decompress25519").launches
+    got, ok = scan_kernels.decompress(y, sign, (False, True))
+    assert KERNELS.stats("decompress25519").launches == before
+    pt, want_ok = ted.decompress(y, sign)
+    neg_a = ted.negate(ted.Point(*(c[:, 2:] for c in pt)))
+    assert torch.equal(ok, want_ok)
+    for g, w, n in zip(got, pt, neg_a):
+        assert torch.equal(g[:, :2], w[:, :2]) and torch.equal(g[:, 2:], n)
+    with pytest.raises(ValueError, match="two halves"):
+        scan_kernels.decompress(y[:, :3].contiguous(), sign[:3].contiguous(), (True, False))
 
 
 # --- D2: the fixed-base comb -------------------------------------------------

@@ -15,8 +15,9 @@ host-rejected lanes, an off-curve Q, Z = 0 and a synthetic ``has_r2`` lane
 ``csrc/comb_p256.cu``, ``csrc/verdict_p256.cu`` and what they use of
 ``csrc/ed25519_field.cuh`` and ``csrc/p256_field.cuh``) is
 ``__host__ __device__``: compiled as plain C++ with g++ and run with each
-kernel's block schedule (E1's 4 roles a lane and P1's 4 window groups of 8
-roles in turn, over slots poisoned before each block) over poisoned
+kernel's block schedule (E1's 4 roles a lane, P1's 4 window groups of 8
+roles and P2's 8 roles in turn, over slots and P2's staged limbs poisoned
+before each block) over poisoned
 outputs, on limbs that are not canonical, it must equal the plain versions
 (tolerance 0: verdicts, and P1's point projectively, since its window
 groups land on another representative: ROADMAP divergence 26).  The bodies
@@ -54,11 +55,11 @@ PE = tfe.P
 PP = tfp.P
 N = tp.N
 #: The kernels' geometry: E1's lanes (groups of 4 threads) a block, P1's
-#: lanes (warps of 4 window groups of 8 threads) a block, P2's lanes (one
-#: thread a lane) a block.
+#: lanes (warps of 4 window groups of 8 threads) a block, P2's lanes (groups
+#: of 8 threads) a block.
 E1_LANES = 16
 COMB_LANES = 4
-VERDICT_LANES = 64
+VERDICT_LANES = 8
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -483,7 +484,10 @@ _P256_HARNESS = r"""
 // lane's W window groups run in turn (serial_warp), each group's G roles in
 // turn (serial_group), over its block's slots, partial sums and digit
 // stage, all poisoned before every block.  P2: blocks of VERDICT_LANES
-// lanes.
+// lanes, each block's staging loaded thread by thread (stage_thread), then
+// the lane of each group at verdict_group_lane(block, thread), a group past
+// the batch skipped, its G roles in turn (serial_group) over its slots; the
+// staging and the slots poisoned before every block.
 //   harness comb <n> <in: table, digits> <out: X, Y, Z>
 //   harness verdict <n> <in: 10 x (32 x n) f32, has_r2, host_ok> <out: n bytes>
 static bool read_all(FILE* f, void* p, size_t bytes) { return fread(p, 1, bytes, f) == bytes; }
@@ -525,18 +529,27 @@ int main(int argc, char** argv) {
     std::vector<uint8_t> masks(2 * n);
     if (!read_all(in, c.data(), 4 * c.size()) || !read_all(in, masks.data(), masks.size()))
       return 3;
-    const float* p[10];
-    for (int k = 0; k < 10; ++k) p[k] = &c[k * 32 * n];
     out.assign(n, 0xa5);
+    verdict_args v;
+    for (int k = 0; k < PLANES; ++k) v.planes[k] = &c[k * 32 * n];
+    v.has_r2 = &masks[0];
+    v.host_ok = &masks[n];
+    v.out = out.data();
+    v.n = n;
     blocks = (n + VERDICT_LANES - 1) / VERDICT_LANES;
-    for (long long b = 0; b < blocks; ++b)
-      for (int t = 0; t < VERDICT_LANES; ++t) {
-        const long long lane = b * VERDICT_LANES + t;
+    for (long long b = 0; b < blocks; ++b) {
+      static float stage[STAGE_FLOATS];
+      static fe slots[VERDICT_LANES][VERDICT_SLOTS];
+      memset(stage, 0x7f, sizeof stage);
+      memset(slots, 0x5a, sizeof slots);
+      for (int t = 0; t < VERDICT_THREADS; ++t) stage_thread(stage, v, b, t);
+      for (int t = 0; t < VERDICT_THREADS; t += G) {
+        const long long lane = verdict_group_lane(b, t);
         if (lane >= n) continue;
-        out[lane] = verdict_lane(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
-                                 &masks[0], &masks[n], n, lane);
+        verdict_group(serial_group{slots[t / G], 0, G}, stage, v, lane, t / G);
       }
-    printf("verdict blocks %lld lanes %d\n", blocks, VERDICT_LANES);
+    }
+    printf("verdict blocks %lld lanes %d roles %d\n", blocks, VERDICT_LANES, G);
   }
   fclose(in);
   FILE* f = fopen(argv[4], "wb");
@@ -721,26 +734,53 @@ def test_p2_plain_matches_jax_and_the_classes(p2_case):
     assert got.sum() == 5
 
 
-def test_p2_kernel_code_compiled_for_the_host_matches_plain(p256_harness, p2_case):
-    """P2's per-lane code on the case tiled to 70 lanes (two blocks, the
-    second ragged) with every coordinate in negative weak limbs: the plain
-    version's verdict on every lane."""
+def _p2_tiled(p2_case, width: int, offset: int = 0):
+    """P2's case tiled to ``width`` lanes from lane ``offset``, every
+    coordinate in negative weak limbs: (coords, masks, expected)."""
     coords, has_r2, host_ok, expected = p2_case
-    reps = -(-70 // 32)
+    reps = -(-(width + offset) // 32)
     tile = lambda a: np.ascontiguousarray(
-        np.tile(a, (1, reps))[:, :70] if a.ndim == 2 else np.tile(a, reps)[:70])
+        np.tile(a, (1, reps))[:, offset:offset + width] if a.ndim == 2
+        else np.tile(a, reps)[offset:offset + width])
     weak = [_weak(tile(c)) for c in coords]
-    assert min(c.min() for c in weak) < 0
-    masks = [tile(has_r2).astype(np.uint8), tile(host_ok).astype(np.uint8)]
+    return weak, [tile(has_r2).astype(np.uint8), tile(host_ok).astype(np.uint8)], tile(expected)
+
+
+def _run_p2(p256_harness, weak, masks) -> np.ndarray:
+    n = weak[0].shape[1]
     stdout, got = _run_p256(
-        p256_harness, "verdict", 70,
+        p256_harness, "verdict", n,
         b"".join(c.tobytes() for c in weak) + b"".join(m.tobytes() for m in masks),
     )
-    assert stdout.split() == ["verdict", "blocks", "2", "lanes", str(VERDICT_LANES)]
+    assert stdout.split() == ["verdict", "blocks", str(-(-n // VERDICT_LANES)), "lanes",
+                              str(VERDICT_LANES), "roles", "8"]
     assert set(got.tolist()) <= {0, 1}
+    return got.astype(bool)
+
+
+def test_p2_kernel_code_compiled_for_the_host_matches_plain(p256_harness, p2_case):
+    """P2's per-lane code on the case tiled to 70 lanes (9 blocks of 8
+    lanes, the last ragged) with every coordinate in negative weak limbs:
+    the plain version's verdict on every lane."""
+    weak, masks, expected = _p2_tiled(p2_case, 70)
+    assert min(c.min() for c in weak) < 0
+    got = _run_p2(p256_harness, weak, masks)
     want = _verdict_p256_plain(weak, *masks)
-    assert np.array_equal(got.astype(bool), want)
-    assert np.array_equal(want, tile(expected))
+    assert np.array_equal(got, want)
+    assert np.array_equal(want, expected)
+
+
+@pytest.mark.parametrize("width,offset", [(1, 0), (1, 8), (5, 8), (8, 6), (37, 3)])
+def test_p2_group_schedule_matches_plain_at_ragged_widths(p256_harness, p2_case, width, offset):
+    """P2's group schedule at widths where a block of 8 lanes (groups of 8
+    roles, the staging spread over the block's 64 threads) straddles the
+    batch's end, one lane included, over the real and the synthetic lanes
+    (has_r2, Z = 0, an off-curve key, a host rejection): the plain
+    version's verdicts and the construction's."""
+    weak, masks, expected = _p2_tiled(p2_case, width, offset)
+    got = _run_p2(p256_harness, weak, masks)
+    assert np.array_equal(got, _verdict_p256_plain(weak, *masks))
+    assert np.array_equal(got, expected)
 
 
 # --- routing, refusals, builds ---------------------------------------------------------
@@ -850,7 +890,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(ed_case, p2_case):
                                   torch.from_numpy(host_ok).to("meta"))
 
 
-@pytest.mark.parametrize("name", ["verdict25519", "comb_p256", "verdict_p256"])
+@pytest.mark.parametrize("name", ["verdict25519", "comb_p256", "verdict_p256", "scalar25519"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, name):
     """A missing compiler is an error, never a silent fallback to the plain
     version."""
@@ -944,7 +984,7 @@ def test_verdict_bounds_count_the_work():
 
 
 def test_trials_script_names_its_designs_and_refuses_without_a_card(tmp_path):
-    """``scripts/e1_p1_trials.py`` builds csrc's E1 and P1 and every
+    """``scripts/e1_p1_trials.py`` builds csrc's E1, P1 and P2 and every
     ``<kernel>_<design>.cu`` named on its command line, refuses any other
     name, and exits 1 where no card is present."""
     import importlib.util
@@ -954,10 +994,13 @@ def test_trials_script_names_its_designs_and_refuses_without_a_card(tmp_path):
     trials = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(trials)
     alt = tmp_path / "comb_p256_general.cu"
-    got = trials.designs([alt])
+    first = tmp_path / "verdict_p256_first.cu"
+    got = trials.designs([alt, first])
     assert got == {("verdict25519", "csrc"): scan_kernels._CSRC / "verdict25519.cu",
                    ("comb_p256", "csrc"): scan_kernels._CSRC / "comb_p256.cu",
-                   ("comb_p256", "general"): alt.resolve()}
+                   ("verdict_p256", "csrc"): scan_kernels._CSRC / "verdict_p256.cu",
+                   ("comb_p256", "general"): alt.resolve(),
+                   ("verdict_p256", "first"): first.resolve()}
     with pytest.raises(SystemExit, match="not <kernel>_<design>.cu"):
         trials.designs([tmp_path / "sha512_x.cu"])
     if not torch.cuda.is_available():
