@@ -530,7 +530,8 @@ SHA512_CHAIN_DEPTH = 4
 #: (lo, hi), the LOP3 xoring it with two more words, the low half's add with
 #: its carry out and the high half's add with it in; each step's four
 #: instructions depend in turn on the last's, so a step takes four
-#: latencies.  Built by nvcc like the kernels (``build_latency_probe``).
+#: latencies.  Built by nvcc like the kernels (``build_latency_probe``),
+#: with an empty kernel beside it: the launch floor phase 25 times.
 LATENCY_PROBE_SOURCE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -556,6 +557,14 @@ __global__ void chain_probe_kernel(const uint32_t* in, long long* out, int steps
 extern "C" int chain_probe_launch(const void* in, void* out, int steps, void* stream) {
   chain_probe_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const uint32_t*)in, (long long*)out,
                                                         steps);
+  return (int)cudaGetLastError();
+}
+
+// One thread that does nothing: a launch's floor.
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 """
@@ -840,6 +849,42 @@ def _subtree(event):
     yield event
     for child in event.cpu_children:
         yield from _subtree(child)
+
+
+@contextlib.contextmanager
+def host_spans(names, modules=(fused_module, med)):
+    """Host-clock milliseconds of each ``record_function`` range of ``names``
+    that ``modules``' code opens while the block runs, summed per name as
+    ``profile_wave`` sums its ranges' host time, with no profiler running:
+    each module's ``record_function`` is wrapped for the block (a
+    ``perf_counter`` pair a range; the range itself still opens).  Yields
+    the dict it fills; raises on leaving if a range of ``names`` never
+    opened."""
+    spans = dict.fromkeys(names, 0.0)
+    opened: set = set()
+    originals = {m: m.record_function for m in modules}
+
+    @contextlib.contextmanager
+    def timed(name, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function(name, *args, **kwargs):
+                yield
+        finally:
+            if name in spans:
+                spans[name] += (time.perf_counter() - t0) * 1e3
+                opened.add(name)
+
+    for module in modules:
+        module.record_function = timed
+    try:
+        yield spans
+    finally:
+        for module, original in originals.items():
+            module.record_function = original
+    missing = [name for name in names if name not in opened]
+    if missing:
+        raise AssertionError(f"timed call: no range {missing}")
 
 
 def profile_wave(
@@ -1362,7 +1407,8 @@ def phase_kernel_msm(device, corpus, replicas: int, reps: int) -> dict:
 def ptxas_summary(report: str) -> dict:
     """Per function of an ``nvcc -Xptxas -v`` report: registers (kernels
     only), stack frame and spill bytes, and shared memory, keyed by the
-    kernel's name (a device function's mangled symbol)."""
+    kernel's name (``name<0>`` for a template's instance over ints; a device
+    function's mangled symbol)."""
     out, name = {}, None
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
@@ -1370,7 +1416,12 @@ def ptxas_summary(report: str) -> dict:
             name = m.group(1)
             plain = re.match(r"_Z(\d+)", name)  # a global function: _Z<length><name>
             if plain:
+                rest = name[plain.end() + int(plain.group(1)):]
                 name = name[plain.end():plain.end() + int(plain.group(1))]
+                # A template's instance, I Li<n>E ... E: name<n, ...>.
+                args = re.match(r"I((?:Li\d+E)+)E", rest)
+                if args:
+                    name += "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
             out.setdefault(name, {})
             continue
         if name is None:
@@ -2281,12 +2332,9 @@ def _check_comb(digits: torch.Tensor) -> float:
     )
 
 
-def _launch_ms(kind: str, args, reps: int, device) -> float:
-    """Mean milliseconds of one D1 (``kind`` "decompress"), D2 ("comb") or
-    S1 ("sha512") launch alone: ``reps`` launches back to back on
-    preallocated outputs, timed with CUDA events.  A wrapper's own host work
-    (its checks, the output allocation) takes about as long as these kernels
-    run, so a loop of wrapper calls leaves the card idle between launches."""
+def _launcher(kind: str, args, device):
+    """One D1 (``kind`` "decompress" or "decompress_negate"), D2 ("comb")
+    or S1 ("sha512") launch on preallocated outputs, as a callable."""
     width, int_args = args[0].shape[-1], ()
     if kind.startswith("decompress"):
         name, inputs = "decompress25519", args
@@ -2300,8 +2348,17 @@ def _launch_ms(kind: str, args, reps: int, device) -> float:
     else:
         name, inputs, int_args = "sha512", args, (args[0].shape[0],)
         outs = [torch.empty((8, 2, width), dtype=torch.int32, device=device)]
-    return _time_ms(lambda: scan_kernels._launch(name, inputs, outs, width, device, int_args),
-                    reps, device)
+    return lambda: scan_kernels._launch(name, inputs, outs, width, device, int_args)
+
+
+def _launch_ms(kind: str, args, reps: int, device) -> float:
+    """Mean milliseconds of one :func:`_launcher` launch alone: ``reps``
+    launches back to back, timed with CUDA events.  A wrapper's own host
+    work (its checks, the output allocation) takes about as long as these
+    kernels run, so a loop of wrapper calls leaves the card idle between
+    launches; a loop of launches is itself paced by the host's issue rate
+    (~0.016 ms a launch), which :func:`graph_ms` leaves out."""
+    return _time_ms(_launcher(kind, args, device), reps, device)
 
 
 def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: int,
@@ -2354,8 +2411,10 @@ def phase_decompress_comb(device, corpus, replicas: int, reps: int, plain_reps: 
         check, kernel, plain = kernels[kind]
         out[key] = {"width": args[0].shape[-1], "inputs": args, "max_abs_err": check(*args)}
         out[key]["ms"] = _time_ms(lambda: kernel(*args), reps, device)
-        out[key]["launch_ms"] = (_launch_ms(kind, args, reps, device) if device.type == "cuda"
-                                 else out[key]["ms"])
+        cuda = device.type == "cuda"
+        out[key]["launch_ms"] = _launch_ms(kind, args, reps, device) if cuda else out[key]["ms"]
+        out[key]["graph_ms"] = (graph_ms(_launcher(kind, args, device), reps, device) if cuda
+                                else out[key]["ms"])
         out[key]["plain_ms"] = _time_ms(lambda: plain(*args), plain_reps, device)
     out["invalid_points"] = int((~scan_kernels.decompress_reference(*cases["d1"][1])[1]).sum())
     return out
@@ -2531,18 +2590,26 @@ def write_p256_synthetic_lanes(acc, qx, qy, r1, r2, has_r2, host_ok, start: int,
     return [want for _, want in P2_SYNTHETIC]
 
 
-def graph_ms(launch, reps: int, device) -> float:
+#: Milliseconds of replays that keep the card busy before a graph is timed.
+GRAPH_WARM_MS = 2.0
+
+
+def graph_ms(launch, reps: int, device, timed: int = 3) -> float:
     """Mean milliseconds of one launch when ``reps`` launches captured in one
-    CUDA graph are replayed, after a warm-up replay: the device's time, with
-    no host work between launches.  A loop of launches from Python issues
-    one every ~0.015-0.02 ms, so a kernel that runs shorter than that is
-    timed by the loop as the host's issue rate."""
+    CUDA graph are replayed: the device's time, with no host work between
+    launches.  Replays back to back for GRAPH_WARM_MS first (a kernel of a
+    few microseconds timed right after host-bound work otherwise reads the
+    card's idle clocks), then times ``timed`` replays.  A loop of launches
+    from Python issues one every ~0.015-0.02 ms, so a kernel that runs
+    shorter than that is timed by the loop as the host's issue rate."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             launch()
-    graph.replay()
-    return _time_ms(graph.replay, 1, device) / reps
+    one = _time_ms(graph.replay, 1, device)
+    for _ in range(min(1000, int(GRAPH_WARM_MS / max(one, 1e-3)) + 1)):
+        graph.replay()
+    return _time_ms(graph.replay, timed, device) / reps
 
 
 def _timed_kernel(kernel, plain, launch, reps: int, plain_reps: int, device) -> dict:
@@ -2746,29 +2813,56 @@ def phase_verdict_kernels(device, corpus, rand_corpus, p256_corpus, reps: int, p
 
 #: Field-multiplication equivalents of L1's plain versions as the counting
 #: shim books them (ops/scalar25519.py), a lane and once a call: a reduction
-#: of 64 bytes 3, a 16 x 32 product 1 more, the sum's reduction once.
-#: tests/test_torch_scalar_kernel.py holds these to the shim's count.
+#: of 64 bytes 3, a 16 x 32 product 1 more, the sum's reduction once (the
+#: canonical checks multiply nothing).  tests/test_torch_scalar_kernel.py
+#: holds these to the shim's count.
 L1_MULS = {"challenge": (3, 0), "challenge_bytes": (3, 0), "aggregate": (8, 3),
            "certificate": (4, 0)}
-#: int32 rows L1 reads and writes, a lane and once a call: the digest and
-#: k's 64 digits (or 32 bytes); z, k, s, z k's 64 digits and z's 33, and u.
-L1_ROWS = {"challenge": (64 + 64, 0), "challenge_bytes": (64 + 32, 0),
-           "aggregate": (16 + 32 + 32 + 64 + 33, 32), "certificate": (16 + 32 + 64 + 33, 0)}
+#: Bytes L1 reads and writes, a lane and once a call, each input read once
+#: and each output written once: the strict body's challenge reads S1's
+#: state (64), the signature and key rows (96) and host_ok (1) and writes
+#: k's 64 int32 digits (256) and ok (1); the aggregate body's reads the
+#: state and writes k's 32 int32 bytes; the aggregate mode reads z, k, s
+#: (int32 byte rows: 16, 32, 32) and writes z k's 64 digits and z's 33 (and
+#: u's 32 once).
+L1_BYTES = {"challenge": (64 + 96 + 1 + 256 + 1, 0), "challenge_bytes": (64 + 32 * 4, 0),
+            "aggregate": ((16 + 32 + 32 + 64 + 33) * 4, 32 * 4),
+            "certificate": ((16 + 32 + 64 + 33) * 4, 0)}
+#: The same for the first design (one thread a lane): the digest as 64 int32 byte rows,
+#: no checks.
+L1_FIRST_BYTES = {"challenge": ((64 + 64) * 4, 0), "challenge_bytes": ((64 + 32) * 4, 0),
+                  "aggregate": L1_BYTES["aggregate"], "certificate": L1_BYTES["certificate"]}
 #: Values on L1's carries and folds: around L, 2^252 and 2^512, and two
 #: multiples of L (digests that reduce to 0).
 L1_EDGES = (0, 1, sc.L - 1, sc.L, sc.L + 1, 2 * sc.L, 2**252 - 1, 2**252, 2**253 - 1,
             2**256 - 1, 2**512 - 1, sc.L * (2**259 + 12345), sc.L * ((2**512 - 1) // sc.L))
+#: Synthetic lanes of L1's canonical checks: (S, y_R, y_A, R's sign bit, A's
+#: sign bit, host_ok).  S at L - 1, L, L + 1 and far either side; each y at
+#: p - 1 and p, a sign bit set on a canonical y and on p's (still p once
+#: masked); values that differ from their bound only in a low or a middle
+#: word; a lane the host rejected.
+L1_CHECK_LANES = (
+    (sc.L - 1, fe.P - 1, fe.P - 1, 0, 0, True), (sc.L, 0, 0, 0, 0, True),
+    (sc.L + 1, 0, 0, 0, 0, True), (0, fe.P, 0, 0, 0, True), (0, fe.P - 1, 0, 1, 0, True),
+    (0, 0, fe.P, 0, 0, True), (0, 0, fe.P - 1, 0, 1, True), (0, fe.P, 0, 1, 0, True),
+    (0, 0, fe.P, 0, 1, True), (sc.L - 1, fe.P - 1, fe.P - 1, 1, 1, False),
+    (2**256 - 1, 0, 0, 0, 0, True), (0, 2**255 - 1, 0, 0, 0, True),
+    (sc.L - 2**32, fe.P - 2**32, 1, 0, 0, True), (sc.L + 2**128, 0, 0, 0, 0, True),
+    (sc.L - 2**128, fe.P - 2**128, fe.P - 2**200, 1, 0, True), (0, 0, 0, 0, 0, True),
+)
 
 
-def l1_bound(mode: str, lanes: int, sm_count: int, sm_clock_hz: float) -> dict:
+def l1_bound(mode: str, lanes: int, sm_count: int, sm_clock_hz: float,
+             first_design: bool = False) -> dict:
     """L1 in ``mode`` (challenge, challenge_bytes, aggregate, certificate) at
     ``lanes`` lanes: the counting shim's field multiplications of the plain
     version (:data:`L1_MULS`) at MUL_PRODUCTS 32x32->64-bit products each,
-    and its int32 rows (:data:`L1_ROWS`) read and written once."""
+    and the bytes the kernel reads and writes once (:data:`L1_BYTES`, or
+    with ``first_design`` :data:`L1_FIRST_BYTES`)."""
     muls, muls_once = L1_MULS[mode]
-    rows, rows_once = L1_ROWS[mode]
+    per_lane, once = (L1_FIRST_BYTES if first_design else L1_BYTES)[mode]
     return _products_or_bytes((muls * lanes + muls_once) * MUL_PRODUCTS,
-                              (rows * lanes + rows_once) * 4, sm_count, sm_clock_hz)
+                              per_lane * lanes + once, sm_count, sm_clock_hz)
 
 
 @contextlib.contextmanager
@@ -2795,9 +2889,20 @@ def _int_rows(values, width: int, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(device)
 
 
+def l1_state(values, device) -> torch.Tensor:
+    """(8, 2, n) int32 SHA-512 state words whose digest (each word
+    big-endian, hi half first, as ``sha512.digest_bytes`` orders it) reads
+    as ``values`` (each below 2^512) little-endian: what S1 leaves for a
+    hash of that value."""
+    raw = b"".join(v.to_bytes(64, "little") for v in values)
+    words = np.frombuffer(raw, dtype=">u4").reshape(len(values), 8, 2)
+    state = np.ascontiguousarray(words.transpose(1, 2, 0).astype(np.uint32).view(np.int32))
+    return torch.from_numpy(state).to(device)
+
+
 def scalar_edge_inputs(device, lanes: int = 8192, seed: int = SEED) -> tuple:
-    """L1's edge inputs: (64, len(L1_EDGES)) digests of :data:`L1_EDGES`, and
-    an aggregate of ``lanes`` lanes with z = 1 and z = 2^128 - 1, k the
+    """L1's edge inputs: (64, len(L1_EDGES)) digests of :data:`L1_EDGES`,
+    and an aggregate of ``lanes`` lanes with z = 1 and z = 2^128 - 1, k the
     edges mod L and s = L - 1 on every lane (the sum's columns far past 32
     bits), the other z random."""
     rng = np.random.default_rng(seed)
@@ -2808,6 +2913,36 @@ def scalar_edge_inputs(device, lanes: int = 8192, seed: int = SEED) -> tuple:
     k[:, :len(L1_EDGES)] = _int_rows([v % sc.L for v in L1_EDGES], 32, device)
     s = _int_rows([sc.L - 1], 32, device).expand(32, lanes).contiguous()
     return digest, z, k, s
+
+
+def scalar_check_inputs(device, lanes: int = 64, seed: int = SEED) -> tuple:
+    """L1's canonical checks on ``lanes`` lanes: :data:`L1_CHECK_LANES` first,
+    then random lanes (S below L on about half, y any 255 bits, random sign
+    bits, host_ok set on 7 in 8).  Returns (state (8, 2, lanes) of
+    L1_EDGES' digests then random words, signature rows (64, lanes) and key
+    rows (32, lanes) uint8, host_ok (lanes,) bool, the ok each lane should
+    get (numpy bool))."""
+    rng = np.random.default_rng(seed)
+    rand = lambda bits: int.from_bytes(rng.bytes(32), "little") % 2**bits
+    lanes_ = list(L1_CHECK_LANES[:lanes])
+    while len(lanes_) < lanes:
+        s = rand(256)
+        lanes_.append((s % sc.L if rng.integers(2) else s, rand(255), rand(255),
+                       int(rng.integers(2)), int(rng.integers(2)), bool(rng.integers(8))))
+    sig = b"".join((yr | sr << 255).to_bytes(32, "little") + s.to_bytes(32, "little")
+                   for s, yr, _, sr, _, _ in lanes_)
+    key = b"".join((ya | sa << 255).to_bytes(32, "little") for _, _, ya, _, sa, _ in lanes_)
+
+    def rows(raw: bytes, width: int) -> torch.Tensor:
+        arr = np.frombuffer(raw, dtype=np.uint8).reshape(lanes, width).T
+        return torch.from_numpy(arr.copy()).to(device)
+
+    values = list(L1_EDGES[:lanes]) + [rand(256) << 256 | rand(256)
+                                       for _ in range(lanes - len(L1_EDGES))]
+    host_ok = torch.tensor([h for *_, h in lanes_], dtype=torch.bool, device=device)
+    want = np.array([h and s < sc.L and yr < fe.P and ya < fe.P
+                     for s, yr, ya, _, _, h in lanes_])
+    return l1_state(values, device), rows(sig, 64), rows(key, 32), host_ok, want
 
 
 def _max_err(kernel: str, got, want) -> float:
@@ -2821,7 +2956,7 @@ def _max_err(kernel: str, got, want) -> float:
             raise AssertionError(f"{kernel}: an output's form differs from the plain version's")
         diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
         if diff:
-            bad = int((g != w).any(dim=0).sum())
+            bad = int((g != w).reshape(-1, g.shape[-1]).any(dim=0).sum())
             raise AssertionError(f"{kernel}: differs from the plain version on {bad} lanes")
         err = max(err, float(diff))
     return err
@@ -2840,29 +2975,82 @@ def _host_ms(fn, reps: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+#: L1's first design (one thread a lane), kept beside the trials script: built by
+#: :func:`build_first_l1` and timed beside the redesign in phase 25.
+L1_FIRST_SOURCE = Path(__file__).resolve().parent / "scripts" / "e1_p1_trials" / "scalar25519_first.cu"
+
+
+def build_first_l1() -> scan_kernels.BuildInfo:
+    """Build :data:`L1_FIRST_SOURCE` with nvcc for ``sm_90a`` into the
+    kernels' build directory (keyed by the source's hash)."""
+    return _build_library("scalar25519_first", L1_FIRST_SOURCE.read_text())
+
+
+def first_l1_launcher(library: str):
+    """The first design's C launch function (8 pointers: a, b, c, d64, d33,
+    bytes, u, partials; then n, mode, a_rows, device, stream), as a
+    callable on tensors (None for a null pointer) that raises if the launch
+    was refused."""
+    fn = ctypes.CDLL(library).scalar25519_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(tensors, n: int, mode: int, a_rows: int, device) -> None:
+        code = fn(*(None if t is None else t.data_ptr() for t in tensors), n, mode, a_rows,
+                  device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+        if code:
+            raise RuntimeError(f"scalar25519 (first design): launch failed ({code})")
+
+    return launch
+
+
+def empty_launcher(library: str):
+    """One launch of the empty kernel of :data:`LATENCY_PROBE_SOURCE` (one
+    thread that does nothing): the launch floor beside L1's bound."""
+    fn = ctypes.CDLL(library).empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(device) -> None:
+        if fn(torch.cuda.current_stream(device).cuda_stream):
+            raise RuntimeError("empty kernel: launch failed")
+
+    return launch
+
+
 def phase_scalar_kernel(device, corpus, rand_corpus, reps: int, plain_reps: int,
-                        replicas: int = REPLICAS) -> dict:
+                        replicas: int = REPLICAS, first=None) -> dict:
     """L1 against its plain versions on the main path's own inputs, tolerance
     0, each recorded from a run of its engine (the wrappers' arguments):
 
-    * ``strict``: the fused strict wave's digests (phase 14: ``replicas``
-      copies of ``corpus``), challenge digits;
+    * ``strict``: the fused strict wave's S1 states with its signature and
+      key rows and host_ok (phase 14: ``replicas`` copies of ``corpus``,
+      every rejection class): digits and the canonical checks' ok;
     * ``aggregate`` and ``recheck``: the fused randomized wave's two
-      aggregate checks (phase 15, ``rand_corpus``): each check's challenge
-      bytes and its z k and z digits and u;
+      aggregate checks (phase 15, ``rand_corpus``): each check's z k and z
+      digits and u, and its challenge bytes from S1's states;
     * ``certificate``: a half-aggregated certificate of 5 of ``corpus``'s
       valid signatures verified on the fused path (8 lanes, as phase 16's),
       u given;
-    * ``one``: the first lane of the strict digests and of the aggregate;
-    * ``edges``: :func:`scalar_edge_inputs`.
+    * ``one``: the first lane of the strict arguments and of the aggregate;
+    * ``edges``: :func:`scalar_edge_inputs`, the digests as byte rows and as
+      S1 states;
+    * ``mask``: :func:`scalar_check_inputs` (S = L - 1, L, L + 1, y = p - 1
+      and p for R and A, sign bits set), ok also against the construction.
 
     Each row is timed through the wrapper (``ms``), as a loop of launches
     and replayed from a CUDA graph, and its plain version (``plain_ms``, on
     the same device); ``host_ms`` / ``plain_host_ms`` are the host clock of
-    one call through the device's finish: the stage before and after."""
+    one call through the device's finish.  With ``first`` (the first
+    design's launcher, :func:`first_l1_launcher`) each row's first case runs
+    the first design on the inputs it reads (the digest as byte rows; no
+    checks), held to the plain version's digits, and both designs are timed
+    from graphs in turns (new, first, first, new: ``turns_ms``) and the first
+    as a loop of launches."""
     device = torch.device(device)
+    cuda = device.type == "cuda"
     wave = replica_wave(corpus, replicas)[:3]
-    with recorded(sc, "scalar_challenge") as strict_calls:
+    with recorded(sc, "scalar_challenge_checked") as strict_calls:
         FusedEd25519BatchVerifier(device=device).verify_batch(*wave)
     rengine = FusedEd25519RandomizedBatchVerifier(device=device)
     with recorded(sc, "scalar_challenge") as rk, recorded(sc, "scalar_aggregate") as ragg, \
@@ -2879,50 +3067,91 @@ def phase_scalar_kernel(device, corpus, rand_corpus, reps: int, plain_reps: int,
     if (len(strict_calls), len(rk), len(ragg), len(ck), len(cagg)) != (1, 2, 2, 1, 1):
         raise AssertionError(f"phase 25: recorded {len(strict_calls)} strict, {len(rk)} + "
                              f"{len(ragg)} aggregate, {len(ck)} + {len(cagg)} certificate calls")
+    new = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device=device)
 
-    def challenge(digest, digits=True):
-        rows, n = digest.shape
-        out = torch.empty((64 if digits else 32, n), dtype=torch.int32, device=device)
-        return (lambda: sc.scalar_challenge(digest, digits=digits),
-                lambda: sc.scalar_challenge_reference(digest, digits=digits),
+    def checked(state, sig, key, host_ok):
+        n = state.shape[-1]
+        out, ok = new(64, n), new(n, dtype=torch.bool)
+        return (lambda: sc.scalar_challenge_checked(state, sig, key, host_ok),
+                lambda: sc.scalar_challenge_checked_reference(state, sig, key, host_ok),
                 lambda: scan_kernels._launch(
-                    "scalar25519", (digest, None, None),
-                    (out if digits else None, None, None if digits else out, None, None),
+                    "scalar25519", (state, None, None, sig, key, host_ok),
+                    (out, None, None, ok, None, None), n, device, (0, 0)))
+
+    def challenge(h, digits=True):
+        n, rows = h.shape[-1], (0 if h.dim() == 3 else h.shape[0])
+        out = new(64 if digits else 32, n)
+        return (lambda: sc.scalar_challenge(h, digits=digits),
+                lambda: sc.scalar_challenge_reference(h, digits=digits),
+                lambda: scan_kernels._launch(
+                    "scalar25519", (h, None, None, None, None, None),
+                    (out if digits else None, None, None if digits else out, None, None, None),
                     n, device, (0, rows)))
 
     def aggregate(z, k, s=None):
         n = z.shape[1]
-        outs = [torch.empty((w, n), dtype=torch.int32, device=device) for w in (64, 33)]
+        outs = [new(w, n) for w in (64, 33)]
         u = partials = None
         if s is not None:
-            u = torch.empty((32, 1), dtype=torch.int32, device=device)
-            partials = torch.empty(-(-n // sc.L1_LANES) * 8, dtype=torch.int64, device=device)
+            u = new(32, 1)
+            partials = new(-(-n // sc.L1_SUM_LANES) * 8, dtype=torch.int64)
         return (lambda: sc.scalar_aggregate(z, k, s),
                 lambda: sc.scalar_aggregate_reference(z, k, s),
-                lambda: scan_kernels._launch("scalar25519", (z, k, s),
-                                             (*outs, None, u, partials), n, device, (1, 16)))
+                lambda: scan_kernels._launch("scalar25519", (z, k, s, None, None, None),
+                                             (*outs, None, None, u, partials), n, device,
+                                             (1, 16)))
 
-    def first(t):
-        return t[:, :1].contiguous()
+    def first_challenge(state):
+        """The first design on the digest's byte rows: (launch, its digits,
+        the plain version's)."""
+        digest = sh.digest_bytes(state).contiguous()
+        n = digest.shape[1]
+        out = new(64, n)
+        return (lambda: first((digest, None, None, out, None, None, None, None), n, 0, 64,
+                              device), (out,), lambda: (sc.scalar_challenge_reference(digest),))
 
-    digest = strict_calls[0][0][0]
+    def first_aggregate(z, k, s=None):
+        n = z.shape[1]
+        outs = [new(w, n) for w in (64, 33)]
+        u = partials = None
+        if s is not None:
+            u = new(32, 1)
+            partials = new(-(-n // sc.L1_SUM_LANES) * 8, dtype=torch.int64)
+        return (lambda: first((z, k, s, *outs, None, u, partials), n, 1, 16, device),
+                (*outs, u), lambda: sc.scalar_aggregate_reference(z, k, s))
+
+    def lane0(t):
+        return t[..., :1].contiguous()
+
+    strict_args = strict_calls[0][0]
+    state = strict_args[0]
     (z0, k0, s0), (z1, k1, s1) = (c[0][:3] for c in ragg)
     edge_digest, ez, ek, es = scalar_edge_inputs(device)
+    edge_state = l1_state(L1_EDGES, device)
+    mask_state, msig, mkey, mok, mask_want = scalar_check_inputs(device)
     cert = cagg[0][0]
     rows = {
-        "strict": ("challenge", [challenge(digest)]),
+        "strict": ("challenge", [checked(*strict_args)], first_challenge(state)),
         "aggregate": ("aggregate", [aggregate(z0, k0, s0),
-                                    challenge(rk[0][0][0], digits=False)]),
-        "recheck": ("aggregate", [aggregate(z1, k1, s1), challenge(rk[1][0][0], digits=False)]),
+                                    challenge(rk[0][0][0], digits=False)],
+                      first_aggregate(z0, k0, s0)),
+        "recheck": ("aggregate", [aggregate(z1, k1, s1), challenge(rk[1][0][0], digits=False)],
+                    first_aggregate(z1, k1, s1)),
         "certificate": ("certificate", [aggregate(*cert[:2], cert[2]),
-                                        challenge(ck[0][0][0], digits=False)]),
-        "one": ("challenge", [challenge(first(digest)),
-                              aggregate(first(z0), first(k0), first(s0))]),
+                                        challenge(ck[0][0][0], digits=False)],
+                        first_aggregate(*cert[:2])),
+        "one": ("challenge", [checked(*map(lane0, strict_args)),
+                              aggregate(lane0(z0), lane0(k0), lane0(s0))],
+                first_challenge(lane0(state))),
         "edges": ("aggregate", [aggregate(ez, ek, es), challenge(edge_digest),
-                                challenge(edge_digest, digits=False)]),
+                                challenge(edge_digest, digits=False), challenge(edge_state),
+                                challenge(edge_state, digits=False)],
+                  first_aggregate(ez, ek, es)),
+        "mask": ("challenge", [checked(mask_state, msig, mkey, mok)],
+                 first_challenge(mask_state)),
     }
     out: dict = {}
-    for key, (mode, cases) in rows.items():
+    for key, (mode, cases, first_case) in rows.items():
         err = 0.0
         for kernel, plain, _ in cases:
             got, want = kernel(), plain()
@@ -2931,13 +3160,31 @@ def phase_scalar_kernel(device, corpus, rand_corpus, reps: int, plain_reps: int,
         kernel, plain, launch = cases[0]
         out[key] = {
             "mode": mode, "max_abs_err": err,
-            "lanes": {"strict": digest.shape[1], "aggregate": z0.shape[1],
+            "lanes": {"strict": state.shape[-1], "aggregate": z0.shape[1],
                       "recheck": z1.shape[1], "certificate": cert[0].shape[1], "one": 1,
-                      "edges": ez.shape[1]}[key],
+                      "edges": ez.shape[1], "mask": mask_state.shape[-1]}[key],
             **_timed_kernel(kernel, plain, launch, reps, plain_reps, device),
             "host_ms": _host_ms(kernel, reps, device),
             "plain_host_ms": _host_ms(plain, plain_reps, device),
+            "first_launch_ms": None, "first_graph_ms": None, "turns_ms": None,
+            "first_max_abs_err": None,
         }
+        if mode == "challenge":  # the checks' ok: lanes accepted
+            ok = kernel()[1].cpu().numpy()
+            out[key]["ok_lanes"] = int(ok.sum())
+            if key == "mask" and not np.array_equal(ok, mask_want):
+                raise AssertionError("scalar25519 (mask): ok differs from the construction at "
+                                     f"{np.flatnonzero(ok != mask_want).tolist()}")
+        if first is not None and cuda:
+            first_launch, first_outs, first_plain = first_case
+            first_launch()
+            out[key]["first_max_abs_err"] = _max_err(f"scalar25519 first design ({key})",
+                                                     first_outs, first_plain())
+            out[key]["first_launch_ms"] = _time_ms(first_launch, reps, device)
+            turns = [graph_ms(f, reps, device) for f in (launch, first_launch, first_launch,
+                                                          launch)]
+            out[key]["turns_ms"] = turns
+            out[key]["first_graph_ms"] = (turns[1] + turns[2]) / 2
     for key, (_, kw) in zip(("aggregate", "recheck"), checks):
         out[key]["live"] = len(kw["messages"])
     out["certificate"]["live"] = QUORUM
@@ -3046,16 +3293,17 @@ def sass_issue_ms(n_blocks: np.ndarray, per_block: int, sm_clock_hz: float) -> f
     return per_block * int(n_blocks.max(initial=0)) / sm_clock_hz * 1e3
 
 
-def build_latency_probe() -> scan_kernels.BuildInfo:
-    """Build LATENCY_PROBE_SOURCE with nvcc for ``sm_90a`` into the kernels'
-    build directory (keyed by the source's hash, as the kernels are)."""
-    tag = hashlib.sha256(LATENCY_PROBE_SOURCE.encode()).hexdigest()[:16]
-    library = scan_kernels.BUILD_DIR / f"chain_probe-{tag}.so"
+def _build_library(name: str, source_text: str) -> scan_kernels.BuildInfo:
+    """Build ``source_text`` (a plain-C CUDA library) with nvcc for
+    ``sm_90a`` into the kernels' build directory as ``name`` (keyed by the
+    source's hash, as the kernels are)."""
+    tag = hashlib.sha256(source_text.encode()).hexdigest()[:16]
+    library = scan_kernels.BUILD_DIR / f"{name}-{tag}.so"
     if library.is_file():
         return scan_kernels.BuildInfo(str(library), "", 0.0, "", True)
     scan_kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    source = scan_kernels.BUILD_DIR / f"chain_probe-{tag}-{os.getpid()}.cu"
-    source.write_text(LATENCY_PROBE_SOURCE)
+    source = scan_kernels.BUILD_DIR / f"{name}-{tag}-{os.getpid()}.cu"
+    source.write_text(source_text)
     tmp = library.with_name(f".{library.name}-{os.getpid()}")
     cmd = scan_kernels.nvcc_command(source, tmp)
     t0 = time.perf_counter()
@@ -3064,9 +3312,15 @@ def build_latency_probe() -> scan_kernels.BuildInfo:
     source.unlink()
     report = (proc.stdout + proc.stderr).strip()
     if proc.returncode:
-        raise RuntimeError(f"chain probe: nvcc failed:\n{report}")
+        raise RuntimeError(f"{name}: nvcc failed:\n{report}")
     os.replace(tmp, library)
     return scan_kernels.BuildInfo(str(library), " ".join(cmd), seconds, report, False)
+
+
+def build_latency_probe() -> scan_kernels.BuildInfo:
+    """Build LATENCY_PROBE_SOURCE (the clock64() probe and the empty
+    kernel)."""
+    return _build_library("chain_probe", LATENCY_PROBE_SOURCE)
 
 
 def dependent_issue_cycles(library: str, device, steps: int = 1 << 16) -> dict:
@@ -3127,18 +3381,21 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
     randomized wave's transcript root message, against hashlib only (the
     plain version runs its thousands of blocks one after another, each some
     8,000 eager torch calls).  Each width timed with CUDA events through the
-    wrapper (``ms``, as every kernel is timed) and as launches alone
-    (``launch_ms``; on the CPU the wrapper's plain version again)."""
+    wrapper (``ms``, as every kernel is timed), as launches alone
+    (``launch_ms``) and replayed from a CUDA graph (``graph_ms``; on the CPU
+    both are the wrapper's plain version again)."""
     device = torch.device(device)
 
     def timed(blocks, n_blocks, calls: int) -> dict:
         ms = _time_ms(lambda: sh.sha512_blocks(blocks, n_blocks), calls, device)
-        launch_ms = (_launch_ms("sha512", (blocks, n_blocks), calls, device)
-                     if device.type == "cuda" else ms)
+        cuda = device.type == "cuda"
+        launch_ms = _launch_ms("sha512", (blocks, n_blocks), calls, device) if cuda else ms
+        graph = (graph_ms(_launcher("sha512", (blocks, n_blocks), device), calls, device)
+                 if cuda else ms)
         # The blocks each lane absorbs: its count, cut to the block axis.
         absorbed = np.clip(n_blocks.cpu().numpy(), 0, blocks.shape[0])
         return {"lanes": n_blocks.shape[0], "block_axis": blocks.shape[0],
-                "n_blocks": absorbed, "ms": ms, "launch_ms": launch_ms}
+                "n_blocks": absorbed, "ms": ms, "launch_ms": launch_ms, "graph_ms": graph}
 
     msgs, sigs, keys, _ = replica_wave(corpus, replicas)
     engine = FusedEd25519BatchVerifier(device=device)
@@ -3181,7 +3438,8 @@ def phase_sha512(device, corpus, rand_corpus, replicas: int, reps: int, plain_re
         "lanes": n_blocks.shape[0], "live": len(msgs), "block_axis": blocks.shape[0],
         "n_blocks": widths["wave"]["n_blocks"], "max_abs_err": max_err,
         "ms": widths["wave"]["ms"], "launch_ms": widths["wave"]["launch_ms"],
-        "plain_ms": plain_ms, "root_live": (len(root) - len(med._Z_TAG) - 8) // 64,
+        "graph_ms": widths["wave"]["graph_ms"], "plain_ms": plain_ms,
+        "root_live": (len(root) - len(med._Z_TAG) - 8) // 64,
         "root_bytes": len(root), "root_blocks": int(rn[0]), "widths": widths,
     }
 
@@ -3191,8 +3449,10 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
     ``engine_for_config(Configuration(device_prep=True))``: verdicts equal to
     ``direct`` (phase 3's host-prep engine) lane for lane, S1 and B1 launched
     once, B2 and B3 never; the host prep of both engines timed on the same
-    wave; a profiled re-run; then three replicas' request waves through
-    ``verify_stream``."""
+    wave; the process's first fused call timed (``wave_ms``, as before any
+    split was read) with each of its ranges on the host clock
+    (``first``: :func:`host_spans`, no profiler), then a profiled re-run;
+    then three replicas' request waves through ``verify_stream``."""
     device = torch.device(device)
     engine = engine_for_config(Configuration(device_prep=True), device=device)
     if type(engine) is not FusedEd25519BatchVerifier:
@@ -3211,11 +3471,12 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
         torch.cuda.reset_peak_memory_stats()
     calls_before = KERNELS.stats("ed25519.fused_verify").launches
     _reset_launch_counts()
-    t0 = time.perf_counter()
-    got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wave_s = time.perf_counter() - t0
+    with host_spans(FUSED_RANGES) as first:
+        t0 = time.perf_counter()
+        got = engine.verify_batch(wave_msgs, wave_sigs, wave_keys)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
     launches, s1, d_launches = _launch_counts(), _s1_launches(), _d_launches()
     l1 = _l1_launches()
     calls = KERNELS.stats("ed25519.fused_verify").launches - calls_before
@@ -3246,7 +3507,7 @@ def phase_fused_wave(device, corpus, replicas: int, direct) -> dict:
         "signatures": n, "padded": engine.padded_size(n), "rejected": int((~got).sum()),
         "wave_ms": wave_s * 1e3, "sigs_per_s": n / wave_s, "launches": launches, "s1": s1,
         "d_launches": d_launches, "l1": l1, "calls": calls, "fused_prep_ms": fused_prep_ms,
-        "host_prep_ms": host_prep_ms,
+        "host_prep_ms": host_prep_ms, "first": first,
         "profiled": prof, "peak_bytes": peak, "stream_waves": len(waves),
         "stream_ms": stream_ms, "stream_s1": stream_s1,
     }
@@ -3766,7 +4027,8 @@ def phase_mxu_kernel(device, reps: int, plain_reps: int, widths=MXU_WIDTHS,
     every operand range of ``MXU_RANGES``: products and squares held at
     tolerance 0 to the plain version and the VPU lane.  Then, per curve and
     width on the widest range: M1 through the wrapper (``ms``), its launches
-    alone (``launch_ms``), the VPU lane's eager product (``vpu_ms``), the
+    alone (``launch_ms``) and replayed from a CUDA graph (``graph_ms``; None
+    on the CPU), the VPU lane's eager product (``vpu_ms``), the
     plain version on the CPU (``plain_ms``, host clock) and the bound; and
     ``torch._int_mm``'s one-plane product at the first width."""
     device = torch.device(device)
@@ -3797,11 +4059,12 @@ def phase_mxu_kernel(device, reps: int, plain_reps: int, widths=MXU_WIDTHS,
             if device.type == "cuda":
                 dst = torch.empty_like(a)
                 args = (mxu_limbs._CURVES[curve], 0, 0)
-                row["launch_ms"] = _time_ms(
-                    lambda: scan_kernels._launch("mxu_limbs", (a, b), (dst,), n, device, args),
-                    reps, device)
+                launch = lambda: scan_kernels._launch("mxu_limbs", (a, b), (dst,), n, device,
+                                                      args)
+                row["launch_ms"] = _time_ms(launch, reps, device)
+                row["graph_ms"] = graph_ms(launch, reps, device)
             else:
-                row["launch_ms"] = None
+                row["launch_ms"] = row["graph_ms"] = None
             with mxu_limbs.suppress_mxu_limbs():
                 vpu(a, b)
                 row["vpu_ms"] = _time_ms(lambda: vpu(a, b), reps, device)
@@ -4723,13 +4986,15 @@ def log_mxu(k: dict, w: dict, sass: dict, info: scan_kernels.BuildInfo, card: st
     for (curve, n), r in k["times"].items():
         b = r["bound"]
         log(f"M1 {curve} product at {n} lanes: {r['ms']:.6f} ms a call through the wrapper, "
-            f"{_num(r['launch_ms'])} ms a launch alone (CUDA events, mean of 20 after warm-up); the "
+            f"{_num(r['launch_ms'])} ms a launch alone (CUDA events, mean of 20 after warm-up), "
+            f"{_num(r['graph_ms'])} ms a launch replayed from a CUDA graph of 20; the "
             f"VPU lane's eager product {r['vpu_ms']:.6f} ms; the plain version on the CPU "
             f"{r['plain_ms']:.6f} ms (host clock)")
         log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: {b['macs']} dense MACs at "
             f"1,979 int8 TOPS = {b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = "
             f"{b['bytes_ms']:.6f} ms; M1 at {100 * b['bound_ms'] / r['ms']:.3f} % of it through "
-            f"the wrapper, {_share(r['launch_ms'] and b['bound_ms'] / r['launch_ms'])} alone")
+            f"the wrapper, {_share(r['launch_ms'] and b['bound_ms'] / r['launch_ms'])} alone, "
+            f"{_share(r['graph_ms'] and b['bound_ms'] / r['graph_ms'])} from a graph")
     lib = k["library_ms"]
     width = k["widths"][0]
     log(f"  library: torch._int_mm on one byte plane's (64 x 1024) x (1024 x {width}) int8 "
@@ -4846,9 +5111,9 @@ def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.3f} ms"
 
 
-def log_profile(p: dict, kernel: str) -> None:
-    """Print a profiled re-run's wall time, busy share and stage split."""
-    log(f"  profiled re-run (torch.profiler): {p['wall_ms']:.3f} ms host clock; "
+def log_profile(p: dict, kernel: str, run: str = "re-run") -> None:
+    """Print a profiled run's wall time, busy share and stage split."""
+    log(f"  profiled {run} (torch.profiler): {p['wall_ms']:.3f} ms host clock; "
         f"device busy {_ms(p['busy_ms'])}"
         + ("" if p["busy_share"] is None else f", {100 * p['busy_share']:.2f} % of it")
         + f"; {kernel} kernel {_ms(p['kernel_device_ms'])} on the device")
@@ -4911,11 +5176,14 @@ def main() -> int:
     # One nvcc for each source, all started together.
     # S1's bound reads the card's dependent-issue latency from a clock64()
     # probe (phase 13), built beside the kernels.
+    # L1's first design is built beside them, to be timed in phase 25.
     names = list(scan_kernels.KERNELS)
-    with ThreadPoolExecutor(len(names) + 1) as pool:
+    with ThreadPoolExecutor(len(names) + 2) as pool:
         probe_build = pool.submit(build_latency_probe)
+        first_build = pool.submit(build_first_l1)
         infos = dict(zip(names, pool.map(scan_kernels.build, names)))
         infos["chain_probe"] = probe_build.result()
+        infos["scalar25519_first"] = first_build.result()
     for name, info in infos.items():
         log(f"{name}: nvcc build {info.seconds:.3f} s "
             f"({'existing build loaded' if info.cached else info.command})")
@@ -5207,7 +5475,8 @@ def main() -> int:
         log(f"{label}; {int(r['n_blocks'].shape[0])} lanes, {b['blocks']} blocks{check}")
         log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of "
             f"{calls} after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of {calls} "
-            f"back to back on a preallocated output)")
+            f"back to back on a preallocated output); {r['graph_ms']:.6f} ms a launch replayed "
+            f"from a CUDA graph of {calls} (the device's time)")
         if key == "wave":
             log(f"  plain torch version {k13['plain_ms']:.6f} ms (mean of 2)")
         log(f"  bound {b['bound_ms']:.6f} ms, by {b['bound_by']}: {SHA512_BLOCK_OPS} integer "
@@ -5217,7 +5486,8 @@ def main() -> int:
             f"x {SHA512_CHAIN_DEPTH} dependent instructions x {latency['cycles']:.4f} clocks = "
             f"{b['chain_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} "
             f"ms; kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
-            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone")
+            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone, "
+            f"{100 * b['bound_ms'] / r['graph_ms']:.3f} % from a graph; {card}")
         log(f"  the former yardstick, not the bound: the longest lane's blocks x the block "
             f"loop's {sass['per_block']} SASS instructions at one a clock = "
             f"{sass_issue_ms(r['n_blocks'], sass['per_block'], sm_clock_hz):.6f} ms")
@@ -5246,9 +5516,14 @@ def main() -> int:
         f"{f14['launches']}, (decompress25519, comb25519, verdict25519) {f14['d_launches']}, in "
         f"{f14['calls']} device call")
     log(f"  end to end {f14['wave_ms']:.3f} ms = {f14['sigs_per_s']:.1f} signatures/s (host clock, "
-        f"ending in torch.cuda.synchronize()); phase 3's host-prep wave {w['wave_ms']:.3f} ms")
+        f"ending in torch.cuda.synchronize(), the process's first fused call, not profiled); "
+        f"phase 3's host-prep wave {w['wave_ms']:.3f} ms")
     log(f"  host prep on this wave: _prepare_fused {f14['fused_prep_ms']:.3f} ms, the host-prep "
         f"engine's _prepare {f14['host_prep_ms']:.3f} ms (host clock)")
+    log("  the first call's ranges (host clock, a perf_counter pair a range, no profiler; "
+        "the end-to-end time above):")
+    for name, ms in f14["first"].items():
+        log(f"    {name}: host {ms:.3f} ms")
     log_profile(f14["profiled"], "horner_scan")
     log(f"  torch.cuda.max_memory_allocated: {f14['peak_bytes']} bytes (phase 3's wave "
         f"{w['peak_bytes']} bytes)")
@@ -5354,7 +5629,8 @@ def main() -> int:
             + f"frozen X, Y, Z, T equal on every lane (max abs err {r['max_abs_err']})")
         log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of 20 "
             f"after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of 20 back to back "
-            f"on preallocated outputs)")
+            f"on preallocated outputs); {r['graph_ms']:.6f} ms a launch replayed from a CUDA "
+            f"graph of 20 (the device's time)")
         log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3)")
         if key.startswith("d1"):
             work = (f"{DECOMPRESS_MULS} multiplications x {MUL_PRODUCTS} + {DECOMPRESS_SQUARES} "
@@ -5367,7 +5643,8 @@ def main() -> int:
             f"{sm_clock_hz / 1e6:.0f} MHz = {b['ops_ms']:.6f} ms; {b['bytes']} bytes over "
             f"3.35 TB/s = {b['bytes_ms']:.6f} ms; kernel at "
             f"{100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
-            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone")
+            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone, "
+            f"{100 * b['bound_ms'] / r['graph_ms']:.3f} % from a graph; {card}")
     log_ptxas(infos["decompress25519"])
     log_ptxas(infos["comb25519"])
     log("  library: none (no PyTorch call decompresses an Edwards point or computes [S]B)")
@@ -5495,34 +5772,60 @@ def main() -> int:
     log(f"phase 24 took {time.perf_counter() - t24:.3f} s (host clock)")
 
     # Phase 25: kernel L1, the fused scalar stage, against its plain versions.
-    log("== phase 25: scalar25519 (L1) against its plain versions")
+    log("== phase 25: scalar25519 (L1) against its plain versions, beside its first design")
     t25 = time.perf_counter()
-    k25 = phase_scalar_kernel(device, corpus, rand_corpus, reps=20, plain_reps=3)
+    l1_report = ptxas_summary(infos["scalar25519"].ptxas)
+    l1_kernels = {name: r for name, r in l1_report.items() if "registers" in r}
+    if infos["scalar25519"].ptxas and (
+            sorted(l1_kernels) != ["scalar25519_kernel<0>", "scalar25519_kernel<1>",
+                                   "scalar25519_sum_kernel"]
+            or any(r.get("stack") or r.get("spill_stores") or r.get("spill_loads")
+                   for r in l1_report.values())):
+        raise AssertionError(f"L1's build: not one kernel a mode without a stack frame or "
+                             f"spills: {l1_report}")
+    first_l1 = first_l1_launcher(infos["scalar25519_first"].library)
+    k25 = phase_scalar_kernel(device, corpus, rand_corpus, reps=20, plain_reps=3, first=first_l1)
+    empty = empty_launcher(infos["chain_probe"].library)
+    empty_ms = [graph_ms(lambda: empty(device), 20, device) for _ in range(2)]
     bounds25 = {key: l1_bound(r["mode"], r["lanes"], sm_count, sm_clock_hz)
                 for key, r in k25.items()}
+    first_bounds25 = {key: l1_bound(r["mode"], r["lanes"], sm_count, sm_clock_hz,
+                                    first_design=True) for key, r in k25.items()}
     labels25 = {
-        "strict": f"challenge digits on phase 14's digests ({k25['strict']['lanes']} lanes)",
+        "strict": (f"challenge digits and the canonical checks on phase 14's S1 states, "
+                   f"signature and key rows and host_ok ({k25['strict']['lanes']} lanes, "
+                   f"{k25['strict']['ok_lanes']} passing the checks)"),
         "aggregate": (f"phase 15's first aggregate check ({k25['aggregate']['live']} signatures "
                       f"on {k25['aggregate']['lanes']} lanes): z k and z digits and u, timed; "
-                      f"its challenge bytes"),
+                      f"its challenge bytes from S1's states"),
         "recheck": (f"phase 15's re-check ({k25['recheck']['live']} signatures on "
                     f"{k25['recheck']['lanes']} lanes): the same"),
         "certificate": (f"a half-aggregated certificate ({k25['certificate']['live']} "
                         f"signatures on {k25['certificate']['lanes']} lanes, u given): z k and z "
                         f"digits, timed; its challenge bytes"),
-        "one": "one lane: challenge digits, timed; the aggregate's first lane",
+        "one": "one lane: challenge digits and checks, timed; the aggregate's first lane",
         "edges": (f"the {len(L1_EDGES)} edge digests (0, L - 1, L, L + 1, 2L, 2^252 - 1, 2^252, "
-                  f"2^512 - 1, multiples of L) as digits and bytes; an aggregate of "
-                  f"{k25['edges']['lanes']} lanes with z = 1 and s = L - 1 on every lane, timed"),
+                  f"2^512 - 1, multiples of L) as digits and bytes, from byte rows and from S1 "
+                  f"states; an aggregate of {k25['edges']['lanes']} lanes with z = 1 and s = "
+                  f"L - 1 on every lane, timed"),
+        "mask": (f"the checks' edges on {k25['mask']['lanes']} lanes (S = L - 1, L, L + 1; y = "
+                 f"p - 1 and p for R and A; sign bits set on canonical y and on p; host_ok "
+                 f"cleared; random lanes): ok equal to the construction too "
+                 f"({k25['mask']['ok_lanes']} passing)"),
     }
     for key, label in labels25.items():
-        r, b = k25[key], bounds25[key]
+        r, b, fb = k25[key], bounds25[key], first_bounds25[key]
         log(f"scalar25519 ({r['mode']}) {label}: equal to the plain version on every lane "
             f"(max abs err {r['max_abs_err']})")
         log(f"  kernel {r['ms']:.6f} ms a call through the wrapper (CUDA events, mean of 20 "
             f"after warm-up); {r['launch_ms']:.6f} ms a launch alone (mean of 20 back to back "
             f"on preallocated outputs); {r['graph_ms']:.6f} ms a launch replayed from a CUDA "
             f"graph of 20 (the device's time)")
+        log(f"  first design (one thread a lane, the digest as byte rows, no checks; its "
+            f"digits equal to the plain version's, max abs err {r['first_max_abs_err']}): "
+            f"{r['first_launch_ms']:.6f} ms a launch alone; from graphs in turns (this design, "
+            f"the first, the first, this): "
+            + ", ".join(f"{t:.6f}" for t in r["turns_ms"]) + " ms")
         log(f"  plain torch version {r['plain_ms']:.6f} ms (mean of 3, CUDA events); the stage "
             f"on the host clock through the device's finish: {r['host_ms']:.6f} ms through L1, "
             f"{r['plain_host_ms']:.6f} ms by the plain version on the card")
@@ -5530,11 +5833,18 @@ def main() -> int:
             f"{L1_MULS[r['mode']][0]} field multiplications a lane (+{L1_MULS[r['mode']][1]} "
             f"a call) x {MUL_PRODUCTS} 32x32->64 products = {b['products']} IMAD.WIDE over "
             f"{sm_count} SMs x {IMAD_PER_CLOCK_PER_SM}/clock x {sm_clock_hz / 1e6:.0f} MHz = "
-            f"{b['ops_ms']:.6f} ms; {b['bytes']} bytes over 3.35 TB/s = {b['bytes_ms']:.6f} ms; "
-            f"kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it through the wrapper, "
-            f"{100 * b['bound_ms'] / r['launch_ms']:.3f} % alone, "
-            f"{100 * b['bound_ms'] / r['graph_ms']:.3f} % from a graph; {card}")
+            f"{b['ops_ms']:.6f} ms; {b['bytes']} bytes read and written over 3.35 TB/s = "
+            f"{b['bytes_ms']:.6f} ms; kernel at {100 * b['bound_ms'] / r['ms']:.3f} % of it "
+            f"through the wrapper, {100 * b['bound_ms'] / r['launch_ms']:.3f} % alone, "
+            f"{100 * b['bound_ms'] / r['graph_ms']:.3f} % from a graph; on the first design's "
+            f"bytes ({fb['bytes']}, bound {fb['bound_ms']:.6f} ms): "
+            f"{100 * fb['bound_ms'] / r['graph_ms']:.3f} % from a graph, the first design "
+            f"{100 * fb['bound_ms'] / r['first_graph_ms']:.3f} %; {card}")
+    log(f"  launch floor: an empty kernel (one thread) replayed from a CUDA graph of 20: "
+        + ", ".join(f"{t:.6f}" for t in empty_ms) + f" ms a launch; {card}")
     log_ptxas(infos["scalar25519"])
+    log("  first design's build:")
+    log_ptxas(infos["scalar25519_first"])
     log("  library: none (no PyTorch call reduces mod L or recodes signed digits)")
     log(f"phase 25 took {time.perf_counter() - t25:.3f} s (host clock)")
 
@@ -5588,6 +5898,7 @@ def main() -> int:
             "max_abs_err": k13["max_abs_err"],
             "ms": k13["ms"],
             "launch_ms": k13["launch_ms"],
+            "graph_ms": k13["graph_ms"],
             "plain_ms": k13["plain_ms"],
             "bound_ms": bound13["bound_ms"],
             "bound_by": bound13["bound_by"],
@@ -5602,6 +5913,7 @@ def main() -> int:
             "max_abs_err": k18["d1"]["max_abs_err"],
             "ms": k18["d1"]["ms"],
             "launch_ms": k18["d1"]["launch_ms"],
+            "graph_ms": k18["d1"]["graph_ms"],
             "plain_ms": k18["d1"]["plain_ms"],
             "bound_ms": bounds18["d1"]["bound_ms"],
             "bound_by": bounds18["d1"]["bound_by"],
@@ -5616,6 +5928,7 @@ def main() -> int:
             "max_abs_err": k18["d2"]["max_abs_err"],
             "ms": k18["d2"]["ms"],
             "launch_ms": k18["d2"]["launch_ms"],
+            "graph_ms": k18["d2"]["graph_ms"],
             "plain_ms": k18["d2"]["plain_ms"],
             "bound_ms": bounds18["d2"]["bound_ms"],
             "bound_by": bounds18["d2"]["bound_by"],
@@ -5630,6 +5943,7 @@ def main() -> int:
             "max_abs_err": k21["max_abs_err"],
             "ms": m1["ms"],
             "launch_ms": m1["launch_ms"],
+            "graph_ms": m1["graph_ms"],
             "plain_ms": m1["plain_ms"],
             "bound_ms": m1["bound"]["bound_ms"],
             "bound_by": m1["bound"]["bound_by"],
@@ -5684,12 +5998,13 @@ def main() -> int:
             "name": "scalar25519",
             "route": "cuda",
             "source": "consensus_tpu_torch/csrc/scalar25519.cu",
-            "replaces": None,
+            "replaces": "consensus_tpu/ops/scalar25519.py:68",
             "launches": f14["l1"],
             "max_abs_err": max(r["max_abs_err"] for r in k25.values()),
             "ms": k25["strict"]["ms"],
             "launch_ms": k25["strict"]["launch_ms"],
             "graph_ms": k25["strict"]["graph_ms"],
+            "first_graph_ms": k25["strict"]["first_graph_ms"],
             "plain_ms": k25["strict"]["plain_ms"],
             "bound_ms": bounds25["strict"]["bound_ms"],
             "bound_by": bounds25["strict"]["bound_by"],

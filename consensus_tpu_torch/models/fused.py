@@ -9,8 +9,8 @@ movement (slicing ``R || A || M`` into padded SHA-512 blocks,
 :func:`consensus_tpu_torch.ops.sha512.pad_messages`); one device pass per
 wave does the rest:
 
-    SHA-512 (kernel S1) -> reduce mod L -> digit recode -> canonical checks
-    -> decompress -> [k](-A) (kernel B1) -> comb -> verdict
+    SHA-512 (kernel S1) -> reduce mod L, digit recode and canonical checks
+    (kernel L1) -> decompress -> [k](-A) (kernel B1) -> comb -> verdict
 
 For the randomized-batch and half-aggregation paths the Fiat-Shamir
 transcript moves to the device too: the per-lane leaf hashes, the root hash
@@ -160,36 +160,32 @@ def _to_device(arrays: Sequence[np.ndarray], device: torch.device, *, pin: bool 
 
 
 def fused_verify_impl(
-    sig_rows: torch.Tensor,  # (64, batch) signature bytes R || S
-    key_rows: torch.Tensor,  # (32, batch) public-key bytes
+    sig_rows: torch.Tensor,  # (64, batch) uint8 signature bytes R || S
+    key_rows: torch.Tensor,  # (32, batch) uint8 public-key bytes
     blocks: torch.Tensor,    # (B, 16, 2, batch) int32 padded SHA-512(R||A||M) blocks
     n_blocks: torch.Tensor,  # (batch,) int32 active block counts
-    host_ok: torch.Tensor,   # (batch,) host length checks passed
+    host_ok: torch.Tensor,   # (batch,) bool: host length checks passed
 ) -> torch.Tensor:
     """The fused strict body: the whole front end on the device (S1 for the
-    hash, L1 for k = H mod L and its digits), then the host-prep engine's
-    device body (:func:`consensus_tpu_torch.models.ed25519.verify_impl`, B1)
-    with the S bytes as the comb's 8-bit digits.  Each front-end stage runs
-    in a ``record_function`` range ``ed25519.fused.<stage>``;
-    ``verify_impl`` keeps its own."""
-    sig = sig_rows.to(torch.int32)
-    key = key_rows.to(torch.int32)
+    hash; L1 for k = H mod L and its digits, read from S1's state words, and
+    the canonical checks S < L, y_R < p, y_A < p in the same launch), then
+    the host-prep engine's device body
+    (:func:`consensus_tpu_torch.models.ed25519.verify_impl`, B1) with the S
+    bytes as the comb's 8-bit digits.  Each front-end stage runs in a
+    ``record_function`` range ``ed25519.fused.<stage>``; ``verify_impl``
+    keeps its own."""
     with record_function("ed25519.fused.sha512"):
-        digest = sh.digest_bytes(sh.sha512_blocks(blocks, n_blocks))
+        state = sh.sha512_blocks(blocks, n_blocks)
     with record_function("ed25519.fused.scalars"):
-        k_digits = sc.scalar_challenge(digest)
+        k_digits, ok = sc.scalar_challenge_checked(state, sig_rows, key_rows, host_ok)
     with record_function("ed25519.fused.checks"):
+        sig = sig_rows.to(torch.int32)
+        key = key_rows.to(torch.int32)
         s_bytes = sig[32:]
         y_r = torch.cat([sig[:31], (sig[31] & 0x7F)[None]])
         sign_r = sig[31] >> 7
         y_a = torch.cat([key[:31], (key[31] & 0x7F)[None]])
         sign_a = key[31] >> 7
-        ok = (
-            host_ok
-            & sc.lt_l(s_bytes)       # RFC 8032 5.1.7 malleability
-            & fe.bytes_lt_p(y_r)     # canonical encodings
-            & fe.bytes_lt_p(y_a)
-        )
     return verify_impl(y_r, sign_r, y_a, sign_a, s_bytes, k_digits, ok)
 
 
@@ -199,7 +195,8 @@ class FusedEd25519BatchVerifier(Ed25519BatchVerifier):
     Same contract and bit-identical verdicts as
     :class:`~consensus_tpu_torch.models.ed25519.Ed25519BatchVerifier`; the
     host work per wave is one pass of byte slicing into the block layout.
-    A device call launches S1 and B1 once each on the card."""
+    A device call launches S1, L1, D1, B1, D2 and E1 once each on the
+    card."""
 
     fused = True
 
@@ -387,10 +384,10 @@ def aggregate_leaves(
     """The aggregate body's first stage, lane by lane: the challenge scalars
     ``k_i = H(R_i || A_i || m_i) mod L`` ((32, lanes) bytes) and the
     transcript leaf digests ((64, lanes)).  On the card it launches S1
-    twice and L1 once."""
+    twice and L1 once; L1 reads the challenge hash's state words as S1
+    leaves them."""
     with record_function("ed25519.fused.challenge"):
-        k_bytes = sc.scalar_challenge(
-            sh.digest_bytes(sh.sha512_blocks(k_blocks, k_nblocks)), digits=False)
+        k_bytes = sc.scalar_challenge(sh.sha512_blocks(k_blocks, k_nblocks), digits=False)
     with record_function("ed25519.fused.transcript"):
         leaves = sh.digest_bytes(sh.sha512_blocks(leaf_blocks, leaf_nblocks))
     return k_bytes, leaves

@@ -25,11 +25,15 @@ Both modules book their byte products into the field-operation counting
 shim (``limbs.note_byte_muls``) at the same sites, and the window recoding
 runs as a ``limbs.counted_scan``.
 
-The fused bodies reach the stage through two wrappers of kernel L1
+The fused bodies reach the stage through three wrappers of kernel L1
 (``csrc/scalar25519.cu``): :func:`scalar_challenge` (k = H mod L, as digits
-or bytes) and :func:`scalar_aggregate` (the digits of z k and z, and u = sum
-z s mod L).  On a CUDA tensor each launches L1 once or raises; on a CPU
-tensor it runs its plain version (:func:`scalar_challenge_reference`,
+or bytes, from kernel S1's state words or a digest's byte rows),
+:func:`scalar_challenge_checked` (k's digits and the fused strict body's
+canonical checks S < L, y_R < p, y_A < p) and :func:`scalar_aggregate` (the
+digits of z k and z, and u = sum z s mod L).  On a CUDA tensor each launches
+L1 once or raises; on a CPU tensor it runs its plain version
+(:func:`scalar_challenge_reference`,
+:func:`scalar_challenge_checked_reference`,
 :func:`scalar_aggregate_reference`: the functions above, unchanged, so the
 counting shim's notes and the JAX parity stay as they were).
 """
@@ -43,8 +47,10 @@ import numpy as np
 import torch
 
 from consensus_tpu_torch.obs.kernels import KERNELS as LEDGER
+from consensus_tpu_torch.ops import field25519 as fe
 from consensus_tpu_torch.ops import limbs
 from consensus_tpu_torch.ops import scan_kernels
+from consensus_tpu_torch.ops import sha512 as sh
 
 #: Group order of edwards25519 (RFC 8032) and its sparse-form tail.
 L = 2**252 + 27742317777372353535851937790883648493
@@ -184,20 +190,85 @@ def signed_window_digits(k_bytes: torch.Tensor, windows: int = 64) -> torch.Tens
 #: Windows of the recodings: a scalar below 2^253, a 128-bit coefficient.
 K_WINDOWS = 64
 Z_WINDOWS = 33
-#: L1's lanes a block: the aggregate sum's scratch is one row of 8 uint64 a
-#: block (csrc/scalar25519.cu).
-L1_LANES = 64
+#: L1's lanes a block in challenge mode and in aggregate mode, whose sum's
+#: scratch is one row of 8 uint64 a block (csrc/scalar25519.cu).
+L1_LANES = 16
+L1_SUM_LANES = 64
 _L1_SUM_WORDS = 8
 _MODE_CHALLENGE, _MODE_AGGREGATE = 0, 1
 
 
+def _challenge_rows(h: torch.Tensor) -> int:
+    """0 where ``h`` is kernel S1's state ``(8, 2, lanes)``, else the byte
+    rows of a digest ``(1..64, lanes)``; raises on any other shape."""
+    if h.dim() == 3 and tuple(h.shape[:2]) == (8, 2):
+        return 0
+    rows = h.shape[0] if h.dim() == 2 else 0
+    if not 1 <= rows <= 64:
+        raise ValueError(f"scalar25519: the digest must be (1..64, lanes) or S1's state "
+                         f"(8, 2, lanes), got {tuple(h.shape)}")
+    return rows
+
+
+def _digest(h: torch.Tensor) -> torch.Tensor:
+    """The digest's byte rows of ``h`` (a state's through
+    :func:`~consensus_tpu_torch.ops.sha512.digest_bytes`)."""
+    return sh.digest_bytes(h) if _challenge_rows(h) == 0 else h
+
+
+def _check_challenge(h: torch.Tensor, checks=None) -> tuple[int, int]:
+    """Check the challenge input (int32, contiguous, one device) and the
+    canonical checks' rows where given (``(sig_rows (64, lanes), key_rows
+    (32, lanes))`` uint8 and ``host_ok (lanes,)`` bool); returns (rows,
+    lanes), rows 0 for a state."""
+    rows = _challenge_rows(h)
+    flat = h
+    if rows == 0:
+        if not h.is_contiguous():
+            raise ValueError("scalar25519: inputs must be contiguous")
+        flat = h.view(16, h.shape[2])
+    n = scan_kernels._check_inputs(
+        "scalar25519", {}, {"digest": (flat, rows or 16)},
+        masks=None if checks is None else {"host_ok": checks[2]})
+    if checks is not None:
+        for label, t, width in (("sig_rows", checks[0], 64), ("key_rows", checks[1], 32)):
+            if t.dtype != torch.uint8:
+                raise TypeError(f"scalar25519: {label} must be uint8, got {t.dtype}")
+            if tuple(t.shape) != (width, n):
+                raise ValueError(f"scalar25519: {label} must be ({width}, {n}), got "
+                                 f"{tuple(t.shape)}")
+            if t.device != h.device:
+                raise ValueError("scalar25519: all inputs must be on one device")
+            if not t.is_contiguous():
+                raise ValueError("scalar25519: inputs must be contiguous")
+    return rows, n
+
+
 def scalar_challenge_reference(digest: torch.Tensor, *, digits: bool = True) -> torch.Tensor:
     """The plain version of L1's challenge mode: k = digest mod L
-    (:func:`reduce_bytes_mod_l`), then its :data:`K_WINDOWS` signed window
-    digits (:func:`signed_window_digits`), or k's bytes where ``digits`` is
+    (:func:`reduce_bytes_mod_l`; a state's digest from ``digest_bytes``),
+    then its :data:`K_WINDOWS` signed window digits
+    (:func:`signed_window_digits`), or k's bytes where ``digits`` is
     false."""
-    k = reduce_bytes_mod_l(digest)
+    k = reduce_bytes_mod_l(_digest(digest))
     return signed_window_digits(k, K_WINDOWS) if digits else k
+
+
+def scalar_challenge_checked_reference(
+    h: torch.Tensor, sig_rows: torch.Tensor, key_rows: torch.Tensor, host_ok: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of L1's challenge mode with the fused strict body's
+    canonical checks: k's digits (:func:`scalar_challenge_reference`) and
+    ``ok = host_ok & (S < L) & (y_R < p) & (y_A < p)``, each y with its
+    sign bit masked (RFC 8032 5.1.7's malleability check and the canonical
+    encodings), by :func:`lt_l` and ``field25519.bytes_lt_p``."""
+    k_digits = scalar_challenge_reference(h)
+    sig = sig_rows.to(torch.int32)
+    key = key_rows.to(torch.int32)
+    y_r = torch.cat([sig[:31], (sig[31] & 0x7F)[None]])
+    y_a = torch.cat([key[:31], (key[31] & 0x7F)[None]])
+    ok = host_ok & lt_l(sig[32:]) & fe.bytes_lt_p(y_r) & fe.bytes_lt_p(y_a)
+    return k_digits, ok
 
 
 def scalar_aggregate_reference(
@@ -212,28 +283,52 @@ def scalar_aggregate_reference(
     return zk_digits, z_digits, u
 
 
-def scalar_challenge(digest: torch.Tensor, *, digits: bool = True) -> torch.Tensor:
-    """The challenge scalars k = H mod L per lane from the digest's
-    little-endian byte rows ``(n_bytes, lanes)`` int32 (n_bytes <= 64, each
-    a byte): their ``(64, lanes)`` signed window digits (d + 8, most
-    significant window first) or, where ``digits`` is false, their canonical
-    ``(32, lanes)`` bytes.  On CUDA one launch of kernel L1 writes the plain
-    version's values; on the CPU it is the plain version's output."""
-    rows = digest.shape[0] if digest.dim() == 2 else 0
-    if not 1 <= rows <= 64:
-        raise ValueError(f"scalar25519: the digest must be (1..64, lanes), got "
-                         f"{tuple(digest.shape)}")
-    n = scan_kernels._check_inputs("scalar25519", {}, {"digest": (digest, rows)})
-    device = digest.device
-    if device.type == "cpu":
-        return scalar_challenge_reference(digest, digits=digits)
+def _challenge_launch(h, rows: int, n: int, digits: bool, checks=None):
+    """One launch of L1's challenge mode: (k's digits or bytes, ok or None)."""
+    device = h.device
     out = torch.empty((K_WINDOWS if digits else 32, n), dtype=torch.int32, device=device)
+    ok = None if checks is None else torch.empty(n, dtype=torch.bool, device=device)
+    sig, key, host_ok = checks if checks is not None else (None, None, None)
     scan_kernels._launch(
-        "scalar25519", (digest, None, None),
-        (out if digits else None, None, None if digits else out, None, None),
+        "scalar25519", (h, None, None, sig, key, host_ok),
+        (out if digits else None, None, None if digits else out, ok, None, None),
         n, device, (_MODE_CHALLENGE, rows))
     LEDGER.record_launch("scalar25519")
-    return out
+    return out, ok
+
+
+def scalar_challenge(h: torch.Tensor, *, digits: bool = True) -> torch.Tensor:
+    """The challenge scalars k = H mod L per lane from the SHA-512 digest
+    ``h``: kernel S1's state ``(8, 2, lanes)`` int32 as
+    ``ops/sha512.py::sha512_blocks`` returns it, or the digest's
+    little-endian byte rows ``(n_bytes, lanes)`` int32 (n_bytes <= 64, each a
+    byte).  Returns k's ``(64, lanes)`` signed window digits (d + 8, most
+    significant window first) or, where ``digits`` is false, its canonical
+    ``(32, lanes)`` bytes.  On CUDA one launch of kernel L1 reads the state
+    words as they are and writes the plain version's values; on the CPU it
+    is the plain version's output (a state's digest from
+    ``digest_bytes``)."""
+    rows, n = _check_challenge(h)
+    if h.device.type == "cpu":
+        return scalar_challenge_reference(h, digits=digits)
+    return _challenge_launch(h, rows, n, digits)[0]
+
+
+def scalar_challenge_checked(
+    h: torch.Tensor, sig_rows: torch.Tensor, key_rows: torch.Tensor, host_ok: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused strict body's scalar stage: k's ``(64, lanes)`` digits as
+    :func:`scalar_challenge` writes them, and the canonical checks ``ok =
+    host_ok & (S < L) & (y_R < p) & (y_A < p)`` ``(lanes,)`` bool over the
+    signature rows ``(64, lanes)`` and key rows ``(32, lanes)`` (uint8, as
+    the engines put them on the device).  On CUDA both come from one launch
+    of kernel L1; on the CPU from the plain version
+    (:func:`scalar_challenge_checked_reference`)."""
+    checks = (sig_rows, key_rows, host_ok)
+    rows, n = _check_challenge(h, checks)
+    if h.device.type == "cpu":
+        return scalar_challenge_checked_reference(h, *checks)
+    return _challenge_launch(h, rows, n, True, checks)
 
 
 def scalar_aggregate(
@@ -259,8 +354,9 @@ def scalar_aggregate(
     u = partials = None
     if s is not None:
         u = new(32, 1)
-        partials = new(-(-n // L1_LANES) * _L1_SUM_WORDS, dtype=torch.int64)
-    scan_kernels._launch("scalar25519", (z, k, s), (zk_digits, z_digits, None, u, partials),
+        partials = new(-(-n // L1_SUM_LANES) * _L1_SUM_WORDS, dtype=torch.int64)
+    scan_kernels._launch("scalar25519", (z, k, s, None, None, None),
+                         (zk_digits, z_digits, None, None, u, partials),
                          n, device, (_MODE_AGGREGATE, 16))
     LEDGER.record_launch("scalar25519")
     return zk_digits, z_digits, u
@@ -270,6 +366,7 @@ __all__ = [
     "K_WINDOWS",
     "L",
     "L1_LANES",
+    "L1_SUM_LANES",
     "L_BYTES_LE",
     "Z_WINDOWS",
     "lt_l",
@@ -278,6 +375,8 @@ __all__ = [
     "scalar_aggregate",
     "scalar_aggregate_reference",
     "scalar_challenge",
+    "scalar_challenge_checked",
+    "scalar_challenge_checked_reference",
     "scalar_challenge_reference",
     "signed_window_digits",
     "sum_mod_l",

@@ -14,8 +14,8 @@ the Ed25519 add-and-compare (E1, :func:`add_and_equal` and
 :func:`add_is_identity`), the P-256 fixed-base comb [u1]G (P1,
 :func:`fixed_base_mul_comb_p256`) and the P-256 verdict (P2,
 :func:`verdict_p256`), and the fused front end's scalar stage (L1, whose
-wrappers are ``ops/scalar25519.py::scalar_challenge`` and
-``::scalar_aggregate``).
+wrappers are ``ops/scalar25519.py::scalar_challenge``,
+``::scalar_challenge_checked`` and ``::scalar_aggregate``).
 
 Each wrapper dispatches on the tensors it is given: on a CUDA tensor it
 launches its kernel from ``consensus_tpu_torch/csrc/`` or raises; on a CPU
@@ -94,8 +94,9 @@ KERNELS = {
     "comb_p256": (_CSRC / "comb_p256.cu", 5, ()),
     "verdict_p256": (_CSRC / "verdict_p256.cu", 13, ()),
     # Kernel L1, the fused front end's scalar stage; its wrappers are
-    # ops/scalar25519.py::scalar_challenge and ::scalar_aggregate.
-    "scalar25519": (_CSRC / "scalar25519.cu", 8, ("mode", "a_rows")),
+    # ops/scalar25519.py::scalar_challenge, ::scalar_challenge_checked and
+    # ::scalar_aggregate.
+    "scalar25519": (_CSRC / "scalar25519.cu", 12, ("mode", "a_rows")),
 }
 
 #: Loaded libraries, name -> (library, BuildInfo), and the lock that

@@ -1,12 +1,12 @@
 """Design trials of kernels E1 (the Ed25519 add-and-compare), P1 (the
-P-256 fixed-base comb) and P2 (the P-256 verdict) on one NVIDIA GPU.
+P-256 fixed-base comb), P2 (the P-256 verdict) and L1 (the fused scalar
+stage) on one NVIDIA GPU.
 
     python3 scripts/e1_p1_trials.py [ALTERNATIVE.cu ...]
 
 Builds the designs in ``consensus_tpu_torch/csrc/`` (``verdict25519.cu``,
-``comb_p256.cu``, ``verdict_p256.cu``) and every alternative named on the
-command line side by
-side.  An alternative is a copy of one of them with the same C entry point,
+``comb_p256.cu``, ``verdict_p256.cu``, ``scalar25519.cu``) and every
+alternative named on the command line side by side.  An alternative is a copy of one of them with the same C entry point,
 named ``<kernel>_<design>.cu``; it is built against csrc's headers.  One
 nvcc per source, all started together, into
 ``consensus_tpu_torch/csrc/build/trials/``; a design that does not build is
@@ -16,7 +16,14 @@ wave (7 replicas x 1,000 requests with every rejection class, 8,192 lanes:
 acc, comb and R from B1, D2 and D1) and its identity mode on that wave's
 first lane; P1 on the config-2 wave's u1 digits (4 replicas x 500
 requests, 2,048 lanes) and on its first lane; P2 on that wave's own
-inputs (acc from B2, comb from P1) and on its first lane.  Each design is
+inputs (acc from B2, comb from P1) and on its first lane; L1's challenge
+mode on the config-3 wave's S1 states with its signature and key rows
+and host_ok (8,192 lanes: digits and the canonical checks, the digits
+alone, the bytes; the first design reads the digests as byte rows and does
+no checks) and its aggregate mode on z, k and s of 8,192 lanes (with s, and
+without as a certificate's, also on a certificate's 8 lanes), and each on
+one lane; and an empty kernel, the
+launch floor.  Each design is
 checked against the plain version at tolerance 0 (E1's and P2's verdicts;
 P1's point projectively, ``chip_smoke.p256_projective_max_err``), then its
 launches
@@ -34,7 +41,12 @@ alternatives (``git show <commit>:consensus_tpu_torch/csrc/comb_p256.cu >
 dist/comb_p256_first.cu``).  P1's table now holds b x beside (x, y), 24
 words an entry: an older P1 reads it after its ``ENTRY_WORDS`` is set to
 24.  P2's first design (one thread a lane through the header's serial
-add) is kept beside this script, ``e1_p1_trials/verdict_p256_first.cu``.
+add) is kept beside this script, ``e1_p1_trials/verdict_p256_first.cu``,
+and so is L1's (one thread a lane, Barrett reduction, a serial recoding
+carry), ``e1_p1_trials/scalar25519_first.cu``, whose C entry point takes 8
+pointers where csrc's takes 12, and L1's group of 8 threads a lane (with
+the aggregate products formed whole on each role of a half),
+``e1_p1_trials/scalar25519_group8.cu``.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -52,13 +65,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from consensus_tpu_torch.models import ecdsa_p256 as mp  # noqa: E402
 from consensus_tpu_torch.models import ed25519 as med  # noqa: E402
+from consensus_tpu_torch.models.fused import FusedEd25519BatchVerifier  # noqa: E402
 from consensus_tpu_torch.ops import field_p256 as fp  # noqa: E402
 from consensus_tpu_torch.ops import p256  # noqa: E402
+from consensus_tpu_torch.ops import scalar25519 as sc  # noqa: E402
 from consensus_tpu_torch.ops import scan_kernels  # noqa: E402
+from consensus_tpu_torch.ops import sha512 as sh  # noqa: E402
 
 TRIALS = scan_kernels.BUILD_DIR / "trials"
 #: kernel -> (pointer arguments, int arguments) of its C launch function.
-KERNELS = {"verdict25519": (16, 3), "comb_p256": (5, 1), "verdict_p256": (13, 1)}
+KERNELS = {"verdict25519": (16, 3), "comb_p256": (5, 1), "verdict_p256": (13, 1),
+           "scalar25519": (12, 3)}
+#: Designs whose C launch function differs from their kernel's.
+INTERFACES = {("scalar25519", "first"): (8, 3)}
 REPS = 50
 ROUNDS = 3
 
@@ -97,7 +116,7 @@ def build_all(sources: dict) -> dict:
         figures = {k: v for k, v in cs.ptxas_summary(report).items() if "registers" in v}
         print(f"{name} {design}: built; ptxas {figures}", flush=True)
         launch = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
-        pointers, ints = KERNELS[name]
+        pointers, ints = INTERFACES.get((name, design), KERNELS[name])
         launch.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * (ints + 1) + [
             ctypes.c_void_p]
         launch.restype = ctypes.c_int
@@ -113,10 +132,83 @@ def run(launch, pointers, ints, device) -> None:
         raise RuntimeError(f"launch failed: {code}")
 
 
+def l1_strict_inputs(wave, device) -> tuple:
+    """The fused strict body's arguments of L1 on ``wave``: S1's states of
+    its challenge hashes, its signature and key rows and host_ok."""
+    engine = FusedEd25519BatchVerifier(device=device)
+    sig, key, blocks, n_blocks, host_ok = engine._device_args(*wave[:3])
+    return sh.sha512_blocks(blocks, n_blocks), sig, key, host_ok
+
+
+def l1_aggregate_inputs(lanes: int, device, seed: int = cs.SEED) -> tuple:
+    """(z (16, lanes), k (32, lanes), s (32, lanes)) int32 byte rows: random
+    128-bit coefficients, k and s random below L."""
+    rng = np.random.default_rng(seed)
+    below_l = lambda: [int.from_bytes(rng.bytes(32), "little") % sc.L for _ in range(lanes)]
+    z = torch.from_numpy(rng.integers(0, 256, (16, lanes)).astype(np.int32)).to(device)
+    return z, cs._int_rows(below_l(), 32, device), cs._int_rows(below_l(), 32, device)
+
+
+def l1_challenge_case(state, sig, key, host_ok, form: str = "checks"):
+    """L1's challenge mode from S1's state: k's digits with the canonical
+    checks (``form`` "checks", the fused strict body's), its digits alone
+    ("digits") or its bytes ("bytes", the aggregate body's), against the
+    plain versions; the first design reads the digest's byte rows and has no
+    checks (its "checks" case writes the digits alone)."""
+    n, device = state.shape[-1], state.device
+    want_digits, want_ok = sc.scalar_challenge_checked_reference(state, sig, key, host_ok)
+    want_bytes = sc.scalar_challenge_reference(state, digits=False)
+    digest = sh.digest_bytes(state).contiguous()
+
+    def spec(design):
+        digits = form != "bytes"
+        out = torch.full((64 if digits else 32, n), -7, dtype=torch.int32, device=device)
+        ok = torch.ones(n, dtype=torch.bool, device=device) & ~want_ok
+        outs = (out if digits else None, None, None if digits else out)
+        if design == "first":
+            pointers = [digest, None, None, *outs, None, None]
+        elif form == "checks":
+            pointers = [state, None, None, sig, key, host_ok, *outs, ok, None, None]
+        else:
+            pointers = [state, None, None, None, None, None, *outs, None, None, None]
+
+        def check(_):
+            assert torch.equal(out, want_digits if digits else want_bytes), "k"
+            assert design == "first" or form != "checks" or torch.equal(ok, want_ok), "ok"
+        return pointers, (n, 0, 64 if design == "first" else 0), check
+
+    return spec
+
+
+def l1_aggregate_case(z, k, s=None):
+    """L1's aggregate mode with s (a randomized check's) or without (a
+    certificate's) against the plain version's digits and u."""
+    n, device = z.shape[1], z.device
+    want = sc.scalar_aggregate_reference(z, k, s)
+
+    def spec(design):
+        outs = [torch.full((w, n), -7, dtype=torch.int32, device=device) for w in (64, 33)]
+        u = partials = None
+        if s is not None:
+            u = torch.full((32, 1), -7, dtype=torch.int32, device=device)
+            partials = torch.empty(-(-n // sc.L1_SUM_LANES) * 8, dtype=torch.int64,
+                                   device=device)
+        pointers = ([z, k, s, *outs, None, u, partials] if design == "first"
+                    else [z, k, s, None, None, None, *outs, None, None, u, partials])
+
+        def check(_):
+            for got, w in zip((*outs, u), want):
+                assert (got is None and w is None) or torch.equal(got, w)
+        return pointers, (n, 1, 16), check
+
+    return spec
+
+
 def cases(device) -> dict:
     """(kernel, case) -> (pointer arguments, int arguments, check): the
     outputs are the last pointers; check(outputs) raises unless they equal
-    the plain version's at tolerance 0."""
+    the plain version's at tolerance 0.  L1's cases are callables of the
+    design, each giving that design's arguments (see :func:`main`)."""
     wave = cs.replica_wave(cs.make_corpus(cs.REQUESTS, per_class=5), cs.REPLICAS)
     engine = med.Ed25519BatchVerifier(device=device)
     acc, comb, r_point, host_ok, r_ok, a_ok = cs.strict_tail_inputs(engine, *wave[:3])
@@ -157,6 +249,8 @@ def cases(device) -> dict:
     tail_one = [p256.Point(*map(lane0, tail[0])), p256.Point(*map(lane0, tail[1])),
                 *map(lane0, tail[2:])]
     out = torch.empty(lanes, dtype=torch.bool, device=device)
+    state, sig, key, l1_ok = l1_strict_inputs(wave, device)
+    z, k, s = l1_aggregate_inputs(lanes, device)
     return {
         ("verdict25519", f"strict {lanes}"): (
             [*acc, *comb, *r_point, host_ok, r_ok, a_ok, out],
@@ -168,6 +262,17 @@ def cases(device) -> dict:
         ("comb_p256", "1"): comb_case(u1d[:, :1].contiguous()),
         ("verdict_p256", f"{u1d.shape[1]}"): p2_case(tail),
         ("verdict_p256", "1"): p2_case(tail_one),
+        ("scalar25519", f"challenge {lanes}"): l1_challenge_case(state, sig, key, l1_ok),
+        ("scalar25519", f"challenge digits {lanes}"): l1_challenge_case(
+            state, sig, key, l1_ok, "digits"),
+        ("scalar25519", f"challenge bytes {lanes}"): l1_challenge_case(
+            state, sig, key, l1_ok, "bytes"),
+        ("scalar25519", "challenge 1"): l1_challenge_case(*map(lane0, (state, sig, key, l1_ok))),
+        ("scalar25519", f"aggregate {lanes}"): l1_aggregate_case(z, k, s),
+        ("scalar25519", f"certificate {lanes}"): l1_aggregate_case(z, k),
+        ("scalar25519", "certificate 8"): l1_aggregate_case(
+            *(t[:, :8].contiguous() for t in (z, k))),
+        ("scalar25519", "aggregate 1"): l1_aggregate_case(*map(lane0, (z, k, s))),
     }
 
 
@@ -181,12 +286,20 @@ def main(alternatives) -> int:
     equal: dict = {}
     times: dict = {}
     graphs: dict = {}
-    for (name, case), (pointers, ints, check) in cases(device).items():
+    for (name, case), spec in cases(device).items():
         order = [d for n, d in built if n == name]
+        # A callable spec gives each design its own arguments, outputs
+        # poisoned, and a check that reads them (L1's first design takes
+        # other inputs than csrc's).
+        per_design = {d: spec(d) if callable(spec) else spec for d in order}
         for design in order:
-            outs = [torch.ones_like(t) if t.dtype == torch.bool else torch.full_like(t, -7.0)
-                    for t in pointers[-(3 if name == "comb_p256" else 1):]]
-            args = [*pointers[:len(pointers) - len(outs)], *outs]
+            pointers, ints, check = per_design[design]
+            if callable(spec):
+                outs, args = [], pointers
+            else:
+                outs = [torch.ones_like(t) if t.dtype == torch.bool else torch.full_like(t, -7.0)
+                        for t in pointers[-(3 if name == "comb_p256" else 1):]]
+                args = [*pointers[:len(pointers) - len(outs)], *outs]
             run(built[name, design][0], args, ints, device)
             torch.cuda.synchronize()
             try:
@@ -198,6 +311,7 @@ def main(alternatives) -> int:
                       flush=True)
         for turn in range(ROUNDS):
             for design in order if turn % 2 == 0 else order[::-1]:
+                pointers, ints, _ = per_design[design]
                 launch = built[name, design][0]
                 run(launch, pointers, ints, device)  # warm-up
                 start = torch.cuda.Event(enable_timing=True)
@@ -218,6 +332,10 @@ def main(alternatives) -> int:
               + ", ".join(f"{t:.6f}" for t in graphs[name, design, case])
               + f" ms a launch replayed from a CUDA graph of {REPS}; {verdict} the plain "
               "version at tolerance 0")
+    empty = cs.empty_launcher(cs.build_latency_probe().library)
+    floor = [cs.graph_ms(lambda: empty(device), REPS, device) for _ in range(ROUNDS)]
+    print("empty kernel (one thread): " + ", ".join(f"{t:.6f}" for t in floor)
+          + f" ms a launch replayed from a CUDA graph of {REPS}: the launch floor")
     card = cs.nvidia_smi("name,power.limit")
     print(json.dumps({
         "card": card,
@@ -225,6 +343,7 @@ def main(alternatives) -> int:
         "ms": {f"{n} {d} {c}": t for (n, d, c), t in times.items()},
         "graph_ms": {f"{n} {d} {c}": t for (n, d, c), t in graphs.items()},
         "equal": {f"{n} {d} {c}": e for (n, d, c), e in equal.items()},
+        "empty_graph_ms": floor,
     }))
     print(card)
     return 0 if all(equal.values()) and len(built) == len(sources) else 1

@@ -1229,6 +1229,31 @@ def test_l1_matches_plain_on_card(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 8192])
+def test_l1_aggregate_splits_the_largest_products_on_card(cuda_device, n):
+    """The aggregate mode's products split over a lane's roles, where every
+    row's carries run longest (z = 2^128 - 1, k and s = 2^256 - 1 or L - 1
+    on alternate lanes, random lanes between), with and without s: equal to
+    the plain version, tolerance 0."""
+    rng = np.random.default_rng(50 + n)
+
+    def rows(values, width):
+        raw = b"".join(v.to_bytes(width, "little") for v in values)
+        return torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).reshape(n, width).T
+                                .astype(np.int32).copy()).to(cuda_device)
+
+    big = lambda i, r: (2**256 - 1, sc.L - 1)[i % 2] if i % 3 else int.from_bytes(r, "little")
+    z = rows([2**128 - 1 if i % 3 else int.from_bytes(rng.bytes(16), "little")
+              for i in range(n)], 16)
+    k = rows([big(i, rng.bytes(32)) for i in range(n)], 32)
+    s = rows([big(i + 1, rng.bytes(32)) for i in range(n)], 32)
+    for got, want in zip(sc.scalar_aggregate(z, k, s), sc.scalar_aggregate_reference(z, k, s)):
+        assert torch.equal(got, want)
+    for got, want in zip(sc.scalar_aggregate(z, k)[:2], sc.scalar_aggregate_reference(z, k)[:2]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_l1_sums_l_minus_one_on_every_lane_on_card(cuda_device):
     """s = L - 1 on all 8,192 lanes: u = -(sum z) mod L."""
     n = 8192
@@ -1274,6 +1299,73 @@ def test_fused_bodies_never_run_the_plain_scalar_stage_on_card(cuda_device, monk
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 16, 300, 8192])
+def test_l1_reads_s1_states_and_checks_on_card(cuda_device, n):
+    """L1 from S1's state words: the challenge digits and bytes, and with
+    the signature and key rows the canonical checks' ok, against the plain
+    versions on the card, tolerance 0, over chip_smoke's check lanes (S = L
+    - 1, L, L + 1; y = p - 1 and p for R and A; sign bits; host_ok cleared)
+    and random ones; ok equal to the construction too; one launch a
+    call."""
+    from chip_smoke import scalar_check_inputs
+
+    state, sig, key, host_ok, want = scalar_check_inputs(cuda_device, n, seed=n)
+    before = KERNELS.stats("scalar25519").launches
+    digits, ok = sc.scalar_challenge_checked(state, sig, key, host_ok)
+    k_digits = sc.scalar_challenge(state)
+    k_bytes = sc.scalar_challenge(state, digits=False)
+    torch.cuda.synchronize()
+    assert KERNELS.stats("scalar25519").launches == before + 3
+    ref_digits, ref_ok = sc.scalar_challenge_checked_reference(state, sig, key, host_ok)
+    assert torch.equal(digits, ref_digits) and torch.equal(k_digits, ref_digits)
+    assert torch.equal(ok, ref_ok) and np.array_equal(ok.cpu().numpy(), want)
+    assert torch.equal(k_bytes, sc.scalar_challenge_reference(state, digits=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_fused_strict_body_hands_s1_to_l1_on_card(cuda_device, monkeypatch, shards):
+    """The fused strict body on the card, single and on 2 virtual shards,
+    with ``sha512.digest_bytes``, ``scalar25519.lt_l`` and
+    ``field25519.bytes_lt_p`` patched to raise: verdicts equal to the
+    host path's, and S1, L1, D1, B1, D2 and E1 launch once a shard; a fused
+    randomized wave's first digest pass comes after L1's first launch (the
+    challenges go from S1 to L1 as state words)."""
+    from consensus_tpu_torch.parallel import ShardedFusedEd25519Verifier, mesh_for_shards
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an eager stage ran between S1 and D1 on the card")
+
+    msgs, sigs, keys = _signed(24, seed=31)
+    sigs[3] = sigs[3][:32] + (int.from_bytes(sigs[3][32:], "little") + sc.L).to_bytes(
+        32, "little")  # S >= L
+    host = med.Ed25519BatchVerifier(device="cpu").verify_host(msgs, sigs, keys)
+    engine = (FusedEd25519BatchVerifier(device=cuda_device, min_device_batch=1) if shards == 1
+              else ShardedFusedEd25519Verifier(mesh_for_shards(2, [cuda_device] * 2),
+                                               device=cuda_device, min_device_batch=1))
+    with monkeypatch.context() as m:
+        for module, name in ((sh, "digest_bytes"), (sc, "lt_l"), (fe, "bytes_lt_p")):
+            m.setattr(module, name, refuse)
+        before = _launches()
+        got = engine.verify_batch(msgs, sigs, keys)
+        torch.cuda.synchronize()
+    assert np.array_equal(got, host) and not got[3]
+    delta = {k: v for k, v in _delta(before).items() if v}
+    assert delta == {name: shards for name in ("sha512", "scalar25519", "decompress25519",
+                                               "horner_scan", "comb25519", "verdict25519")}
+
+    events: list[str] = []
+    orig_digest, orig_challenge = sh.digest_bytes, sc.scalar_challenge
+    monkeypatch.setattr(sh, "digest_bytes",
+                        lambda *a, **k: events.append("digest") or orig_digest(*a, **k))
+    monkeypatch.setattr(sc, "scalar_challenge",
+                        lambda *a, **k: events.append("l1") or orig_challenge(*a, **k))
+    rand = FusedEd25519RandomizedBatchVerifier(device=cuda_device, min_device_batch=1)
+    assert np.array_equal(rand.verify_batch(msgs, sigs, keys), host)
+    assert events and events[0] == "l1"
+
+
+@pytest.mark.cuda
 def test_l1_rejects_mixed_devices(cuda_device):
     z = torch.zeros((16, 4), dtype=torch.int32, device=cuda_device)
     k = torch.zeros((32, 4), dtype=torch.int32, device=cuda_device)
@@ -1281,3 +1373,10 @@ def test_l1_rejects_mixed_devices(cuda_device):
         sc.scalar_aggregate(z, k.cpu())
     with pytest.raises(ValueError, match="one device"):
         sc.scalar_aggregate(z, k, k.cpu())
+    state = torch.zeros((8, 2, 4), dtype=torch.int32, device=cuda_device)
+    sig = torch.zeros((64, 4), dtype=torch.uint8, device=cuda_device)
+    ok = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        sc.scalar_challenge_checked(state, sig, sig[:32].cpu(), ok)
+    with pytest.raises(ValueError, match="one device"):
+        sc.scalar_challenge_checked(state, sig, sig[:32].contiguous(), ok.cpu())

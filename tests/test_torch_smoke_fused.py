@@ -187,6 +187,9 @@ def test_chip_smoke_fused_phases_rehearse_on_cpu(monkeypatch):
     p = f["profiled"]
     assert list(p["ranges"]) == list(chip_smoke.FUSED_RANGES)
     assert p["busy_ms"] is None and f["peak_bytes"] is None
+    # The first call's ranges on the host clock, inside its end-to-end time.
+    assert list(f["first"]) == list(chip_smoke.FUSED_RANGES)
+    assert all(0 < ms <= f["wave_ms"] for ms in f["first"].values())
     assert f["fused_prep_ms"] > 0 and f["host_prep_ms"] > 0
 
 
