@@ -177,8 +177,11 @@ Phases:
    raises on a one-card machine.  Virtual shards measure the split and its
    launches, not scaling over cards.
 21. the tensor-core field lane (``CTPU_MXU_LIMBS=1``, kernel M1 of
-   ``csrc/mxu_limbs.cu``): M1's IMMA instructions counted in its SASS (none
-   fails the phase); M1 through its wrapper at 8,192, 2,048, 1,024 and 1
+   ``csrc/mxu_limbs.cu``): M1's tensor-core instructions (IMMA or a
+   warpgroup form) and all its instructions counted in its SASS (a function
+   with no tensor-core instruction fails the phase, and so does a stack
+   frame or a spill in ptxas's report); M1 through its wrapper at 8,192,
+   2,048, 1,024 and 1
    lanes and a (32, 1) constant against 8,192, over the three Ed25519 and
    two P-256 operand ranges, bit-identical (raw limbs) to the plain version
    on CPU copies and to the VPU lane's eager torch on the card; its time
@@ -3924,6 +3927,8 @@ INT8_OPS_PER_S = 1979e12
 #: constant against 8,192 lanes.
 MXU_WIDTHS = (8192, 2048, 1024, 1)
 MXU_BROADCAST_LANES = 8192
+#: Lanes a warp of M1 takes: 64 a warpgroup (wgmma's m).
+MXU_WARP_LANES = 16
 #: The operand ranges of tests/test_mxu_limbs.py: canonical bytes, one raw
 #: add/sub level and the subtraction bias's range; P-256's bytes and its
 #: weak bound.  The last of each is timed.
@@ -3951,9 +3956,20 @@ def mxu_bound(lanes: int, curve: str, n_bytes: int) -> dict:
     }
 
 
-def sass_imma_count(library: str) -> dict:
-    """The IMMA (integer tensor-core MMA) instructions of each function in
-    ``cuobjdump -sass`` of ``library``."""
+#: SASS mnemonics of the tensor cores' integer products: IMMA (mma.sync)
+#: and the warpgroup forms of wgmma (IGMMA for integers; HGMMA, QGMMA and
+#: the like for the other types).
+TENSOR_SASS = re.compile(r"\b(IMMA|[A-Z]?GMMA)\b")
+#: A SASS instruction line of cuobjdump: its address comment, then the
+#: instruction.
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_counts(library: str) -> dict:
+    """Per function in ``cuobjdump -sass`` of ``library``: its SASS
+    instructions (NOPs left out; the kernels' loops are unrolled, so this is
+    about what a warp runs) and its tensor-core instructions by mnemonic
+    (``IMMA``, ``IGMMA``, ...)."""
     cuobjdump = Path(scan_kernels._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True,
                          text=True, check=True).stdout
@@ -3962,10 +3978,34 @@ def sass_imma_count(library: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and re.search(r"\bIMMA\b", line):
-            counts[name] += 1
+            counts[name] = {"instructions": 0, "tensor": {}}
+            continue
+        m = SASS_LINE.search(line) if name is not None else None
+        if m is None or m.group(1).startswith("NOP"):
+            continue
+        counts[name]["instructions"] += 1
+        form = TENSOR_SASS.match(m.group(1))
+        if form:
+            tensor = counts[name]["tensor"]
+            tensor[form.group(1)] = tensor.get(form.group(1), 0) + 1
     return counts
+
+
+def check_mxu_build(sass: dict, ptxas: str) -> dict:
+    """Phase 21's gates on M1's build: every function of its library has
+    tensor-core instructions (IMMA or a warpgroup form), and ptxas reports
+    M1's kernels with no stack frame and no spills; returns ptxas's figures
+    (empty where an existing build was loaded and ptxas did not run)."""
+    if not sass or not all(sum(f["tensor"].values()) for f in sass.values()):
+        raise AssertionError(f"M1 has a function without tensor-core instructions: {sass}")
+    report = ptxas_summary(ptxas)
+    if ptxas and (sorted(k for k, r in report.items() if "registers" in r)
+                  != ["mxu_limbs_kernel<0>", "mxu_limbs_kernel<1>"]
+                  or any(r.get("stack") or r.get("spill_stores") or r.get("spill_loads")
+                         for r in report.values())):
+        raise AssertionError(f"M1's build: not one kernel a curve without a stack frame or "
+                             f"spills: {report}")
+    return report
 
 
 @contextlib.contextmanager
@@ -4976,7 +5016,10 @@ def _num(x) -> str:
 
 
 def log_mxu(k: dict, w: dict, sass: dict, info: scan_kernels.BuildInfo, card: str) -> None:
-    log(f"M1's IMMA instructions (cuobjdump -sass): {sass}")
+    for name, f in sass.items():
+        log(f"M1's SASS (cuobjdump -sass), {name}: {f['instructions']} instructions "
+            f"({f['instructions'] / MXU_WARP_LANES:.1f} a lane: {MXU_WARP_LANES} "
+            f"lanes a warp), tensor-core instructions {f['tensor']}")
     log_ptxas(info)
     log(f"M1 held at tolerance 0 (raw limbs, no freeze) to the plain version on CPU copies and "
         f"the VPU lane on the card: {k['checks']} products and squares over "
@@ -5664,9 +5707,8 @@ def main() -> int:
     # Phase 21: the tensor-core field lane, kernel M1.
     log("== phase 21: the tensor-core field lane (kernel M1, CTPU_MXU_LIMBS=1)")
     t21 = time.perf_counter()
-    sass21 = sass_imma_count(infos["mxu_limbs"].library)
-    if not sass21 or not all(sass21.values()):
-        raise AssertionError(f"M1 has a function without IMMA instructions: {sass21}")
+    sass21 = sass_counts(infos["mxu_limbs"].library)
+    check_mxu_build(sass21, infos["mxu_limbs"].ptxas)
     k21 = phase_mxu_kernel(device, reps=20, plain_reps=2)
     w21 = phase_mxu_waves(device, {"strict": corpus, "randomized": rand_corpus,
                                    "p256": p256_corpus})

@@ -1,11 +1,12 @@
 """Design trials of kernels E1 (the Ed25519 add-and-compare), P1 (the
-P-256 fixed-base comb), P2 (the P-256 verdict) and L1 (the fused scalar
-stage) on one NVIDIA GPU.
+P-256 fixed-base comb), P2 (the P-256 verdict), L1 (the fused scalar
+stage) and M1 (the tensor-core field product) on one NVIDIA GPU.
 
-    python3 scripts/e1_p1_trials.py [ALTERNATIVE.cu ...]
+    python3 scripts/e1_p1_trials.py [--kernel NAME ...] [ALTERNATIVE.cu ...]
 
 Builds the designs in ``consensus_tpu_torch/csrc/`` (``verdict25519.cu``,
-``comb_p256.cu``, ``verdict_p256.cu``, ``scalar25519.cu``) and every
+``comb_p256.cu``, ``verdict_p256.cu``, ``scalar25519.cu``,
+``mxu_limbs.cu``; with ``--kernel``, only the named kernels') and every
 alternative named on the command line side by side.  An alternative is a copy of one of them with the same C entry point,
 named ``<kernel>_<design>.cu``; it is built against csrc's headers.  One
 nvcc per source, all started together, into
@@ -22,8 +23,10 @@ and host_ok (8,192 lanes: digits and the canonical checks, the digits
 alone, the bytes; the first design reads the digests as byte rows and does
 no checks) and its aggregate mode on z, k and s of 8,192 lanes (with s, and
 without as a certificate's, also on a certificate's 8 lanes), and each on
-one lane; and an empty kernel, the
-launch floor.  Each design is
+one lane; M1 on both curves at the widths of
+``chip_smoke.py`` phase 21 (8,192, 2,048, 1,024 and 1 lanes, and a (32, 1)
+constant against 8,192 either side) on its widest operand range; and an
+empty kernel, the launch floor.  Each design is
 checked against the plain version at tolerance 0 (E1's and P2's verdicts;
 P1's point projectively, ``chip_smoke.p256_projective_max_err``), then its
 launches
@@ -46,7 +49,14 @@ and so is L1's (one thread a lane, Barrett reduction, a serial recoding
 carry), ``e1_p1_trials/scalar25519_first.cu``, whose C entry point takes 8
 pointers where csrc's takes 12, and L1's group of 8 threads a lane (with
 the aggregate products formed whole on each role of a half),
-``e1_p1_trials/scalar25519_group8.cu``.
+``e1_p1_trials/scalar25519_group8.cu``.  M1's first design (8 lanes a warp
+on ``mma.sync``, one thread a lane reducing) is
+``e1_p1_trials/mxu_limbs_first.cu``, and ``e1_p1_trials/mxu_limbs_wg1.cu``
+is the redesign as first written: one warpgroup a block on all 32 k-blocks
+with 64-column ``wgmma`` tiles, each thread loading its own operands; for M1
+the script also
+prints each design's SASS counts (``chip_smoke.sass_counts``: instructions
+and tensor-core instructions a kernel, and instructions a lane).
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from consensus_tpu_torch.models import ecdsa_p256 as mp  # noqa: E402
 from consensus_tpu_torch.models import ed25519 as med  # noqa: E402
 from consensus_tpu_torch.models.fused import FusedEd25519BatchVerifier  # noqa: E402
 from consensus_tpu_torch.ops import field_p256 as fp  # noqa: E402
+from consensus_tpu_torch.ops import mxu_limbs  # noqa: E402
 from consensus_tpu_torch.ops import p256  # noqa: E402
 from consensus_tpu_torch.ops import scalar25519 as sc  # noqa: E402
 from consensus_tpu_torch.ops import scan_kernels  # noqa: E402
@@ -75,16 +86,24 @@ from consensus_tpu_torch.ops import sha512 as sh  # noqa: E402
 TRIALS = scan_kernels.BUILD_DIR / "trials"
 #: kernel -> (pointer arguments, int arguments) of its C launch function.
 KERNELS = {"verdict25519": (16, 3), "comb_p256": (5, 1), "verdict_p256": (13, 1),
-           "scalar25519": (12, 3)}
+           "scalar25519": (12, 3), "mxu_limbs": (3, 4)}
 #: Designs whose C launch function differs from their kernel's.
 INTERFACES = {("scalar25519", "first"): (8, 3)}
+#: M1's lanes a warp by design (csrc's: 64 a warpgroup), for its SASS
+#: instructions a lane.
+MXU_WARP_LANES = {"first": 8}
+#: M1's shapes, (a lanes, b lanes): phase 21's widths, then a (32, 1)
+#: constant against the first width either side.
+MXU_SHAPES = [(n, n) for n in cs.MXU_WIDTHS] + [(1, cs.MXU_BROADCAST_LANES),
+                                                (cs.MXU_BROADCAST_LANES, 1)]
 REPS = 50
 ROUNDS = 3
 
 
-def designs(alternatives) -> dict:
-    """(kernel, design) -> source path: csrc's designs and the alternatives."""
-    out = {(name, "csrc"): scan_kernels._CSRC / f"{name}.cu" for name in KERNELS}
+def designs(alternatives, kernels=tuple(KERNELS)) -> dict:
+    """(kernel, design) -> source path: csrc's designs of ``kernels`` and
+    the alternatives."""
+    out = {(name, "csrc"): scan_kernels._CSRC / f"{name}.cu" for name in kernels}
     for path in map(Path, alternatives):
         name = next((n for n in KERNELS if path.stem.startswith(f"{n}_")), None)
         if name is None:
@@ -115,6 +134,16 @@ def build_all(sources: dict) -> dict:
             continue
         figures = {k: v for k, v in cs.ptxas_summary(report).items() if "registers" in v}
         print(f"{name} {design}: built; ptxas {figures}", flush=True)
+        warnings = [line for line in report.splitlines()
+                    if "warning" in line.lower() or "Performance" in line]
+        if warnings:
+            print(f"{name} {design}: " + "\n".join(warnings), flush=True)
+        if name == "mxu_limbs":
+            per_warp = MXU_WARP_LANES.get(design, 16)
+            for fn, f in cs.sass_counts(str(lib)).items():
+                print(f"{name} {design} SASS {fn}: {f['instructions']} instructions "
+                      f"({f['instructions'] / per_warp:.1f} a lane at {per_warp} lanes a warp), "
+                      f"tensor-core {f['tensor']}", flush=True)
         launch = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
         pointers, ints = INTERFACES.get((name, design), KERNELS[name])
         launch.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * (ints + 1) + [
@@ -204,6 +233,28 @@ def l1_aggregate_case(z, k, s=None):
     return spec
 
 
+def mxu_cases(device) -> dict:
+    """M1's cases on both curves at ``MXU_SHAPES`` on the widest operand
+    range of ``chip_smoke.MXU_RANGES``, against the plain version on the
+    CPU."""
+    out = {}
+    rng = np.random.default_rng(cs.SEED)
+    for curve, ranges in cs.MXU_RANGES.items():
+        product = cs.MXU_PRODUCTS[curve][0]
+        for a_lanes, b_lanes in MXU_SHAPES:
+            a, b = (torch.from_numpy(rng.integers(*ranges[-1], (32, m)).astype(np.float32))
+                    for m in (a_lanes, b_lanes))
+            want = product(a, b)
+            n = want.shape[1]
+
+            def check(outs, want=want):
+                assert torch.equal(outs[-1].cpu(), want), "limbs"
+            out["mxu_limbs", f"{curve} {a_lanes}x{b_lanes}"] = (
+                [a.to(device), b.to(device), torch.empty((32, n), device=device)],
+                (n, mxu_limbs._CURVES[curve], int(a_lanes == 1), int(b_lanes == 1)), check)
+    return out
+
+
 def cases(device) -> dict:
     """(kernel, case) -> (pointer arguments, int arguments, check): the
     outputs are the last pointers; check(outputs) raises unless they equal
@@ -276,17 +327,27 @@ def cases(device) -> dict:
     }
 
 
-def main(alternatives) -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("e1_p1_trials: no CUDA device", file=sys.stderr)
         return 1
+    kernels = [argv[i + 1] for i, arg in enumerate(argv) if arg == "--kernel"] or list(KERNELS)
+    alternatives = [arg for i, arg in enumerate(argv)
+                    if arg != "--kernel" and (i == 0 or argv[i - 1] != "--kernel")]
+    if not set(kernels) <= set(KERNELS):
+        raise SystemExit(f"e1_p1_trials: --kernel takes one of {sorted(KERNELS)}")
     device = torch.device("cuda", 0)
-    sources = designs(alternatives)
+    sources = designs(alternatives, kernels)
     built = build_all(sources)
     equal: dict = {}
     times: dict = {}
     graphs: dict = {}
-    for (name, case), spec in cases(device).items():
+    every = mxu_cases(device) if "mxu_limbs" in kernels else {}
+    if set(kernels) - {"mxu_limbs"}:
+        every.update(cases(device))
+    for (name, case), spec in every.items():
+        if name not in kernels:
+            continue
         order = [d for n, d in built if n == name]
         # A callable spec gives each design its own arguments, outputs
         # poisoned, and a check that reads them (L1's first design takes

@@ -853,15 +853,17 @@ _MXU_RANGES = [("ed25519", (0, 256)), ("ed25519", (-345, 681)), ("ed25519", (-34
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a_lanes,b_lanes", [(1, 1), (37, 37), (8192 + 37, 8192 + 37),
-                                             (1, 2048), (2048, 1)])
+@pytest.mark.parametrize("a_lanes,b_lanes", [(1, 1), (37, 37), (63, 63), (64, 64), (65, 65),
+                                             (129, 129), (8192 + 37, 8192 + 37), (1, 2048),
+                                             (2048, 1), (1, 65)])
 @pytest.mark.parametrize("curve,bounds", _MXU_RANGES)
 def test_mxu_kernel_matches_vpu_lane_and_plain_on_card(cuda_device, curve, bounds, a_lanes,
                                                        b_lanes):
     """M1's raw limbs (no freeze) equal the VPU lane's eager torch on the
     card and the plain version on the CPU, bit for bit, on every operand
-    range, at ragged widths and with a (32, 1) constant either side; one
-    launch a product, a square included."""
+    range, at ragged widths (63, 64, 65 and 129: the edges of a block's 64
+    lanes) and with a (32, 1) constant either side; one launch a product, a
+    square included."""
     rng = np.random.default_rng(a_lanes + b_lanes)
     a, b = (torch.from_numpy(rng.integers(*bounds, (32, n)).astype(np.float32))
             for n in (a_lanes, b_lanes))

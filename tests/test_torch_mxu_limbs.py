@@ -18,8 +18,9 @@ its eager counterpart here shows each lane's own counts.
 
 Kernel M1 runs only on the card (``tests/test_torch_cuda.py``).  Its
 per-thread code is ``__host__ __device__``: the g++ harness below compiles
-it for the host and replays a warp's schedule with the MMA emulated from
-its documented fragment layout, held to the plain version at tolerance 0.
+it for the host and replays a warpgroup's schedule with ``wgmma`` emulated
+from its documented fragment layouts and shared-memory descriptor, held to
+the plain version at tolerance 0.
 """
 
 import shutil
@@ -473,88 +474,115 @@ _HARNESS = r"""
 #include <vector>
 #include "mxu_limbs.cu"
 
-// mma.sync.m16n8k32 emulated from its documented fragment layout: the 32
-// threads' registers gathered into A (16 x 32, unsigned bytes) and B (32 x 8,
-// unsigned or signed bytes), D += A B scattered back.
-static void mma_emulated(int32_t d[32][4], const uint32_t af[32][4], const uint32_t bf[32][2],
-                         bool signed_b) {
-  int A[16][32], B[32][8];
-  for (int id = 0; id < 32; ++id) {
-    const int g = id >> 2, t = id & 3;
-    for (int r = 0; r < 4; ++r)
-      for (int q = 0; q < 4; ++q)
-        A[g + 8 * (r & 1)][4 * t + 16 * (r >> 1) + q] = (af[id][r] >> (8 * q)) & 0xFF;
-    for (int r = 0; r < 2; ++r)
+// Where the band lies in the block's shared-memory image: not at 0, so the
+// descriptor's start address field is exercised.
+constexpr uint32_t BAND_AT = 0x400;
+constexpr int SMEM_BYTES = BAND_AT + 2 * BAND_HALF + 256;
+
+// wgmma.mma_async .m64nNk32 (N = WINDOW, 48) emulated from its documented
+// layouts over one warpgroup's 128 threads: A (64 x 32) gathered from the
+// threads' registers (bytes, signed for plane 2), B (32 x N) read from the
+// shared-memory image through the descriptor as the hardware reads a
+// K-major tile with no swizzle (core matrices of 8 rows x 16 bytes, rows 16
+// bytes apart, 8-row groups at the stride byte offset, the second 16 bytes
+// of K at the leading byte offset), D += A B scattered back to the
+// accumulators.
+static void wgmma_emulated(int32_t acc[128][D_REGS], const uint32_t frag[128][A_REGS],
+                           bool signed_a, const uint8_t* smem, uint64_t desc) {
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  if ((desc >> 62) != 0 || ((desc >> 49) & 7) != 0) {
+    fprintf(stderr, "descriptor: a swizzle or base offset\n");
+    exit(4);
+  }
+  static int A[64][32], B[32][64];
+  for (int id = 0; id < 128; ++id) {
+    const int w = id >> 5, g = (id & 31) >> 2, t = id & 3;
+    for (int r = 0; r < A_REGS; ++r)
       for (int q = 0; q < 4; ++q) {
-        int v = (bf[id][r] >> (8 * q)) & 0xFF;
-        if (signed_b && v >= 128) v -= 256;
-        B[4 * t + 16 * r + q][g] = v;
+        int v = (frag[id][r] >> (8 * q)) & 0xFF;
+        if (signed_a && v >= 128) v -= 256;
+        A[a_row(w, g, r)][a_col(t, r, q)] = v;
       }
   }
-  for (int id = 0; id < 32; ++id) {
-    const int g = id >> 2, t = id & 3;
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+  for (int k = 0; k < 32; ++k)
+    for (int c = 0; c < WINDOW; ++c) {
+      const uint32_t at = start + (c % 8) * 16 + (c / 8) * sbo + (k / 16) * lbo + (k % 16);
+      if (at >= (uint32_t)SMEM_BYTES) {
+        fprintf(stderr, "descriptor reads past the image\n");
+        exit(4);
+      }
+      B[k][c] = smem[at];
+    }
+  for (int id = 0; id < 128; ++id) {
+    const int w = id >> 5, g = (id & 31) >> 2, t = id & 3;
+    for (int v = 0; v < WINDOW / 2; ++v) {
       int32_t s = 0;
-      for (int k = 0; k < 32; ++k) s += A[row][k] * B[k][col];
-      d[id][e] += s;
+      for (int k = 0; k < 32; ++k) s += A[d_row(w, g, v)][k] * B[k][d_col(t, v)];
+      acc[id][v] += s;
     }
   }
 }
 
-// One warp's 8 lanes from `base`, on the kernel's schedule: the operand
-// loads, per k-block the products, their planes and the live tiles' MMAs,
-// the columns through a poisoned shared-memory image, one reduction a lane.
+// One block of 64 lanes from `base` on the kernel's schedule: every
+// thread's coalesced loads into poisoned operand arrays, the band written
+// word by word into a poisoned image, then each warpgroup on its k-blocks
+// (every thread's fragment, the three planes' MMAs through the
+// descriptor), both warpgroups' joined planes into poisoned stagings, and
+// each quad's reduction of the two stagings' sum, its roles run in turn.
 template <int CURVE>
-static void warp(const float* a, const float* b, float* out, long long n, int a_ld, int a_step,
+static int block(const float* a, const float* b, float* out, long long n, int a_ld, int a_step,
                  int b_ld, int b_step, long long base) {
-  static int32_t av[32][32], bv[32][8], acc[32][M_TILES][PLANES][4];
-  memset(acc, 0, sizeof acc);
-  for (int id = 0; id < 32; ++id) {
-    const int g = id >> 2, t = id & 3;
-    const long long lane = base + g;
-    const bool live = lane < n;
-    for (int i = 0; i < 32; ++i) av[id][i] = live ? (int32_t)a[i * a_ld + lane * a_step] : 0;
-    for (int w = 0; w < B_WORDS; ++w)
-      bv[id][w] = live ? (int32_t)b[b_limb(t, w >> 2, w & 3) * b_ld + lane * b_step] : 0;
+  static uint8_t smem[SMEM_BYTES];
+  static uint32_t a_s[PAIRS * OPERAND_STRIDE], b_s[PAIRS * OPERAND_STRIDE];
+  memset(smem, 0xA5, sizeof smem);
+  memset(a_s, 0xA5, sizeof a_s);
+  memset(b_s, 0xA5, sizeof b_s);
+  for (int tid = 0; tid < THREADS; ++tid)
+    load_rows(a, b, n, a_ld, a_step, b_ld, b_step, base, tid, a_s, b_s);
+  for (int k = 0; k < BAND_WORDS; ++k) {
+    const uint32_t word = band_word(k);
+    memcpy(smem + BAND_AT + 4 * k, &word, 4);
   }
-  for (int i = 0; i < 32; ++i) {
-    uint32_t bf[PLANES][32][2];
-    for (int id = 0; id < 32; ++id) {
-      int32_t prod[B_WORDS];
-      for (int w = 0; w < B_WORDS; ++w) prod[w] = av[id][i] * bv[id][w];
+  static int32_t stage[THREADS / 32][STAGE_WORDS];
+  for (int k = 0; k < THREADS / 32; ++k)
+    for (int j = 0; j < STAGE_WORDS; ++j) stage[k][j] = 0x5A5A5A5A;
+  int mmas = 0;
+  for (int wg = 0; wg < WARPGROUPS; ++wg) {
+    static uint32_t a_pairs[128][K_SPLIT], frag[PLANES][128][A_REGS];
+    static int32_t bv[128][2][B_VALUES], acc[PLANES][128][D_REGS];
+    memset(acc, 0, sizeof acc);
+    for (int id = 0; id < 128; ++id)
+      read_operands(a_s, b_s, id >> 5, (id & 31) >> 2, id & 3, wg, a_pairs[id], bv[id]);
+    for (int ii = 0; ii < K_SPLIT; ++ii) {
+      for (int id = 0; id < 128; ++id) {
+        uint32_t f[PLANES][A_REGS];
+        a_fragment(a_pairs[id][ii], bv[id], f);
+        for (int p = 0; p < PLANES; ++p) memcpy(frag[p][id], f[p], sizeof f[p]);
+      }
+      const uint64_t desc = b_descriptor(BAND_AT, ii);
       for (int p = 0; p < PLANES; ++p) {
-        bf[p][id][0] = plane_word(prod, p);
-        bf[p][id][1] = plane_word(prod + 4, p);
+        wgmma_emulated(acc[p], frag[p], p == 2, smem, desc);
+        ++mmas;
       }
     }
-    for (int mt = 0; mt < M_TILES; ++mt) {
-      if (!tile_live(mt, i)) continue;
-      uint32_t af[32][4];
-      for (int id = 0; id < 32; ++id)
-        for (int r = 0; r < 4; ++r) af[id][r] = assembly_fragment(mt, i, id >> 2, id & 3, r);
-      for (int p = 0; p < PLANES; ++p) {
-        int32_t d[32][4];
-        for (int id = 0; id < 32; ++id) memcpy(d[id], acc[id][mt][p], sizeof d[id]);
-        mma_emulated(d, af, bf[p], p == 2);
-        for (int id = 0; id < 32; ++id) memcpy(acc[id][mt][p], d[id], sizeof d[id]);
-      }
+    for (int id = 0; id < 128; ++id) {
+      int32_t mine[PLANES][D_REGS];
+      for (int p = 0; p < PLANES; ++p) memcpy(mine[p], acc[p][id], sizeof mine[p]);
+      stage_columns(stage[4 * wg + (id >> 5)], (id & 31) >> 2, id & 3, WINDOW_STEP * wg, mine);
     }
   }
-  std::vector<int32_t> cols(WARP_LANES * COL_STRIDE, 0x5A5A5A5A);
-  for (int id = 0; id < 32; ++id) {
-    const int g = id >> 2, t = id & 3;
-    for (int mt = 0; mt < M_TILES; ++mt)
-      for (int e = 0; e < 4; ++e)
-        cols[(2 * t + (e & 1)) * COL_STRIDE + 16 * mt + g + 8 * (e >> 1)] =
-            join_planes(acc[id][mt][0][e], acc[id][mt][1][e], acc[id][mt][2][e]);
-  }
-  for (int l = 0; l < WARP_LANES; ++l) {
-    if (base + l >= n) continue;
-    int32_t r[MXU_LIMBS];
-    reduce_columns<CURVE>(cols.data() + l * COL_STRIDE, r);
-    for (int k = 0; k < MXU_LIMBS; ++k) out[k * n + base + l] = (float)r[k];
-  }
+  for (int wg = 0; wg < WARPGROUPS; ++wg)
+    for (int w = 0; w < 4; ++w)
+      for (int g = 0; g < 8; ++g) {
+        const int row = g + 8 * wg;
+        int32_t x[4][ROLE_COLS], r[4][ROLE_LIMBS];
+        for (int t = 0; t < 4; ++t) gather_columns(stage[w], stage[4 + w], row, t, x[t]);
+        reduce_columns<CURVE>(serial_quad{}, x, r);
+        for (int t = 0; t < 4; ++t) store_limbs(out, n, base + 16 * w + row, t, r[t]);
+      }
+  return mmas;
 }
 
 // argv: curve n a_bcast b_bcast a.bin b.bin out.bin (float32 limb rows).
@@ -563,7 +591,7 @@ int main(int argc, char** argv) {
   const int curve = atoi(argv[1]);
   const long long n = atoll(argv[2]);
   const int a_bcast = atoi(argv[3]), b_bcast = atoi(argv[4]);
-  std::vector<float> a(32 * (a_bcast ? 1 : n)), b(32 * (b_bcast ? 1 : n)), out(32 * n);
+  std::vector<float> a(32 * (a_bcast ? 1 : n)), b(32 * (b_bcast ? 1 : n)), out(32 * n, -7.0f);
   FILE* f = fopen(argv[5], "rb");
   if (fread(a.data(), 4, a.size(), f) != a.size()) return 3;
   fclose(f);
@@ -573,18 +601,16 @@ int main(int argc, char** argv) {
   const int a_ld = a_bcast ? 1 : (int)n, a_step = a_bcast ? 0 : 1;
   const int b_ld = b_bcast ? 1 : (int)n, b_step = b_bcast ? 0 : 1;
   int mmas = 0;
-  for (int i = 0; i < 32; ++i)
-    for (int mt = 0; mt < M_TILES; ++mt) mmas += tile_live(mt, i);
-  for (long long base = 0; base < n; base += WARP_LANES) {
+  for (long long base = 0; base < n; base += TILE_LANES) {
     if (curve == CURVE_ED25519)
-      warp<CURVE_ED25519>(a.data(), b.data(), out.data(), n, a_ld, a_step, b_ld, b_step, base);
+      mmas = block<CURVE_ED25519>(a.data(), b.data(), out.data(), n, a_ld, a_step, b_ld, b_step, base);
     else
-      warp<CURVE_P256>(a.data(), b.data(), out.data(), n, a_ld, a_step, b_ld, b_step, base);
+      mmas = block<CURVE_P256>(a.data(), b.data(), out.data(), n, a_ld, a_step, b_ld, b_step, base);
   }
   f = fopen(argv[7], "wb");
   fwrite(out.data(), 4, out.size(), f);
   fclose(f);
-  printf("%d MMAs a plane for %d lanes\n", mmas, WARP_LANES);
+  printf("%d wgmma a plane for %d lanes\n", mmas / PLANES, TILE_LANES);
   return 0;
 }
 """
@@ -618,21 +644,26 @@ def _run_harness(harness, curve: str, a: np.ndarray, b: np.ndarray, n: int) -> n
          str(int(b.shape[1] == 1)), *map(str, paths)],
         check=True, capture_output=True, text=True, timeout=300,
     )
-    assert proc.stdout.split() == ["94", "MMAs", "a", "plane", "for", "8", "lanes"]
+    assert proc.stdout.split() == ["32", "wgmma", "a", "plane", "for", "64", "lanes"]
     return np.frombuffer(paths[2].read_bytes(), dtype=np.float32).reshape(32, n)
 
 
 @pytest.mark.parametrize("name,bounds", _CASES, ids=lambda c: str(c))
 def test_kernel_per_thread_code_compiled_for_the_host_matches_plain(harness, name, bounds):
-    """The warp schedule with the MMA emulated: the fragments of C made in
-    registers, the products' byte planes, the live row tiles, the planes'
-    join and both reductions equal the plain version on every lane
-    (tolerance 0), at ragged widths (1, 3, 17: a warp's 8 lanes part
-    filled) and with a broadcast operand either side."""
+    """The block schedule with wgmma emulated: the coalesced loads into
+    poisoned operand arrays, the band written into a poisoned shared-memory
+    image and read back through each k-block's descriptor, each
+    warpgroup's half of the k-blocks with the products' byte planes as A
+    fragments, the planes' join through the warps' poisoned stagings and
+    both reductions split over each lane's quad (shuffles replayed by
+    indexing) equal the plain version on every lane (tolerance 0), at
+    ragged widths (1, 17: a block part filled; 65 and 130: a second and
+    third block) and with a broadcast operand either side."""
     lo, hi = bounds
     rng = np.random.default_rng(hi - lo)
     product = mxu_limbs.mul25519 if name == "ed25519" else mxu_limbs.mul_p256
-    for n, a_lanes, b_lanes in ((1, 1, 1), (3, 3, 3), (17, 17, 17), (17, 1, 17), (9, 9, 1)):
+    for n, a_lanes, b_lanes in ((1, 1, 1), (17, 17, 17), (65, 65, 65), (65, 1, 65), (9, 9, 1),
+                                (130, 130, 130)):
         a, b = _limbs(rng, lo, hi, a_lanes), _limbs(rng, lo, hi, b_lanes)
         want = product(torch.from_numpy(a), torch.from_numpy(b)).numpy()
         assert want.shape == (32, n)

@@ -6,6 +6,8 @@ left to the card (its plain scan is ~1.4 million torch ops).  M1 itself
 runs only on the card.
 """
 
+import subprocess
+
 import pytest
 import torch
 
@@ -61,4 +63,75 @@ def test_mxu_waves_phase_rehearses_on_cpu():
     assert not any(r["on"]["launches"].values())  # the plain versions: no launch
     k = chip_smoke.phase_mxu_kernel("cpu", reps=1, plain_reps=1, widths=(4,), broadcast_lanes=4)
     info = scan_kernels.BuildInfo("lib", "", 0.0, "", True)
-    chip_smoke.log_mxu(k, w, {"mxu_limbs_kernel": 282}, info, "card")
+    sass = {"mxu_limbs_kernel<0>": {"instructions": 2400, "tensor": {"IGMMA": 96}}}
+    chip_smoke.log_mxu(k, w, sass, info, "card")
+
+
+# Shaped like cuobjdump -sass on M1's library: one function with the
+# warpgroup form and a predicated IMMA, NOPs left out of the count.
+_SASS = """
+\t\tFunction : _Z16mxu_limbs_kernelILi0EEvPKfS1_Pfiiiiii
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+        /*0010*/                   IGMMA.64x64x32.U8.U8 R24, R152, gdesc[UR4], R24, gsb0 ;
+        /*0020*/              @!P0 IMMA.16832.U8.S8 R4, R8.ROW, R12.COL, R4 ;
+        /*0030*/                   NOP;
+        /*0040*/                   EXIT ;
+\t\tFunction : _Z16mxu_limbs_kernelILi1EEvPKfS1_Pfiiiiii
+        /*0000*/                   IGMMA.64x64x32.S8.U8 R24, R152, gdesc[UR4], R24, gsb0 ;
+        /*0010*/                   IGMMA.64x64x32.U8.U8 R56, R156, gdesc[UR4], R56, gsb0 ;
+        /*0020*/                   EXIT ;
+"""
+
+_PTXAS = """ptxas info    : Compiling entry function '_Z16mxu_limbs_kernelILi0EEvPKfS1_Pfiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _Z16mxu_limbs_kernelILi0EEvPKfS1_Pfiiiiii
+    {stack} bytes stack frame, {spills} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, used 1 barriers, 20480 bytes smem
+ptxas info    : Compiling entry function '_Z16mxu_limbs_kernelILi1EEvPKfS1_Pfiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _Z16mxu_limbs_kernelILi1EEvPKfS1_Pfiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 198 registers, used 1 barriers, 20480 bytes smem
+"""
+
+
+def test_sass_counts_read_each_function_and_tensor_form(monkeypatch):
+    monkeypatch.setattr(scan_kernels, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    ran = []
+
+    def fake_run(cmd, **kw):
+        ran.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=_SASS, stderr="")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    got = chip_smoke.sass_counts("lib.so")
+    assert ran == [["/usr/local/cuda/bin/cuobjdump", "-sass", "lib.so"]]
+    assert got == {
+        "_Z16mxu_limbs_kernelILi0EEvPKfS1_Pfiiiiii": {
+            "instructions": 4, "tensor": {"IGMMA": 1, "IMMA": 1}},
+        "_Z16mxu_limbs_kernelILi1EEvPKfS1_Pfiiiiii": {"instructions": 3, "tensor": {"IGMMA": 2}},
+    }
+
+
+@pytest.mark.parametrize("stack,spills,tensor,ok", [
+    (0, 0, {"IGMMA": 96}, True),
+    (0, 0, {"IMMA": 282}, True),
+    (0, 0, {}, False),
+    (16, 0, {"IGMMA": 96}, False),
+    (0, 8, {"IGMMA": 96}, False),
+])
+def test_mxu_build_gate_wants_tensor_cores_and_no_stack_or_spills(stack, spills, tensor, ok):
+    """Phase 21 fails on a function of M1's library with no tensor-core
+    instruction (IMMA or a warpgroup form), and on a stack frame or a spill
+    in ptxas's report of either kernel; a loaded build (no report) is held
+    to the SASS alone."""
+    sass = {"mxu_limbs_kernel<0>": {"instructions": 10, "tensor": tensor},
+            "mxu_limbs_kernel<1>": {"instructions": 10, "tensor": {"IGMMA": 96}}}
+    report = _PTXAS.format(stack=stack, spills=spills)
+    if ok:
+        got = chip_smoke.check_mxu_build(sass, report)
+        assert sorted(got) == ["mxu_limbs_kernel<0>", "mxu_limbs_kernel<1>"]
+        assert got["mxu_limbs_kernel<0>"]["registers"] == 200
+    else:
+        with pytest.raises(AssertionError, match="M1"):
+            chip_smoke.check_mxu_build(sass, report)
+    if tensor:
+        assert chip_smoke.check_mxu_build(sass, "") == {}

@@ -984,10 +984,10 @@ def test_verdict_bounds_count_the_work():
 
 
 def test_trials_script_names_its_designs_and_refuses_without_a_card(tmp_path):
-    """``scripts/e1_p1_trials.py`` builds csrc's E1, P1, P2 and L1 and every
-    ``<kernel>_<design>.cu`` named on its command line (the kept designs
-    beside it among them), refuses any other name, and exits 1 where no card
-    is present."""
+    """``scripts/e1_p1_trials.py`` builds csrc's E1, P1, P2, L1 and M1 (with
+    ``--kernel``, only the named kernels') and every ``<kernel>_<design>.cu``
+    named on its command line (the kept designs beside it among them),
+    refuses any other name, and exits 1 where no card is present."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -1002,11 +1002,15 @@ def test_trials_script_names_its_designs_and_refuses_without_a_card(tmp_path):
                    ("comb_p256", "csrc"): scan_kernels._CSRC / "comb_p256.cu",
                    ("verdict_p256", "csrc"): scan_kernels._CSRC / "verdict_p256.cu",
                    ("scalar25519", "csrc"): scan_kernels._CSRC / "scalar25519.cu",
+                   ("mxu_limbs", "csrc"): scan_kernels._CSRC / "mxu_limbs.cu",
                    ("comb_p256", "general"): alt.resolve(),
                    ("verdict_p256", "first"): first.resolve()}
     assert {d for d in trials.designs(kept) if d[1] != "csrc"} == {
         ("comb_p256", "general"), ("scalar25519", "first"), ("scalar25519", "group8"),
-        ("verdict_p256", "first")}
+        ("verdict_p256", "first"), ("mxu_limbs", "first"), ("mxu_limbs", "wg1")}
+    m1 = [p for p in kept if p.stem.startswith("mxu_limbs_")]
+    assert set(trials.designs(m1, ["mxu_limbs"])) == {
+        ("mxu_limbs", "csrc"), ("mxu_limbs", "first"), ("mxu_limbs", "wg1")}
     with pytest.raises(SystemExit, match="not <kernel>_<design>.cu"):
         trials.designs([tmp_path / "sha512_x.cu"])
     if not torch.cuda.is_available():
